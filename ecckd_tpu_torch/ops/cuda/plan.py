@@ -1,0 +1,267 @@
+"""Host preparation for the merged LW+SW CUDA kernel (ops/cuda/lwsw.py).
+
+Takes the place of the JAX package's ``build_plan`` / ``split_vmrs_multi``
+(ops/pallas/plan.py:86,203), ``models_mergeable`` (ops/pallas/lwsw.py:299)
+and ``surface_prep`` (ops/pallas/sw.py:148-174).  What it builds:
+
+* a per-model gas plan: one slice per contributing gas (kind, first table
+  row, vmr slot, affine weight a/b or the LUT mole-fraction axis), dense
+  gases first in request order, then the LUT gas;
+* the model's tables flattened in natural (gas, [mole fraction,] p, T, g)
+  order with g fastest, so the kernel's per-warp gather at one grid corner
+  is one contiguous ngpt-float row;
+* the stacked vmr rows shared by both models: (ncol, n_prof, nlay)
+  profiles and (ncol, n_col) well-mixed rows, each gas stored once;
+* TSI scale, mu0 and the night mask; emissivity and albedo per g-point.
+
+The gas plan and the model arrays are cached on the model object (keyed
+by request / dtype / device); the per-call arrays are rebuilt per call.
+Unlike the TPU plan there is no ``tables_nonneg`` or one-LUT-gas
+precondition: the kernel clamps per gas and g-point as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ecckd_tpu_torch import constants
+from ecckd_tpu_torch.config import numpy_dtype
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.ops.optical_depth import resolve_contributions
+
+KIND_DENSE, KIND_LUT = 0, 1
+VMR_NONE, VMR_PROFILE, VMR_COLUMN = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class GasSlice:
+    """One contributing gas of one model."""
+    kind: int            # KIND_DENSE or KIND_LUT
+    row0: int            # first (p*n_t + t) row of its table in the flat table
+    vmr_slot: int        # index into GasPlan.vmr_names; -1: no vmr (composite)
+    a: float = 0.0       # dense weight = simple_weight * (a*vmr + b)
+    b: float = 0.0
+    mf_grid: Tuple[float, ...] = ()   # LUT mole-fraction axis (log-uniform)
+
+
+@dataclasses.dataclass(frozen=True)
+class GasPlan:
+    slices: Tuple[GasSlice, ...]
+    vmr_names: Tuple[str, ...]
+    ngpt: int
+
+
+def models_mergeable(model_lw: CKDModel, model_sw: CKDModel) -> bool:
+    """The merged kernel shares one (p, T) interpolation grid: equal
+    load-time grid fingerprints and grid shapes (true for the shipped
+    ecckd-1.2 file pairs and the synthetic pair)."""
+    return (bool(model_lw.grid_key) and bool(model_sw.grid_key)
+            and model_lw.grid_key == model_sw.grid_key
+            and model_lw.log_pressure.shape == model_sw.log_pressure.shape
+            and model_lw.temperature_grid.shape
+            == model_sw.temperature_grid.shape)
+
+
+def build_plan(model: CKDModel, gas_names: Tuple[str, ...]) -> GasPlan:
+    """Resolve the requested gases (order kept, unknown skipped, composite
+    once) into slices of the model's flat table.  Cached per request."""
+    key = ("plan", tuple(gas_names))
+    if key in model._cache:
+        return model._cache[key]
+    contributions = resolve_contributions(model, gas_names)
+    n_pt = model.log_pressure.shape[0] * model.temperature_grid.shape[1]
+    lut_row0 = [model.coeff_dense.shape[0] * n_pt]
+    for lut in model.coeff_lut:
+        lut_row0.append(lut_row0[-1] + lut.shape[0] * n_pt)
+
+    vmr_names = []
+
+    def vmr_slot(name: str) -> int:
+        if name not in vmr_names:
+            vmr_names.append(name)
+        return vmr_names.index(name)
+
+    dense, luts = [], []
+    for c in contributions:
+        gi = c.gas_index
+        ti = model.gas_table_idx[gi]
+        if model.gas_codes[gi] == constants.CONC_LUT:
+            luts.append(GasSlice(KIND_LUT, lut_row0[ti], vmr_slot(c.name),
+                                 mf_grid=model.lut_mf_grids[ti]))
+        else:
+            a, b = model.weight_scale_offset(gi)
+            dense.append(GasSlice(KIND_DENSE, ti * n_pt,
+                                  vmr_slot(c.name) if a != 0.0 else -1,
+                                  a=a, b=b))
+    plan = GasPlan(tuple(dense + luts), tuple(vmr_names), model.ngpt)
+    model._cache[key] = plan
+    return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelArrays:
+    """A model's arrays in one working dtype on one device."""
+    table: torch.Tensor                  # (rows, ngpt) flat tables
+    temperature_grid: torch.Tensor       # (n_p, n_t)
+    t_first: torch.Tensor                # (n_p,) its first column
+    planck_temperature: Optional[torch.Tensor]
+    planck_function: Optional[torch.Tensor]   # (n_planck, ngpt)
+    solar: Optional[torch.Tensor]        # (ngpt,)
+    rayleigh: Optional[torch.Tensor]     # (ngpt,)
+    log_p0: float
+    d_log_p: float
+    dt: float
+    planck_t0: float = 0.0
+    planck_dt: float = 0.0
+
+
+def model_arrays(model: CKDModel, dtype: torch.dtype, device) -> ModelArrays:
+    """Flattened tables and grid constants, cached per (dtype, device)."""
+    device = torch.device(device)
+    key = ("arrays", dtype, device)
+    if key in model._cache:
+        return model._cache[key]
+    cast = lambda x: None if x is None else x.to(
+        device=device, dtype=dtype).contiguous()
+    ng = model.ngpt
+    table = torch.cat([model.coeff_dense.reshape(-1, ng)]
+                      + [t.reshape(-1, ng) for t in model.coeff_lut])
+    lp = cast(model.log_pressure)
+    tg = cast(model.temperature_grid)
+    pt = cast(model.planck_temperature)
+    arrays = ModelArrays(
+        table=cast(table), temperature_grid=tg,
+        t_first=tg[:, 0].contiguous(),
+        planck_temperature=pt,
+        planck_function=cast(model.planck_function),
+        solar=cast(model.solar_irradiance),
+        rayleigh=cast(model.rayleigh_coeff),
+        log_p0=float(lp[0]), d_log_p=float(lp[1] - lp[0]),
+        dt=float(tg[0, 1] - tg[0, 0]),
+        planck_t0=0.0 if pt is None else float(pt[0]),
+        planck_dt=0.0 if pt is None else float(pt[1] - pt[0]))
+    model._cache[key] = arrays
+    return arrays
+
+
+def stack_vmrs(plans: Tuple[GasPlan, ...], gas_concs: GasConcs, ncol: int,
+               nlay: int, dtype: torch.dtype, device):
+    """Stack the vmr rows of several plans, each gas once.  Profiles
+    ((ncol, nlay) values) go to (ncol, n_prof, nlay); scalars and (ncol,)
+    rows stay per column in (ncol, n_col).  Returns (prof, col,
+    kinds_per_plan) with kinds_per_plan[m][slot] = (VMR_PROFILE|VMR_COLUMN,
+    row)."""
+    prof, col, index = [], [], {}
+    kinds_all = []
+    for plan in plans:
+        kinds = []
+        for name in plan.vmr_names:
+            if name not in index:
+                v = gas_concs.values[gas_concs.names.index(name)].to(
+                    device=device, dtype=dtype)
+                if v.ndim == 2:
+                    index[name] = (VMR_PROFILE, len(prof))
+                    prof.append(v)
+                else:
+                    index[name] = (VMR_COLUMN, len(col))
+                    col.append(v.reshape(-1).expand(ncol))
+            kinds.append(index[name])
+        kinds_all.append(tuple(kinds))
+    zeros = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+    prof_t = (torch.stack(prof, dim=1).contiguous() if prof
+              else zeros(ncol, 1, nlay))
+    col_t = torch.stack(col, dim=1).contiguous() if col else zeros(ncol, 1)
+    return prof_t, col_t, tuple(kinds_all)
+
+
+def surface_prep(solar: torch.Tensor, sfc_alb: torch.Tensor,
+                 tsi: torch.Tensor, sza_deg: torch.Tensor, ngpt: int,
+                 dtype: torch.dtype):
+    """SW semantics of the reference RFMIP program (ecckd_rfmip_sw.F90:
+    103-145): TSI scale = the requested TSI over the model's irradiance
+    sum; a column is daytime iff sza < 90 - 2*spacing(90) in working
+    precision, and night columns run with mu0 = 1 and are zeroed
+    afterwards; albedo (ncol,) or (ncol, ngpt) expanded to (ncol, ngpt).
+    Returns (tsi_scale, usecol, mu0, alb_gpt)."""
+    ncol = sza_deg.shape[0]
+    tsi_scale = tsi.to(dtype) / torch.sum(solar)
+    spacing90 = float(np.spacing(np.asarray(90.0, dtype=numpy_dtype(dtype))))
+    sza = sza_deg.to(dtype)
+    usecol = sza < (90.0 - 2.0 * spacing90)
+    deg_to_rad = float(np.arccos(-1.0) / 180.0)
+    mu0 = torch.where(usecol, torch.cos(sza * deg_to_rad),
+                      torch.ones_like(sza))
+    alb = sfc_alb.to(dtype)
+    alb_gpt = alb if alb.ndim == 2 else alb[:, None].expand(ncol, ngpt)
+    return tsi_scale, usecol, mu0, alb_gpt.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class BandInputs:
+    plan: GasPlan
+    vmr_kinds: Tuple[Tuple[int, int], ...]
+    arrays: ModelArrays
+
+
+@dataclasses.dataclass(frozen=True)
+class LwswInputs:
+    """Everything one merged solve consumes, in one dtype on one device;
+    column-major outermost so a column chunk is a contiguous slice."""
+    plev: torch.Tensor        # (ncol, nlay+1)
+    tlay: torch.Tensor        # (ncol, nlay)
+    tlev: torch.Tensor        # (ncol, nlay+1)
+    tsfc: torch.Tensor        # (ncol,)
+    emis: torch.Tensor        # (ncol, ngpt_lw)
+    alb: torch.Tensor         # (ncol, ngpt_sw)
+    mu0: torch.Tensor         # (ncol,)
+    tsi_scale: torch.Tensor   # (ncol,)
+    usecol: torch.Tensor      # (ncol,) bool: daytime columns
+    vmr_prof: torch.Tensor    # (ncol, n_prof, nlay)
+    vmr_col: torch.Tensor     # (ncol, n_col)
+    lw: BandInputs
+    sw: BandInputs
+    n_p: int
+    n_t: int
+    n_gauss_angles: int
+
+
+def prepare(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
+            tlay: torch.Tensor, tlev: torch.Tensor, tsfc: torch.Tensor,
+            emis_gpt: torch.Tensor, gas_concs: GasConcs,
+            sfc_alb: torch.Tensor, tsi: torch.Tensor, sza_deg: torch.Tensor,
+            n_gauss_angles: int = 1) -> LwswInputs:
+    """Build the merged solve's inputs in tlay's dtype on tlay's device."""
+    if not model_lw.source_is_internal() or not model_sw.source_is_external():
+        raise ValueError("the merged path takes a longwave and a shortwave "
+                         "ckd model, in that order")
+    if not models_mergeable(model_lw, model_sw):
+        raise ValueError("models do not share a (p, T) grid; the merged "
+                         "path does not apply")
+    if not 1 <= n_gauss_angles <= 4:
+        raise ValueError(f"n_gauss_angles must be in 1..4, got "
+                         f"{n_gauss_angles}")
+    dtype, device = tlay.dtype, tlay.device
+    ncol, nlay = tlay.shape
+    f = lambda x: x.to(device=device, dtype=dtype).contiguous()
+    plan_lw = build_plan(model_lw, gas_concs.names)
+    plan_sw = build_plan(model_sw, gas_concs.names)
+    prof, col, (kinds_lw, kinds_sw) = stack_vmrs(
+        (plan_lw, plan_sw), gas_concs, ncol, nlay, dtype, device)
+    arr_lw = model_arrays(model_lw, dtype, device)
+    arr_sw = model_arrays(model_sw, dtype, device)
+    tsi_scale, usecol, mu0, alb = surface_prep(
+        arr_sw.solar, f(sfc_alb), f(tsi), f(sza_deg), model_sw.ngpt, dtype)
+    return LwswInputs(
+        plev=f(plev), tlay=f(tlay), tlev=f(tlev), tsfc=f(tsfc),
+        emis=f(emis_gpt), alb=alb, mu0=mu0.contiguous(),
+        tsi_scale=tsi_scale.contiguous(), usecol=usecol,
+        vmr_prof=prof, vmr_col=col,
+        lw=BandInputs(plan_lw, kinds_lw, arr_lw),
+        sw=BandInputs(plan_sw, kinds_sw, arr_sw),
+        n_p=model_lw.log_pressure.shape[0],
+        n_t=model_lw.temperature_grid.shape[1],
+        n_gauss_angles=n_gauss_angles)

@@ -1,0 +1,258 @@
+"""End-to-end flux pipelines (counterpart of ``ecckd_tpu.pipeline``):
+gas optics -> solver -> broadband fluxes for a column batch.
+
+Driver-level semantics reproduced here:
+* spectrally constant (ncol,) or banded (ncol, nband) surface
+  emissivity/albedo expanded to g-points (ecckd_rfmip_lw.F90:112-116,
+  ecckd_rfmip_sw.F90:135-140);
+* SW: TOA flux renormalised to the requested TSI, night columns
+  (sza >= 90 - 2*spacing(90)) run with mu0 = 1 and are zeroed afterwards
+  (ecckd_rfmip_sw.F90:103-108,125-161).
+
+Backends: ``"torch"`` is the plain tensor path (gas_optics_* + rte_lw /
+rte_sw); ``"cuda"`` is the merged LW+SW kernel (ops/cuda/lwsw.py), which
+applies to float32 CUDA tensors, ``top_at_1`` and a model pair on one
+(p, T) grid; ``"auto"`` takes the kernel where it applies and the torch
+path otherwise (float64, ``logarithmic_interpolation``, CPU tensors).
+Asking for ``"cuda"`` where the kernel does not apply raises.  The LW-only
+and SW-only kernels (ROADMAP K3/K4) are not ported yet, so ``lw_fluxes``
+and ``sw_fluxes`` alone always take the torch path.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ecckd_tpu_torch.config import numpy_dtype
+from ecckd_tpu_torch.fluxes import FluxesBroadband
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.models.gas_optics import gas_optics_lw, gas_optics_sw
+from ecckd_tpu_torch.solvers.lw import rte_lw
+from ecckd_tpu_torch.solvers.sw import rte_sw
+
+BACKENDS = ("auto", "torch", "cuda")
+
+_NOT_PORTED = ("the {what}-only CUDA kernel (ROADMAP K{k}, "
+               "ecckd_tpu/ops/pallas/{file}) is not ported yet")
+
+
+def _check_backend(backend: str, logarithmic_interpolation: bool = False
+                   ) -> None:
+    """A typo'd backend must not silently re-route the compute path."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
+                         "'torch' or 'cuda'")
+    if logarithmic_interpolation and backend == "cuda":
+        raise ValueError("logarithmic_interpolation is not supported by the "
+                         "CUDA kernel; use backend='auto' or 'torch'")
+
+
+def _surface_to_gpt(model: CKDModel, sfc, ncol: int, dtype,
+                    device) -> torch.Tensor:
+    """Surface emissivity/albedo to per-g-point (ncol, ngpt): a spectrally
+    constant (ncol,) value or a banded (ncol, nband) one."""
+    sfc = torch.as_tensor(sfc, device=device).to(dtype)
+    if sfc.ndim == 1:
+        return sfc[:, None].expand(ncol, model.ngpt)
+    if sfc.shape[-1] != model.nband:
+        raise ValueError(f"banded surface array has {sfc.shape[-1]} bands; "
+                         f"model has {model.nband}")
+    return model.gpt_weights_per_band(sfc)
+
+
+def _column_slice(x, c0: int, c1: int, ncol: int):
+    """Columns [c0, c1) of a batch argument: tensors / GasConcs values
+    whose leading axis is the column axis; anything else unchanged."""
+    if isinstance(x, GasConcs):
+        return GasConcs(values=tuple(_column_slice(v, c0, c1, ncol)
+                                     for v in x.values), names=x.names)
+    if isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == ncol:
+        return x[c0:c1]
+    return x
+
+
+def _over_column_chunks(fn, batch: tuple, ncol: int,
+                        chunk: int) -> FluxesBroadband:
+    """Run ``fn(*batch)`` over column chunks (bounding peak memory) and
+    concatenate the fluxes."""
+    parts = [fn(*(_column_slice(x, c0, min(c0 + chunk, ncol), ncol)
+                  for x in batch)) for c0 in range(0, ncol, chunk)]
+    return FluxesBroadband(torch.cat([f.flux_up for f in parts]),
+                           torch.cat([f.flux_dn for f in parts]))
+
+
+def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
+              tlev: torch.Tensor, tsfc: torch.Tensor, sfc_emis: torch.Tensor,
+              gas_concs: GasConcs, n_gauss_angles: int = 1,
+              top_at_1: bool = True, column_chunk: Optional[int] = None,
+              backend: str = "auto",
+              logarithmic_interpolation: bool = False) -> FluxesBroadband:
+    """Longwave broadband fluxes for a column batch.
+
+    Args:
+      sfc_emis: surface emissivity, (ncol,) or banded (ncol, nband).
+      column_chunk: optional column chunk size bounding peak memory.
+      backend: "auto" | "torch" | "cuda" ("cuda" raises: the LW-only
+        kernel is not ported yet).
+      logarithmic_interpolation: the reference's alternate log-space table
+        interpolation; torch path only.
+    """
+    _check_backend(backend, logarithmic_interpolation)
+    if backend == "cuda":
+        raise ValueError("backend='cuda' is unavailable for lw_fluxes: "
+                         + _NOT_PORTED.format(what="LW", k=3, file="lw.py")
+                         + "; use lw_sw_fluxes or backend='auto'/'torch'")
+    ncol = tlay.shape[0]
+    if column_chunk is not None and ncol > column_chunk:
+        fn = lambda p, tl, tv, ts, e, c: lw_fluxes(
+            model, p, tl, tv, ts, e, c, n_gauss_angles=n_gauss_angles,
+            top_at_1=top_at_1, backend=backend,
+            logarithmic_interpolation=logarithmic_interpolation)
+        return _over_column_chunks(
+            fn, (plev, tlay, tlev, tsfc, sfc_emis, gas_concs), ncol,
+            column_chunk)
+    props, sources = gas_optics_lw(
+        model, plev, tlay, tsfc, gas_concs, tlev,
+        logarithmic_interpolation=logarithmic_interpolation)
+    emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, props.tau.dtype,
+                               tlay.device)
+    flux_up, flux_dn = rte_lw(props, sources, emis_gpt, top_at_1=top_at_1,
+                              n_gauss_angles=n_gauss_angles)
+    return FluxesBroadband(flux_up=flux_up, flux_dn=flux_dn)
+
+
+def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
+              gas_concs: GasConcs, sfc_alb: torch.Tensor, tsi: torch.Tensor,
+              sza_deg: torch.Tensor, top_at_1: bool = True,
+              column_chunk: Optional[int] = None, backend: str = "auto",
+              logarithmic_interpolation: bool = False) -> FluxesBroadband:
+    """Shortwave broadband fluxes for a column batch.
+
+    Args:
+      sfc_alb: surface albedo, (ncol,) or banded (ncol, nband); diffuse ==
+        direct, as in the reference RFMIP program.
+      tsi: requested total solar irradiance [W m-2], (ncol,).
+      sza_deg: solar zenith angle [degrees], (ncol,).
+      backend: "auto" | "torch" | "cuda" ("cuda" raises: the SW-only
+        kernel is not ported yet).
+    """
+    _check_backend(backend, logarithmic_interpolation)
+    if backend == "cuda":
+        raise ValueError("backend='cuda' is unavailable for sw_fluxes: "
+                         + _NOT_PORTED.format(what="SW", k=4, file="sw.py")
+                         + "; use lw_sw_fluxes or backend='auto'/'torch'")
+    ncol = tlay.shape[0]
+    if column_chunk is not None and ncol > column_chunk:
+        fn = lambda p, tl, c, a, t, s: sw_fluxes(
+            model, p, tl, c, a, t, s, top_at_1=top_at_1, backend=backend,
+            logarithmic_interpolation=logarithmic_interpolation)
+        return _over_column_chunks(
+            fn, (plev, tlay, gas_concs, sfc_alb, tsi, sza_deg), ncol,
+            column_chunk)
+    props, toa_src = gas_optics_sw(
+        model, plev, tlay, gas_concs,
+        logarithmic_interpolation=logarithmic_interpolation)
+    dtype, device = props.tau.dtype, tlay.device
+
+    # Renormalise the incoming solar flux to the requested TSI.
+    def_tsi = torch.sum(toa_src, dim=-1, keepdim=True)
+    toa_flux = toa_src * (torch.as_tensor(tsi, device=device)[:, None].to(
+        dtype) / def_tsi)
+
+    # Night mask: sza >= 90 - 2*spacing(90) in working precision.
+    spacing90 = float(np.spacing(np.asarray(90.0, dtype=numpy_dtype(dtype))))
+    sza = torch.as_tensor(sza_deg, device=device).to(dtype)
+    usecol = sza < (90.0 - 2.0 * spacing90)
+    deg_to_rad = float(np.arccos(-1.0) / 180.0)
+    mu0 = torch.where(usecol, torch.cos(sza * deg_to_rad),
+                      torch.ones_like(sza))
+
+    alb_gpt = _surface_to_gpt(model, sfc_alb, ncol, dtype, device)
+    flux_up, flux_dn, _ = rte_sw(props, mu0, toa_flux, alb_gpt, alb_gpt,
+                                 top_at_1=top_at_1)
+    mask = usecol[:, None].to(dtype)
+    return FluxesBroadband(flux_up=flux_up * mask, flux_dn=flux_dn * mask)
+
+
+def _kernel_refusal(model_lw: CKDModel, model_sw: CKDModel,
+                    tlay: torch.Tensor, n_gauss_angles: int,
+                    top_at_1: bool) -> Optional[str]:
+    """Why the merged kernel does not apply, or None if it does."""
+    from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
+    if tlay.device.type != "cuda":
+        return f"tensors are on {tlay.device}, not a CUDA device"
+    if tlay.dtype != torch.float32:
+        return f"the kernel takes float32, got {tlay.dtype}"
+    if not top_at_1:
+        return "the kernel takes top_at_1 layer order"
+    if not 1 <= n_gauss_angles <= 4:
+        return f"n_gauss_angles={n_gauss_angles} is outside 1..4"
+    if not models_mergeable(model_lw, model_sw):
+        return ("the models do not share a (p, T) grid, and the separate "
+                + _NOT_PORTED.format(what="LW", k=3, file="lw.py")
+                + " / " + _NOT_PORTED.format(what="SW", k=4, file="sw.py"))
+    return None
+
+
+def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
+                 tlay: torch.Tensor, tlev: torch.Tensor, tsfc: torch.Tensor,
+                 sfc_emis: torch.Tensor, gas_concs: GasConcs,
+                 sfc_alb: torch.Tensor, tsi: torch.Tensor,
+                 sza_deg: torch.Tensor, n_gauss_angles: int = 1,
+                 top_at_1: bool = True, column_chunk: Optional[int] = None,
+                 backend: str = "auto"
+                 ) -> Tuple[FluxesBroadband, FluxesBroadband]:
+    """Both bands' broadband fluxes over one atmosphere (the climate-model
+    and RFMIP-benchmark shape of the workload).  Returns (lw, sw).
+
+    Where the merged kernel applies (see the module docstring) this is one
+    kernel pass per column chunk (``column_chunk`` defaults to the
+    kernel's); otherwise lw_fluxes + sw_fluxes on the torch path.
+    """
+    _check_backend(backend)
+    if backend != "torch":
+        refusal = _kernel_refusal(model_lw, model_sw, tlay, n_gauss_angles,
+                                  top_at_1)
+        if refusal is None:
+            from ecckd_tpu_torch.ops.cuda.lwsw import (DEFAULT_COLUMN_CHUNK,
+                                                       lwsw_fluxes_cuda)
+            ncol, dtype, device = tlay.shape[0], tlay.dtype, tlay.device
+            emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype,
+                                       device)
+            alb = torch.as_tensor(sfc_alb, device=device).to(dtype)
+            if alb.ndim == 2:
+                alb = _surface_to_gpt(model_sw, alb, ncol, dtype, device)
+            lu, ld, su, sd = lwsw_fluxes_cuda(
+                model_lw, model_sw, plev, tlay, tlev, tsfc, emis_gpt,
+                gas_concs, alb, tsi, sza_deg, n_gauss_angles=n_gauss_angles,
+                column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+            return (FluxesBroadband(flux_up=lu, flux_dn=ld),
+                    FluxesBroadband(flux_up=su, flux_dn=sd))
+        if backend == "cuda":
+            raise ValueError("backend='cuda' requested but the merged kernel "
+                             f"does not apply: {refusal}")
+    return (lw_fluxes(model_lw, plev, tlay, tlev, tsfc, sfc_emis, gas_concs,
+                      n_gauss_angles=n_gauss_angles, top_at_1=top_at_1,
+                      column_chunk=column_chunk, backend=backend),
+            sw_fluxes(model_sw, plev, tlay, gas_concs, sfc_alb, tsi, sza_deg,
+                      top_at_1=top_at_1, column_chunk=column_chunk,
+                      backend=backend))
+
+
+def clamp_top_pressure(plev: np.ndarray, press_min: float,
+                       top_at_1: bool = True) -> np.ndarray:
+    """Driver-side input sanitising: the model cannot run below its minimum
+    table pressure, so the top level is set just above it
+    (ecckd_rfmip_lw.F90:87-94)."""
+    plev = np.array(plev, copy=True)
+    eps = (np.finfo(plev.dtype).eps
+           if np.issubdtype(plev.dtype, np.floating)
+           else np.finfo(np.float64).eps)
+    if top_at_1:
+        plev[:, 0] = press_min + eps
+    else:
+        plev[:, -1] = press_min + eps
+    return plev

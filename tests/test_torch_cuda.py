@@ -1,0 +1,121 @@
+"""PyTorch port on a CUDA card: the merged LW+SW kernel and its routing.
+
+These tests need a card and skip without one (marker ``cuda``).  They
+import neither jax nor tests/conftest.py, so on a machine with a card and
+no JAX they run with:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+The kernel (float32) is held against its plain PyTorch version at float64
+on the card: <= 5e-5 of the flux scale per output, the chip-parity metric.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ecckd_tpu_torch import pipeline
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.io.synthetic import write_synthetic_ckd
+from ecckd_tpu_torch.models.loader import load_ckd_model
+from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda, lwsw_fluxes_plain
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.cuda
+BOUND = 5e-5
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    d = tmp_path_factory.mktemp("ckd_cuda")
+    out = {}
+    for key, kind, neg in (("lw", "lw_fsck", False), ("sw", "sw_wide", False),
+                           ("lw_neg", "lw_fsck", True),
+                           ("sw_neg", "sw_wide", True)):
+        path = str(d / f"{key}.nc")
+        write_synthetic_ckd(path, kind, seed=3, negative_entry=neg)
+        for dt in (torch.float32, torch.float64):
+            out[key, dt] = load_ckd_model(path, dtype=dt, device="cuda")
+    return out
+
+
+def batch(ncol, nlay, dtype, seed=0):
+    """Heterogeneous columns on the card: pressures over two decades at the
+    surface, h2o over five decades, ch4 below its reference, day, grazing
+    and night suns.  Values are rounded to float32 once for both dtypes."""
+    rng = np.random.default_rng(seed)
+    p_sfc = np.logspace(np.log10(500.0), np.log10(1.05e5), ncol)
+    plev = np.stack([np.geomspace(1.0, s, nlay + 1) for s in p_sfc])
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
+        device="cuda", dtype=dtype)
+    gases = dict(h2o=10.0 ** rng.uniform(-6.8, -1.5, (ncol, nlay)),
+                 o3=10.0 ** rng.uniform(-8.0, -5.2, (ncol, nlay)),
+                 co2=np.full(ncol, 4.0e-4), ch4=np.full(ncol, 1.2e-6),
+                 n2o=np.full(ncol, 3.3e-7), o2=np.full(ncol, 0.2095),
+                 cfc11=np.full(ncol, 2e-10), cfc12=np.full(ncol, 5e-10))
+    return dict(
+        plev=t(plev), tlay=t(rng.uniform(150.0, 320.0, (ncol, nlay))),
+        tlev=t(rng.uniform(150.0, 320.0, (ncol, nlay + 1))),
+        tsfc=t(rng.uniform(200.0, 330.0, ncol)),
+        emis=t(np.linspace(0.7, 1.0, ncol)),
+        alb=t(np.linspace(0.02, 0.9, ncol)), tsi=t(np.full(ncol, 1361.0)),
+        sza=t(np.linspace(0.0, 120.0, ncol)),
+        concs=GasConcs.create([(k, t(v)) for k, v in gases.items()]))
+
+
+def solve(fn, lw, sw, b, emis, **kw):
+    return fn(lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], emis,
+              b["concs"], b["alb"], b["tsi"], b["sza"], **kw)
+
+
+@pytest.mark.parametrize("pair", ["", "_neg"])
+@pytest.mark.parametrize("n_angles", [1, 3])
+def test_kernel_matches_plain_f64(models, n_angles, pair):
+    lw, sw = models["lw" + pair, torch.float32], models["sw" + pair,
+                                                         torch.float32]
+    ncol, nlay = 301, 23
+    b32, b64 = batch(ncol, nlay, torch.float32), batch(ncol, nlay,
+                                                       torch.float64)
+    expand = lambda e: e[:, None].expand(ncol, lw.ngpt).contiguous()
+    before = lwsw_fluxes_cuda.launches
+    got = solve(lwsw_fluxes_cuda, lw, sw, b32, expand(b32["emis"]),
+                n_gauss_angles=n_angles, column_chunk=128)
+    torch.cuda.synchronize()
+    assert lwsw_fluxes_cuda.launches == before + 3      # 128 + 128 + 45
+    ref = solve(lwsw_fluxes_plain, models["lw" + pair, torch.float64],
+                models["sw" + pair, torch.float64], b64, expand(b64["emis"]),
+                n_gauss_angles=n_angles)
+    for band in (slice(0, 2), slice(2, 4)):
+        scale = max(float(r.abs().max()) for r in ref[band])
+        for g, r in zip(got[band], ref[band]):
+            assert g.dtype == torch.float32 and torch.isfinite(g).all()
+            err = float((g.double() - r).abs().max()) / scale
+            assert err <= BOUND, err
+
+
+def test_pipeline_routes_to_the_kernel(models):
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    b = batch(64, 9, torch.float32)
+    call = lambda m_lw, m_sw, bb, **kw: pipeline.lw_sw_fluxes(
+        m_lw, m_sw, bb["plev"], bb["tlay"], bb["tlev"], bb["tsfc"],
+        bb["emis"], bb["concs"], bb["alb"], bb["tsi"], bb["sza"], **kw)
+    for backend, launched in (("auto", 1), ("cuda", 1), ("torch", 0)):
+        before = lwsw_fluxes_cuda.launches
+        call(lw, sw, b, backend=backend)
+        assert lwsw_fluxes_cuda.launches - before == launched, backend
+    # float64 runs the torch path under auto and is refused under cuda.
+    b64 = batch(64, 9, torch.float64)
+    before = lwsw_fluxes_cuda.launches
+    call(models["lw", torch.float64], models["sw", torch.float64], b64)
+    assert lwsw_fluxes_cuda.launches == before
+    with pytest.raises(ValueError, match="float32"):
+        call(lw, sw, b64, backend="cuda")
+    other = dataclasses.replace(sw, grid_key=(1, 2))
+    with pytest.raises(ValueError, match="ROADMAP K3"):
+        call(lw, other, b, backend="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        solve(lwsw_fluxes_cuda, lw, sw, b64,
+              b64["emis"][:, None].expand(64, lw.ngpt))
