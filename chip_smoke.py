@@ -10,19 +10,39 @@ result line is printed:
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
-2. build: compiles csrc/lwsw.cu with nvcc from this checkout (timed).
-3. models: writes the synthetic lw_fsck / sw_wide ckd files (shipped
-   dimensions, values from a seed) and loads them with the port's loader.
-4. parity: the merged LW+SW kernel (float32) against its plain PyTorch
-   version at float64 on the card, case by case (RFMIP 1800 x 60,
-   nlay 1/2/8/137, 2-4 Gauss angles, a chunked launch, the negative-entry
-   model pair): max|d| / flux scale <= 5e-5 per output.
-5. main path: pipeline.lw_sw_fluxes(backend="auto") on CUDA tensors at the
-   65,536 x 60 protocol batch; the kernel's launch count must grow from 0,
-   outputs be finite, SW TOA down equal mu0 * TSI by day and 0 by night,
-   and the first columns match the float64 plain version.
-6. times: kernel and plain float32 version at 65,536 x 60 with CUDA
-   events (warm-up, median of 10), with the card's name and power limit.
+2. build: compiles csrc/lwsw.cu, lw.cu and sw.cu with nvcc from this
+   checkout, one nvcc each, all at once (timed; ptxas registers/spills).
+3. models: writes the synthetic ckd files (shipped dimensions, values from
+   a seed): lw_fsck, lw_rrtmgp (36 g-points), sw_wide, their
+   negative-entry variants and sw_wide on a 47-point pressure grid, and
+   loads them with the port's loader.
+4. parity: each kernel (float32) against its plain PyTorch version at
+   float64 on the card, case by case: max|d| / flux scale <= 5e-5 per
+   output.  The merged kernel (K1/K2): RFMIP 1800 x 60, nlay 1/2/8/137,
+   2-4 Gauss angles, a chunked launch, the negative-entry pair, lw_rrtmgp
+   with sw_wide.  The LW kernel (K3) and the SW kernel (K4): RFMIP
+   1800 x 60, nlay 1/2/8/137, a chunked launch, the negative-entry models;
+   K3 also at 2-4 angles and on lw_rrtmgp, K4 on the 47-point grid.  The
+   pair on two grids through lw_sw_fluxes(backend="cuda") must launch K3
+   and K4 and not K1.
+5. shared code: on one mergeable batch, K3's LW and K4's SW outputs
+   against K1's (one device body, csrc/common.cuh; expected max|d| 0).
+6. main paths at the 65,536 x 60 protocol batch, each driven with the
+   launch counts set to 0 just before and read just after:
+   pipeline.lw_sw_fluxes, lw_fluxes and sw_fluxes (backend="auto").  The
+   kernel's count must grow from 0, outputs be finite, SW TOA down equal
+   mu0 * TSI by day and 0 by night, and the first columns match the
+   float64 plain version.
+7. RFMIP drivers at the reference's size, 100 sites x 18 experiments x 60
+   layers (1800 columns): ecckd_rfmip_lw, ecckd_rfmip_sw and ecckd_rfmip
+   main([...]) with --device cuda on a synthetic RFMIP file, each with the
+   counts set to 0 before and read after; K3, K4 and K1 must have run, the
+   files be finite and match the float64 plain version, SW TOA down equal
+   mu0 * TSI by day and 0 by night, and the combined driver's files match
+   the separate drivers'.
+8. times: each kernel and its plain float32 version at 65,536 x 60 (and
+   the kernels at 1800 x 60) with CUDA events (warm-up, median of 10), with
+   and without host prep, beside the card's name and power limit.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
@@ -39,7 +59,13 @@ import time
 
 BOUND = 5e-5            # max|d| / flux scale, per output (tools/chip_parity.py)
 PROTOCOL = (65536, 60)  # BENCH_CONFIGS protocol batch (columns, layers)
-REPLACES = "ecckd_tpu/ops/pallas/lwsw.py:61"
+RFMIP = (100, 18, 60)   # the reference's RFMIP workload (sites, expts, layers)
+KERNELS = {  # name: (source, TPU kernel it replaces)
+    "lwsw": ("ecckd_tpu_torch/csrc/lwsw.cu",
+             "ecckd_tpu/ops/pallas/lwsw.py:61"),
+    "lw": ("ecckd_tpu_torch/csrc/lw.cu", "ecckd_tpu/ops/pallas/lw.py:54"),
+    "sw": ("ecckd_tpu_torch/csrc/sw.cu", "ecckd_tpu/ops/pallas/sw.py:39"),
+}
 
 
 def nvidia_smi() -> str:
@@ -53,7 +79,7 @@ def nvidia_smi() -> str:
 
 
 def parity_batch(ncol: int, nlay: int, seed: int):
-    """Heterogeneous columns hitting the kernel's edge cases: surface
+    """Heterogeneous columns hitting the kernels' edge cases: surface
     pressures over 2.6 decades (every pressure-grid point at one layer
     index), temperatures past both Planck-table ends in every 8th column,
     h2o over five decades per cell (vmr floor and LUT top), ch4 below its
@@ -92,13 +118,16 @@ def parity_batch(ncol: int, nlay: int, seed: int):
 
 def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int):
     """numpy batch -> CUDA tensors + GasConcs (float32 values rounded once,
-    so the float64 reference sees the kernel's exact inputs)."""
+    so the float64 reference sees the kernel's exact inputs).  "emis" is
+    per g-point (the kernels' argument), "emis_col" per column (the
+    pipeline's)."""
     import numpy as np
     import torch
     from ecckd_tpu_torch.gases import GasConcs
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
         device="cuda", dtype=dtype)
     out = {k: t(v) for k, v in arrays.items()}
+    out["emis_col"] = out["emis"]
     out["emis"] = out["emis"][:, None].expand(-1, ngpt_lw).contiguous()
     out["concs"] = GasConcs.create([(k, t(v)) for k, v in gases.items()])
     return out
@@ -109,14 +138,25 @@ def solve(fn, lw, sw, b, **kw):
               b["concs"], b["alb"], b["tsi"], b["sza"], **kw)
 
 
+def lw_solve(fn, lw, b, **kw):
+    return fn(lw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
+              b["concs"], **kw)
+
+
+def sw_solve(fn, sw, b, **kw):
+    return fn(sw, b["plev"], b["tlay"], b["concs"], b["alb"], b["tsi"],
+              b["sza"], **kw)
+
+
 def flux_errors(got, ref):
     """(max relative error per output over its band's flux scale, max
-    absolute error) — the tools/chip_parity.py metric."""
+    absolute error) — the tools/chip_parity.py metric.  got/ref hold one
+    band's (up, dn) or both bands' (lw_up, lw_dn, sw_up, sw_dn)."""
     rel, absolute = [], 0.0
-    for band in (slice(0, 2), slice(2, 4)):
-        scale = max(float(r.abs().max()) for r in ref[band])
-        for g, r in zip(got[band], ref[band]):
-            d = float((g.double() - r.double()).abs().max())
+    for band in range(0, len(ref), 2):
+        scale = max(float(abs(r).max()) for r in ref[band:band + 2])
+        for g, r in zip(got[band:band + 2], ref[band:band + 2]):
+            d = float(abs(g.double() - r.double()).max())
             rel.append(d / scale)
             absolute = max(absolute, d)
     return rel, absolute
@@ -152,152 +192,393 @@ def main() -> int:
     print(f"device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | count {torch.cuda.device_count()}",
           flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        return run(card, work)
+
+
+def run(card: str, work: str) -> int:
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
+    import torch
     from ecckd_tpu_torch import pipeline
+    from ecckd_tpu_torch.cli import (ecckd_rfmip, ecckd_rfmip_lw,
+                                     ecckd_rfmip_sw)
+    from ecckd_tpu_torch.cli.common import build_gas_concs
+    from ecckd_tpu_torch.gases import GasConcs
+    from ecckd_tpu_torch.io.rfmip import (read_fluxes, read_rfmip,
+                                          write_synthetic_rfmip)
     from ecckd_tpu_torch.io.synthetic import (example_flux_batch,
                                               write_synthetic_ckd)
     from ecckd_tpu_torch.models.loader import load_ckd_model
-    from ecckd_tpu_torch.ops.cuda import build, lwsw, plan
+    from ecckd_tpu_torch.ops.cuda import (binding, build, common, lw, lwsw,
+                                          plan, sw)
+    wrappers = {"lwsw": lwsw.lwsw_fluxes_cuda, "lw": lw.lw_fluxes_cuda,
+                "sw": sw.sw_fluxes_cuda}
+    modules = {"lwsw": lwsw, "lw": lw, "sw": sw}
 
-    # ---- 2. build -------------------------------------------------------
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    # ---- 2. build: one nvcc per kernel source, all started together -------
     t0 = time.perf_counter()
-    lib_path = build.build("lwsw")
-    lwsw._library()
-    ptxas = [ln.strip() for ln in open(f"{lib_path}.ptxas.txt")
-             if "registers" in ln or "spill" in ln]
-    print(f"build: ok {time.perf_counter() - t0:.2f} s "
-          f"{os.path.relpath(lib_path)} | " + " | ".join(ptxas), flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        lib_paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    for name, mod in modules.items():
+        binding.library(name, mod._Args)   # binds and checks the struct
+    build_s = time.perf_counter() - t0
+    for name, path in lib_paths.items():
+        ptxas = [ln.strip() for ln in open(f"{path}.ptxas.txt")
+                 if "registers" in ln or "spill" in ln]
+        print(f"build: ok {name} {os.path.relpath(path)} | "
+              + " | ".join(ptxas), flush=True)
+    print(f"build: ok 3 kernels in {build_s:.2f} s (parallel nvcc)",
+          flush=True)
 
-    # ---- 3. models ------------------------------------------------------
-    models = {}
-    with tempfile.TemporaryDirectory() as d:
-        for key, kind, neg in (("lw", "lw_fsck", False),
-                               ("sw", "sw_wide", False),
-                               ("lw_neg", "lw_fsck", True),
-                               ("sw_neg", "sw_wide", True)):
-            path = os.path.join(d, f"{key}.nc")
-            write_synthetic_ckd(path, kind, seed=7, negative_entry=neg)
-            for dt in (torch.float32, torch.float64):
-                models[key, dt] = load_ckd_model(path, dtype=dt,
-                                                 device="cuda")
-    lw32, sw32 = models["lw", torch.float32], models["sw", torch.float32]
+    # ---- 3. models --------------------------------------------------------
+    models, paths = {}, {}
+    for key, kind, neg, n_p in (
+            ("lw", "lw_fsck", False, 53), ("sw", "sw_wide", False, 53),
+            ("lw_neg", "lw_fsck", True, 53), ("sw_neg", "sw_wide", True, 53),
+            ("lw_rrtmgp", "lw_rrtmgp", False, 53),
+            ("sw_p47", "sw_wide", False, 47)):
+        paths[key] = os.path.join(work, f"{key}.nc")
+        write_synthetic_ckd(paths[key], kind, seed=7, negative_entry=neg,
+                            n_pressure=n_p)
+        for dt in (torch.float32, torch.float64):
+            models[key, dt] = load_ckd_model(paths[key], dtype=dt,
+                                             device="cuda")
+    m32 = lambda k: models[k, torch.float32]
+    m64 = lambda k: models[k, torch.float64]
+    lw32, sw32 = m32("lw"), m32("sw")
     print(f"models: ok lw_fsck ngpt={lw32.ngpt} nband={lw32.nband} "
-          f"planck={lw32.planck_function.shape[0]} | sw_wide "
-          f"ngpt={sw32.ngpt} nband={sw32.nband} | grid "
+          f"planck={lw32.planck_function.shape[0]} | lw_rrtmgp "
+          f"ngpt={m32('lw_rrtmgp').ngpt} nband={m32('lw_rrtmgp').nband} | "
+          f"sw_wide ngpt={sw32.ngpt} nband={sw32.nband} | grid "
           f"{tuple(lw32.temperature_grid.shape)} mergeable="
-          f"{plan.models_mergeable(lw32, sw32)}", flush=True)
+          f"{plan.models_mergeable(lw32, sw32)} | sw_p47 grid "
+          f"{tuple(m32('sw_p47').temperature_grid.shape)} mergeable="
+          f"{plan.models_mergeable(lw32, m32('sw_p47'))}", flush=True)
 
     # ---- 4. parity: kernel (f32) vs plain (f64) on the card -------------
     failures = []
-    worst_abs = 0.0
-    cases = [  # name, ncol, nlay, angles, pair, column chunk
-        ("nlay1", 1037, 1, 1, "", None), ("nlay2", 1037, 2, 1, "", None),
-        ("nlay8", 1037, 8, 1, "", None),
-        ("rfmip_1800x60", 1800, 60, 1, "", None),
-        ("rfmip_1800x60_chunk768", 1800, 60, 1, "", 768),
-        ("nlay137", 1037, 137, 1, "", None),
-        ("angles2_nlay60", 1037, 60, 2, "", None),
-        ("angles3_nlay60", 1037, 60, 3, "", None),
-        ("angles4_nlay60", 1037, 60, 4, "", None),
-        ("negative_entry_nlay60", 1037, 60, 1, "_neg", None),
-        ("negative_entry_angles3", 1037, 60, 3, "_neg", None),
+    worst_abs = dict.fromkeys(KERNELS, 0.0)
+    cases = [  # kernel, name, ncol, nlay, angles, lw model, sw model, chunk
+        ("lwsw", "nlay1", 1037, 1, 1, "lw", "sw", None),
+        ("lwsw", "nlay2", 1037, 2, 1, "lw", "sw", None),
+        ("lwsw", "nlay8", 1037, 8, 1, "lw", "sw", None),
+        ("lwsw", "rfmip_1800x60", 1800, 60, 1, "lw", "sw", None),
+        ("lwsw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", "sw", 768),
+        ("lwsw", "nlay137", 1037, 137, 1, "lw", "sw", None),
+        ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None),
+        ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None),
+        ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None),
+        ("lwsw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", "sw_neg",
+         None),
+        ("lwsw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", "sw_neg",
+         None),
+        ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None),
+        ("lw", "rfmip_1800x60", 1800, 60, 1, "lw", None, None),
+        ("lw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", None, 768),
+        ("lw", "nlay1", 1037, 1, 1, "lw", None, None),
+        ("lw", "nlay2", 1037, 2, 1, "lw", None, None),
+        ("lw", "nlay8", 1037, 8, 1, "lw", None, None),
+        ("lw", "nlay137", 1037, 137, 1, "lw", None, None),
+        ("lw", "angles2_nlay60", 1037, 60, 2, "lw", None, None),
+        ("lw", "angles3_nlay60", 1037, 60, 3, "lw", None, None),
+        ("lw", "angles4_nlay60", 1037, 60, 4, "lw", None, None),
+        ("lw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", None, None),
+        ("lw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", None, None),
+        ("lw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", None, None),
+        ("lw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", None, 512),
+        ("sw", "rfmip_1800x60", 1800, 60, 1, None, "sw", None),
+        ("sw", "rfmip_1800x60_chunk768", 1800, 60, 1, None, "sw", 768),
+        ("sw", "nlay1", 1037, 1, 1, None, "sw", None),
+        ("sw", "nlay2", 1037, 2, 1, None, "sw", None),
+        ("sw", "nlay8", 1037, 8, 1, None, "sw", None),
+        ("sw", "nlay137", 1037, 137, 1, None, "sw", None),
+        ("sw", "negative_entry_nlay60", 1037, 60, 1, None, "sw_neg", None),
+        ("sw", "sw_p47_nlay60", 1037, 60, 1, None, "sw_p47", None),
     ]
-    for i, (name, ncol, nlay, n_ang, pair, chunk) in enumerate(cases):
+    for i, (kernel, name, ncol, nlay, n_ang, lk, sk, chunk) in enumerate(
+            cases):
         arrays, gases = parity_batch(ncol, nlay, seed=100 + i)
-        lw_m, sw_m = models["lw" + pair, torch.float32], models[
-            "sw" + pair, torch.float32]
-        b32 = on_card(arrays, gases, torch.float32, lw_m.ngpt)
-        b64 = on_card(arrays, gases, torch.float64, lw_m.ngpt)
-        got = solve(lwsw.lwsw_fluxes_cuda, lw_m, sw_m, b32,
-                    n_gauss_angles=n_ang,
-                    column_chunk=chunk or lwsw.DEFAULT_COLUMN_CHUNK)
-        ref = solve(lwsw.lwsw_fluxes_plain, models["lw" + pair, torch.float64],
-                    models["sw" + pair, torch.float64], b64,
-                    n_gauss_angles=n_ang)
+        ng = m32(lk).ngpt if lk else 1
+        b32 = on_card(arrays, gases, torch.float32, ng)
+        b64 = on_card(arrays, gases, torch.float64, ng)
+        kw = dict(column_chunk=chunk or binding.DEFAULT_COLUMN_CHUNK)
+        ang = dict(n_gauss_angles=n_ang)
+        if kernel == "lwsw":
+            got = solve(lwsw.lwsw_fluxes_cuda, m32(lk), m32(sk), b32, **kw,
+                        **ang)
+            ref = solve(lwsw.lwsw_fluxes_plain, m64(lk), m64(sk), b64, **ang)
+        elif kernel == "lw":
+            got = lw_solve(lw.lw_fluxes_cuda, m32(lk), b32, **kw, **ang)
+            ref = lw_solve(lw.lw_fluxes_plain, m64(lk), b64, **ang)
+        else:
+            got = sw_solve(sw.sw_fluxes_cuda, m32(sk), b32, **kw)
+            ref = sw_solve(sw.sw_fluxes_plain, m64(sk), b64)
         torch.cuda.synchronize()
         rel, absolute = flux_errors(got, ref)
-        worst_abs = max(worst_abs, absolute)
+        worst_abs[kernel] = max(worst_abs[kernel], absolute)
         ok = max(rel) <= BOUND and all(bool(torch.isfinite(g).all())
                                        for g in got)
         if not ok:
-            failures.append(name)
-        print(f"parity: {'ok' if ok else 'FAIL'} {name} ({ncol}x{nlay}, "
-              f"{n_ang} angle(s)) max|d|/scale lw_up={rel[0]:.3e} "
-              f"lw_dn={rel[1]:.3e} sw_up={rel[2]:.3e} sw_dn={rel[3]:.3e} "
-              f"max|d|={absolute:.3e} W m-2 (bound {BOUND:.0e})", flush=True)
+            failures.append(f"parity {kernel} {name}")
+        print(f"parity: {'ok' if ok else 'FAIL'} {kernel} {name} "
+              f"({ncol}x{nlay}, {n_ang} angle(s), {lk or ''}"
+              f"{'+' if lk and sk else ''}{sk or ''}) max|d|/scale "
+              + " ".join(f"{r:.3e}" for r in rel)
+              + f" max|d|={absolute:.3e} W m-2 (bound {BOUND:.0e})",
+              flush=True)
 
-    # ---- 5. main path ----------------------------------------------------
+    # The pair on two (p, T) grids: lw_sw_fluxes(cuda) takes K3 + K4.
+    arrays, gases = parity_batch(1800, 60, seed=99)
+    b32 = on_card(arrays, gases, torch.float32, lw32.ngpt)
+    b64 = on_card(arrays, gases, torch.float64, lw32.ngpt)
+    reset_counts()
+    lw_f, sw_f = pipeline.lw_sw_fluxes(
+        lw32, m32("sw_p47"), b32["plev"], b32["tlay"], b32["tlev"],
+        b32["tsfc"], b32["emis_col"], b32["concs"], b32["alb"], b32["tsi"],
+        b32["sza"], backend="cuda")
+    torch.cuda.synchronize()
+    launched = counts()
+    got = (lw_f.flux_up, lw_f.flux_dn, sw_f.flux_up, sw_f.flux_dn)
+    ref = (*lw_solve(lw.lw_fluxes_plain, m64("lw"), b64),
+           *sw_solve(sw.sw_fluxes_plain, m64("sw_p47"), b64))
+    rel, absolute = flux_errors(got, ref)
+    ok = (max(rel) <= BOUND and launched == {"lwsw": 0, "lw": 1, "sw": 1})
+    if not ok:
+        failures.append("parity non-mergeable pair")
+    print(f"parity: {'ok' if ok else 'FAIL'} lw_sw_fluxes(cuda) lw_fsck + "
+          f"sw_p47 (two grids, 1800x60) launches={launched} max|d|/scale "
+          + " ".join(f"{r:.3e}" for r in rel) + f" max|d|={absolute:.3e}",
+          flush=True)
+
+    # ---- 5. shared code: K3 / K4 against K1 ------------------------------
+    arrays, gases = parity_batch(1800, 60, seed=7)
+    b32 = on_card(arrays, gases, torch.float32, lw32.ngpt)
+    merged = solve(lwsw.lwsw_fluxes_cuda, lw32, sw32, b32)
+    single = (*lw_solve(lw.lw_fluxes_cuda, lw32, b32),
+              *sw_solve(sw.sw_fluxes_cuda, sw32, b32))
+    torch.cuda.synchronize()
+    diffs = [float((s - m).abs().max()) for s, m in zip(single, merged)]
+    rel, _ = flux_errors(single, merged)
+    ok = max(rel) <= BOUND
+    if not ok:
+        failures.append("shared code")
+    print(f"shared code: {'ok' if ok else 'FAIL'} K3/K4 vs K1 (1800x60) "
+          f"max|d| lw_up={diffs[0]:.3e} lw_dn={diffs[1]:.3e} "
+          f"sw_up={diffs[2]:.3e} sw_dn={diffs[3]:.3e} W m-2; bitwise equal: "
+          f"{all(d == 0.0 for d in diffs)}", flush=True)
+
+    # ---- 6. main paths at the protocol batch -------------------------------
     ncol, nlay = PROTOCOL
     batch = example_flux_batch(ncol, nlay, np.float32, device="cuda")
     t = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()
          if k != "concs"}
-    lwsw.lwsw_fluxes_cuda.launches = 0
-    lw_f, sw_f = pipeline.lw_sw_fluxes(
-        lw32, sw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"], t["emis"],
-        batch["concs"], t["alb"], t["tsi"], t["sza"], backend="auto")
-    torch.cuda.synchronize()
-    launches = lwsw.lwsw_fluxes_cuda.launches
-    outs = (lw_f.flux_up, lw_f.flux_dn, sw_f.flux_up, sw_f.flux_dn)
+    concs = batch["concs"]
     day = batch["sza"] < 90.0 - 2.0 * float(np.spacing(np.float32(90.0)))
     mu0_tsi = 1361.0 * np.cos(np.deg2rad(batch["sza"].astype(np.float64)))
-    toa = sw_f.flux_dn[:, 0].double().cpu().numpy()
-    night = torch.as_tensor(~day, device="cuda")
-    # The first columns against the float64 plain version.
     n_check = 2048
     b64 = on_card({k: v[:n_check] for k, v in batch.items() if k != "concs"},
                   {n: v[:n_check].cpu().numpy() for n, v in zip(
-                      batch["concs"].names, batch["concs"].values)},
-                  torch.float64, lw32.ngpt)
-    ref = solve(lwsw.lwsw_fluxes_plain, models["lw", torch.float64],
-                models["sw", torch.float64], b64)
-    rel, _ = flux_errors([o[:n_check] for o in outs], ref)
-    checks = {
-        "launches > 0": launches > 0,
-        "shapes": all(tuple(o.shape) == (ncol, nlay + 1) for o in outs),
-        "finite": all(bool(torch.isfinite(o).all()) for o in outs),
-        # mu0 is cos of a float32 angle: grazing columns need an absolute
-        # tolerance (1e-5 of the TSI).
-        "sw toa dn == mu0*tsi (day)": bool(np.allclose(
-            toa[day], mu0_tsi[day], rtol=1e-5, atol=1e-5 * 1361.0)),
-        "night sw == 0": bool((sw_f.flux_dn[night] == 0).all()
-                              and (sw_f.flux_up[night] == 0).all()),
-        f"first {n_check} columns vs plain f64": max(rel) <= BOUND,
+                      concs.names, concs.values)}, torch.float64, lw32.ngpt)
+    paths_run = {
+        "lwsw": lambda: pipeline.lw_sw_fluxes(
+            lw32, sw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"],
+            t["emis"], concs, t["alb"], t["tsi"], t["sza"], backend="auto"),
+        "lw": lambda: (pipeline.lw_fluxes(
+            lw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"], t["emis"],
+            concs, backend="auto"),),
+        "sw": lambda: (pipeline.sw_fluxes(
+            sw32, t["plev"], t["tlay"], concs, t["alb"], t["tsi"], t["sza"],
+            backend="auto"),),
     }
-    ok = all(checks.values())
-    if not ok:
-        failures.append("main_path")
-    print(f"main path: {'ok' if ok else 'FAIL'} lw_sw_fluxes(auto) "
-          f"{ncol}x{nlay} launches={launches} | " + " | ".join(
-              f"{k}: {v}" for k, v in checks.items())
-          + f" | max|d|/scale={max(rel):.3e}", flush=True)
+    refs = {"lwsw": lambda: solve(lwsw.lwsw_fluxes_plain, m64("lw"),
+                                  m64("sw"), b64),
+            "lw": lambda: lw_solve(lw.lw_fluxes_plain, m64("lw"), b64),
+            "sw": lambda: sw_solve(sw.sw_fluxes_plain, m64("sw"), b64)}
+    main_launches = {}
+    for name, drive in paths_run.items():
+        reset_counts()
+        fluxes = drive()
+        torch.cuda.synchronize()
+        launched = counts()
+        main_launches[name] = launched[name]
+        outs = [o for f in fluxes for o in (f.flux_up, f.flux_dn)]
+        rel, _ = flux_errors([o[:n_check] for o in outs], refs[name]())
+        checks = {
+            f"{name} launches > 0": launched[name] > 0,
+            "no other kernel": all(v == 0 for k, v in launched.items()
+                                   if k != name),
+            "shapes": all(tuple(o.shape) == (ncol, nlay + 1) for o in outs),
+            "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+            f"first {n_check} columns vs plain f64": max(rel) <= BOUND,
+        }
+        if name != "lw":
+            sw_f = fluxes[-1]
+            toa = sw_f.flux_dn[:, 0].double().cpu().numpy()
+            night = torch.as_tensor(~day, device="cuda")
+            # mu0 is cos of a float32 angle: grazing columns need an
+            # absolute tolerance (1e-5 of the TSI).
+            checks["sw toa dn == mu0*tsi (day)"] = bool(np.allclose(
+                toa[day], mu0_tsi[day], rtol=1e-5, atol=1e-5 * 1361.0))
+            checks["night sw == 0"] = bool(
+                (sw_f.flux_dn[night] == 0).all()
+                and (sw_f.flux_up[night] == 0).all())
+        ok = all(checks.values())
+        if not ok:
+            failures.append(f"main path {name}")
+        entry = {"lwsw": "lw_sw_fluxes", "lw": "lw_fluxes",
+                 "sw": "sw_fluxes"}[name]
+        print(f"main path: {'ok' if ok else 'FAIL'} {entry}(auto) "
+              f"{ncol}x{nlay} launches={launched} | " + " | ".join(
+                  f"{k}: {v}" for k, v in checks.items())
+              + f" | max|d|/scale={max(rel):.3e}", flush=True)
 
-    # ---- 6. times ---------------------------------------------------------
+    # ---- 7. RFMIP drivers at 100 x 18 x 60 ----------------------------------
+    nsite, nexp, nlay_r = RFMIP
+    rfmip = os.path.join(work, "rfmip.nc")
+    write_synthetic_rfmip(rfmip, nsite=nsite, nlay=nlay_r, nexp=nexp, seed=0)
+    data = read_rfmip(rfmip)
+    stem = "_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc"
+    drivers = (("lw", ecckd_rfmip_lw.main, [paths["lw"]], ("rlu", "rld")),
+               ("sw", ecckd_rfmip_sw.main, [paths["sw"]], ("rsu", "rsd")),
+               ("lwsw", ecckd_rfmip.main, [paths["lw"], paths["sw"]],
+                ("rlu", "rld", "rsu", "rsd")))
+    # The float64 plain version on the drivers' inputs (reference order of
+    # the requested gases, the top-pressure clamp).
+    plev = pipeline.clamp_top_pressure(data.plev, lw32.get_press_min())
+    d64 = lambda x: torch.as_tensor(x, device="cuda", dtype=torch.float64)
+    concs64 = build_gas_concs(data, np.float64, "cuda")
+    ref_files = dict(zip(("rlu", "rld"), lw.lw_fluxes_plain(
+        m64("lw"), d64(plev), d64(data.tlay), d64(data.tlev), d64(data.sfc_t),
+        d64(data.sfc_emis)[:, None].expand(-1, lw32.ngpt), concs64)))
+    ref_files.update(zip(("rsu", "rsd"), sw.sw_fluxes_plain(
+        m64("sw"), d64(plev), d64(data.tlay), concs64, d64(data.sfc_alb),
+        d64(data.tsi), d64(data.sza))))
+    files, driver_s, driver_launches = {}, {}, {}
+    for name, drive, ckd, outputs in drivers:
+        out_dir = os.path.join(work, f"out_{name}")
+        metrics = os.path.join(out_dir, "metrics.json")
+        reset_counts()
+        rc = drive([rfmip, *ckd, "--device", "cuda", "--output-dir",
+                    out_dir, "--heating-rates", "--metrics-json", metrics])
+        torch.cuda.synchronize()
+        launched = counts()
+        driver_launches[name] = launched
+        with open(metrics) as f:
+            driver_s[name] = json.load(f)["seconds"]
+        files[name] = {v: read_fluxes(os.path.join(out_dir, v + stem), v)
+                       for v in outputs}
+        got = [torch.as_tensor(files[name][v]) for v in outputs]
+        ref = [ref_files[v].cpu() for v in outputs]
+        rel, _ = flux_errors(got, ref)
+        checks = {
+            "rc == 0": rc == 0,
+            f"{name} launches > 0": launched[name] > 0,
+            "shapes": all(g.shape == (data.ncol, nlay_r + 1) for g in got),
+            "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            "vs plain f64": max(rel) <= BOUND,
+        }
+        if "rsd" in outputs:
+            day_r = data.sza < 90.0 - 2.0 * float(np.spacing(np.float32(90)))
+            toa = files[name]["rsd"][:, 0]
+            mu0_tsi_r = data.tsi * np.cos(np.deg2rad(data.sza))
+            checks["sw toa dn == mu0*tsi (day)"] = bool(np.allclose(
+                toa[day_r], mu0_tsi_r[day_r], rtol=1e-5, atol=1e-5 * 1361.0))
+            checks["night sw == 0"] = bool(
+                not files[name]["rsd"][~day_r].any()
+                and not files[name]["rsu"][~day_r].any())
+        ok = all(checks.values())
+        if not ok:
+            failures.append(f"rfmip driver {name}")
+        print(f"rfmip driver: {'ok' if ok else 'FAIL'} "
+              f"{drive.__module__.split('.')[-1]} {nsite}x{nexp}x{nlay_r} "
+              f"launches={launched} solve {driver_s[name] * 1e3:.3f} ms "
+              f"(first call, host clock after the barrier) | "
+              + " | ".join(f"{k}: {v}" for k, v in checks.items())
+              + f" | max|d|/scale={max(rel):.3e}", flush=True)
+    sep = {**files["lw"], **files["sw"]}
+    rel, absolute = flux_errors(
+        [torch.as_tensor(files["lwsw"][v]) for v in ("rlu", "rld", "rsu",
+                                                      "rsd")],
+        [torch.as_tensor(sep[v]) for v in ("rlu", "rld", "rsu", "rsd")])
+    ok = max(rel) <= BOUND
+    if not ok:
+        failures.append("rfmip combined vs separate")
+    print(f"rfmip driver: {'ok' if ok else 'FAIL'} combined vs separate "
+          f"files max|d|={absolute:.3e} W m-2 max|d|/scale={max(rel):.3e}",
+          flush=True)
+
+    # ---- 8. times -----------------------------------------------------------
     emis_gpt = t["emis"][:, None].expand(-1, lw32.ngpt).contiguous()
-    args = (lw32, sw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"], emis_gpt,
-            batch["concs"], t["alb"], t["tsi"], t["sza"])
-    prep = plan.prepare(*args)
-    kernel_ms = cuda_time_ms(lambda: lwsw._kernel_core(
-        prep, lwsw.DEFAULT_COLUMN_CHUNK))
-    plain_ms = cuda_time_ms(lambda: lwsw._plain_core(prep))
-    kernel_e2e_ms = cuda_time_ms(lambda: lwsw.lwsw_fluxes_cuda(*args))
-    plain_e2e_ms = cuda_time_ms(lambda: lwsw.lwsw_fluxes_plain(*args))
-    print(f"times: {ncol}x{nlay} 1 angle on {card}: kernel {kernel_ms:.3f} ms"
-          f" ({ncol / kernel_ms * 1e3:.0f} columns/s), plain f32 "
-          f"{plain_ms:.3f} ms ({ncol / plain_ms * 1e3:.0f} columns/s); "
-          f"with host prep: kernel {kernel_e2e_ms:.3f} ms, plain "
-          f"{plain_e2e_ms:.3f} ms (median of 10 after 2 warm-up, CUDA "
-          f"events)", flush=True)
+    args = {"lwsw": (lw32, sw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"],
+                     emis_gpt, concs, t["alb"], t["tsi"], t["sza"]),
+            "lw": (lw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"],
+                   emis_gpt, concs),
+            "sw": (sw32, t["plev"], t["tlay"], concs, t["alb"], t["tsi"],
+                   t["sza"])}
+    preps = {"lwsw": plan.prepare(*args["lwsw"]),
+             "lw": plan.prepare_lw(*args["lw"]),
+             "sw": plan.prepare_sw(*args["sw"])}
+    plain_core = {"lwsw": lwsw._plain_core, "lw": common.lw_plain,
+                  "sw": common.sw_plain}
+    plain = {"lwsw": lwsw.lwsw_fluxes_plain, "lw": lw.lw_fluxes_plain,
+             "sw": sw.sw_fluxes_plain}
+    chunk = binding.DEFAULT_COLUMN_CHUNK
+    times = {}
+    for name in KERNELS:
+        prep = preps[name]
+        k_ms = cuda_time_ms(lambda: modules[name]._kernel_core(*prep, chunk))
+        p_ms = cuda_time_ms(lambda: plain_core[name](*prep))
+        k_e2e = cuda_time_ms(lambda: wrappers[name](*args[name]))
+        p_e2e = cuda_time_ms(lambda: plain[name](*args[name]))
+        times[name] = (k_ms, p_ms)
+        print(f"times: {name} {ncol}x{nlay} 1 angle on {card}: kernel "
+              f"{k_ms:.3f} ms ({ncol / k_ms * 1e3:.0f} columns/s), plain f32 "
+              f"{p_ms:.3f} ms ({ncol / p_ms * 1e3:.0f} columns/s); with host "
+              f"prep: kernel {k_e2e:.3f} ms, plain {p_e2e:.3f} ms (median "
+              f"of 10 after 2 warm-up, CUDA events)", flush=True)
+    rr_prep = plan.prepare_lw(m32("lw_rrtmgp"), *args["lw"][1:5],
+                              emis_gpt[:, :1].expand(-1, 36).contiguous(),
+                              concs)
+    rr_ms = cuda_time_ms(lambda: lw._kernel_core(*rr_prep, chunk))
+    lw3 = plan.prepare_lw(*args["lw"], n_gauss_angles=3)
+    lw3_ms = cuda_time_ms(lambda: lw._kernel_core(*lw3, chunk))
+    n_r = nsite * nexp
+    cut = lambda x: (x[:n_r] if isinstance(x, torch.Tensor)
+                     and x.shape[:1] == (ncol,) else x)
+    small_concs = GasConcs(values=tuple(cut(v) for v in concs.values),
+                           names=concs.names)
+    small = {k: tuple(small_concs if x is concs else cut(x) for x in a)
+             for k, a in args.items()}
+    small_prep = {"lwsw": plan.prepare(*small["lwsw"]),
+                  "lw": plan.prepare_lw(*small["lw"]),
+                  "sw": plan.prepare_sw(*small["sw"])}
+    small_ms = {name: cuda_time_ms(
+        lambda: modules[name]._kernel_core(*small_prep[name], chunk))
+        for name in KERNELS}
+    print(f"times: lw kernel {ncol}x{nlay}: lw_rrtmgp (36 g-points) "
+          f"{rr_ms:.3f} ms, lw_fsck 3 angles {lw3_ms:.3f} ms | {n_r}x{nlay} "
+          "kernels: " + ", ".join(f"{k} {v:.3f} ms"
+                                  for k, v in small_ms.items())
+          + f" | on {card}", flush=True)
 
     if failures:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)
         return 1
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "lwsw", "route": "cuda",
-        "source": "ecckd_tpu_torch/csrc/lwsw.cu", "replaces": REPLACES,
-        "launches": launches, "max_abs_err": worst_abs, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": main_launches[name],
+        "max_abs_err": worst_abs[name], "ms": times[name][0],
+        "plain_ms": times[name][1]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

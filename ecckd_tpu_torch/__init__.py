@@ -3,10 +3,10 @@ hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the JAX package ``ecckd_tpu`` (which stays in the repository as
 the reference): the same module layout and function names, torch tensors
-in place of JAX arrays.  The merged LW+SW solve on float32 CUDA tensors
-runs the kernel in ``csrc/lwsw.cu`` (built at first use by
-``ops/cuda/build.py``); everything else is plain PyTorch.  This package
-imports neither ``jax`` nor ``ecckd_tpu``.
+in place of JAX arrays.  On float32 CUDA tensors the flux pipelines run
+hand-written CUDA kernels (``csrc/lwsw.cu``, ``lw.cu``, ``sw.cu``, built at
+first use by ``ops/cuda/build.py``); everything else is plain PyTorch.
+This package imports neither ``jax`` nor ``ecckd_tpu``.
 """
 from ecckd_tpu_torch.fluxes import FluxesBroadband, heating_rate
 from ecckd_tpu_torch.gases import GasConcs

@@ -1,0 +1,143 @@
+"""Shared driver plumbing for the RFMIP CLI entry points (counterpart of
+``ecckd_tpu.cli.common``).
+
+The reference drivers' structure (example/rfmip-rad-irf/ecckd_rfmip_lw.F90,
+ecckd_rfmip_sw.F90, utils.f90): the whole column batch is one call of the
+pipeline on one device instead of a serial block loop.  A failed kernel
+build or launch raises and the run exits non-zero: there is no fallback
+to another compute path.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.io.rfmip import RFMIPData, read_rfmip, rfmip_gas_names
+from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.models.loader import load_ckd_model
+
+
+def make_parser(prog: str) -> argparse.ArgumentParser:
+    """CLI compatible with the reference's parse_args (utils.f90:74-134),
+    plus the framework's extensions."""
+    p = argparse.ArgumentParser(
+        prog=prog, description="ecCKD RFMIP flux driver (PyTorch/CUDA)")
+    p.add_argument("rfmip_file", help="RFMIP input file")
+    p.add_argument("ecckd_file", help="ecckd ckd-definition input file")
+    p.add_argument("-f", dest="forcing_index", type=int, default=1,
+                   choices=(1, 2), help="Forcing index")
+    p.add_argument("-p", dest="physics_index", type=int, default=1,
+                   choices=(1, 2), help="Physics index")
+    p.add_argument("--output-dir", default=".", help="Flux output directory")
+    p.add_argument("--precision", default="f32", choices=("f32", "f64"),
+                   help="Working precision (f64 for Fortran-parity runs)")
+    p.add_argument("--backend", default="auto",
+                   choices=("auto", "torch", "cuda"),
+                   help="Compute path: the CUDA kernels, plain PyTorch, or "
+                        "auto (the kernels on a CUDA device at f32)")
+    p.add_argument("--device", default="cuda",
+                   help="Torch device to run on (default cuda; raises if "
+                        "CUDA is absent; cpu runs the plain torch path)")
+    p.add_argument("--metrics-json", default=None,
+                   help="Write run metrics (columns/s, flux ranges, "
+                        "config) as one JSON file")
+    p.add_argument("--heating-rates", action="store_true",
+                   help="Also write layer heating rates [K/day] "
+                        "(hrl/hrs files; framework extension)")
+    p.add_argument("--validate", action="store_true",
+                   help="Validate physical input ranges and check output "
+                        "finiteness (utils/checks.py)")
+    return p
+
+
+def torch_device(name: str) -> torch.device:
+    """The requested device; a CUDA device that is not there raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    return device
+
+
+def setup_precision(precision: str) -> torch.dtype:
+    return torch.float64 if precision == "f64" else torch.float32
+
+
+def load_inputs(args) -> Tuple[RFMIPData, CKDModel, torch.device]:
+    device = torch_device(args.device)
+    data = read_rfmip(args.rfmip_file, args.forcing_index)
+    print(f" Using 1 batch of {data.ncol} columns ({data.nsite} sites x "
+          f"{data.nexp} experiments) on {device}", file=sys.stderr)
+    _, rfmip_names = rfmip_gas_names(args.forcing_index)
+    print(" Calculation uses RFMIP gases: " + " ".join(rfmip_names),
+          file=sys.stderr)
+    model = load_ckd_model(args.ecckd_file,
+                           dtype=setup_precision(args.precision),
+                           device=device)
+    return data, model, device
+
+
+def build_gas_concs(data: RFMIPData, dtype, device) -> GasConcs:
+    """Requested-gas list in reference order: the 6 scalar gases, then h2o,
+    o3, no2 (mo_rfmip_io.F90:199-260)."""
+    items = [(name, data.gases_scalar[name].astype(dtype))
+             for name in ("co2", "ch4", "n2o", "o2", "cfc11", "cfc12")]
+    items += [("h2o", data.gases_3d["h2o"].astype(dtype)),
+              ("o3", data.gases_3d["o3"].astype(dtype)),
+              ("no2", data.gases_scalar["no2"].astype(dtype))]
+    return GasConcs.create(items, device=device)
+
+
+def on_device(arrays, device) -> List[torch.Tensor]:
+    return [torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in arrays]
+
+
+class Timer:
+    """Wall timer of a block; the block ends with the completion barrier
+    (utils/profiling.barrier) so device work is inside the time."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        print(f" {self.label}: {self.seconds*1e3:.1f} ms", file=sys.stderr)
+
+
+def write_metrics(path, *, ncol: int, seconds: float, args, fluxes,
+                  extra=None) -> None:
+    """Per-run metrics JSON: throughput and flux sanity ranges."""
+    up = fluxes.flux_up.detach().cpu().numpy()
+    dn = fluxes.flux_dn.detach().cpu().numpy()
+    m = {
+        "columns": int(ncol),
+        "seconds": round(seconds, 6),
+        "columns_per_sec": round(ncol / max(seconds, 1e-12), 1),
+        "device": str(fluxes.flux_up.device),
+        "backend_requested": args.backend,
+        "precision": args.precision,
+        "flux_up_range": [float(up.min()), float(up.max())],
+        "flux_dn_range": [float(dn.min()), float(dn.max())],
+        "all_finite": bool(np.isfinite(up).all() and np.isfinite(dn).all()),
+    }
+    if extra:
+        m.update(extra)
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(m, f, indent=1)
+    print(f" Wrote metrics to {path}", file=sys.stderr)

@@ -1,0 +1,469 @@
+// Device code shared by the port's three flux kernels: lwsw.cu (merged
+// LW + SW), lw.cu (LW only) and sw.cu (SW only).  The port's counterpart of
+// the JAX package's single homes in ecckd_tpu/ops/pallas/common.py: the
+// gas optics of one band, the Planck source, the LW layer sources, the
+// g = 0 two-stream and the column bodies of both solvers live here once.
+//
+// Every function takes the inputs of ONE band: the shared per-column
+// atmosphere (Atmos), the band's own (p, T) interpolation grid (Grid), its
+// gas plan and flat table (Band), and its solver terms (LwSolve or
+// SwSolve).  The merged kernel passes the LW model's grid to both bands
+// (their grids are equal there); the single-band kernels pass their own
+// model's grid.
+//
+// Layout.  One warp per (column, band); lane = g-point, in a warp-uniform
+// loop over chunks of 32 g-points so any ngpt works (padded lanes compute
+// on g-point 0 and contribute 0 to the sums).  Tables are flattened in
+// natural (gas, [mole fraction,] p, T, g) order with g fastest, so the
+// warp's gather at one grid corner is one coalesced 128-byte read.
+// Per-column pointers start at the launch's first column; scratch is laid
+// out (row, column, g) over the launch's columns.
+//
+// Accuracy.  Built without fast-math: expm1f/expf/logf/sqrtf and the
+// divides are the IEEE-accurate calls (a fast exp cost ~3e-4 in flux on
+// the TPU).  The floors of common.two_stream_g0 (tau >= 1e-8, the
+// eps*tau^2 guard on D) and the thin-layer threshold sqrt(eps_f32) are
+// kept.  The per-gas, per-g-point clamp max(w*k, 0) is the reference's
+// (optical_depth.py), so no table sign precondition applies.
+//
+// Each kernel library is one translation unit that includes this header
+// once; the structs below are mirrored by ctypes in ops/cuda/binding.py.
+
+#pragma once
+
+#include <cfloat>
+#include <cstddef>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAX_SLICES = 16;
+constexpr int WARPS_PER_BLOCK = 4;
+constexpr int KIND_DENSE = 0;
+constexpr int VMR_NONE = 0;
+constexpr int VMR_PROFILE = 1;
+constexpr float PI_F = (float)3.14159265359;
+constexpr float MOLES_PER_PA_F = (float)(1.0 / (9.80665 * 0.001 * 28.970));
+
+}  // namespace
+
+struct GasSlice {
+  int kind;      // KIND_DENSE or 1 (LUT)
+  int row0;      // first (p*n_t + t) row of this gas's table in Band::table
+  int vmr_kind;  // VMR_NONE (composite), VMR_PROFILE or 2 (per column)
+  int vmr_idx;   // row in vmr_prof / vmr_scal
+  int n_mf;      // LUT mole-fraction axis length
+  float a, b;    // dense weight = simple_w * (a*vmr + b)
+  float mf0, log_mf0, d_log, v_hi;  // LUT axis; v_hi = n_mf - 1.001
+};
+
+// One model's gas plan and flat table.
+struct Band {
+  const float* table;  // (rows, ngpt), g fastest
+  int ngpt;
+  int nslice;
+  GasSlice s[MAX_SLICES];
+};
+
+// One model's (pressure, temperature) interpolation grid.
+struct Grid {
+  const float* t_first;  // (n_p) first temperature-grid column
+  int n_p, n_t;
+  float log_p0, d_log_p, p_hi, dt, t_hi;
+};
+
+// Per-column inputs the bands of one solve share, float32, row-major,
+// column outermost.
+struct Atmos {
+  const float* plev;      // (ncol, nlay+1)
+  const float* tlay;      // (ncol, nlay)
+  const float* vmr_prof;  // (ncol, n_prof, nlay)
+  const float* vmr_scal;  // (ncol, n_scal)
+  int ncol, nlay, n_prof, n_scal;
+};
+
+// What the LW solve of one band takes beyond its gas optics.
+struct LwSolve {
+  const float* tlev;    // (ncol, nlay+1)
+  const float* tsfc;    // (ncol)
+  const float* emis;    // (ncol, ngpt)
+  const float* planck;  // (n_planck, ngpt)
+  float* up;            // (ncol, nlay+1), zeroed by the caller (accumulated)
+  float* dn;
+  float* scratch;       // (rows, ncol, ngpt): 2*nlay rows (1 angle), else
+                        // 3*nlay+1
+  int n_planck, n_ang;
+  float planck_t0, planck_dt;
+  float sec[4];
+  float w2pi[4];
+};
+
+// What the SW solve of one band takes beyond its gas optics.
+struct SwSolve {
+  const float* alb;        // (ncol, ngpt)
+  const float* mu0;        // (ncol)
+  const float* tsi_scale;  // (ncol)
+  const float* solar;      // (ngpt)
+  const float* ray;        // (ngpt)
+  float* up;               // (ncol, nlay+1), zeroed by the caller
+  float* dn;
+  float* scratch;          // (6*nlay+2, ncol, ngpt)
+};
+
+namespace {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+struct FracIdx {
+  int i0;
+  float w1;
+};
+
+// idx = clip(raw, 0, hi); i0 = floor(idx); w1 = idx - i0 (ops/interp.py).
+__device__ __forceinline__ FracIdx frac_index(float raw, float hi) {
+  const float idx = fminf(fmaxf(raw, 0.0f), hi);
+  const float f = floorf(idx);
+  return {static_cast<int>(f), idx - f};
+}
+
+// Lane-uniform interpolation point of layer j of column c.
+struct LayerPoint {
+  int ip, it;
+  float wp, wt;
+  float simple_w;  // moles of dry air per m^2
+};
+
+__device__ __forceinline__ LayerPoint layer_point(const Atmos& A,
+                                                  const Grid& G, int c,
+                                                  int j) {
+  const float* pl = A.plev + (size_t)c * (A.nlay + 1);
+  const float p0 = pl[j], p1 = pl[j + 1];
+  const float log_p = logf(0.5f * (p1 + p0));
+  const FracIdx P = frac_index((log_p - G.log_p0) / G.d_log_p, G.p_hi);
+  // Pressure-dependent temperature origin (gas_optics_ecckd.f90:131-132).
+  const float t0 =
+      (1.0f - P.w1) * G.t_first[P.i0] + P.w1 * G.t_first[P.i0 + 1];
+  const FracIdx T =
+      frac_index((A.tlay[(size_t)c * A.nlay + j] - t0) / G.dt, G.t_hi);
+  return {P.i0, T.i0, P.w1, T.w1, MOLES_PER_PA_F * (p1 - p0)};
+}
+
+__device__ __forceinline__ float vmr_of(const Atmos& A, const GasSlice& S,
+                                        int c, int j) {
+  if (S.vmr_kind == VMR_PROFILE)
+    return A.vmr_prof[((size_t)c * A.n_prof + S.vmr_idx) * A.nlay + j];
+  return A.vmr_scal[(size_t)c * A.n_scal + S.vmr_idx];
+}
+
+// Bi-linear (p, T) interpolation of the table block starting at tb
+// (already offset to the lower corner and the g-point).
+__device__ __forceinline__ float bilinear(const float* tb, int n_t, int ng,
+                                          float pw1, float tw1) {
+  const float pw0 = 1.0f - pw1, tw0 = 1.0f - tw1;
+  return tw0 * (pw0 * tb[0] + pw1 * tb[(size_t)n_t * ng]) +
+         tw1 * (pw0 * tb[ng] + pw1 * tb[(size_t)(n_t + 1) * ng]);
+}
+
+// Total gas optical depth of g-point g in layer j of column c for band B:
+// dense gases then the LUT gas, each clamped at zero before accumulation
+// (gas_optics_ecckd.f90:233-238).
+__device__ float gas_tau(const Atmos& A, const Grid& G, const Band& B,
+                         const LayerPoint& L, int c, int j, int g) {
+  const int ng = B.ngpt, n_t = G.n_t;
+  const size_t corner = (size_t)(L.ip * n_t + L.it);
+  float tau = 0.0f;
+  for (int s = 0; s < B.nslice; ++s) {
+    const GasSlice& S = B.s[s];
+    if (S.kind == KIND_DENSE) {
+      const float w = S.vmr_kind == VMR_NONE
+                          ? L.simple_w * S.b
+                          : L.simple_w * (S.a * vmr_of(A, S, c, j) + S.b);
+      const float* tb = B.table + ((size_t)S.row0 + corner) * ng + g;
+      tau += fmaxf(w * bilinear(tb, n_t, ng, L.wp, L.wt), 0.0f);
+    } else {
+      const float vmr = vmr_of(A, S, c, j);
+      const FracIdx V = frac_index(
+          (logf(fmaxf(vmr, S.mf0)) - S.log_mf0) / S.d_log, S.v_hi);
+      const size_t stride_v = (size_t)G.n_p * n_t;
+      const float* tb =
+          B.table + ((size_t)S.row0 + V.i0 * stride_v + corner) * ng + g;
+      const float lo = bilinear(tb, n_t, ng, L.wp, L.wt);
+      const float hi = bilinear(tb + stride_v * ng, n_t, ng, L.wp, L.wt);
+      const float coeff = (1.0f - V.w1) * lo + V.w1 * hi;
+      tau += fmaxf((L.simple_w * vmr) * coeff, 0.0f);
+    }
+  }
+  return tau;
+}
+
+// Planck intensity (ops/planck.py): linear interpolation with top-end
+// extrapolation, below-grid scaling B = (T/T0)*row0, divided by PI.
+// ngpt is read from the band here, not passed in a register: as a
+// register argument it cost the merged kernel 5 % on an H100.
+__device__ __forceinline__ float planck_at(const LwSolve& W, const Band& B,
+                                           float temp, int g) {
+  const int ng = B.ngpt;
+  const float idx = (temp - W.planck_t0) / W.planck_dt;
+  const int i0 = static_cast<int>(
+      fminf(fmaxf(floorf(idx), 0.0f), (float)(W.n_planck - 2)));
+  const float w1 = idx - (float)i0;
+  float b;
+  if (idx >= 0.0f)
+    b = (1.0f - w1) * W.planck[(size_t)i0 * ng + g] +
+        w1 * W.planck[(size_t)(i0 + 1) * ng + g];
+  else
+    b = (temp / W.planck_t0) * W.planck[g];
+  return b / PI_F;
+}
+
+// common.lw_layer_sources: transmittance and linear-in-tau path sources at
+// slant optical depth ts; thin-layer series below thresh.
+__device__ __forceinline__ void lw_layer_sources(float ts, float lay,
+                                                 float lev_dec, float lev_inc,
+                                                 float thresh, float& tr,
+                                                 float& src_dn,
+                                                 float& src_up) {
+  const float omt = -expm1f(-ts);
+  tr = 1.0f - omt;
+  const float fact = ts > thresh ? omt / fmaxf(ts, thresh) - tr
+                                 : ts * (0.5f - ts * (1.0f / 3.0f));
+  src_dn = omt * lev_inc + 2.0f * fact * (lay - lev_inc);
+  src_up = omt * lev_dec + 2.0f * fact * (lay - lev_dec);
+}
+
+// common.two_stream_g0: g = 0 two-stream coefficients rescaled by tau
+// (u = Rayleigh optical depth <= tau).
+__device__ __forceinline__ void two_stream_g0(float tau, float u, float mu0,
+                                              float inv_mu0, float& r_dif,
+                                              float& t_dif, float& r_dir,
+                                              float& t_dir, float& t) {
+  const float eps = FLT_EPSILON;
+  const float taus = fmaxf(tau, 1e-8f);
+  const float ktau =
+      sqrtf(fmaxf((taus - u) * (4.0f * taus - u), 1e-12f * (taus * taus)));
+  const float em1 = -expm1f(-ktau);
+  const float m1 = em1 * (2.0f - em1);  // 1 - e^2
+  const float e = 1.0f - em1;           // e^-ktau
+  const float e2 = 1.0f - m1;           // e^-2ktau
+  const float tm1 = -expm1f(-tau * inv_mu0);  // 1 - t, true tau
+  t = 1.0f - tm1;
+  const float km = ktau * mu0;
+  const float tau2 = taus * taus;
+  float d = tau2 - km * km;
+  d = fabsf(d) >= eps * tau2 ? d : eps * tau2;
+  const float g1t = 2.0f * taus - 1.25f * u;
+  const float al = taus - 0.25f * u;
+  const float a = ktau * (1.0f + e2) + g1t * m1;
+  const float p = 1.0f / (a * d);
+  const float inv_a = d * p;
+  r_dif = (0.75f * u) * m1 * inv_a;
+  t_dif = (2.0f * ktau) * e * inv_a;
+  const float q = em1 * em1 + (2.0f * e) * tm1;
+  const float s = em1 * em1 - tm1 * (1.0f + e2);
+  const float u_p = u * p;
+  const float half_kt = 0.5f * ktau;
+  const float t_m1 = t * m1;
+  r_dir = u_p * (al * (taus * m1 - km * q) + half_kt * (taus * q - km * m1));
+  t_dir = -u_p *
+          (al * (taus * t_m1 + km * s) + half_kt * (taus * s + km * t_m1));
+  r_dir = fminf(fmaxf(r_dir, 0.0f), 1.0f - t);
+  t_dir = fminf(fmaxf(t_dir, 0.0f), 1.0f - t - r_dir);
+}
+
+// Scratch cell (row, column, g): one warp's row is ngpt contiguous floats.
+__device__ __forceinline__ float* cell(float* base, int row, int ncol, int c,
+                                       int ng, int g) {
+  return base + ((size_t)row * ncol + c) * ng + g;
+}
+
+// The LW solve of column c for one band: gas optics, Planck sources,
+// no-scattering sweeps at 1-4 angles, g-summed into W.up / W.dn.
+__device__ void lw_column(const Atmos& A, const Grid& G, const Band& B,
+                          const LwSolve& W, int c, int lane) {
+  const int nlay = A.nlay, ng = B.ngpt, ncol = A.ncol;
+  const float thresh = sqrtf(FLT_EPSILON);
+  float* up = W.up + (size_t)c * (nlay + 1);
+  float* dn = W.dn + (size_t)c * (nlay + 1);
+  const float* tlev = W.tlev + (size_t)c * (nlay + 1);
+  const float* tlay = A.tlay + (size_t)c * nlay;
+  float* S = W.scratch;
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    const bool act = g0 + lane < ng;
+    const int g = act ? g0 + lane : 0;
+    const float e = W.emis[(size_t)c * ng + g];
+    const float b_sfc = planck_at(W, B, W.tsfc[c], g);
+    float b_top = planck_at(W, B, tlev[0], g);
+    if (W.n_ang == 1) {
+      // Layer pass with the fused down sweep; stage trans and src_up.
+      const float sec = W.sec[0], w2pi = W.w2pi[0];
+      float rad = 0.0f;
+      for (int j = 0; j < nlay; ++j) {
+        const LayerPoint L = layer_point(A, G, c, j);
+        const float tau = gas_tau(A, G, B, L, c, j, g);
+        const float b_bot = planck_at(W, B, tlev[j + 1], g);
+        float tr, sdn, sup;
+        lw_layer_sources(tau * sec, planck_at(W, B, tlay[j], g), b_top,
+                         b_bot, thresh, tr, sdn, sup);
+        rad = tr * rad + sdn;
+        const float sum = warp_sum(act ? rad : 0.0f);
+        if (lane == 0) dn[j + 1] += w2pi * sum;
+        if (act) {
+          *cell(S, j, ncol, c, ng, g) = tr;
+          *cell(S, nlay + j, ncol, c, ng, g) = sup;
+        }
+        b_top = b_bot;
+      }
+      rad = e * b_sfc + (1.0f - e) * rad;
+      float sum = warp_sum(act ? rad : 0.0f);
+      if (lane == 0) up[nlay] += w2pi * sum;
+      for (int j = nlay - 1; j >= 0; --j) {
+        rad = *cell(S, j, ncol, c, ng, g) * rad +
+              *cell(S, nlay + j, ncol, c, ng, g);
+        sum = warp_sum(act ? rad : 0.0f);
+        if (lane == 0) up[j] += w2pi * sum;
+      }
+    } else {
+      // Stage tau, layer Planck and level Planck; sweep per angle
+      // (common.multi_angle_lw_sweeps), recomputing the layer sources in
+      // the up sweep instead of staging them per angle.
+      for (int j = 0; j < nlay; ++j) {
+        const LayerPoint L = layer_point(A, G, c, j);
+        const float tau = gas_tau(A, G, B, L, c, j, g);
+        const float b_bot = planck_at(W, B, tlev[j + 1], g);
+        if (act) {
+          *cell(S, j, ncol, c, ng, g) = tau;
+          *cell(S, nlay + j, ncol, c, ng, g) = planck_at(W, B, tlay[j], g);
+          *cell(S, 2 * nlay + j, ncol, c, ng, g) = b_top;
+          if (j == nlay - 1) *cell(S, 3 * nlay, ncol, c, ng, g) = b_bot;
+        }
+        b_top = b_bot;
+      }
+      for (int a = 0; a < W.n_ang; ++a) {
+        const float sec = W.sec[a], w2pi = W.w2pi[a];
+        float rad = 0.0f;
+        float tr, sdn, sup, sum;
+        for (int j = 0; j < nlay; ++j) {
+          lw_layer_sources(*cell(S, j, ncol, c, ng, g) * sec,
+                           *cell(S, nlay + j, ncol, c, ng, g),
+                           *cell(S, 2 * nlay + j, ncol, c, ng, g),
+                           *cell(S, 2 * nlay + j + 1, ncol, c, ng, g), thresh,
+                           tr, sdn, sup);
+          rad = tr * rad + sdn;
+          sum = warp_sum(act ? rad : 0.0f);
+          if (lane == 0) dn[j + 1] += w2pi * sum;
+        }
+        rad = e * b_sfc + (1.0f - e) * rad;
+        sum = warp_sum(act ? rad : 0.0f);
+        if (lane == 0) up[nlay] += w2pi * sum;
+        for (int j = nlay - 1; j >= 0; --j) {
+          lw_layer_sources(*cell(S, j, ncol, c, ng, g) * sec,
+                           *cell(S, nlay + j, ncol, c, ng, g),
+                           *cell(S, 2 * nlay + j, ncol, c, ng, g),
+                           *cell(S, 2 * nlay + j + 1, ncol, c, ng, g), thresh,
+                           tr, sdn, sup);
+          rad = tr * rad + sup;
+          sum = warp_sum(act ? rad : 0.0f);
+          if (lane == 0) up[j] += w2pi * sum;
+        }
+      }
+    }
+  }
+}
+
+// The SW solve of column c for one band: gas optics + Rayleigh, the TOA
+// source mu0 * tsi_scale * solar, g = 0 two-stream, direct beam, adding up
+// and down, g-summed into W.up / W.dn.  The night mask is the caller's.
+__device__ void sw_column(const Atmos& A, const Grid& G, const Band& B,
+                          const SwSolve& W, int c, int lane) {
+  const int nlay = A.nlay, ng = B.ngpt, ncol = A.ncol;
+  float* up = W.up + (size_t)c * (nlay + 1);
+  float* dn = W.dn + (size_t)c * (nlay + 1);
+  float* S = W.scratch;
+  // Scratch rows: r_dif, t_dif, src_up (then denom), src_dn, and the
+  // per-level albedo / source of the stack below (nlay+1 each).
+  const int R_RDIF = 0, R_TDIF = nlay, R_SRCUP = 2 * nlay, R_SRCDN = 3 * nlay,
+            R_ALB = 4 * nlay, R_SRC = 5 * nlay + 1;
+  const float mu0 = W.mu0[c];
+  const float inv_mu0 = 1.0f / mu0;
+  const float scale = W.tsi_scale[c];
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    const bool act = g0 + lane < ng;
+    const int g = act ? g0 + lane : 0;
+    auto at = [&](int row) { return cell(S, row, ncol, c, ng, g); };
+    // Layer pass with the fused direct-beam sweep.
+    float direct = mu0 * scale * W.solar[g];
+    float sum = warp_sum(act ? direct : 0.0f);
+    if (lane == 0) dn[0] += sum;
+    const float ray = W.ray[g];
+    for (int j = 0; j < nlay; ++j) {
+      const LayerPoint L = layer_point(A, G, c, j);
+      const float tau_ray = L.simple_w * ray;
+      const float tau = gas_tau(A, G, B, L, c, j, g) + tau_ray;
+      float r_dif, t_dif, r_dir, t_dir, t;
+      two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir,
+                    t);
+      if (act) {
+        *at(R_RDIF + j) = r_dif;
+        *at(R_TDIF + j) = t_dif;
+        *at(R_SRCUP + j) = r_dir * direct;
+        *at(R_SRCDN + j) = t_dir * direct;
+      }
+      direct = t * direct;
+      sum = warp_sum(act ? direct : 0.0f);
+      if (lane == 0) dn[j + 1] += sum;
+    }
+    // Upward adding pass (common.sw_adding_up_step).
+    float albedo = W.alb[(size_t)c * ng + g];
+    float src = albedo * direct;
+    if (act) {
+      *at(R_ALB + nlay) = albedo;
+      *at(R_SRC + nlay) = src;
+    }
+    for (int j = nlay - 1; j >= 0; --j) {
+      const float r_dif = *at(R_RDIF + j), t_dif = *at(R_TDIF + j);
+      const float denom = 1.0f / (1.0f - r_dif * albedo);
+      const float src_new =
+          *at(R_SRCUP + j) + t_dif * denom * (src + albedo * *at(R_SRCDN + j));
+      albedo = r_dif + t_dif * t_dif * albedo * denom;
+      src = src_new;
+      if (act) {
+        *at(R_SRCUP + j) = denom;
+        *at(R_ALB + j) = albedo;
+        *at(R_SRC + j) = src;
+      }
+    }
+    sum = warp_sum(act ? src : 0.0f);
+    if (lane == 0) up[0] += sum;
+    // Downward adding pass (common.sw_adding_dn_step).
+    float dif = 0.0f;
+    for (int j = 0; j < nlay; ++j) {
+      const float src_next = *at(R_SRC + j + 1);
+      dif = (*at(R_TDIF + j) * dif + *at(R_RDIF + j) * src_next +
+             *at(R_SRCDN + j)) *
+            *at(R_SRCUP + j);
+      const float upv = dif * *at(R_ALB + j + 1) + src_next;
+      const float sd = warp_sum(act ? dif : 0.0f);
+      const float su = warp_sum(act ? upv : 0.0f);
+      if (lane == 0) {
+        dn[j + 1] += sd;
+        up[j + 1] += su;
+      }
+    }
+  }
+}
+
+// Blocks of WARPS_PER_BLOCK warps covering `warps` warps.
+inline int blocks_for(long long warps) {
+  return (int)((warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
+}
+
+}  // namespace
+
+extern "C" const char* ecckd_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

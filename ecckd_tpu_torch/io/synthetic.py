@@ -5,9 +5,12 @@
 * ``write_synthetic_ckd`` writes a netCDF3 ckd-definition file with the
   schema of the shipped ecCKD 1.2 files (SURVEY.md section 2.6) at their
   exact dimensions: ``lw_fsck`` has 32 g-points in 1 band and a 231-point
-  Planck table; ``sw_wide`` has 27 g-points in 5 bands; both share a
+  Planck table; ``lw_rrtmgp`` 36 g-points in the 16 RRTMGP bands and the
+  same Planck table; ``sw_wide`` has 27 g-points in 5 bands; all share a
   53-pressure x 6-temperature grid and a 12-point h2o mole-fraction axis,
-  so the pair is mergeable.  Gas registration follows the shipped files:
+  so any LW + SW pair is mergeable.  ``n_pressure`` puts a file on another
+  pressure grid over the same range (a pair that is not mergeable).  Gas
+  registration follows the shipped files:
   composite (code 0) with o2/n2 composite-only, h2o a LUT gas,
   o3/co2 (and LW cfc11/cfc12) linear, ch4/n2o relative-linear
   (1.921e-6, 3.32e-7).  The values are plausible, not physical: each
@@ -17,6 +20,7 @@
   ``negative_entry=True``, which makes some co2 and h2o entries negative.
 
 Usage: python -m ecckd_tpu_torch.io.synthetic out.nc --kind lw_fsck [--seed S]
+       [--negative-entry] [--n-pressure N]
 """
 from __future__ import annotations
 
@@ -32,9 +36,15 @@ KINDS = {
     # kind: (ngpt, band sizes, wavenumber count, gases with own tables)
     "lw_fsck": (32, (32,), 326,
                 ("h2o", "o3", "co2", "ch4", "n2o", "cfc11", "cfc12")),
+    "lw_rrtmgp": (36, (3, 3, 3) + (2,) * 12 + (3,), 326,
+                  ("h2o", "o3", "co2", "ch4", "n2o", "cfc11", "cfc12")),
     "sw_wide": (27, (5, 6, 5, 6, 5), 995, ("h2o", "o3", "co2", "ch4", "n2o")),
 }
 BAND_EDGES = {"lw_fsck": (0.0, 3260.0),
+              # The 16 RRTMGP longwave bands [cm-1].
+              "lw_rrtmgp": (10.0, 250.0, 500.0, 630.0, 700.0, 820.0, 980.0,
+                            1080.0, 1180.0, 1390.0, 1480.0, 1800.0, 2080.0,
+                            2250.0, 2390.0, 2680.0, 3250.0),
               "sw_wide": (250.0, 2600.0, 4000.0, 8050.0, 12850.0, 50000.0)}
 LINEAR, RELATIVE_LINEAR = constants.CONC_LINEAR, constants.CONC_RELATIVE_LINEAR
 REFERENCE_MF = {"ch4": 1.921e-6, "n2o": 3.32e-7}
@@ -81,11 +91,11 @@ def example_flux_batch(ncol: int, nlay: int, dtype, device=None):
                 alb=alb, tsi=tsi, sza=sza, concs=concs)
 
 
-def _grids():
+def _grids(n_pressure: int = N_PRESSURE):
     """Pressure (0.694 Pa .. 1.1e5 Pa, uniform in ln p) and the (T, p)
     temperature grid: 20 K steps from an origin rising with pressure."""
-    pressure = np.exp(np.linspace(np.log(0.694), np.log(1.1e5), N_PRESSURE))
-    t_first = 138.46 + 70.0 * np.linspace(0.0, 1.0, N_PRESSURE)
+    pressure = np.exp(np.linspace(np.log(0.694), np.log(1.1e5), n_pressure))
+    t_first = 138.46 + 70.0 * np.linspace(0.0, 1.0, n_pressure)
     temperature = (t_first[None, :]
                    + 20.0 * np.arange(N_TEMPERATURE)[:, None])  # (T, p)
     mole_fraction = np.exp(np.linspace(np.log(1.61e-7), np.log(5.08e-2),
@@ -119,14 +129,16 @@ def _absorption(rng, gases, ngpt, pressure, temperature, mole_fraction):
 
 
 def write_synthetic_ckd(path: str, kind: str = "lw_fsck", seed: int = 0,
-                        negative_entry: bool = False) -> None:
-    """Write a synthetic ckd-definition file of ``kind`` ("lw_fsck" or
-    "sw_wide"); see the module docstring."""
+                        negative_entry: bool = False,
+                        n_pressure: int = N_PRESSURE) -> None:
+    """Write a synthetic ckd-definition file of ``kind`` ("lw_fsck",
+    "lw_rrtmgp" or "sw_wide") on an ``n_pressure``-point pressure grid; see
+    the module docstring."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     ngpt, band_sizes, n_wn, gases = KINDS[kind]
     rng = np.random.default_rng(seed)
-    pressure, temperature, mole_fraction = _grids()
+    pressure, temperature, mole_fraction = _grids(n_pressure)
     tables = _absorption(rng, gases, ngpt, pressure, temperature,
                          mole_fraction)
     if negative_entry:
@@ -139,7 +151,7 @@ def write_synthetic_ckd(path: str, kind: str = "lw_fsck", seed: int = 0,
 
     f = netcdf_file(path, "w", version=1)
     try:
-        for name, size in (("g_point", ngpt), ("pressure", N_PRESSURE),
+        for name, size in (("g_point", ngpt), ("pressure", n_pressure),
                            ("temperature", N_TEMPERATURE),
                            ("wavenumber", n_wn), ("band", len(band_sizes)),
                            ("h2o_mole_fraction", N_MOLE_FRACTION),
@@ -158,7 +170,7 @@ def write_synthetic_ckd(path: str, kind: str = "lw_fsck", seed: int = 0,
         owner = rng.integers(0, ngpt, n_wn)
         var("gpoint_fraction", "f4", ("g_point", "wavenumber"),
             (owner[None, :] == np.arange(ngpt)[:, None]).astype(np.float32))
-        if kind == "sw_wide":
+        if kind.startswith("sw"):
             solar = rng.uniform(0.5, 1.5, ngpt)
             var("solar_irradiance", "f8", ("g_point",),
                 1361.0 * solar / solar.sum())
@@ -181,7 +193,7 @@ def write_synthetic_ckd(path: str, kind: str = "lw_fsck", seed: int = 0,
         var("n_gases", "i4", (), len(gases) + 1)
         var("composite_mole_fraction", "f8", ("composite_gas", "pressure"),
             np.tile([[0.2095], [0.7808], [3.2e-7], [1.8e-6]],
-                    (1, N_PRESSURE)))
+                    (1, n_pressure)))
         var("composite_conc_dependence_code", "i2", (),
             constants.CONC_NONE)
         var("composite_molar_absorption_coeff", "f4",
@@ -211,9 +223,10 @@ def main(argv=None) -> int:
     p.add_argument("--kind", choices=sorted(KINDS), default="lw_fsck")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--negative-entry", action="store_true")
+    p.add_argument("--n-pressure", type=int, default=N_PRESSURE)
     args = p.parse_args(argv)
     write_synthetic_ckd(args.output, args.kind, args.seed,
-                        args.negative_entry)
+                        args.negative_entry, args.n_pressure)
     print(f"wrote {args.output}: synthetic {args.kind}")
     return 0
 

@@ -3,9 +3,10 @@
 ``nvcc`` compiles ``ecckd_tpu_torch/csrc/<name>.cu`` from the package's own
 sources into a shared library with a plain C interface (loaded with
 ``ctypes``) under ``ecckd_tpu_torch/_build/``.  The file name carries a
-hash of the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is reused.  A failed build raises with nvcc's output; there
-is no fallback.
+hash of the source, of every header under ``csrc/`` (the kernels share
+``common.cuh``) and of the flags, so an edited kernel or header is rebuilt
+and an unchanged one is reused.  A failed build raises with nvcc's output;
+there is no fallback.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -std=c++17`` and no
 fast-math (the kernels rely on IEEE-accurate expm1f/logf/divides).
@@ -46,10 +47,13 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` goes: keyed by a hash of the
-    source and the compiler flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    source, the headers it may include (every ``csrc/*.cuh``) and the
+    compiler flags."""
+    h = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,18 +1,29 @@
-"""Torch ports of the per-layer math the merged kernel carries.
+"""The plain PyTorch counterpart of ``csrc/common.cuh``.
 
-Counterparts of the single homes in ``ecckd_tpu/ops/pallas/common.py``
-(``lw_layer_sources``, ``two_stream_g0``, ``sw_adding_up_step``,
-``sw_adding_dn_step``).  ``csrc/lwsw.cu`` implements the same formulas
-per g-point; ``lwsw_fluxes_plain`` builds on these, at any dtype and on
-any device.  The constants are the kernel's float32 ones at every dtype
-(thin-layer threshold sqrt(eps_f32), the 1e-8 tau floor, the
+* The per-layer math, ports of the single homes in
+  ``ecckd_tpu/ops/pallas/common.py`` (``lw_layer_sources``,
+  ``two_stream_g0``, ``sw_adding_up_step``, ``sw_adding_dn_step``).
+* The bodies of one band's solve, ``gas_tau_plain``, ``lw_plain`` and
+  ``sw_plain`` (common.cuh's ``gas_tau``, ``lw_column``, ``sw_column``),
+  on the host preparation of ops/cuda/plan.py, and the night mask.
+
+``lwsw_fluxes_plain``, ``lw_fluxes_plain`` and ``sw_fluxes_plain`` are
+built from these, at any dtype and on any device, as the three kernels are
+built from common.cuh.  The constants are the kernels' float32 ones at
+every dtype (thin-layer threshold sqrt(eps_f32), the 1e-8 tau floor, the
 eps_f32 * tau^2 resonance guard), so the plain path at float64 differs from
-the kernel only by rounding.
+the kernels only by rounding.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ecckd_tpu_torch import constants
+from ecckd_tpu_torch.ops import interp
+from ecckd_tpu_torch.ops.cuda import plan as plan_mod
+from ecckd_tpu_torch.ops.planck import planck_source
+from ecckd_tpu_torch.solvers.quadrature import gauss_angles
 
 EPS_F32 = float(np.finfo(np.float32).eps)
 THIN_LAYER_TAU = float(np.sqrt(np.finfo(np.float32).eps))
@@ -91,3 +102,122 @@ def sw_adding_dn_step(t_dif, r_dif, denom, dn, albedo_next, src_next,
     dn_next = (t_dif * dn + r_dif * src_next + src_dn) * denom
     up_next = dn_next * albedo_next + src_next
     return dn_next, up_next
+
+
+def gas_tau_plain(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs,
+                  simple_w: torch.Tensor) -> torch.Tensor:
+    """(ncol, nlay, ngpt) gas optical depth of one band on its own model's
+    (p, T) grid, from the flat table, the gas plan and the vmr stacks, per
+    gas clamped at zero (common.cuh's gas_tau)."""
+    arr = band.arrays
+    p_iw = interp.pressure_index(atm.plev, arr.log_p0, arr.d_log_p, band.n_p)
+    t_iw = interp.temperature_index(atm.tlay, p_iw, arr.temperature_grid)
+    table = arr.table
+    n_pt = band.n_p * band.n_t
+
+    def vmr(slot):
+        kind, idx = band.vmr_kinds[slot]
+        if kind == plan_mod.VMR_PROFILE:
+            return atm.vmr_prof[:, idx, :]
+        return atm.vmr_col[:, idx, None]
+
+    tau = torch.zeros((*atm.tlay.shape, band.plan.ngpt), dtype=table.dtype,
+                      device=table.device)
+    for sl in band.plan.slices:
+        if sl.kind == plan_mod.KIND_DENSE:
+            w = (simple_w * sl.b if sl.vmr_slot < 0
+                 else simple_w * (sl.a * vmr(sl.vmr_slot) + sl.b))
+            coeff = interp.bilinear_gather(table[sl.row0:sl.row0 + n_pt],
+                                           band.n_t, p_iw, t_iw)
+        else:
+            v = vmr(sl.vmr_slot)
+            rows = len(sl.mf_grid) * n_pt
+            coeff = interp.trilinear_gather(
+                table[sl.row0:sl.row0 + rows], band.n_p, band.n_t, p_iw,
+                t_iw, interp.vmr_index(v, sl.mf_grid))
+            w = simple_w * v
+        tau = tau + torch.clamp(w[..., None] * coeff, min=0.0)
+    return tau
+
+
+def _simple_weight(atm: plan_mod.Atmosphere) -> torch.Tensor:
+    """Moles of dry air per m^2 in each layer."""
+    return constants.MOLES_PER_PA * (atm.plev[:, 1:] - atm.plev[:, :-1])
+
+
+def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs):
+    """One LW band (common.cuh's lw_column): gas optics, Planck sources and
+    the sweeps per angle (common.multi_angle_lw_sweeps; at 1 angle the same
+    per-layer math as the fused layer pass).  Returns (up, dn)."""
+    tau = gas_tau_plain(atm, lw, _simple_weight(atm))
+    arr = lw.arrays
+    planck = lambda t: planck_source(t, arr.planck_temperature,
+                                     arr.planck_function)
+    b_lay, b_lev, b_sfc = planck(atm.tlay), planck(lw.tlev), planck(lw.tsfc)
+    ncol, nlay = atm.tlay.shape
+    up = torch.zeros((ncol, nlay + 1), dtype=tau.dtype, device=tau.device)
+    dn = torch.zeros_like(up)
+    for sec, wgt in zip(*gauss_angles(lw.n_gauss_angles)):
+        w2pi = 2.0 * constants.PI * wgt
+        # Edge convention of common.level_edges: the decreasing-index edge
+        # of layer j is level j, the increasing-index edge level j+1.
+        tr, src_dn, src_up = lw_layer_sources(
+            tau * sec, b_lay, b_lev[:, :-1], b_lev[:, 1:])
+        rad = torch.zeros_like(b_sfc)
+        dn_sums = [torch.zeros_like(up[:, 0])]
+        for j in range(nlay):
+            rad = tr[:, j] * rad + src_dn[:, j]
+            dn_sums.append(torch.sum(rad, dim=-1))
+        rad = lw.emis * b_sfc + (1.0 - lw.emis) * rad
+        up_sums = [torch.sum(rad, dim=-1)]
+        for j in range(nlay - 1, -1, -1):
+            rad = tr[:, j] * rad + src_up[:, j]
+            up_sums.append(torch.sum(rad, dim=-1))
+        dn = dn + w2pi * torch.stack(dn_sums, dim=1)
+        up = up + w2pi * torch.stack(up_sums[::-1], dim=1)
+    return up, dn
+
+
+def sw_plain(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs):
+    """One SW band (common.cuh's sw_column): gas optics + Rayleigh, the
+    direct beam, then adding up and down (sw_adding_*_step).  Returns
+    (up, dn) before the night mask."""
+    simple_w = _simple_weight(atm)
+    tau_gas = gas_tau_plain(atm, sw, simple_w)
+    arr = sw.arrays
+    nlay = atm.tlay.shape[1]
+    tau_ray = simple_w[..., None] * arr.rayleigh
+    mu0 = sw.mu0[:, None, None]
+    r_dif, t_dif, r_dir, t_dir, t = two_stream_g0(
+        tau_gas + tau_ray, tau_ray, mu0, 1.0 / mu0)
+    direct = (sw.mu0 * sw.tsi_scale)[:, None] * arr.solar
+    dn_sums = [torch.sum(direct, dim=-1)]
+    src_up, src_dn = [], []
+    for j in range(nlay):
+        src_up.append(r_dir[:, j] * direct)
+        src_dn.append(t_dir[:, j] * direct)
+        direct = t[:, j] * direct
+        dn_sums.append(torch.sum(direct, dim=-1))
+    albedo = [None] * (nlay + 1)
+    src = [None] * (nlay + 1)
+    denom = [None] * nlay
+    albedo[nlay], src[nlay] = sw.alb, sw.alb * direct
+    for j in range(nlay - 1, -1, -1):
+        denom[j], albedo[j], src[j] = sw_adding_up_step(
+            r_dif[:, j], t_dif[:, j], albedo[j + 1], src[j + 1], src_up[j],
+            src_dn[j])
+    up_sums = [torch.sum(src[0], dim=-1)]
+    dif = torch.zeros_like(direct)
+    for j in range(nlay):
+        dif, up_next = sw_adding_dn_step(
+            t_dif[:, j], r_dif[:, j], denom[j], dif, albedo[j + 1],
+            src[j + 1], src_dn[j])
+        dn_sums[j + 1] = dn_sums[j + 1] + torch.sum(dif, dim=-1)
+        up_sums.append(torch.sum(up_next, dim=-1))
+    return torch.stack(up_sums, dim=1), torch.stack(dn_sums, dim=1)
+
+
+def night_masked(sw: plan_mod.SwInputs, up: torch.Tensor, dn: torch.Tensor):
+    """Zero the night columns, which ran with mu0 = 1 (sw.py:325)."""
+    day = sw.usecol.to(up.dtype)[:, None]
+    return up * day, dn * day

@@ -1,0 +1,90 @@
+"""Longwave-only solve: the CUDA kernel and its plain version.
+
+``lw_fluxes_cuda`` is the port of the JAX package's
+``ops/pallas/lw.py::lw_fluxes_fused`` (TPU kernel ``_lw_kernel``): one LW
+model's broadband up and down fluxes, ``top_at_1``, 1-4 Gauss angles, on
+the model's own (p, T) grid.  It takes CUDA tensors and launches
+``csrc/lw.cu`` (float32 only), or raises.  ``lw_fluxes_plain`` is the same
+computation in plain PyTorch (ops/cuda/common.py's ``lw_plain``, which the
+merged plain version runs too), any dtype on any device.  Returns
+(flux_up, flux_dn), each (ncol, nlay+1).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod
+from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
+
+Fluxes2 = Tuple[torch.Tensor, torch.Tensor]
+
+
+class _Args(ctypes.Structure):
+    """Mirror of csrc/lw.cu's LwArgs."""
+    _fields_ = [("atm", binding.Atmos), ("grid", binding.Grid),
+                ("band", binding.Band), ("lw", binding.LwSolve)]
+
+
+def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
+                 column_chunk: int) -> Fluxes2:
+    """Launch csrc/lw.cu over column chunks on the current stream."""
+    ncol, nlay = atm.tlay.shape
+    binding.check_inputs("lw", atm, *binding.lw_shapes(lw, ncol, nlay))
+    dev = atm.tlay.device
+    up, dn = (torch.zeros((ncol, nlay + 1), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    if ncol == 0:
+        return up, dn
+    chunk = max(1, min(int(column_chunk), ncol))
+    scratch = torch.empty((binding.lw_scratch_rows(lw, nlay), chunk,
+                           lw.plan.ngpt), dtype=torch.float32, device=dev)
+    grid, band = binding.grid_struct(lw), binding.band_struct(lw)
+
+    def make_args(c0: int, c1: int) -> _Args:
+        return _Args(atm=binding.atmos_struct(atm, c0, c1), grid=grid,
+                     band=band,
+                     lw=binding.lw_struct(lw, c0, c1, up, dn, scratch))
+
+    binding.launch_chunks("lw", _Args, ncol, chunk, make_args,
+                          lw_fluxes_cuda, dev)
+    return up, dn
+
+
+def lw_fluxes_plain(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
+                    tlev: torch.Tensor, tsfc: torch.Tensor,
+                    emis_gpt: torch.Tensor, gas_concs: GasConcs,
+                    n_gauss_angles: int = 1) -> Fluxes2:
+    """The kernel's computation in plain PyTorch, in tlay's dtype on
+    tlay's device.  Arguments as ``lw_fluxes_cuda``."""
+    atm, lw = plan_mod.prepare_lw(model, plev, tlay, tlev, tsfc, emis_gpt,
+                                  gas_concs, n_gauss_angles)
+    return common.lw_plain(atm, lw)
+
+
+def lw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
+                   tlev: torch.Tensor, tsfc: torch.Tensor,
+                   emis_gpt: torch.Tensor, gas_concs: GasConcs,
+                   n_gauss_angles: int = 1,
+                   column_chunk: int = DEFAULT_COLUMN_CHUNK) -> Fluxes2:
+    """LW broadband fluxes through the CUDA kernel.
+
+    Args mirror pipeline.lw_fluxes with the emissivity already per
+    g-point, emis_gpt (ncol, ngpt); column_chunk: columns per launch
+    (bounds the scratch memory).
+
+    Takes float32 CUDA tensors and launches the kernel; anything else
+    raises (ValueError), CPU tensors included: ``lw_fluxes_plain`` is the
+    version for those.  Each launch adds one to ``lw_fluxes_cuda.launches``.
+    """
+    binding.require_cuda("lw_fluxes_cuda", tlay)
+    atm, lw = plan_mod.prepare_lw(model, plev, tlay, tlev, tsfc, emis_gpt,
+                                  gas_concs, n_gauss_angles)
+    return _kernel_core(atm, lw, column_chunk)
+
+
+lw_fluxes_cuda.launches = 0

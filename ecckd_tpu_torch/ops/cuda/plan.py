@@ -1,8 +1,10 @@
-"""Host preparation for the merged LW+SW CUDA kernel (ops/cuda/lwsw.py).
+"""Host preparation for the CUDA kernels (ops/cuda/lwsw.py, lw.py, sw.py).
 
 Takes the place of the JAX package's ``build_plan`` / ``split_vmrs_multi``
-(ops/pallas/plan.py:86,203), ``models_mergeable`` (ops/pallas/lwsw.py:299)
-and ``surface_prep`` (ops/pallas/sw.py:148-174).  What it builds:
+(ops/pallas/plan.py:86,203), ``models_mergeable`` (ops/pallas/lwsw.py:299),
+``surface_prep`` (ops/pallas/sw.py:148-174) and the host halves of
+``lw_fluxes_fused`` / ``sw_fluxes_fused`` (lw.py:307, sw.py:177).  What it
+builds:
 
 * a per-model gas plan: one slice per contributing gas (kind, first table
   row, vmr slot, affine weight a/b or the LUT mole-fraction axis), dense
@@ -10,9 +12,14 @@ and ``surface_prep`` (ops/pallas/sw.py:148-174).  What it builds:
 * the model's tables flattened in natural (gas, [mole fraction,] p, T, g)
   order with g fastest, so the kernel's per-warp gather at one grid corner
   is one contiguous ngpt-float row;
-* the stacked vmr rows shared by both models: (ncol, n_prof, nlay)
-  profiles and (ncol, n_col) well-mixed rows, each gas stored once;
+* the stacked vmr rows shared by the models of one solve: (ncol, n_prof,
+  nlay) profiles and (ncol, n_col) well-mixed rows, each gas stored once;
 * TSI scale, mu0 and the night mask; emissivity and albedo per g-point.
+
+A solve's inputs are one ``Atmosphere`` (per-column, shared) and one
+``LwInputs`` and/or ``SwInputs`` per band, each carrying its own model's
+arrays and grid: ``prepare_lw`` / ``prepare_sw`` build the single-band
+solves, ``prepare`` the merged one (a mergeable pair only).
 
 The gas plan and the model arrays are cached on the model object (keyed
 by request / dtype / device); the per-call arrays are rebuilt per call.
@@ -201,67 +208,131 @@ def surface_prep(solar: torch.Tensor, sfc_alb: torch.Tensor,
 
 
 @dataclasses.dataclass(frozen=True)
+class Atmosphere:
+    """The per-column inputs the bands of one solve share, in one dtype on
+    one device; column-major outermost so a column chunk is a contiguous
+    slice."""
+    plev: torch.Tensor        # (ncol, nlay+1)
+    tlay: torch.Tensor        # (ncol, nlay)
+    vmr_prof: torch.Tensor    # (ncol, n_prof, nlay)
+    vmr_col: torch.Tensor     # (ncol, n_col)
+
+
+@dataclasses.dataclass(frozen=True)
 class BandInputs:
+    """One model's part of a solve: its gas plan, where each of its vmr
+    slots sits in the Atmosphere's stacks, and its arrays (tables and its
+    own (p, T) grid)."""
     plan: GasPlan
     vmr_kinds: Tuple[Tuple[int, int], ...]
     arrays: ModelArrays
 
+    @property
+    def n_p(self) -> int:
+        return self.arrays.temperature_grid.shape[0]
+
+    @property
+    def n_t(self) -> int:
+        return self.arrays.temperature_grid.shape[1]
+
 
 @dataclasses.dataclass(frozen=True)
-class LwswInputs:
-    """Everything one merged solve consumes, in one dtype on one device;
-    column-major outermost so a column chunk is a contiguous slice."""
-    plev: torch.Tensor        # (ncol, nlay+1)
-    tlay: torch.Tensor        # (ncol, nlay)
-    tlev: torch.Tensor        # (ncol, nlay+1)
-    tsfc: torch.Tensor        # (ncol,)
-    emis: torch.Tensor        # (ncol, ngpt_lw)
-    alb: torch.Tensor         # (ncol, ngpt_sw)
-    mu0: torch.Tensor         # (ncol,)
-    tsi_scale: torch.Tensor   # (ncol,)
-    usecol: torch.Tensor      # (ncol,) bool: daytime columns
-    vmr_prof: torch.Tensor    # (ncol, n_prof, nlay)
-    vmr_col: torch.Tensor     # (ncol, n_col)
-    lw: BandInputs
-    sw: BandInputs
-    n_p: int
-    n_t: int
-    n_gauss_angles: int
+class LwInputs(BandInputs):
+    """A LW band: the model's part plus the LW solve's per-column terms.
+    The same type serves the LW-only and the merged solve."""
+    tlev: torch.Tensor       # (ncol, nlay+1)
+    tsfc: torch.Tensor       # (ncol,)
+    emis: torch.Tensor       # (ncol, ngpt)
+    n_gauss_angles: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SwInputs(BandInputs):
+    """A SW band: the model's part plus the SW solve's per-column terms.
+    The same type serves the SW-only and the merged solve."""
+    alb: torch.Tensor        # (ncol, ngpt)
+    mu0: torch.Tensor        # (ncol,)
+    tsi_scale: torch.Tensor  # (ncol,)
+    usecol: torch.Tensor     # (ncol,) bool: daytime columns
+
+
+def _atmosphere(models, gas_concs: GasConcs, plev: torch.Tensor,
+                tlay: torch.Tensor):
+    """The shared Atmosphere of a solve over ``models`` (each gas's vmr
+    stored once) and, per model, (plan, vmr_kinds)."""
+    dtype, device = tlay.dtype, tlay.device
+    ncol, nlay = tlay.shape
+    plans = tuple(build_plan(m, gas_concs.names) for m in models)
+    prof, col, kinds = stack_vmrs(plans, gas_concs, ncol, nlay, dtype,
+                                  device)
+    f = lambda x: x.to(device=device, dtype=dtype).contiguous()
+    atm = Atmosphere(plev=f(plev), tlay=f(tlay), vmr_prof=prof, vmr_col=col)
+    return atm, tuple(zip(plans, kinds))
+
+
+def _lw_inputs(model: CKDModel, plan_kinds, tlay: torch.Tensor,
+               tlev: torch.Tensor, tsfc: torch.Tensor, emis_gpt: torch.Tensor,
+               n_gauss_angles: int) -> LwInputs:
+    if not 1 <= n_gauss_angles <= 4:
+        raise ValueError(f"n_gauss_angles must be in 1..4, got "
+                         f"{n_gauss_angles}")
+    dtype, device = tlay.dtype, tlay.device
+    f = lambda x: x.to(device=device, dtype=dtype).contiguous()
+    return LwInputs(*plan_kinds, model_arrays(model, dtype, device),
+                    tlev=f(tlev), tsfc=f(tsfc), emis=f(emis_gpt),
+                    n_gauss_angles=n_gauss_angles)
+
+
+def _sw_inputs(model: CKDModel, plan_kinds, tlay: torch.Tensor,
+               sfc_alb: torch.Tensor, tsi: torch.Tensor,
+               sza_deg: torch.Tensor) -> SwInputs:
+    dtype, device = tlay.dtype, tlay.device
+    f = lambda x: x.to(device=device, dtype=dtype).contiguous()
+    arrays = model_arrays(model, dtype, device)
+    tsi_scale, usecol, mu0, alb = surface_prep(
+        arrays.solar, f(sfc_alb), f(tsi), f(sza_deg), model.ngpt, dtype)
+    return SwInputs(*plan_kinds, arrays, alb=alb, mu0=mu0.contiguous(),
+                    tsi_scale=tsi_scale.contiguous(), usecol=usecol)
+
+
+def prepare_lw(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
+               tlev: torch.Tensor, tsfc: torch.Tensor, emis_gpt: torch.Tensor,
+               gas_concs: GasConcs, n_gauss_angles: int = 1
+               ) -> Tuple[Atmosphere, LwInputs]:
+    """The LW-only solve's inputs in tlay's dtype on tlay's device."""
+    if not model.source_is_internal():
+        raise ValueError("the LW path takes a longwave ckd model")
+    atm, (pk,) = _atmosphere((model,), gas_concs, plev, tlay)
+    return atm, _lw_inputs(model, pk, tlay, tlev, tsfc, emis_gpt,
+                           n_gauss_angles)
+
+
+def prepare_sw(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
+               gas_concs: GasConcs, sfc_alb: torch.Tensor, tsi: torch.Tensor,
+               sza_deg: torch.Tensor) -> Tuple[Atmosphere, SwInputs]:
+    """The SW-only solve's inputs in tlay's dtype on tlay's device."""
+    if not model.source_is_external():
+        raise ValueError("the SW path takes a shortwave ckd model")
+    atm, (pk,) = _atmosphere((model,), gas_concs, plev, tlay)
+    return atm, _sw_inputs(model, pk, tlay, sfc_alb, tsi, sza_deg)
 
 
 def prepare(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
             tlay: torch.Tensor, tlev: torch.Tensor, tsfc: torch.Tensor,
             emis_gpt: torch.Tensor, gas_concs: GasConcs,
             sfc_alb: torch.Tensor, tsi: torch.Tensor, sza_deg: torch.Tensor,
-            n_gauss_angles: int = 1) -> LwswInputs:
-    """Build the merged solve's inputs in tlay's dtype on tlay's device."""
+            n_gauss_angles: int = 1
+            ) -> Tuple[Atmosphere, LwInputs, SwInputs]:
+    """The merged solve's inputs in tlay's dtype on tlay's device: one
+    Atmosphere (both plans' vmrs, each gas once) and both bands."""
     if not model_lw.source_is_internal() or not model_sw.source_is_external():
         raise ValueError("the merged path takes a longwave and a shortwave "
                          "ckd model, in that order")
     if not models_mergeable(model_lw, model_sw):
         raise ValueError("models do not share a (p, T) grid; the merged "
                          "path does not apply")
-    if not 1 <= n_gauss_angles <= 4:
-        raise ValueError(f"n_gauss_angles must be in 1..4, got "
-                         f"{n_gauss_angles}")
-    dtype, device = tlay.dtype, tlay.device
-    ncol, nlay = tlay.shape
-    f = lambda x: x.to(device=device, dtype=dtype).contiguous()
-    plan_lw = build_plan(model_lw, gas_concs.names)
-    plan_sw = build_plan(model_sw, gas_concs.names)
-    prof, col, (kinds_lw, kinds_sw) = stack_vmrs(
-        (plan_lw, plan_sw), gas_concs, ncol, nlay, dtype, device)
-    arr_lw = model_arrays(model_lw, dtype, device)
-    arr_sw = model_arrays(model_sw, dtype, device)
-    tsi_scale, usecol, mu0, alb = surface_prep(
-        arr_sw.solar, f(sfc_alb), f(tsi), f(sza_deg), model_sw.ngpt, dtype)
-    return LwswInputs(
-        plev=f(plev), tlay=f(tlay), tlev=f(tlev), tsfc=f(tsfc),
-        emis=f(emis_gpt), alb=alb, mu0=mu0.contiguous(),
-        tsi_scale=tsi_scale.contiguous(), usecol=usecol,
-        vmr_prof=prof, vmr_col=col,
-        lw=BandInputs(plan_lw, kinds_lw, arr_lw),
-        sw=BandInputs(plan_sw, kinds_sw, arr_sw),
-        n_p=model_lw.log_pressure.shape[0],
-        n_t=model_lw.temperature_grid.shape[1],
-        n_gauss_angles=n_gauss_angles)
+    atm, (pk_lw, pk_sw) = _atmosphere((model_lw, model_sw), gas_concs, plev,
+                                      tlay)
+    return (atm, _lw_inputs(model_lw, pk_lw, tlay, tlev, tsfc, emis_gpt,
+                            n_gauss_angles),
+            _sw_inputs(model_sw, pk_sw, tlay, sfc_alb, tsi, sza_deg))

@@ -10,13 +10,18 @@ Driver-level semantics reproduced here:
   (ecckd_rfmip_sw.F90:103-108,125-161).
 
 Backends: ``"torch"`` is the plain tensor path (gas_optics_* + rte_lw /
-rte_sw); ``"cuda"`` is the merged LW+SW kernel (ops/cuda/lwsw.py), which
-applies to float32 CUDA tensors, ``top_at_1`` and a model pair on one
-(p, T) grid; ``"auto"`` takes the kernel where it applies and the torch
-path otherwise (float64, ``logarithmic_interpolation``, CPU tensors).
-Asking for ``"cuda"`` where the kernel does not apply raises.  The LW-only
-and SW-only kernels (ROADMAP K3/K4) are not ported yet, so ``lw_fluxes``
-and ``sw_fluxes`` alone always take the torch path.
+rte_sw); ``"cuda"`` is the hand-written kernels, which apply to float32
+CUDA tensors in ``top_at_1`` order (LW: 1-4 Gauss angles):
+* ``lw_fluxes`` runs the LW kernel (ops/cuda/lw.py, csrc/lw.cu);
+* ``sw_fluxes`` runs the SW kernel (ops/cuda/sw.py, csrc/sw.cu);
+* ``lw_sw_fluxes`` runs the merged kernel (ops/cuda/lwsw.py,
+  csrc/lwsw.cu) when the two models share a (p, T) grid, and otherwise
+  ``lw_fluxes`` + ``sw_fluxes`` (the LW and the SW kernel, each on its own
+  model's grid).
+``"auto"`` takes the kernels where they apply and the torch path
+otherwise (float64, CPU tensors, ``top_at_1=False``,
+``logarithmic_interpolation``).  Asking for ``"cuda"`` where a needed
+kernel does not apply raises, with the reason.
 """
 from __future__ import annotations
 
@@ -30,13 +35,18 @@ from ecckd_tpu_torch.fluxes import FluxesBroadband
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.models.gas_optics import gas_optics_lw, gas_optics_sw
+from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
+from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
+from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
+from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
+from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
 from ecckd_tpu_torch.solvers.lw import rte_lw
 from ecckd_tpu_torch.solvers.sw import rte_sw
 
 BACKENDS = ("auto", "torch", "cuda")
 
-_NOT_PORTED = ("the {what}-only CUDA kernel (ROADMAP K{k}, "
-               "ecckd_tpu/ops/pallas/{file}) is not ported yet")
+_KERNELS = {"lw": "the LW kernel (csrc/lw.cu)",
+            "sw": "the SW kernel (csrc/sw.cu)"}
 
 
 def _check_backend(backend: str, logarithmic_interpolation: bool = False
@@ -94,18 +104,27 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
     Args:
       sfc_emis: surface emissivity, (ncol,) or banded (ncol, nband).
-      column_chunk: optional column chunk size bounding peak memory.
-      backend: "auto" | "torch" | "cuda" ("cuda" raises: the LW-only
-        kernel is not ported yet).
+      column_chunk: on the kernel path, columns per launch (default
+        ops/cuda/binding.DEFAULT_COLUMN_CHUNK); on the torch path,
+        optional chunks bounding peak memory.
+      backend: "auto" | "torch" | "cuda" (the LW kernel; raises where it
+        does not apply).
       logarithmic_interpolation: the reference's alternate log-space table
         interpolation; torch path only.
     """
     _check_backend(backend, logarithmic_interpolation)
-    if backend == "cuda":
-        raise ValueError("backend='cuda' is unavailable for lw_fluxes: "
-                         + _NOT_PORTED.format(what="LW", k=3, file="lw.py")
-                         + "; use lw_sw_fluxes or backend='auto'/'torch'")
     ncol = tlay.shape[0]
+    if backend != "torch" and not logarithmic_interpolation:
+        refusal = _kernel_refusal(tlay, top_at_1, n_gauss_angles)
+        if refusal is None:
+            emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, tlay.dtype,
+                                       tlay.device)
+            up, dn = lw_fluxes_cuda(
+                model, plev, tlay, tlev, tsfc, emis_gpt, gas_concs,
+                n_gauss_angles=n_gauss_angles,
+                column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+            return FluxesBroadband(flux_up=up, flux_dn=dn)
+        _refuse_cuda(backend, "lw", refusal)
     if column_chunk is not None and ncol > column_chunk:
         fn = lambda p, tl, tv, ts, e, c: lw_fluxes(
             model, p, tl, tv, ts, e, c, n_gauss_angles=n_gauss_angles,
@@ -136,15 +155,24 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
         direct, as in the reference RFMIP program.
       tsi: requested total solar irradiance [W m-2], (ncol,).
       sza_deg: solar zenith angle [degrees], (ncol,).
-      backend: "auto" | "torch" | "cuda" ("cuda" raises: the SW-only
-        kernel is not ported yet).
+      column_chunk: as lw_fluxes.
+      backend: "auto" | "torch" | "cuda" (the SW kernel; raises where it
+        does not apply).
     """
     _check_backend(backend, logarithmic_interpolation)
-    if backend == "cuda":
-        raise ValueError("backend='cuda' is unavailable for sw_fluxes: "
-                         + _NOT_PORTED.format(what="SW", k=4, file="sw.py")
-                         + "; use lw_sw_fluxes or backend='auto'/'torch'")
     ncol = tlay.shape[0]
+    if backend != "torch" and not logarithmic_interpolation:
+        refusal = _kernel_refusal(tlay, top_at_1)
+        if refusal is None:
+            alb = torch.as_tensor(sfc_alb, device=tlay.device).to(tlay.dtype)
+            if alb.ndim == 2:
+                alb = _surface_to_gpt(model, alb, ncol, tlay.dtype,
+                                      tlay.device)
+            up, dn = sw_fluxes_cuda(
+                model, plev, tlay, gas_concs, alb, tsi, sza_deg,
+                column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+            return FluxesBroadband(flux_up=up, flux_dn=dn)
+        _refuse_cuda(backend, "sw", refusal)
     if column_chunk is not None and ncol > column_chunk:
         fn = lambda p, tl, c, a, t, s: sw_fluxes(
             model, p, tl, c, a, t, s, top_at_1=top_at_1, backend=backend,
@@ -177,24 +205,26 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     return FluxesBroadband(flux_up=flux_up * mask, flux_dn=flux_dn * mask)
 
 
-def _kernel_refusal(model_lw: CKDModel, model_sw: CKDModel,
-                    tlay: torch.Tensor, n_gauss_angles: int,
-                    top_at_1: bool) -> Optional[str]:
-    """Why the merged kernel does not apply, or None if it does."""
-    from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
+def _kernel_refusal(tlay: torch.Tensor, top_at_1: bool,
+                    n_gauss_angles: int = 1) -> Optional[str]:
+    """Why the CUDA kernels do not apply to this call, or None if they do
+    (the same rule for the LW, SW and merged kernels)."""
     if tlay.device.type != "cuda":
         return f"tensors are on {tlay.device}, not a CUDA device"
     if tlay.dtype != torch.float32:
-        return f"the kernel takes float32, got {tlay.dtype}"
+        return f"the kernels take float32, got {tlay.dtype}"
     if not top_at_1:
-        return "the kernel takes top_at_1 layer order"
+        return "the kernels take top_at_1 layer order"
     if not 1 <= n_gauss_angles <= 4:
         return f"n_gauss_angles={n_gauss_angles} is outside 1..4"
-    if not models_mergeable(model_lw, model_sw):
-        return ("the models do not share a (p, T) grid, and the separate "
-                + _NOT_PORTED.format(what="LW", k=3, file="lw.py")
-                + " / " + _NOT_PORTED.format(what="SW", k=4, file="sw.py"))
     return None
+
+
+def _refuse_cuda(backend: str, kernel: str, refusal: str) -> None:
+    """backend='cuda' never falls back to the torch path."""
+    if backend == "cuda":
+        raise ValueError(f"backend='cuda' requested but {_KERNELS[kernel]} "
+                         f"does not apply: {refusal}")
 
 
 def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
@@ -208,32 +238,26 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
     """Both bands' broadband fluxes over one atmosphere (the climate-model
     and RFMIP-benchmark shape of the workload).  Returns (lw, sw).
 
-    Where the merged kernel applies (see the module docstring) this is one
-    kernel pass per column chunk (``column_chunk`` defaults to the
-    kernel's); otherwise lw_fluxes + sw_fluxes on the torch path.
+    Where the kernels apply (see the module docstring) and the models share
+    a (p, T) grid, this is one merged-kernel pass per column chunk
+    (``column_chunk`` defaults to the kernel's); otherwise lw_fluxes +
+    sw_fluxes with the same backend, each taking its own kernel where it
+    applies.
     """
     _check_backend(backend)
-    if backend != "torch":
-        refusal = _kernel_refusal(model_lw, model_sw, tlay, n_gauss_angles,
-                                  top_at_1)
-        if refusal is None:
-            from ecckd_tpu_torch.ops.cuda.lwsw import (DEFAULT_COLUMN_CHUNK,
-                                                       lwsw_fluxes_cuda)
-            ncol, dtype, device = tlay.shape[0], tlay.dtype, tlay.device
-            emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype,
-                                       device)
-            alb = torch.as_tensor(sfc_alb, device=device).to(dtype)
-            if alb.ndim == 2:
-                alb = _surface_to_gpt(model_sw, alb, ncol, dtype, device)
-            lu, ld, su, sd = lwsw_fluxes_cuda(
-                model_lw, model_sw, plev, tlay, tlev, tsfc, emis_gpt,
-                gas_concs, alb, tsi, sza_deg, n_gauss_angles=n_gauss_angles,
-                column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
-            return (FluxesBroadband(flux_up=lu, flux_dn=ld),
-                    FluxesBroadband(flux_up=su, flux_dn=sd))
-        if backend == "cuda":
-            raise ValueError("backend='cuda' requested but the merged kernel "
-                             f"does not apply: {refusal}")
+    if (backend != "torch" and models_mergeable(model_lw, model_sw)
+            and _kernel_refusal(tlay, top_at_1, n_gauss_angles) is None):
+        ncol, dtype, device = tlay.shape[0], tlay.dtype, tlay.device
+        emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype, device)
+        alb = torch.as_tensor(sfc_alb, device=device).to(dtype)
+        if alb.ndim == 2:
+            alb = _surface_to_gpt(model_sw, alb, ncol, dtype, device)
+        lu, ld, su, sd = lwsw_fluxes_cuda(
+            model_lw, model_sw, plev, tlay, tlev, tsfc, emis_gpt, gas_concs,
+            alb, tsi, sza_deg, n_gauss_angles=n_gauss_angles,
+            column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+        return (FluxesBroadband(flux_up=lu, flux_dn=ld),
+                FluxesBroadband(flux_up=su, flux_dn=sd))
     return (lw_fluxes(model_lw, plev, tlay, tlev, tsfc, sfc_emis, gas_concs,
                       n_gauss_angles=n_gauss_angles, top_at_1=top_at_1,
                       column_chunk=column_chunk, backend=backend),

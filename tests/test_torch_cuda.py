@@ -1,4 +1,5 @@
-"""PyTorch port on a CUDA card: the merged LW+SW kernel and its routing.
+"""PyTorch port on a CUDA card: the merged LW+SW, LW and SW kernels and
+their routing.
 
 These tests need a card and skip without one (marker ``cuda``).  They
 import neither jax nor tests/conftest.py, so on a machine with a card and
@@ -6,10 +7,9 @@ no JAX they run with:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-The kernel (float32) is held against its plain PyTorch version at float64
+Each kernel (float32) is held against its plain PyTorch version at float64
 on the card: <= 5e-5 of the flux scale per output, the chip-parity metric.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -19,7 +19,9 @@ from ecckd_tpu_torch import pipeline
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.io.synthetic import write_synthetic_ckd
 from ecckd_tpu_torch.models.loader import load_ckd_model
+from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda, lw_fluxes_plain
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda, lwsw_fluxes_plain
+from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda, sw_fluxes_plain
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -32,11 +34,14 @@ def models(tmp_path_factory):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     d = tmp_path_factory.mktemp("ckd_cuda")
     out = {}
-    for key, kind, neg in (("lw", "lw_fsck", False), ("sw", "sw_wide", False),
-                           ("lw_neg", "lw_fsck", True),
-                           ("sw_neg", "sw_wide", True)):
+    for key, kind, neg, n_p in (
+            ("lw", "lw_fsck", False, 53), ("sw", "sw_wide", False, 53),
+            ("lw_neg", "lw_fsck", True, 53), ("sw_neg", "sw_wide", True, 53),
+            ("lw_rrtmgp", "lw_rrtmgp", False, 53),
+            ("sw_p47", "sw_wide", False, 47)):
         path = str(d / f"{key}.nc")
-        write_synthetic_ckd(path, kind, seed=3, negative_entry=neg)
+        write_synthetic_ckd(path, kind, seed=3, negative_entry=neg,
+                            n_pressure=n_p)
         for dt in (torch.float32, torch.float64):
             out[key, dt] = load_ckd_model(path, dtype=dt, device="cuda")
     return out
@@ -96,26 +101,105 @@ def test_kernel_matches_plain_f64(models, n_angles, pair):
             assert err <= BOUND, err
 
 
+def assert_close(got, ref):
+    """max|d| over the flux scale of the outputs, per output."""
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        err = float((g.double() - r).abs().max()) / scale
+        assert err <= BOUND, err
+
+
+@pytest.mark.parametrize("model", ["lw", "lw_neg", "lw_rrtmgp"])
+@pytest.mark.parametrize("n_angles", [1, 3])
+def test_lw_kernel_matches_plain_f64(models, n_angles, model):
+    ncol, nlay = 301, 23
+    b32, b64 = batch(ncol, nlay, torch.float32), batch(ncol, nlay,
+                                                       torch.float64)
+    lw = models[model, torch.float32]
+    expand = lambda e: e[:, None].expand(ncol, lw.ngpt).contiguous()
+    run = lambda fn, m, b, **kw: fn(m, b["plev"], b["tlay"], b["tlev"],
+                                    b["tsfc"], expand(b["emis"]), b["concs"],
+                                    n_gauss_angles=n_angles, **kw)
+    before = lw_fluxes_cuda.launches
+    got = run(lw_fluxes_cuda, lw, b32, column_chunk=128)
+    torch.cuda.synchronize()
+    assert lw_fluxes_cuda.launches == before + 3      # 128 + 128 + 45
+    assert_close(got, run(lw_fluxes_plain, models[model, torch.float64], b64))
+
+
+@pytest.mark.parametrize("model", ["sw", "sw_neg", "sw_p47"])
+def test_sw_kernel_matches_plain_f64(models, model):
+    ncol, nlay = 301, 23
+    b32, b64 = batch(ncol, nlay, torch.float32), batch(ncol, nlay,
+                                                       torch.float64)
+    run = lambda fn, m, b, **kw: fn(m, b["plev"], b["tlay"], b["concs"],
+                                    b["alb"], b["tsi"], b["sza"], **kw)
+    before = sw_fluxes_cuda.launches
+    got = run(sw_fluxes_cuda, models[model, torch.float32], b32,
+              column_chunk=128)
+    torch.cuda.synchronize()
+    assert sw_fluxes_cuda.launches == before + 3
+    assert_close(got, run(sw_fluxes_plain, models[model, torch.float64], b64))
+    night = b32["sza"] >= 90.0
+    assert not got[0][night].any() and not got[1][night].any()
+
+
+def test_single_band_kernels_equal_the_merged_kernel(models):
+    """One device body per band (csrc/common.cuh): on a mergeable pair the
+    LW and SW kernels give the merged kernel's fluxes."""
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    b = batch(257, 19, torch.float32, seed=4)
+    emis = b["emis"][:, None].expand(-1, lw.ngpt).contiguous()
+    merged = solve(lwsw_fluxes_cuda, lw, sw, b, emis)
+    single = (*lw_fluxes_cuda(lw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                              emis, b["concs"]),
+              *sw_fluxes_cuda(sw, b["plev"], b["tlay"], b["concs"], b["alb"],
+                              b["tsi"], b["sza"]))
+    torch.cuda.synchronize()
+    for s, m in zip(single, merged):
+        assert torch.equal(s, m)
+
+
 def test_pipeline_routes_to_the_kernel(models):
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     b = batch(64, 9, torch.float32)
     call = lambda m_lw, m_sw, bb, **kw: pipeline.lw_sw_fluxes(
         m_lw, m_sw, bb["plev"], bb["tlay"], bb["tlev"], bb["tsfc"],
         bb["emis"], bb["concs"], bb["alb"], bb["tsi"], bb["sza"], **kw)
-    for backend, launched in (("auto", 1), ("cuda", 1), ("torch", 0)):
-        before = lwsw_fluxes_cuda.launches
+    counts = lambda: (lwsw_fluxes_cuda.launches, lw_fluxes_cuda.launches,
+                      sw_fluxes_cuda.launches)
+    delta = lambda before: tuple(a - b for a, b in zip(counts(), before))
+    for backend, launched in (("auto", (1, 0, 0)), ("cuda", (1, 0, 0)),
+                              ("torch", (0, 0, 0))):
+        before = counts()
         call(lw, sw, b, backend=backend)
-        assert lwsw_fluxes_cuda.launches - before == launched, backend
+        assert delta(before) == launched, backend
+    # A pair on two grids takes the LW and the SW kernel, not the merged one.
+    sw47 = models["sw_p47", torch.float32]
+    for backend in ("auto", "cuda"):
+        before = counts()
+        call(lw, sw47, b, backend=backend)
+        assert delta(before) == (0, 1, 1), backend
+    # lw_fluxes / sw_fluxes alone, banded surfaces included.
+    before = counts()
+    rr = models["lw_rrtmgp", torch.float32]
+    pipeline.lw_fluxes(rr, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                       b["emis"][:, None].expand(-1, rr.nband), b["concs"],
+                       n_gauss_angles=3)
+    pipeline.sw_fluxes(sw, b["plev"], b["tlay"], b["concs"],
+                       b["alb"][:, None].expand(-1, sw.nband), b["tsi"],
+                       b["sza"], backend="cuda")
+    assert delta(before) == (0, 1, 1)
     # float64 runs the torch path under auto and is refused under cuda.
     b64 = batch(64, 9, torch.float64)
-    before = lwsw_fluxes_cuda.launches
+    before = counts()
     call(models["lw", torch.float64], models["sw", torch.float64], b64)
-    assert lwsw_fluxes_cuda.launches == before
+    assert delta(before) == (0, 0, 0)
     with pytest.raises(ValueError, match="float32"):
         call(lw, sw, b64, backend="cuda")
-    other = dataclasses.replace(sw, grid_key=(1, 2))
-    with pytest.raises(ValueError, match="ROADMAP K3"):
-        call(lw, other, b, backend="cuda")
+    with pytest.raises(ValueError, match="top_at_1"):
+        call(lw, sw47, b, backend="cuda", top_at_1=False)
     with pytest.raises(ValueError, match="float32"):
         solve(lwsw_fluxes_cuda, lw, sw, b64,
               b64["emis"][:, None].expand(64, lw.ngpt))

@@ -16,7 +16,8 @@ built on the same host preparation (ops/cuda/plan.py).  It is held:
     (~2-3 ulp) where torch uses expm1.
 
 The kernel itself runs only on a CUDA card: tests/test_torch_cuda.py and
-chip_smoke.py hold it against this plain version there.
+chip_smoke.py hold it against this plain version there.  On CPU tensors
+``lwsw_fluxes_cuda`` raises.
 """
 import dataclasses
 
@@ -26,8 +27,8 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_parity import (atmosphere, ckd_paths, jax_concs,  # noqa: F401
-                          load_both, torch_concs)
+from torch_parity import (atmosphere, ckd_paths, flux_batch,  # noqa: F401
+                          jax_concs, load_both, torch_concs)
 from ecckd_tpu import pipeline as jpipe
 from ecckd_tpu.ops.pallas import common as jcommon
 from ecckd_tpu.ops.pallas.lwsw import lwsw_fluxes_fused
@@ -35,19 +36,6 @@ from ecckd_tpu_torch.ops.cuda import common as tcommon, plan
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda, lwsw_fluxes_plain
 
 torch.set_num_threads(2)
-NP = {torch.float32: np.float32, torch.float64: np.float64}
-
-
-def batch(ncol, nlay, seed, dtype):
-    """Heterogeneous columns (h2o over four decades, ch4 below its
-    reference in one column), day, grazing and night suns."""
-    atm, gases = atmosphere(ncol, nlay, seed=seed)
-    f = lambda x: np.asarray(x, NP[dtype])
-    return dict(
-        plev=f(atm["plev"]), tlay=f(atm["tlay"]), tlev=f(atm["tlev"]),
-        tsfc=f(atm["tsfc"]), emis=f(np.linspace(0.85, 1.0, ncol)),
-        alb=f(np.linspace(0.05, 0.8, ncol)), tsi=f(np.full(ncol, 1361.0)),
-        sza=f(np.linspace(0.0, 110.0, ncol)), gases=gases)
 
 
 def run_plain(tl, ts, b, dtype, n_angles, fn=lwsw_fluxes_plain):
@@ -76,7 +64,7 @@ def assert_fluxes_close(got, ref, bound):
 def test_plain_f64_matches_jax_xla(ckd_paths, n_angles, pair):
     jl, tl = load_both(ckd_paths["lw" + pair])
     js, ts = load_both(ckd_paths["sw" + pair])
-    b = batch(7, 13, seed=n_angles, dtype=torch.float64)
+    b = flux_batch(7, 13, seed=n_angles, dtype=torch.float64)
     J = lambda k: jnp.asarray(b[k])
     jc = jax_concs(b["gases"])
     ref_lw = jpipe.lw_fluxes(jl, J("plev"), J("tlay"), J("tlev"), J("tsfc"),
@@ -93,7 +81,7 @@ def test_plain_f64_matches_jax_xla(ckd_paths, n_angles, pair):
 def test_plain_f32_matches_pallas_interpret(ckd_paths, nlay):
     jl, tl = load_both(ckd_paths["lw"], torch.float32)
     js, ts = load_both(ckd_paths["sw"], torch.float32)
-    b = batch(9, nlay, seed=nlay, dtype=torch.float32)
+    b = flux_batch(9, nlay, seed=nlay, dtype=torch.float32)
     J = lambda k: jnp.asarray(b[k])
     emis = jnp.broadcast_to(J("emis")[:, None], (9, jl.ngpt))
     ref = lwsw_fluxes_fused(jl, js, J("plev"), J("tlay"), J("tlev"),
@@ -106,15 +94,18 @@ def test_plain_f32_matches_pallas_interpret(ckd_paths, nlay):
 
 
 def test_cuda_wrapper_on_cpu_runs_the_plain_version(ckd_paths):
+    """It does not: on CPU tensors the CUDA wrapper raises and names the
+    plain version, which is what runs on the CPU (no silent fallback)."""
     _, tl = load_both(ckd_paths["lw"])
     _, ts = load_both(ckd_paths["sw"])
-    b = batch(5, 6, seed=1, dtype=torch.float64)
+    b = flux_batch(5, 6, seed=1, dtype=torch.float64)
     before = lwsw_fluxes_cuda.launches
-    got = run_plain(tl, ts, b, torch.float64, 3, fn=lwsw_fluxes_cuda)
-    want = run_plain(tl, ts, b, torch.float64, 3)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    with pytest.raises(ValueError,
+                       match="takes CUDA tensors.*lwsw_fluxes_plain"):
+        run_plain(tl, ts, b, torch.float64, 3, fn=lwsw_fluxes_cuda)
     assert lwsw_fluxes_cuda.launches == before
+    want = run_plain(tl, ts, b, torch.float64, 3)
+    assert all(torch.isfinite(w).all() for w in want)
 
 
 def _grid():
@@ -212,7 +203,7 @@ def test_mergeability_and_refusals(ckd_paths):
     assert plan.models_mergeable(tl, ts)
     other = dataclasses.replace(ts, grid_key=(1, 2))
     assert not plan.models_mergeable(tl, other)
-    b = batch(3, 4, seed=0, dtype=torch.float64)
+    b = flux_batch(3, 4, seed=0, dtype=torch.float64)
     with pytest.raises(ValueError, match="do not share"):
         run_plain(tl, other, b, torch.float64, 1)
     with pytest.raises(ValueError, match="longwave and a shortwave"):

@@ -71,9 +71,20 @@ def test_synthetic_pair_has_the_shipped_dimensions(ckd_paths):
     neg = load_both(ckd_paths["lw_neg"])[1]
     assert float(neg.coeff_dense.min()) < 0 and float(
         neg.coeff_lut[0].min()) < 0
+    # The rrtmgp-shaped LW model: 36 g-points in 16 contiguous bands, on
+    # the shared grid; sw_p47 sits on another pressure grid.
+    rr = load_both(ckd_paths["lw_rrtmgp"])[1]
+    assert (rr.ngpt, rr.nband, rr.planck_function.shape[0]) == (36, 16, 231)
+    assert sorted(g for a, b in rr.band2gpt
+                  for g in range(a, b + 1)) == list(range(36))
+    assert rr.grid_key == sw.grid_key
+    p47 = load_both(ckd_paths["sw_p47"])[1]
+    assert tuple(p47.temperature_grid.shape) == (47, 6)
+    assert p47.grid_key != lw.grid_key
+    assert p47.get_press_min() == pytest.approx(lw.get_press_min())
 
 
-@pytest.mark.parametrize("key", ["lw", "sw"])
+@pytest.mark.parametrize("key", ["lw", "sw", "lw_rrtmgp", "sw_p47"])
 def test_accessors_match_jax(ckd_paths, key):
     jm, tm = load_both(ckd_paths[key])
     for name in ("ngpt", "nband"):

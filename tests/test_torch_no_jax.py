@@ -2,7 +2,9 @@
 
 A subprocess with ``sys.modules["jax"] = None`` (and the same for
 ``ecckd_tpu``), so any import of either raises, imports every module of
-``ecckd_tpu_torch`` and runs the merged slice on the CPU end to end.
+``ecckd_tpu_torch`` and runs on the CPU: the merged slice, ``lw_fluxes``
+and ``sw_fluxes``, and the combined RFMIP driver (``--device cpu``) on a
+synthetic RFMIP file written by the port.
 """
 import os
 import subprocess
@@ -28,20 +30,36 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "ecckd_tpu."))
                for k, v in sys.modules.items() if v is not None)
-from ecckd_tpu_torch import load_ckd_model, lw_sw_fluxes
+from ecckd_tpu_torch import load_ckd_model, lw_fluxes, lw_sw_fluxes, sw_fluxes
+from ecckd_tpu_torch.cli import ecckd_rfmip
+from ecckd_tpu_torch.io.rfmip import read_fluxes, write_synthetic_rfmip
 from ecckd_tpu_torch.io.synthetic import example_flux_batch, write_synthetic_ckd
-with tempfile.TemporaryDirectory() as d:
-    for kind in ("lw_fsck", "sw_wide"):
-        write_synthetic_ckd(os.path.join(d, kind + ".nc"), kind)
-    lw = load_ckd_model(os.path.join(d, "lw_fsck.nc"))
-    sw = load_ckd_model(os.path.join(d, "sw_wide.nc"))
 b = example_flux_batch(5, 7, np.float32)
 T = lambda k: torch.as_tensor(b[k])
-out = lw_sw_fluxes(lw, sw, T("plev"), T("tlay"), T("tlev"), T("tsfc"),
-                   T("emis"), b["concs"], T("alb"), T("tsi"), T("sza"))
-for f in out:
-    assert f.flux_up.shape == (5, 8) and torch.isfinite(f.flux_up).all()
-    assert torch.isfinite(f.flux_dn).all()
+with tempfile.TemporaryDirectory() as d:
+    ckd = {k: os.path.join(d, k + ".nc") for k in ("lw_fsck", "sw_wide")}
+    for kind, path in ckd.items():
+        write_synthetic_ckd(path, kind)
+    lw = load_ckd_model(ckd["lw_fsck"])
+    sw = load_ckd_model(ckd["sw_wide"])
+    out = lw_sw_fluxes(lw, sw, T("plev"), T("tlay"), T("tlev"), T("tsfc"),
+                       T("emis"), b["concs"], T("alb"), T("tsi"), T("sza"))
+    out += (lw_fluxes(lw, T("plev"), T("tlay"), T("tlev"), T("tsfc"),
+                      T("emis"), b["concs"], n_gauss_angles=3),
+            sw_fluxes(sw, T("plev"), T("tlay"), b["concs"], T("alb"),
+                      T("tsi"), T("sza")))
+    for f in out:
+        assert f.flux_up.shape == (5, 8) and torch.isfinite(f.flux_up).all()
+        assert torch.isfinite(f.flux_dn).all()
+    rfmip = os.path.join(d, "rfmip.nc")
+    write_synthetic_rfmip(rfmip, nsite=3, nlay=6, nexp=2, seed=1)
+    assert ecckd_rfmip.main([rfmip, ckd["lw_fsck"], ckd["sw_wide"],
+                             "--device", "cpu", "--output-dir", d]) == 0
+    rsd = read_fluxes(os.path.join(
+        d, "rsd_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc"), "rsd")
+    assert rsd.shape == (6, 7) and np.isfinite(rsd).all()
+assert not any(k == "jax" or k.startswith(("jax.", "ecckd_tpu."))
+               for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))
 """
 

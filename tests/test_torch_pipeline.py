@@ -3,7 +3,8 @@
 ``lw_sw_fluxes`` / ``lw_fluxes`` / ``sw_fluxes`` on the CPU take the torch
 path, the counterpart of the JAX XLA path; bound rtol <= 1e-10.  Also the
 backend contracts of pipeline.py (the JAX package's :95-112,144-156
-ValueErrors, with backends auto|torch|cuda).
+ValueErrors, with backends auto|torch|cuda) and the kernels' refusal
+reasons.
 """
 import numpy as np
 import pytest
@@ -103,8 +104,9 @@ def test_heating_rate_and_clamp_top_pressure_match_jax():
 
 def test_backend_contracts(ckd_paths):
     """Unknown backends raise everywhere (before any re-routing); the
-    CUDA backend raises where its kernel does not apply; the log-space
-    interpolation is torch-path only."""
+    CUDA backend raises where its kernel does not apply (here: CPU
+    tensors), naming the kernel; the log-space interpolation is torch-path
+    only."""
     _, tl = load_both(ckd_paths["lw"])
     _, ts = load_both(ckd_paths["sw"])
     _, t = inputs(ncol=3, nlay=4)
@@ -121,10 +123,16 @@ def test_backend_contracts(ckd_paths):
             fn(backend="fused", logarithmic_interpolation=True)
         with pytest.raises(ValueError, match="logarithmic_interpolation"):
             fn(backend="cuda", logarithmic_interpolation=True)
-        with pytest.raises(ValueError, match="ROADMAP K[34]"):
+        with pytest.raises(ValueError, match="(LW|SW) kernel .*not a CUDA "
+                                             "device"):
             fn(backend="cuda")
-    with pytest.raises(ValueError, match="not a CUDA device"):
+    with pytest.raises(ValueError, match="LW kernel .*not a CUDA device"):
         both(backend="cuda")
+    # auto on the CPU takes the torch path for the single bands too.
+    for fn in (lw, sw):
+        a, b = fn(backend="auto"), fn(backend="torch")
+        assert torch.equal(a.flux_up, b.flux_up)
+        assert torch.equal(a.flux_dn, b.flux_dn)
     with pytest.raises(ValueError, match="unknown backend"):
         tpipe.lw_sw_fluxes(tl, ts, *[t[k] for k in (
             "plev", "tlay", "tlev", "tsfc", "emis", "concs", "alb", "tsi",
@@ -142,19 +150,26 @@ def test_backend_contracts(ckd_paths):
 
 
 def test_kernel_refusal_reasons(ckd_paths):
-    """Where the merged kernel does not apply, backend='cuda' says why."""
+    """Where the kernels do not apply, backend='cuda' says why; a pair
+    that does not share a grid is no refusal (it takes the LW and the SW
+    kernel instead of the merged one)."""
     import dataclasses
     _, tl = load_both(ckd_paths["lw"])
     _, ts = load_both(ckd_paths["sw"])
     refusal = tpipe._kernel_refusal
-    assert "not a CUDA device" in refusal(tl, ts, torch.zeros(2, 3), 1, True)
+    assert "not a CUDA device" in refusal(torch.zeros(2, 3), True, 1)
     # A stand-in for a CUDA tensor: the refusal reads device and dtype only.
     fake = type("T", (), {"device": torch.device("cuda"),
                           "dtype": torch.float64})()
-    assert "float32" in refusal(tl, ts, fake, 1, True)
+    assert "float32" in refusal(fake, True)
     fake.dtype = torch.float32
-    assert "top_at_1" in refusal(tl, ts, fake, 1, False)
-    assert "1..4" in refusal(tl, ts, fake, 5, True)
+    assert "top_at_1" in refusal(fake, False)
+    assert "1..4" in refusal(fake, True, 5)
+    assert refusal(fake, True, 4) is None and refusal(fake, True) is None
     other = dataclasses.replace(ts, grid_key=(1,))
-    assert "ROADMAP K3" in refusal(tl, other, fake, 1, True)
-    assert refusal(tl, ts, fake, 1, True) is None
+    assert not tpipe.models_mergeable(tl, other)
+    assert tpipe.models_mergeable(tl, ts)
+    with pytest.raises(ValueError, match="backend='cuda' requested but the "
+                                         "SW kernel .*top_at_1"):
+        tpipe._refuse_cuda("cuda", "sw", refusal(fake, False))
+    tpipe._refuse_cuda("auto", "sw", refusal(fake, False))   # no raise

@@ -25,20 +25,26 @@ from ecckd_tpu_torch.models.loader import load_ckd_model as torch_load
 # thread pool small.
 torch.set_num_threads(2)
 
-KINDS = {"lw": ("lw_fsck", False), "sw": ("sw_wide", False),
-         "lw_neg": ("lw_fsck", True), "sw_neg": ("sw_wide", True)}
+# key: (kind, negative_entry, n_pressure).  "sw_p47" sits on a 47-point
+# pressure grid, so (lw, sw_p47) is a pair that is not mergeable.
+KINDS = {"lw": ("lw_fsck", False, 53), "sw": ("sw_wide", False, 53),
+         "lw_neg": ("lw_fsck", True, 53), "sw_neg": ("sw_wide", True, 53),
+         "lw_rrtmgp": ("lw_rrtmgp", False, 53),
+         "sw_p47": ("sw_wide", False, 47)}
 NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 @pytest.fixture(scope="session")
 def ckd_paths(tmp_path_factory):
-    """Synthetic ckd files: lw/sw (all tables >= 0) and lw_neg/sw_neg
-    (negative entries), written once per test session."""
+    """Synthetic ckd files (KINDS): lw/sw (all tables >= 0), lw_neg/sw_neg
+    (negative entries), lw_rrtmgp (36 g-points in 16 bands) and sw_p47
+    (another pressure grid), written once and shared by every test."""
     d = tmp_path_factory.mktemp("ckd")
     paths = {}
-    for key, (kind, neg) in KINDS.items():
+    for key, (kind, neg, n_p) in KINDS.items():
         paths[key] = str(d / f"{key}.nc")
-        write_synthetic_ckd(paths[key], kind, seed=7, negative_entry=neg)
+        write_synthetic_ckd(paths[key], kind, seed=7, negative_entry=neg,
+                            n_pressure=n_p)
     return paths
 
 
@@ -59,6 +65,19 @@ def atmosphere(ncol: int, nlay: int, seed: int = 0):
                  ch4=ch4, n2o=np.full(ncol, 3.27e-7), o2=0.2095,
                  cfc11=np.full(ncol, 2.33e-10), cfc12=5.2e-10)
     return atm, gases
+
+
+def flux_batch(ncol, nlay, seed, dtype):
+    """``atmosphere`` as numpy arrays of one dtype, plus surface and sun:
+    emissivity and albedo ramps, TSI 1361 W m-2, day, grazing and night
+    suns (sza 0..110 deg)."""
+    atm, gases = atmosphere(ncol, nlay, seed=seed)
+    f = lambda x: np.asarray(x, NP[dtype])
+    return dict(
+        plev=f(atm["plev"]), tlay=f(atm["tlay"]), tlev=f(atm["tlev"]),
+        tsfc=f(atm["tsfc"]), emis=f(np.linspace(0.85, 1.0, ncol)),
+        alb=f(np.linspace(0.05, 0.8, ncol)), tsi=f(np.full(ncol, 1361.0)),
+        sza=f(np.linspace(0.0, 110.0, ncol)), gases=gases)
 
 
 def jax_concs(gases: dict, dtype=np.float64) -> JaxGasConcs:
