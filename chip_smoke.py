@@ -43,6 +43,26 @@ result line is printed:
 8. times: each kernel and its plain float32 version at 65,536 x 60 (and
    the kernels at 1800 x 60) with CUDA events (warm-up, median of 10), with
    and without host prep, beside the card's name and power limit.
+9. stream: cli/scale_bench.main at full width, 1,048,576 x 60 in chunks of
+   65,536, full outputs, on the card.  A checking pass (one streamed pass)
+   holds every chunk finite and the first 2048 columns of chunks 0 and 15
+   against the float64 plain version; the measuring pass (best of 4
+   interleaved rounds) runs with the counts set to 0 before and read
+   after: the merged kernel once per chunk, K3 and K4 never.  Prints
+   columns/s, the compute reference, the overlap efficiency and the
+   per-phase host budget.  Then a journaled run at 262,144 columns,
+   two chunks zeroed in the journal and the files, and --resume: the
+   files must equal the first run's bit for bit.
+10. column split: ecckd_rfmip through the split over the local cards
+   against --no-shard (files bitwise equal, merged kernel launched); then
+   a one-rank NCCL process group and mesh.distributed_columns_call against
+   the single call (bitwise), and the group destroyed.
+11. profiling and gradients: utils/profiling.trace around one
+   lw_sw_fluxes(auto) call at 65,536 x 60: the trace must name the merged
+   kernel; prints the device time and the share of the call the card was
+   idle.  lw_fluxes(auto) on float32 CUDA tensors with tlay requiring
+   grad launches no kernel and back-propagates finite gradients;
+   backend="cuda" and lw_fluxes_cuda raise.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
@@ -60,6 +80,7 @@ import time
 BOUND = 5e-5            # max|d| / flux scale, per output (tools/chip_parity.py)
 PROTOCOL = (65536, 60)  # BENCH_CONFIGS protocol batch (columns, layers)
 RFMIP = (100, 18, 60)   # the reference's RFMIP workload (sites, expts, layers)
+STREAM = 1_048_576      # scale_bench's default million-column run
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "lwsw": ("ecckd_tpu_torch/csrc/lwsw.cu",
              "ecckd_tpu/ops/pallas/lwsw.py:61"),
@@ -177,6 +198,39 @@ def cuda_time_ms(fn, warmup: int = 2, runs: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cli(main_fn, argv, **kw):
+    """(return code, last stdout line) of a CLI's main(argv); its stdout is
+    captured, not printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv, **kw)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (lines[-1] if lines else "")
+
+
+def busy_idle(events, t0: float, t1: float):
+    """(device-busy microseconds, idle share) of [t0, t1] from a Chrome
+    trace's device events (the union of their intervals)."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in events)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy, 1.0 - busy / (t1 - t0)
 
 
 def main() -> int:
@@ -569,6 +623,245 @@ def run(card: str, work: str) -> int:
           "kernels: " + ", ".join(f"{k} {v:.3f} ms"
                                   for k, v in small_ms.items())
           + f" | on {card}", flush=True)
+
+    # ---- 9. stream: scale_bench at 1,048,576 x 60 ---------------------------
+    from ecckd_tpu_torch.cli import scale_bench
+    chunk_cols = PROTOCOL[0]
+    n_chunks = STREAM // chunk_cols
+    stream_argv = ["--columns", str(STREAM), "--chunk", str(chunk_cols),
+                   "--nlay", str(nlay), "--outputs", "full", "--device",
+                   "cuda", "--lw-file", paths["lw"], "--sw-file", paths["sw"]]
+    seen, samples = [], {}
+
+    def check(host, i):
+        seen.append((i, all(bool(np.isfinite(a).all()) for a in host)))
+        if i in (0, n_chunks - 1):
+            samples[i] = [torch.as_tensor(a[:n_check].copy()) for a in host]
+
+    rc, line = run_cli(scale_bench.main, stream_argv + ["--repeats", "1"],
+                       consume=check)
+    # scale_bench's chunk i is the protocol batch with tsfc + 0.01 (i % 7).
+    rel = []
+    for i, got in sorted(samples.items()):
+        tsfc = (batch["tsfc"][:n_check]
+                + np.float32(0.01) * np.float32(i % 7)).astype(np.float32)
+        ref = solve(lwsw.lwsw_fluxes_plain, m64("lw"), m64("sw"),
+                    dict(b64, tsfc=torch.as_tensor(tsfc, device="cuda",
+                                                   dtype=torch.float64)))
+        rel.append(max(flux_errors(got, [r.cpu() for r in ref])[0]))
+    checks = {
+        "rc == 0": rc == 0,
+        f"{n_chunks} chunks once, in order": [i for i, _ in seen]
+        == list(range(n_chunks)),
+        "finite": all(ok for _, ok in seen),
+        f"chunks 0 and {n_chunks - 1} first {n_check} columns vs plain f64":
+        len(rel) == 2 and max(rel) <= BOUND,
+    }
+    ok = all(checks.values())
+    if not ok:
+        failures.append("stream check")
+    print(f"stream: {'ok' if ok else 'FAIL'} scale_bench checking pass "
+          f"{STREAM}x{nlay} chunk {chunk_cols} | " + " | ".join(
+              f"{k}: {v}" for k, v in checks.items())
+          + f" | max|d|/scale={max(rel or [float('nan')]):.3e}", flush=True)
+
+    reset_counts()
+    rc, line = run_cli(scale_bench.main, stream_argv)
+    torch.cuda.synchronize()
+    launched = counts()
+    try:
+        sm = json.loads(line)
+    except ValueError:
+        sm = {}
+    rounds = sm.get("streamed_repeats_best_of", 0)
+    checks = {
+        "rc == 0": rc == 0,
+        f"n_chunks == {n_chunks}": sm.get("n_chunks") == n_chunks,
+        f"lwsw launches >= {n_chunks} per pass":
+        rounds > 0 and launched["lwsw"] >= n_chunks * rounds,
+        "no lw/sw kernel": launched["lw"] == 0 and launched["sw"] == 0,
+    }
+    ok = all(checks.values())
+    if not ok:
+        failures.append("stream measure")
+    budget = ("wall_s", "dispatch_s", "d2h_issue_s", "drain_wait_s",
+              "consume_s")
+    print(f"stream: {'ok' if ok else 'FAIL'} scale_bench {STREAM}x{nlay} "
+          f"chunk {chunk_cols} full outputs, best of {rounds} on {card}: "
+          f"columns_per_sec {sm.get('columns_per_sec')} | "
+          f"compute_ref_cols_per_sec {sm.get('compute_ref_cols_per_sec')} | "
+          f"overlap_efficiency {sm.get('overlap_efficiency')} | budget "
+          + " ".join(f"{k}={sm.get(k)}" for k in budget)
+          + f" | launches={launched} | " + " | ".join(
+              f"{k}: {v}" for k, v in checks.items()), flush=True)
+    rc, line = run_cli(scale_bench.main, stream_argv[:6] + [
+        "--outputs", "toa-net"] + stream_argv[8:] + ["--repeats", "2"])
+    tn = json.loads(line) if rc == 0 else {}
+    if rc != 0:
+        failures.append("stream toa-net")
+    print(f"stream: {'ok' if rc == 0 else 'FAIL'} scale_bench toa-net "
+          f"outputs (4 B/col), best of 2 on {card}: columns_per_sec "
+          f"{tn.get('columns_per_sec')} | compute_ref_cols_per_sec "
+          f"{tn.get('compute_ref_cols_per_sec')} | overlap_efficiency "
+          f"{tn.get('overlap_efficiency')} | budget "
+          + " ".join(f"{k}={tn.get(k)}" for k in budget), flush=True)
+
+    # Restart journal: --resume after two chunks are lost is bitwise.
+    out_dir = os.path.join(work, "stream_out")
+    small = ["--columns", str(4 * chunk_cols)] + stream_argv[2:] + [
+        "--out-dir", out_dir]
+    names = ("rlu", "rld", "rsu", "rsd")
+    rc1, _ = run_cli(scale_bench.main, small)
+    first = {v: np.load(os.path.join(out_dir, f"{v}.npy")) for v in names}
+    with open(os.path.join(out_dir, "progress.json")) as f:
+        journal = json.load(f)
+    journal["done"] = [0, 1]
+    with open(os.path.join(out_dir, "progress.json"), "w") as f:
+        json.dump(journal, f)
+    for v in names:
+        arr = np.lib.format.open_memmap(os.path.join(out_dir, f"{v}.npy"),
+                                        mode="r+")
+        arr[2 * chunk_cols:] = 0.0
+        arr.flush()
+        del arr
+    rc2, _ = run_cli(scale_bench.main, small + ["--resume"])
+    with open(os.path.join(out_dir, "progress.json")) as f:
+        redone = json.load(f)["done"]
+    equal = all(np.array_equal(np.load(os.path.join(out_dir, f"{v}.npy")),
+                               first[v]) for v in names)
+    ok = rc1 == 0 and rc2 == 0 and redone == [0, 1, 2, 3] and equal
+    if not ok:
+        failures.append("stream resume")
+    print(f"stream: {'ok' if ok else 'FAIL'} --resume {4 * chunk_cols}x"
+          f"{nlay} after chunks 2, 3 zeroed: journal {redone}, files "
+          f"bitwise equal to the first run: {equal}", flush=True)
+
+    # ---- 10. column split ---------------------------------------------------
+    from ecckd_tpu_torch.parallel import mesh as pmesh
+    split_files = {}
+    for tag, extra in (("split", []), ("no_shard", ["--no-shard"])):
+        out_dir = os.path.join(work, f"out_{tag}")
+        reset_counts()
+        rc = ecckd_rfmip.main([rfmip, paths["lw"], paths["sw"], "--device",
+                               "cuda", "--output-dir", out_dir, *extra])
+        torch.cuda.synchronize()
+        launched = counts()
+        split_files[tag] = (rc, launched, {
+            v: read_fluxes(os.path.join(out_dir, v + stem), v)
+            for v in names})
+    (rc_s, l_s, f_s), (rc_n, _, f_n) = split_files["split"], \
+        split_files["no_shard"]
+    equal = all(np.array_equal(f_s[v], f_n[v]) for v in names)
+    ok = rc_s == 0 and rc_n == 0 and l_s["lwsw"] > 0 and equal
+    if not ok:
+        failures.append("column split")
+    print(f"split: {'ok' if ok else 'FAIL'} ecckd_rfmip through the split "
+          f"over {len(pmesh.make_column_mesh())} card(s) "
+          f"{nsite}x{nexp}x{nlay_r} launches={l_s} | files bitwise equal "
+          f"to --no-shard: {equal}", flush=True)
+
+    solve_lwsw = lambda ml, ms, *a: pipeline.lw_sw_fluxes(ml, ms, *a,
+                                                          backend="auto")
+    call_args = (lw32, sw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"],
+                 t["emis"], concs, t["alb"], t["tsi"], t["sza"])
+    single = solve_lwsw(*call_args)
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        rank, size = pmesh.world()
+        reset_counts()
+        gathered = pmesh.distributed_columns_call(
+            solve_lwsw, torch.device("cuda", 0), call_args, ncol,
+            replicated_argnums=(0, 1))
+        torch.cuda.synchronize()
+        launched = counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    equal = all(torch.equal(g.flux_up, s.flux_up)
+                and torch.equal(g.flux_dn, s.flux_dn)
+                for g, s in zip(gathered, single))
+    ok = size == 1 and launched["lwsw"] > 0 and equal
+    if not ok:
+        failures.append("distributed split")
+    print(f"split: {'ok' if ok else 'FAIL'} NCCL process group of {size}, "
+          f"distributed_columns_call(lw_sw_fluxes) {ncol}x{nlay} "
+          f"launches={launched} | bitwise equal to the single call: "
+          f"{equal} | group destroyed: "
+          f"{not torch.distributed.is_initialized()}", flush=True)
+
+    # ---- 11. profiling and gradients ----------------------------------------
+    from ecckd_tpu_torch.utils import profiling
+    drive = paths_run["lwsw"]
+    drive()
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(work, "trace")
+    with profiling.trace(trace_dir):
+        with torch.profiler.record_function("lw_sw_fluxes"):
+            drive()
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    device_ev = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    kernel_ev = [e for e in device_ev if e.get("cat") == "kernel"]
+    lwsw_ev = [e for e in kernel_ev if "lwsw_kernel" in e["name"]]
+    span = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == "lw_sw_fluxes"]
+    ok = bool(lwsw_ev and span)
+    if ok:
+        t0 = span[0]["ts"]
+        t1 = max([span[0]["ts"] + span[0]["dur"]]
+                 + [e["ts"] + e["dur"] for e in device_ev])
+        busy, idle = busy_idle(device_ev, t0, t1)
+        print(f"profile: ok trace names {lwsw_ev[0]['name'][:60]!r} | call "
+              f"{(t1 - t0) / 1e3:.3f} ms (profiler on), device time "
+              f"{sum(e['dur'] for e in kernel_ev) / 1e3:.3f} ms in "
+              f"{len(kernel_ev)} kernels, lwsw_kernel "
+              f"{sum(e['dur'] for e in lwsw_ev) / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms, idle share {idle:.4f} | {ncol}x{nlay} "
+              f"on {card}", flush=True)
+    else:
+        failures.append("profile")
+        print(f"profile: FAIL no lwsw_kernel among {len(kernel_ev)} device "
+              f"kernels, or no call span ({len(span)})", flush=True)
+
+    n_g = 2048
+    g = {k: v[:n_g] for k, v in t.items()}
+    concs_g = GasConcs(values=tuple(v[:n_g] if v.ndim else v
+                                    for v in concs.values),
+                       names=concs.names)
+    tlay_g = g["tlay"].clone().requires_grad_()
+    lw_call = lambda tl, **kw: pipeline.lw_fluxes(
+        lw32, g["plev"], tl, g["tlev"], g["tsfc"], g["emis"], concs_g, **kw)
+    reset_counts()
+    loss = lw_call(tlay_g).flux_dn[:, -1].sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = counts()
+    refused = []
+    for name, call in (
+            ("backend='cuda'", lambda: lw_call(tlay_g, backend="cuda")),
+            ("lw_fluxes_cuda", lambda: lw.lw_fluxes_cuda(
+                lw32, g["plev"], tlay_g, g["tlev"], g["tsfc"],
+                g["emis"][:, None].expand(-1, lw32.ngpt), concs_g))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(name if "requires grad" in str(e) else None)
+    checks = {
+        "no kernel launched": all(v == 0 for v in launched.values()),
+        "grad finite": tlay_g.grad is not None
+        and bool(torch.isfinite(tlay_g.grad).all()),
+        "warming raises surface down": tlay_g.grad is not None
+        and float(tlay_g.grad.sum()) > 0,
+        "cuda routes raise": refused == ["backend='cuda'", "lw_fluxes_cuda"],
+    }
+    ok = all(checks.values())
+    if not ok:
+        failures.append("gradients")
+    print(f"gradients: {'ok' if ok else 'FAIL'} lw_fluxes(auto) {n_g}x{nlay} "
+          f"float32 on the card, tlay requires grad: launches={launched} | "
+          + " | ".join(f"{k}: {v}" for k, v in checks.items()), flush=True)
 
     if failures:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)

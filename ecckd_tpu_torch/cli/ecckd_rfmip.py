@@ -4,10 +4,11 @@
 The reference ships two executables run back to back
 (example/rfmip-rad-irf/ecckd_rfmip_lw.F90, _sw.F90); climate workloads
 need both bands over the same atmosphere.  This driver reads the RFMIP
-file once and computes all four flux products (rlu/rld/rsu/rsd) in one
-``pipeline.lw_sw_fluxes`` call: on a CUDA device at f32 that is the merged
-kernel (csrc/lwsw.cu) for a pair on one (p, T) grid, and the LW and SW
-kernels otherwise.
+file once and computes all four flux products (rlu/rld/rsu/rsd) with
+``pipeline.lw_sw_fluxes``, one call per local card over its piece of the
+columns (cli/common.split_call): on a CUDA device at f32 that is the
+merged kernel (csrc/lwsw.cu) for a pair on one (p, T) grid, and the LW
+and SW kernels otherwise.
 
 Usage: python -m ecckd_tpu_torch.cli.ecckd_rfmip <rfmip_file> <lw_ckd>
        <sw_ckd> [-f 1|2] [-p 1|2] [--device cuda|cpu] [--heating-rates] ...
@@ -66,11 +67,14 @@ def main(argv=None) -> int:
          data.sfc_alb.astype(dtype), data.tsi.astype(dtype),
          data.sza.astype(dtype)], device)
 
+    solve = lambda ml, ms, *a: lw_sw_fluxes(
+        ml, ms, *a, n_gauss_angles=n_quad_angles, top_at_1=top_at_1,
+        backend=args.backend)
     with common.Timer("lw+sw flux solve") as t:
-        flw, fsw = lw_sw_fluxes(model_lw, model_sw, plev_t, tlay, tlev, tsfc,
-                                emis, concs, alb, tsi, sza,
-                                n_gauss_angles=n_quad_angles,
-                                top_at_1=top_at_1, backend=args.backend)
+        (flw, fsw), n_devices = common.split_call(
+            solve, (model_lw, model_sw, plev_t, tlay, tlev, tsfc, emis, concs,
+                    alb, tsi, sza), data.ncol, device, args.no_shard,
+            replicated_argnums=(0, 1))
         profiling.barrier(flw.flux_up, flw.flux_dn, fsw.flux_up, fsw.flux_dn)
 
     out = {}
@@ -81,12 +85,14 @@ def main(argv=None) -> int:
                                  for a in out.values()):
         print("ecckd_rfmip: non-finite fluxes in output", file=sys.stderr)
         return 1
+    if not common.writes_files():
+        return 0
     if args.metrics_json:
         # Both bands' sanity ranges: an SW-only regression must show too.
         sw_up, sw_dn = out["rsu"], out["rsd"]
         common.write_metrics(
             args.metrics_json, ncol=data.ncol, seconds=t.seconds,
-            args=args, fluxes=flw,
+            args=args, fluxes=flw, n_devices=n_devices,
             extra={"driver": "lwsw", "n_quad_angles": n_quad_angles,
                    "sw_flux_up_range": [float(sw_up.min()),
                                         float(sw_up.max())],

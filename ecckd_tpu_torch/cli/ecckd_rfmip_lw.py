@@ -3,9 +3,11 @@
 The reference ``ecckd_rfmip_lw`` executable
 (example/rfmip-rad-irf/ecckd_rfmip_lw.F90): reads the RFMIP atmosphere,
 computes gas optics and Planck sources, solves longwave fluxes with 1 or 3
-quadrature angles (physics index), writes CMIP-format rlu/rld files.  All
-columns are one ``pipeline.lw_fluxes`` call: on a CUDA device at f32 that
-is the LW kernel (csrc/lw.cu).
+quadrature angles (physics index), writes CMIP-format rlu/rld files.  The
+columns are split over the local cards, one ``pipeline.lw_fluxes`` call
+each (cli/common.split_call; ``--no-shard``: one call, ``--num-processes``:
+one piece per process): on a CUDA device at f32 that is the LW kernel
+(csrc/lw.cu).
 
 Usage: python -m ecckd_tpu_torch.cli.ecckd_rfmip_lw <rfmip_file> <lw_ckd>
        [-f 1|2] [-p 1|2] [--device cuda|cpu] [--precision f32|f64] ...
@@ -51,10 +53,12 @@ def main(argv=None) -> int:
         [plev, data.tlay.astype(dtype), data.tlev.astype(dtype),
          data.sfc_t.astype(dtype), data.sfc_emis.astype(dtype)], device)
 
+    solve = lambda m, *a: lw_fluxes(m, *a, n_gauss_angles=n_quad_angles,
+                                    top_at_1=top_at_1, backend=args.backend)
     with common.Timer("lw flux solve") as t:
-        fluxes = lw_fluxes(model, *arrays, concs,
-                           n_gauss_angles=n_quad_angles, top_at_1=top_at_1,
-                           backend=args.backend)
+        fluxes, n_devices = common.split_call(
+            solve, (model, *arrays, concs), data.ncol, device, args.no_shard,
+            replicated_argnums=(0,))
         profiling.barrier(fluxes.flux_up, fluxes.flux_dn)
 
     up = fluxes.flux_up.cpu().numpy()[:data.ncol]
@@ -63,9 +67,12 @@ def main(argv=None) -> int:
                               and np.isfinite(dn).all()):
         print("ecckd_rfmip_lw: non-finite fluxes in output", file=sys.stderr)
         return 1
+    if not common.writes_files():
+        return 0
     if args.metrics_json:
         common.write_metrics(args.metrics_json, ncol=data.ncol,
                              seconds=t.seconds, args=args, fluxes=fluxes,
+                             n_devices=n_devices,
                              extra={"driver": "lw",
                                     "n_quad_angles": n_quad_angles})
     suffix = f"r1i1p{args.physics_index}f{args.forcing_index}_gn.nc"

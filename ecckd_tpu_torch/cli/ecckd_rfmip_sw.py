@@ -3,8 +3,9 @@
 The reference ``ecckd_rfmip_sw`` executable
 (example/rfmip-rad-irf/ecckd_rfmip_sw.F90): gas optics + Rayleigh, TSI
 renormalisation, two-stream/adding solve with night-column masking,
-CMIP-format rsu/rsd output.  All columns are one ``pipeline.sw_fluxes``
-call: on a CUDA device at f32 that is the SW kernel (csrc/sw.cu).  The
+CMIP-format rsu/rsd output.  The columns are split over the local cards,
+one ``pipeline.sw_fluxes`` call each (cli/common.split_call): on a CUDA
+device at f32 that is the SW kernel (csrc/sw.cu).  The
 reference hard-codes physics index 1 in the SW output file names
 (ecckd_rfmip_sw.F90:56-57); reproduced.
 
@@ -51,9 +52,12 @@ def main(argv=None) -> int:
         [plev, data.tlay.astype(dtype), data.sfc_alb.astype(dtype),
          data.tsi.astype(dtype), data.sza.astype(dtype)], device)
 
+    solve = lambda m, *a: sw_fluxes(m, *a, top_at_1=top_at_1,
+                                    backend=args.backend)
     with common.Timer("sw flux solve") as t:
-        fluxes = sw_fluxes(model, plev_t, tlay, concs, alb, tsi, sza,
-                           top_at_1=top_at_1, backend=args.backend)
+        fluxes, n_devices = common.split_call(
+            solve, (model, plev_t, tlay, concs, alb, tsi, sza), data.ncol,
+            device, args.no_shard, replicated_argnums=(0,))
         profiling.barrier(fluxes.flux_up, fluxes.flux_dn)
 
     up = fluxes.flux_up.cpu().numpy()[:data.ncol]
@@ -62,10 +66,12 @@ def main(argv=None) -> int:
                               and np.isfinite(dn).all()):
         print("ecckd_rfmip_sw: non-finite fluxes in output", file=sys.stderr)
         return 1
+    if not common.writes_files():
+        return 0
     if args.metrics_json:
         common.write_metrics(args.metrics_json, ncol=data.ncol,
                              seconds=t.seconds, args=args, fluxes=fluxes,
-                             extra={"driver": "sw"})
+                             n_devices=n_devices, extra={"driver": "sw"})
     suffix = f"r1i1p1f{args.forcing_index}_gn.nc"
     os.makedirs(args.output_dir, exist_ok=True)
     up_path = os.path.join(args.output_dir,

@@ -7,7 +7,9 @@ sw.py).
   C side's ``ecckd_<name>_args_size()`` before the first launch.
 * Functions that fill them from the host preparation (ops/cuda/plan.py)
   for the columns [c0, c1) of one launch.
-* ``check_inputs``: device, float32, contiguity and shape checks that
+* ``require_cuda`` / ``grad_refusal``: a wrapper raises on CPU tensors
+  and on inputs that require grad (the kernels define no backward);
+  ``check_inputs``: device, float32, contiguity and shape checks that
   raise on what a kernel does not take.
 * ``launch_chunks``: the launch loop over column chunks, which raises on a
   non-zero ``cudaGetLastError()`` and counts launches.
@@ -19,11 +21,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ecckd_tpu_torch import constants
+from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.ops.cuda import plan as plan_mod
 from ecckd_tpu_torch.solvers.quadrature import gauss_angles
 
@@ -173,9 +176,30 @@ def sw_struct(sw: plan_mod.SwInputs, c0: int, c1: int, up: torch.Tensor,
                    dn=dn[c0:c1].data_ptr(), scratch=scratch.data_ptr())
 
 
-def require_cuda(fn_name: str, tlay: torch.Tensor) -> None:
+def grad_refusal(*inputs) -> Optional[str]:
+    """Why a kernel must not run on these per-column inputs (tensors or
+    GasConcs), or None: the kernels define no backward, so on an input
+    that requires grad a launch would return fluxes cut from the autograd
+    graph and every gradient through them would be silently zero."""
+    if not torch.is_grad_enabled():
+        return None
+    for x in inputs:
+        tensors = x.values if isinstance(x, GasConcs) else (x,)
+        if any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in tensors):
+            return ("an input requires grad and the kernels define no "
+                    "backward; gradients run on backend='torch' (or "
+                    "'auto', which takes it)")
+    return None
+
+
+def require_cuda(fn_name: str, tlay: torch.Tensor, *inputs) -> None:
     """A ``*_cuda`` wrapper launches its kernel or raises: it never runs
-    the plain version in its place."""
+    the plain version in its place, and never runs on inputs that require
+    grad (``grad_refusal``; ``inputs`` are the other per-column ones)."""
+    refusal = grad_refusal(tlay, *inputs)
+    if refusal is not None:
+        raise ValueError(f"{fn_name}: {refusal}")
     if tlay.device.type != "cuda":
         raise ValueError(f"{fn_name} takes CUDA tensors; tlay is on "
                          f"{tlay.device} (the plain version is "
@@ -245,17 +269,20 @@ def sw_shapes(sw: plan_mod.SwInputs, ncol: int, prefix: str = ""):
 def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
                   counted, device) -> None:
-    """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on the
-    current stream, with the arguments ``make_args(c0, c1)``; each launch
-    adds one to ``counted.launches``."""
+    """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
+    ``device``'s current stream, with the arguments ``make_args(c0, c1)``;
+    each launch adds one to ``counted.launches``.  The launch runs with
+    ``device`` as the host thread's current device: the runtime launches
+    on the current device, and another card's stream there is an error."""
     lib = library(name, args_type)
     launch = getattr(lib, f"ecckd_{name}_launch")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for c0 in range(0, ncol, column_chunk):
-        args = make_args(c0, min(c0 + column_chunk, ncol))
-        rc = launch(ctypes.byref(args), stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name} kernel launch failed: CUDA error {rc} "
-                f"({lib.ecckd_cuda_error_string(rc).decode()})")
-        counted.launches += 1
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for c0 in range(0, ncol, column_chunk):
+            args = make_args(c0, min(c0 + column_chunk, ncol))
+            rc = launch(ctypes.byref(args), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"{name} kernel launch failed: CUDA error {rc} "
+                    f"({lib.ecckd_cuda_error_string(rc).decode()})")
+            counted.launches += 1

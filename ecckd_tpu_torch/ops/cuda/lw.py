@@ -78,10 +78,12 @@ def lw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     (bounds the scratch memory).
 
     Takes float32 CUDA tensors and launches the kernel; anything else
-    raises (ValueError), CPU tensors included: ``lw_fluxes_plain`` is the
-    version for those.  Each launch adds one to ``lw_fluxes_cuda.launches``.
+    raises (ValueError), CPU tensors and inputs that require grad
+    included: ``lw_fluxes_plain`` is the version for those.  Each launch
+    adds one to ``lw_fluxes_cuda.launches``.
     """
-    binding.require_cuda("lw_fluxes_cuda", tlay)
+    binding.require_cuda("lw_fluxes_cuda", tlay, plev, tlev, tsfc, emis_gpt,
+                         gas_concs)
     atm, lw = plan_mod.prepare_lw(model, plev, tlay, tlev, tsfc, emis_gpt,
                                   gas_concs, n_gauss_angles)
     return _kernel_core(atm, lw, column_chunk)

@@ -110,11 +110,12 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
       column_chunk: columns per launch (bounds the scratch memory).
 
     Takes float32 CUDA tensors and launches the kernel; anything else
-    raises (ValueError), CPU tensors included: ``lwsw_fluxes_plain`` is the
-    version for those.  Each launch adds one to
-    ``lwsw_fluxes_cuda.launches``.
+    raises (ValueError), CPU tensors and inputs that require grad
+    included: ``lwsw_fluxes_plain`` is the version for those.  Each launch
+    adds one to ``lwsw_fluxes_cuda.launches``.
     """
-    binding.require_cuda("lwsw_fluxes_cuda", tlay)
+    binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
+                         emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
     atm, lw, sw = plan_mod.prepare(model_lw, model_sw, plev, tlay, tlev,
                                    tsfc, emis_gpt, gas_concs, sfc_alb, tsi,
                                    sza_deg, n_gauss_angles)

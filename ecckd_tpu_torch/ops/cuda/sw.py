@@ -80,10 +80,12 @@ def sw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     (ncol,); column_chunk: columns per launch (bounds the scratch memory).
 
     Takes float32 CUDA tensors and launches the kernel; anything else
-    raises (ValueError), CPU tensors included: ``sw_fluxes_plain`` is the
-    version for those.  Each launch adds one to ``sw_fluxes_cuda.launches``.
+    raises (ValueError), CPU tensors and inputs that require grad
+    included: ``sw_fluxes_plain`` is the version for those.  Each launch
+    adds one to ``sw_fluxes_cuda.launches``.
     """
-    binding.require_cuda("sw_fluxes_cuda", tlay)
+    binding.require_cuda("sw_fluxes_cuda", tlay, plev, gas_concs, sfc_alb,
+                         tsi, sza_deg)
     atm, sw = plan_mod.prepare_sw(model, plev, tlay, gas_concs, sfc_alb, tsi,
                                   sza_deg)
     return common.night_masked(sw, *_kernel_core(atm, sw, column_chunk))

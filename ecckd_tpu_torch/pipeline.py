@@ -20,8 +20,10 @@ CUDA tensors in ``top_at_1`` order (LW: 1-4 Gauss angles):
   model's grid).
 ``"auto"`` takes the kernels where they apply and the torch path
 otherwise (float64, CPU tensors, ``top_at_1=False``,
-``logarithmic_interpolation``).  Asking for ``"cuda"`` where a needed
-kernel does not apply raises, with the reason.
+``logarithmic_interpolation``, and any per-column input that requires
+grad while grad is enabled: the kernels define no backward, so gradients
+run on the torch path).  Asking for ``"cuda"`` where a needed kernel does
+not apply raises, with the reason.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from ecckd_tpu_torch.fluxes import FluxesBroadband
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.models.gas_optics import gas_optics_lw, gas_optics_sw
-from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
+from ecckd_tpu_torch.ops.cuda.binding import (DEFAULT_COLUMN_CHUNK,
+                                              grad_refusal)
 from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
@@ -115,7 +118,9 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     _check_backend(backend, logarithmic_interpolation)
     ncol = tlay.shape[0]
     if backend != "torch" and not logarithmic_interpolation:
-        refusal = _kernel_refusal(tlay, top_at_1, n_gauss_angles)
+        refusal = _kernel_refusal(
+            tlay, top_at_1, n_gauss_angles,
+            inputs=(plev, tlev, tsfc, sfc_emis, gas_concs))
         if refusal is None:
             emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, tlay.dtype,
                                        tlay.device)
@@ -162,7 +167,8 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     _check_backend(backend, logarithmic_interpolation)
     ncol = tlay.shape[0]
     if backend != "torch" and not logarithmic_interpolation:
-        refusal = _kernel_refusal(tlay, top_at_1)
+        refusal = _kernel_refusal(
+            tlay, top_at_1, inputs=(plev, gas_concs, sfc_alb, tsi, sza_deg))
         if refusal is None:
             alb = torch.as_tensor(sfc_alb, device=tlay.device).to(tlay.dtype)
             if alb.ndim == 2:
@@ -206,9 +212,15 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
 
 def _kernel_refusal(tlay: torch.Tensor, top_at_1: bool,
-                    n_gauss_angles: int = 1) -> Optional[str]:
+                    n_gauss_angles: int = 1, inputs: tuple = ()
+                    ) -> Optional[str]:
     """Why the CUDA kernels do not apply to this call, or None if they do
-    (the same rule for the LW, SW and merged kernels)."""
+    (the same rule for the LW, SW and merged kernels).  ``inputs`` are the
+    call's other per-column inputs: if any of them, or tlay, requires grad
+    the kernels would cut the autograd graph."""
+    grad = grad_refusal(tlay, *inputs)
+    if grad is not None:
+        return grad
     if tlay.device.type != "cuda":
         return f"tensors are on {tlay.device}, not a CUDA device"
     if tlay.dtype != torch.float32:
@@ -245,8 +257,10 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
     applies.
     """
     _check_backend(backend)
+    inputs = (plev, tlev, tsfc, sfc_emis, gas_concs, sfc_alb, tsi, sza_deg)
     if (backend != "torch" and models_mergeable(model_lw, model_sw)
-            and _kernel_refusal(tlay, top_at_1, n_gauss_angles) is None):
+            and _kernel_refusal(tlay, top_at_1, n_gauss_angles,
+                                inputs) is None):
         ncol, dtype, device = tlay.shape[0], tlay.dtype, tlay.device
         emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype, device)
         alb = torch.as_tensor(sfc_alb, device=device).to(dtype)

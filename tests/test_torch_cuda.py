@@ -1,5 +1,6 @@
-"""PyTorch port on a CUDA card: the merged LW+SW, LW and SW kernels and
-their routing.
+"""PyTorch port on a CUDA card: the merged LW+SW, LW and SW kernels, their
+routing, the stream (parallel/scale.py) and the refusal of inputs that
+require grad.
 
 These tests need a card and skip without one (marker ``cuda``).  They
 import neither jax nor tests/conftest.py, so on a machine with a card and
@@ -203,3 +204,51 @@ def test_pipeline_routes_to_the_kernel(models):
     with pytest.raises(ValueError, match="float32"):
         solve(lwsw_fluxes_cuda, lw, sw, b64,
               b64["emis"][:, None].expand(64, lw.ngpt))
+
+
+def test_stream_through_the_merged_kernel(models):
+    """parallel/scale.py on the card: every chunk's outputs, copied back
+    through the pinned ring, equal the same step run unstreamed, and each
+    chunk is one merged-kernel launch."""
+    from ecckd_tpu_torch.parallel.scale import run_weak_scaling
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    chunks = [batch(512, 19, torch.float32, seed=10 + i) for i in range(5)]
+
+    def step(b):
+        flw, fsw = pipeline.lw_sw_fluxes(
+            lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
+            b["concs"], b["alb"], b["tsi"], b["sza"])
+        return flw.flux_up, flw.flux_dn, fsw.flux_up, fsw.flux_dn
+
+    seen = []
+    before = lwsw_fluxes_cuda.launches
+    m = run_weak_scaling(step, lambda i: (chunks[i],), 5, 512,
+                         mesh=[torch.device("cuda", 0)], warmup=0,
+                         consume=lambda host, i: seen.append(
+                             (i, [a.copy() for a in host])), depth=2)
+    assert lwsw_fluxes_cuda.launches - before == 5
+    assert m["n_chunks"] == 5 and [i for i, _ in seen] == list(range(5))
+    for i, host in seen:
+        for h, ref in zip(host, step(chunks[i])):
+            np.testing.assert_array_equal(h, ref.cpu().numpy())
+
+
+def test_inputs_that_require_grad_keep_the_kernels_out(models):
+    lw = models["lw", torch.float32]
+    b = batch(64, 9, torch.float32)
+    tlay = b["tlay"].clone().requires_grad_()
+    call = lambda **kw: pipeline.lw_fluxes(
+        lw, b["plev"], tlay, b["tlev"], b["tsfc"], b["emis"], b["concs"],
+        **kw)
+    before = lw_fluxes_cuda.launches
+    call().flux_dn[:, -1].sum().backward()
+    assert lw_fluxes_cuda.launches == before
+    assert torch.isfinite(tlay.grad).all() and float(tlay.grad.sum()) > 0
+    with pytest.raises(ValueError, match="requires grad"):
+        call(backend="cuda")
+    with pytest.raises(ValueError, match="requires grad"):
+        lw_fluxes_cuda(lw, b["plev"], tlay, b["tlev"], b["tsfc"],
+                       b["emis"][:, None].expand(-1, lw.ngpt), b["concs"])
+    with torch.no_grad():        # no graph wanted: the kernel runs
+        call()
+    assert lw_fluxes_cuda.launches == before + 1

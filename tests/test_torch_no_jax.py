@@ -3,8 +3,9 @@
 A subprocess with ``sys.modules["jax"] = None`` (and the same for
 ``ecckd_tpu``), so any import of either raises, imports every module of
 ``ecckd_tpu_torch`` and runs on the CPU: the merged slice, ``lw_fluxes``
-and ``sw_fluxes``, and the combined RFMIP driver (``--device cpu``) on a
-synthetic RFMIP file written by the port.
+and ``sw_fluxes``, the combined RFMIP driver (``--device cpu``) on a
+synthetic RFMIP file written by the port, ``scale_bench`` with
+``--out-dir``, and the column split over two CPU devices.
 """
 import os
 import subprocess
@@ -58,6 +59,21 @@ with tempfile.TemporaryDirectory() as d:
     rsd = read_fluxes(os.path.join(
         d, "rsd_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc"), "rsd")
     assert rsd.shape == (6, 7) and np.isfinite(rsd).all()
+    from ecckd_tpu_torch.cli import scale_bench
+    from ecckd_tpu_torch.parallel import mesh
+    flx = os.path.join(d, "flx")
+    assert scale_bench.main(["--device", "cpu", "--columns", "32", "--chunk",
+                             "16", "--nlay", "6", "--lw-file", ckd["lw_fsck"],
+                             "--sw-file", ckd["sw_wide"], "--out-dir",
+                             flx]) == 0
+    assert np.isfinite(np.load(os.path.join(flx, "rsu.npy"))).all()
+    args = (lw, T("plev"), T("tlay"), T("tlev"), T("tsfc"), T("emis"),
+            b["concs"])
+    split = mesh.shard_columns_call(lambda m, *a: lw_fluxes(m, *a),
+                                    [torch.device("cpu")] * 2, args, 5,
+                                    replicated_argnums=(0,))
+    assert split.flux_up.shape == (5, 8)
+    assert torch.isfinite(split.flux_dn).all()
 assert not any(k == "jax" or k.startswith(("jax.", "ecckd_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))
