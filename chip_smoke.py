@@ -11,14 +11,17 @@ result line is printed:
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
 2. build: compiles csrc/lwsw.cu, lw.cu and sw.cu with nvcc from this
-   checkout, one nvcc each, all at once (timed; ptxas registers/spills).
+   checkout, one nvcc each, all at once (timed; ptxas registers/spills);
+   each library holds the exact and the fast instantiation, and both entry
+   points are bound.
 3. models: writes the synthetic ckd files (shipped dimensions, values from
    a seed): lw_fsck, lw_rrtmgp (36 g-points), sw_wide, their
    negative-entry variants and sw_wide on a 47-point pressure grid, and
    loads them with the port's loader.
 4. parity: each kernel (float32) against its plain PyTorch version at
-   float64 on the card, case by case: max|d| / flux scale <= 5e-5 per
-   output.  The merged kernel (K1/K2): RFMIP 1800 x 60, nlay 1/2/8/137,
+   float64 on the card, case by case (tools/cuda_parity.py's CASES and
+   run_case): max|d| / flux scale <= 5e-5 per output.  The merged kernel
+   (K1/K2): RFMIP 1800 x 60, nlay 1/2/8/137,
    2-4 Gauss angles, a chunked launch, the negative-entry pair, lw_rrtmgp
    with sw_wide.  The LW kernel (K3) and the SW kernel (K4): RFMIP
    1800 x 60, nlay 1/2/8/137, a chunked launch, the negative-entry models;
@@ -36,10 +39,11 @@ result line is printed:
 7. RFMIP drivers at the reference's size, 100 sites x 18 experiments x 60
    layers (1800 columns): ecckd_rfmip_lw, ecckd_rfmip_sw and ecckd_rfmip
    main([...]) with --device cuda on a synthetic RFMIP file, each with the
-   counts set to 0 before and read after; K3, K4 and K1 must have run, the
-   files be finite and match the float64 plain version, SW TOA down equal
-   mu0 * TSI by day and 0 by night, and the combined driver's files match
-   the separate drivers'.
+   counts set to 0 before and read after; K3, K4 and K1 must have run and
+   no fast entry point, the files (read and written by the native netCDF3
+   engine, as --metrics-json records) be finite and match the float64
+   plain version, SW TOA down equal mu0 * TSI by day and 0 by night, and
+   the combined driver's files match the separate drivers'.
 8. times: each kernel and its plain float32 version at 65,536 x 60 (and
    the kernels at 1800 x 60) with CUDA events (warm-up, median of 10), with
    and without host prep, beside the card's name and power limit.
@@ -63,8 +67,18 @@ result line is printed:
    idle.  lw_fluxes(auto) on float32 CUDA tensors with tlay requiring
    grad launches no kernel and back-propagates finite gradients;
    backend="cuda" and lw_fluxes_cuda raise.
+12. fast mode (config.set_mxu_precision("bf16"), --fast): each kernel's
+   fast entry point at f32 against the fast plain version at f64 on phase
+   4's cases (<= 5e-5) and against the exact plain f64 (<= 5e-4, > 0);
+   lw_sw_fluxes, lw_fluxes and sw_fluxes (auto) at 65,536 x 60 in the fast
+   mode, and ecckd_rfmip{,_lw,_sw} --fast at 100 x 18 x 60, each with the
+   counts set to 0 before and read after: the fast entry points ran and
+   the exact ones did not.  Times each fast kernel and its plain version at
+   65,536 x 60, and the exact kernels again, interleaved (exact, fast,
+   fast, exact), after the fast path has run.
 
-The last two lines are the kernels' JSON record and
+The last two lines are the kernels' JSON record (exact and fast entries)
+and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -78,6 +92,7 @@ import tempfile
 import time
 
 BOUND = 5e-5            # max|d| / flux scale, per output (tools/chip_parity.py)
+FAST_BOUND = 5e-4       # the fast mode against the exact plain version
 PROTOCOL = (65536, 60)  # BENCH_CONFIGS protocol batch (columns, layers)
 RFMIP = (100, 18, 60)   # the reference's RFMIP workload (sites, expts, layers)
 STREAM = 1_048_576      # scale_bench's default million-column run
@@ -97,90 +112,6 @@ def nvidia_smi() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
-
-
-def parity_batch(ncol: int, nlay: int, seed: int):
-    """Heterogeneous columns hitting the kernels' edge cases: surface
-    pressures over 2.6 decades (every pressure-grid point at one layer
-    index), temperatures past both Planck-table ends in every 8th column,
-    h2o over five decades per cell (vmr floor and LUT top), ch4 below its
-    reference, an unknown gas, day, grazing and night suns."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    p_sfc = np.logspace(np.log10(270.0), np.log10(1.05e5), ncol)
-    rng.shuffle(p_sfc)
-    p_top = 10.0 ** rng.uniform(np.log10(0.8), np.log10(4.0), ncol)
-    plev = np.stack([np.logspace(np.log10(t), np.log10(s), nlay + 1)
-                     for t, s in zip(p_top, p_sfc)])
-    logp = np.log(0.5 * (plev[:, 1:] + plev[:, :-1]))
-    tlay = (288.0 - 55.0 * np.exp(-((logp - np.log(1.5e4)) ** 2) / 4.0)
-            + 3.0 * rng.standard_normal((ncol, nlay)))
-    tlev = (288.0 - 55.0 * np.exp(-((np.log(plev) - np.log(1.5e4)) ** 2)
-                                  / 4.0)
-            + 3.0 * rng.standard_normal((ncol, nlay + 1)))
-    extreme = np.arange(ncol) % 8 == 3
-    tlay[extreme] = rng.uniform(100.0, 360.0, (int(extreme.sum()), nlay))
-    tlev[extreme] = rng.uniform(100.0, 360.0, (int(extreme.sum()), nlay + 1))
-    gases = dict(
-        co2=np.full(ncol, 4.0e-4), ch4=np.full(ncol, 1.2e-6),
-        n2o=np.full(ncol, 3.3e-7), o2=np.full(ncol, 0.2095),
-        cfc11=np.full(ncol, 2.0e-10), cfc12=np.full(ncol, 5.0e-10),
-        h2o=10.0 ** rng.uniform(-6.8, -1.5, (ncol, nlay)),
-        o3=10.0 ** rng.uniform(-8.0, -5.2, (ncol, nlay)),
-        no2=np.full(ncol, 1.0e-9))
-    arrays = dict(plev=plev, tlay=tlay, tlev=tlev,
-                  tsfc=rng.uniform(110.0, 355.0, ncol),
-                  emis=np.linspace(0.7, 1.0, ncol),
-                  alb=np.linspace(0.02, 0.9, ncol),
-                  tsi=np.full(ncol, 1361.0),
-                  sza=np.linspace(0.0, 120.0, ncol))
-    return arrays, gases
-
-
-def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int):
-    """numpy batch -> CUDA tensors + GasConcs (float32 values rounded once,
-    so the float64 reference sees the kernel's exact inputs).  "emis" is
-    per g-point (the kernels' argument), "emis_col" per column (the
-    pipeline's)."""
-    import numpy as np
-    import torch
-    from ecckd_tpu_torch.gases import GasConcs
-    t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
-        device="cuda", dtype=dtype)
-    out = {k: t(v) for k, v in arrays.items()}
-    out["emis_col"] = out["emis"]
-    out["emis"] = out["emis"][:, None].expand(-1, ngpt_lw).contiguous()
-    out["concs"] = GasConcs.create([(k, t(v)) for k, v in gases.items()])
-    return out
-
-
-def solve(fn, lw, sw, b, **kw):
-    return fn(lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
-              b["concs"], b["alb"], b["tsi"], b["sza"], **kw)
-
-
-def lw_solve(fn, lw, b, **kw):
-    return fn(lw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
-              b["concs"], **kw)
-
-
-def sw_solve(fn, sw, b, **kw):
-    return fn(sw, b["plev"], b["tlay"], b["concs"], b["alb"], b["tsi"],
-              b["sza"], **kw)
-
-
-def flux_errors(got, ref):
-    """(max relative error per output over its band's flux scale, max
-    absolute error) — the tools/chip_parity.py metric.  got/ref hold one
-    band's (up, dn) or both bands' (lw_up, lw_dn, sw_up, sw_dn)."""
-    rel, absolute = [], 0.0
-    for band in range(0, len(ref), 2):
-        scale = max(float(abs(r).max()) for r in ref[band:band + 2])
-        for g, r in zip(got[band:band + 2], ref[band:band + 2]):
-            d = float(abs(g.double() - r.double()).max())
-            rel.append(d / scale)
-            absolute = max(absolute, d)
-    return rel, absolute
 
 
 def cuda_time_ms(fn, warmup: int = 2, runs: int = 10) -> float:
@@ -267,39 +198,42 @@ def run(card: str, work: str) -> int:
     from ecckd_tpu_torch.models.loader import load_ckd_model
     from ecckd_tpu_torch.ops.cuda import (binding, build, common, lw, lwsw,
                                           plan, sw)
+    from tools import cuda_parity
+    from tools.cuda_parity import flux_errors, on_card, solve
     wrappers = {"lwsw": lwsw.lwsw_fluxes_cuda, "lw": lw.lw_fluxes_cuda,
                 "sw": sw.sw_fluxes_cuda}
     modules = {"lwsw": lwsw, "lw": lw, "sw": sw}
 
     def reset_counts():
         for w in wrappers.values():
-            w.launches = 0
+            w.launches = w.fast_launches = 0
 
     def counts():
-        return {k: w.launches for k, w in wrappers.items()}
+        # launches per entry point: exact ("lwsw") and fast ("lwsw_fast")
+        out = {k: w.launches for k, w in wrappers.items()}
+        out.update({f"{k}_fast": w.fast_launches
+                    for k, w in wrappers.items()})
+        return out
 
     # ---- 2. build: one nvcc per kernel source, all started together -------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         lib_paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
     for name, mod in modules.items():
-        binding.library(name, mod._Args)   # binds and checks the struct
+        # binds both entry points and checks the struct
+        binding.library(name, mod._Args)
     build_s = time.perf_counter() - t0
     for name, path in lib_paths.items():
         ptxas = [ln.strip() for ln in open(f"{path}.ptxas.txt")
                  if "registers" in ln or "spill" in ln]
         print(f"build: ok {name} {os.path.relpath(path)} | "
               + " | ".join(ptxas), flush=True)
-    print(f"build: ok 3 kernels in {build_s:.2f} s (parallel nvcc)",
-          flush=True)
+    print(f"build: ok 3 kernels (exact and fast entry points each) in "
+          f"{build_s:.2f} s (parallel nvcc)", flush=True)
 
     # ---- 3. models --------------------------------------------------------
     models, paths = {}, {}
-    for key, kind, neg, n_p in (
-            ("lw", "lw_fsck", False, 53), ("sw", "sw_wide", False, 53),
-            ("lw_neg", "lw_fsck", True, 53), ("sw_neg", "sw_wide", True, 53),
-            ("lw_rrtmgp", "lw_rrtmgp", False, 53),
-            ("sw_p47", "sw_wide", False, 47)):
+    for key, kind, neg, n_p in cuda_parity.SYNTHETIC:
         paths[key] = os.path.join(work, f"{key}.nc")
         write_synthetic_ckd(paths[key], kind, seed=7, negative_entry=neg,
                             n_pressure=n_p)
@@ -321,77 +255,21 @@ def run(card: str, work: str) -> int:
     # ---- 4. parity: kernel (f32) vs plain (f64) on the card -------------
     failures = []
     worst_abs = dict.fromkeys(KERNELS, 0.0)
-    cases = [  # kernel, name, ncol, nlay, angles, lw model, sw model, chunk
-        ("lwsw", "nlay1", 1037, 1, 1, "lw", "sw", None),
-        ("lwsw", "nlay2", 1037, 2, 1, "lw", "sw", None),
-        ("lwsw", "nlay8", 1037, 8, 1, "lw", "sw", None),
-        ("lwsw", "rfmip_1800x60", 1800, 60, 1, "lw", "sw", None),
-        ("lwsw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", "sw", 768),
-        ("lwsw", "nlay137", 1037, 137, 1, "lw", "sw", None),
-        ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None),
-        ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None),
-        ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None),
-        ("lwsw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", "sw_neg",
-         None),
-        ("lwsw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", "sw_neg",
-         None),
-        ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None),
-        ("lw", "rfmip_1800x60", 1800, 60, 1, "lw", None, None),
-        ("lw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", None, 768),
-        ("lw", "nlay1", 1037, 1, 1, "lw", None, None),
-        ("lw", "nlay2", 1037, 2, 1, "lw", None, None),
-        ("lw", "nlay8", 1037, 8, 1, "lw", None, None),
-        ("lw", "nlay137", 1037, 137, 1, "lw", None, None),
-        ("lw", "angles2_nlay60", 1037, 60, 2, "lw", None, None),
-        ("lw", "angles3_nlay60", 1037, 60, 3, "lw", None, None),
-        ("lw", "angles4_nlay60", 1037, 60, 4, "lw", None, None),
-        ("lw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", None, None),
-        ("lw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", None, None),
-        ("lw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", None, None),
-        ("lw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", None, 512),
-        ("sw", "rfmip_1800x60", 1800, 60, 1, None, "sw", None),
-        ("sw", "rfmip_1800x60_chunk768", 1800, 60, 1, None, "sw", 768),
-        ("sw", "nlay1", 1037, 1, 1, None, "sw", None),
-        ("sw", "nlay2", 1037, 2, 1, None, "sw", None),
-        ("sw", "nlay8", 1037, 8, 1, None, "sw", None),
-        ("sw", "nlay137", 1037, 137, 1, None, "sw", None),
-        ("sw", "negative_entry_nlay60", 1037, 60, 1, None, "sw_neg", None),
-        ("sw", "sw_p47_nlay60", 1037, 60, 1, None, "sw_p47", None),
-    ]
-    for i, (kernel, name, ncol, nlay, n_ang, lk, sk, chunk) in enumerate(
-            cases):
-        arrays, gases = parity_batch(ncol, nlay, seed=100 + i)
-        ng = m32(lk).ngpt if lk else 1
-        b32 = on_card(arrays, gases, torch.float32, ng)
-        b64 = on_card(arrays, gases, torch.float64, ng)
-        kw = dict(column_chunk=chunk or binding.DEFAULT_COLUMN_CHUNK)
-        ang = dict(n_gauss_angles=n_ang)
-        if kernel == "lwsw":
-            got = solve(lwsw.lwsw_fluxes_cuda, m32(lk), m32(sk), b32, **kw,
-                        **ang)
-            ref = solve(lwsw.lwsw_fluxes_plain, m64(lk), m64(sk), b64, **ang)
-        elif kernel == "lw":
-            got = lw_solve(lw.lw_fluxes_cuda, m32(lk), b32, **kw, **ang)
-            ref = lw_solve(lw.lw_fluxes_plain, m64(lk), b64, **ang)
-        else:
-            got = sw_solve(sw.sw_fluxes_cuda, m32(sk), b32, **kw)
-            ref = sw_solve(sw.sw_fluxes_plain, m64(sk), b64)
-        torch.cuda.synchronize()
-        rel, absolute = flux_errors(got, ref)
-        worst_abs[kernel] = max(worst_abs[kernel], absolute)
-        ok = max(rel) <= BOUND and all(bool(torch.isfinite(g).all())
-                                       for g in got)
-        if not ok:
+    for i, case in enumerate(cuda_parity.CASES):
+        kernel, name, ncol, nlay, n_ang, lk, sk, _ = case
+        r = cuda_parity.run_case(models, case, seed=100 + i, mode="bf16x3")
+        worst_abs[kernel] = max(worst_abs[kernel], r["max_abs"])
+        if not r["ok"]:
             failures.append(f"parity {kernel} {name}")
-        print(f"parity: {'ok' if ok else 'FAIL'} {kernel} {name} "
+        print(f"parity: {'ok' if r['ok'] else 'FAIL'} {kernel} {name} "
               f"({ncol}x{nlay}, {n_ang} angle(s), {lk or ''}"
               f"{'+' if lk and sk else ''}{sk or ''}) max|d|/scale "
-              + " ".join(f"{r:.3e}" for r in rel)
-              + f" max|d|={absolute:.3e} W m-2 (bound {BOUND:.0e})",
+              + " ".join(f"{v:.3e}" for v in r["rel"])
+              + f" max|d|={r['max_abs']:.3e} W m-2 (bound {BOUND:.0e})",
               flush=True)
 
     # The pair on two (p, T) grids: lw_sw_fluxes(cuda) takes K3 + K4.
-    arrays, gases = parity_batch(1800, 60, seed=99)
+    arrays, gases = cuda_parity.adversarial_batch(1800, 60, seed=99)
     b32 = on_card(arrays, gases, torch.float32, lw32.ngpt)
     b64 = on_card(arrays, gases, torch.float64, lw32.ngpt)
     reset_counts()
@@ -402,10 +280,12 @@ def run(card: str, work: str) -> int:
     torch.cuda.synchronize()
     launched = counts()
     got = (lw_f.flux_up, lw_f.flux_dn, sw_f.flux_up, sw_f.flux_dn)
-    ref = (*lw_solve(lw.lw_fluxes_plain, m64("lw"), b64),
-           *sw_solve(sw.sw_fluxes_plain, m64("sw_p47"), b64))
+    ref = (*solve("lw", "plain", m64("lw"), None, b64),
+           *solve("sw", "plain", None, m64("sw_p47"), b64))
     rel, absolute = flux_errors(got, ref)
-    ok = (max(rel) <= BOUND and launched == {"lwsw": 0, "lw": 1, "sw": 1})
+    ok = (max(rel) <= BOUND and launched == {"lwsw": 0, "lw": 1, "sw": 1,
+                                             "lwsw_fast": 0, "lw_fast": 0,
+                                             "sw_fast": 0})
     if not ok:
         failures.append("parity non-mergeable pair")
     print(f"parity: {'ok' if ok else 'FAIL'} lw_sw_fluxes(cuda) lw_fsck + "
@@ -414,11 +294,11 @@ def run(card: str, work: str) -> int:
           flush=True)
 
     # ---- 5. shared code: K3 / K4 against K1 ------------------------------
-    arrays, gases = parity_batch(1800, 60, seed=7)
+    arrays, gases = cuda_parity.adversarial_batch(1800, 60, seed=7)
     b32 = on_card(arrays, gases, torch.float32, lw32.ngpt)
-    merged = solve(lwsw.lwsw_fluxes_cuda, lw32, sw32, b32)
-    single = (*lw_solve(lw.lw_fluxes_cuda, lw32, b32),
-              *sw_solve(sw.sw_fluxes_cuda, sw32, b32))
+    merged = solve("lwsw", "cuda", lw32, sw32, b32)
+    single = (*solve("lw", "cuda", lw32, None, b32),
+              *solve("sw", "cuda", None, sw32, b32))
     torch.cuda.synchronize()
     diffs = [float((s - m).abs().max()) for s, m in zip(single, merged)]
     rel, _ = flux_errors(single, merged)
@@ -453,10 +333,9 @@ def run(card: str, work: str) -> int:
             sw32, t["plev"], t["tlay"], concs, t["alb"], t["tsi"], t["sza"],
             backend="auto"),),
     }
-    refs = {"lwsw": lambda: solve(lwsw.lwsw_fluxes_plain, m64("lw"),
-                                  m64("sw"), b64),
-            "lw": lambda: lw_solve(lw.lw_fluxes_plain, m64("lw"), b64),
-            "sw": lambda: sw_solve(sw.sw_fluxes_plain, m64("sw"), b64)}
+    refs = {name: lambda name=name, **kw: solve(
+        name, "plain", m64("lw") if name != "sw" else None,
+        m64("sw") if name != "lw" else None, b64, **kw) for name in KERNELS}
     main_launches = {}
     for name, drive in paths_run.items():
         reset_counts()
@@ -465,7 +344,8 @@ def run(card: str, work: str) -> int:
         launched = counts()
         main_launches[name] = launched[name]
         outs = [o for f in fluxes for o in (f.flux_up, f.flux_dn)]
-        rel, _ = flux_errors([o[:n_check] for o in outs], refs[name]())
+        rel, _ = flux_errors([o[:n_check] for o in outs],
+                             refs[name](mxu_mode="bf16x3"))
         checks = {
             f"{name} launches > 0": launched[name] > 0,
             "no other kernel": all(v == 0 for k, v in launched.items()
@@ -510,12 +390,18 @@ def run(card: str, work: str) -> int:
     plev = pipeline.clamp_top_pressure(data.plev, lw32.get_press_min())
     d64 = lambda x: torch.as_tensor(x, device="cuda", dtype=torch.float64)
     concs64 = build_gas_concs(data, np.float64, "cuda")
-    ref_files = dict(zip(("rlu", "rld"), lw.lw_fluxes_plain(
-        m64("lw"), d64(plev), d64(data.tlay), d64(data.tlev), d64(data.sfc_t),
-        d64(data.sfc_emis)[:, None].expand(-1, lw32.ngpt), concs64)))
-    ref_files.update(zip(("rsu", "rsd"), sw.sw_fluxes_plain(
-        m64("sw"), d64(plev), d64(data.tlay), concs64, d64(data.sfc_alb),
-        d64(data.tsi), d64(data.sza))))
+
+    def driver_refs(mode):
+        out = dict(zip(("rlu", "rld"), lw.lw_fluxes_plain(
+            m64("lw"), d64(plev), d64(data.tlay), d64(data.tlev),
+            d64(data.sfc_t), d64(data.sfc_emis)[:, None].expand(
+                -1, lw32.ngpt), concs64, mxu_mode=mode)))
+        out.update(zip(("rsu", "rsd"), sw.sw_fluxes_plain(
+            m64("sw"), d64(plev), d64(data.tlay), concs64, d64(data.sfc_alb),
+            d64(data.tsi), d64(data.sza), mxu_mode=mode)))
+        return out
+
+    ref_files = driver_refs("bf16x3")
     files, driver_s, driver_launches = {}, {}, {}
     for name, drive, ckd, outputs in drivers:
         out_dir = os.path.join(work, f"out_{name}")
@@ -527,7 +413,8 @@ def run(card: str, work: str) -> int:
         launched = counts()
         driver_launches[name] = launched
         with open(metrics) as f:
-            driver_s[name] = json.load(f)["seconds"]
+            driver_m = json.load(f)
+        driver_s[name] = driver_m["seconds"]
         files[name] = {v: read_fluxes(os.path.join(out_dir, v + stem), v)
                        for v in outputs}
         got = [torch.as_tensor(files[name][v]) for v in outputs]
@@ -536,6 +423,9 @@ def run(card: str, work: str) -> int:
         checks = {
             "rc == 0": rc == 0,
             f"{name} launches > 0": launched[name] > 0,
+            "no fast entry point": not any(v for k, v in launched.items()
+                                           if k.endswith("_fast")),
+            "io_engine native": driver_m["io_engine"] == "native",
             "shapes": all(g.shape == (data.ncol, nlay_r + 1) for g in got),
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
             "vs plain f64": max(rel) <= BOUND,
@@ -645,7 +535,7 @@ def run(card: str, work: str) -> int:
     for i, got in sorted(samples.items()):
         tsfc = (batch["tsfc"][:n_check]
                 + np.float32(0.01) * np.float32(i % 7)).astype(np.float32)
-        ref = solve(lwsw.lwsw_fluxes_plain, m64("lw"), m64("sw"),
+        ref = solve("lwsw", "plain", m64("lw"), m64("sw"),
                     dict(b64, tsfc=torch.as_tensor(tsfc, device="cuda",
                                                    dtype=torch.float64)))
         rel.append(max(flux_errors(got, [r.cpu() for r in ref])[0]))
@@ -863,15 +753,131 @@ def run(card: str, work: str) -> int:
           f"float32 on the card, tlay requires grad: launches={launched} | "
           + " | ".join(f"{k}: {v}" for k, v in checks.items()), flush=True)
 
+
+    # ---- 12. fast mode --------------------------------------------------------
+    from ecckd_tpu_torch import config
+    fast_abs = dict.fromkeys(KERNELS, 0.0)
+    for i, case in enumerate(cuda_parity.CASES):
+        kernel, name, ncol_c, nlay_c, n_ang, lk, sk, _ = case
+        r = cuda_parity.run_case(models, case, seed=100 + i, mode="bf16")
+        fast_abs[kernel] = max(fast_abs[kernel], r["max_abs"])
+        if not r["ok"]:
+            failures.append(f"fast parity {kernel} {name}")
+        print(f"fast parity: {'ok' if r['ok'] else 'FAIL'} {kernel}_fast "
+              f"{name} ({ncol_c}x{nlay_c}, {n_ang} angle(s), {lk or ''}"
+              f"{'+' if lk and sk else ''}{sk or ''}) max|d|/scale vs fast "
+              f"plain f64 {r['max_rel']:.3e} (bound {BOUND:.0e}), vs exact "
+              f"plain f64 {r['max_rel_vs_exact']:.3e} (bound "
+              f"{FAST_BOUND:.0e}, > 0) max|d|={r['max_abs']:.3e} W m-2",
+              flush=True)
+
+    fast_launches = {}
+    config.set_mxu_precision("bf16")
+    try:
+        for name, drive in paths_run.items():
+            reset_counts()
+            fluxes = drive()
+            torch.cuda.synchronize()
+            launched = counts()
+            fast_launches[name] = launched[f"{name}_fast"]
+            outs = [o[:n_check] for f in fluxes for o in (f.flux_up,
+                                                         f.flux_dn)]
+            rel_f = max(flux_errors(outs, refs[name](mxu_mode="bf16"))[0])
+            rel_e = max(flux_errors(outs, refs[name](mxu_mode="bf16x3"))[0])
+            checks = {
+                f"{name}_fast launches > 0": launched[f"{name}_fast"] > 0,
+                "no other entry point": all(
+                    v == 0 for k, v in launched.items()
+                    if k != f"{name}_fast"),
+                "finite": all(bool(torch.isfinite(o).all()) for f in fluxes
+                              for o in (f.flux_up, f.flux_dn)),
+                f"first {n_check} columns vs fast plain f64": rel_f <= BOUND,
+                "vs exact plain f64": 0.0 < rel_e <= FAST_BOUND,
+            }
+            ok = all(checks.values())
+            if not ok:
+                failures.append(f"fast main path {name}")
+            print(f"fast path: {'ok' if ok else 'FAIL'} {name} (auto, "
+                  f"mode bf16) {ncol}x{nlay} launches={launched} | "
+                  + " | ".join(f"{k}: {v}" for k, v in checks.items())
+                  + f" | max|d|/scale vs fast {rel_f:.3e}, vs exact "
+                  f"{rel_e:.3e}", flush=True)
+    finally:
+        config.set_mxu_precision("bf16x3")
+
+    fast_refs = driver_refs("bf16")
+    for name, drive, ckd, outputs in drivers:
+        out_dir = os.path.join(work, f"fast_{name}")
+        metrics = os.path.join(out_dir, "metrics.json")
+        reset_counts()
+        try:
+            rc = drive([rfmip, *ckd, "--device", "cuda", "--output-dir",
+                        out_dir, "--metrics-json", metrics, "--fast"])
+            torch.cuda.synchronize()
+        finally:
+            config.set_mxu_precision("bf16x3")
+        launched = counts()
+        with open(metrics) as f:
+            driver_m = json.load(f)
+        got = [torch.as_tensor(read_fluxes(os.path.join(out_dir, v + stem),
+                                           v)) for v in outputs]
+        rel_f = max(flux_errors(got, [fast_refs[v].cpu()
+                                      for v in outputs])[0])
+        rel_e = max(flux_errors(got, [ref_files[v].cpu()
+                                      for v in outputs])[0])
+        checks = {
+            "rc == 0": rc == 0,
+            f"{name}_fast launches > 0": launched[f"{name}_fast"] > 0,
+            "no exact entry point": all(launched[k] == 0 for k in KERNELS),
+            "metrics": (driver_m["mxu_precision"], driver_m["io_engine"])
+            == ("bf16", "native"),
+            "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            "vs fast plain f64": rel_f <= BOUND,
+            "vs exact plain f64": 0.0 < rel_e <= FAST_BOUND,
+        }
+        ok = all(checks.values())
+        if not ok:
+            failures.append(f"fast rfmip driver {name}")
+        print(f"fast rfmip driver: {'ok' if ok else 'FAIL'} "
+              f"{drive.__module__.split('.')[-1]} --fast {nsite}x{nexp}x"
+              f"{nlay_r} launches={launched} | " + " | ".join(
+                  f"{k}: {v}" for k, v in checks.items())
+              + f" | max|d|/scale vs fast {rel_f:.3e}, vs exact {rel_e:.3e}",
+              flush=True)
+
+    # Times: exact, fast, fast, exact per kernel, now that the fast entry
+    # points have run (the exact ones' times of phase 8 came before).
+    fast_preps = {"lwsw": plan.prepare(*args["lwsw"], fast=True),
+                  "lw": plan.prepare_lw(*args["lw"], fast=True),
+                  "sw": plan.prepare_sw(*args["sw"], fast=True)}
+    fast_times = {}
+    for name in KERNELS:
+        core = modules[name]._kernel_core
+        exact = lambda: core(*preps[name], chunk)
+        fast = lambda: core(*fast_preps[name], chunk)
+        e1, f1, f2, e2 = (cuda_time_ms(fn) for fn in (exact, fast, fast,
+                                                      exact))
+        p_ms = cuda_time_ms(lambda: plain_core[name](*fast_preps[name]))
+        fast_times[name] = (statistics.mean((f1, f2)), p_ms)
+        print(f"times: {name}_fast {ncol}x{nlay} 1 angle on {card}: kernel "
+              f"{f1:.3f} / {f2:.3f} ms, fast plain f32 {p_ms:.3f} ms | "
+              f"exact kernel now {e1:.3f} / {e2:.3f} ms, in phase 8 (before "
+              f"any fast launch) {times[name][0]:.3f} ms (median of 10 after "
+              f"2 warm-up, CUDA events)", flush=True)
+
     if failures:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)
         return 1
     print(card)
+    entries = [(name, main_launches, worst_abs, times) for name in KERNELS]
+    entries += [(name, fast_launches, fast_abs, fast_times)
+                for name in KERNELS]
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1], "launches": main_launches[name],
-        "max_abs_err": worst_abs[name], "ms": times[name][0],
-        "plain_ms": times[name][1]} for name in KERNELS]}))
+        "name": name if tm is times else f"{name}_fast", "route": "cuda",
+        "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+        "launches": launches[name], "max_abs_err": err[name],
+        "ms": tm[name][0], "plain_ms": tm[name][1]}
+        for name, launches, err, tm in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,8 +21,10 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
+from ecckd_tpu_torch.config import mxu_precision, set_mxu_precision
 from ecckd_tpu_torch.gases import GasConcs
-from ecckd_tpu_torch.io.rfmip import RFMIPData, read_rfmip, rfmip_gas_names
+from ecckd_tpu_torch.io.rfmip import (RFMIPData, io_engine, read_rfmip,
+                                      rfmip_gas_names)
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.models.loader import load_ckd_model
 from ecckd_tpu_torch.parallel import mesh as pmesh
@@ -70,6 +72,13 @@ def make_parser(prog: str) -> argparse.ArgumentParser:
     p.add_argument("--validate", action="store_true",
                    help="Validate physical input ranges and check output "
                         "finiteness (utils/checks.py)")
+    p.add_argument("--fast", action="store_true",
+                   help="Fast table mode of the CUDA kernels: bf16 table "
+                        "entries and interpolation weights, f32 sums; "
+                        "<= 5e-4 of the flux scale (inside the ckd models' "
+                        "stated heating-rate tolerance); see "
+                        "config.set_mxu_precision.  The torch route "
+                        "ignores it")
     return p
 
 
@@ -117,6 +126,8 @@ def load_inputs(args) -> Tuple[RFMIPData, CKDModel, torch.device]:
     device = torch_device(args.device)
     setup_distributed(args)
     device = rank_device(device)
+    if getattr(args, "fast", False):
+        set_mxu_precision("bf16")
     data = read_rfmip(args.rfmip_file, args.forcing_index)
     print(f" Using 1 batch of {data.ncol} columns ({data.nsite} sites x "
           f"{data.nexp} experiments) on {device}", file=sys.stderr)
@@ -193,7 +204,8 @@ class Timer:
 
 def write_metrics(path, *, ncol: int, seconds: float, args, fluxes,
                   n_devices: int = 1, extra=None) -> None:
-    """Per-run metrics JSON: throughput and flux sanity ranges."""
+    """Per-run metrics JSON: throughput, flux sanity ranges, the table
+    mode and the netCDF engine that read and wrote the files."""
     up = fluxes.flux_up.detach().cpu().numpy()
     dn = fluxes.flux_dn.detach().cpu().numpy()
     m = {
@@ -204,6 +216,8 @@ def write_metrics(path, *, ncol: int, seconds: float, args, fluxes,
         "device": str(fluxes.flux_up.device),
         "backend_requested": args.backend,
         "precision": args.precision,
+        "mxu_precision": mxu_precision(),
+        "io_engine": io_engine(),
         "flux_up_range": [float(up.min()), float(up.max())],
         "flux_dn_range": [float(dn.min()), float(dn.max())],
         "all_finite": bool(np.isfinite(up).all() and np.isfinite(dn).all()),

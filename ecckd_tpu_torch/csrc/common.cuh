@@ -19,6 +19,13 @@
 // Per-column pointers start at the launch's first column; scratch is laid
 // out (row, column, g) over the launch's columns.
 //
+// Table mode.  gas_tau and the column bodies are templates on the table's
+// element type T: float interpolates the f32 table exactly (the JAX
+// package's bf16x3 mode); __nv_bfloat16 is the fast mode (its bf16 mode):
+// bf16 table entries and bf16-rounded corner weights, f32 sums, as the
+// TPU's one bf16 MXU pass of the one-hot contraction computes.  Each
+// kernel library holds both instantiations, with one entry point each.
+//
 // Accuracy.  Built without fast-math: expm1f/expf/logf/sqrtf and the
 // divides are the IEEE-accurate calls (a fast exp cost ~3e-4 in flux on
 // the TPU).  The floors of common.two_stream_g0 (tau >= 1e-8, the
@@ -33,7 +40,9 @@
 
 #include <cfloat>
 #include <cstddef>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -59,7 +68,8 @@ struct GasSlice {
 
 // One model's gas plan and flat table.
 struct Band {
-  const float* table;  // (rows, ngpt), g fastest
+  const void* table;  // (rows, ngpt), g fastest: float, or __nv_bfloat16
+                      // in the fast mode
   int ngpt;
   int nslice;
   GasSlice s[MAX_SLICES];
@@ -138,6 +148,13 @@ struct LayerPoint {
   float simple_w;  // moles of dry air per m^2
 };
 
+// Entry: the table's element type.  The fast mode rounds the corner weights
+// to bf16, so a weight one f32 ulp off can land a whole bf16 step away:
+// there t0 is formed without FMA contraction, as the plain version's
+// separate products and sum form it (ops/cuda/common.py interp_points),
+// so both compute the same float32 weights.  The exact mode keeps its
+// code.
+template <typename Entry>
 __device__ __forceinline__ LayerPoint layer_point(const Atmos& A,
                                                   const Grid& G, int c,
                                                   int j) {
@@ -147,7 +164,10 @@ __device__ __forceinline__ LayerPoint layer_point(const Atmos& A,
   const FracIdx P = frac_index((log_p - G.log_p0) / G.d_log_p, G.p_hi);
   // Pressure-dependent temperature origin (gas_optics_ecckd.f90:131-132).
   const float t0 =
-      (1.0f - P.w1) * G.t_first[P.i0] + P.w1 * G.t_first[P.i0 + 1];
+      std::is_same<Entry, float>::value
+          ? (1.0f - P.w1) * G.t_first[P.i0] + P.w1 * G.t_first[P.i0 + 1]
+          : __fadd_rn(__fmul_rn(1.0f - P.w1, G.t_first[P.i0]),
+                      __fmul_rn(P.w1, G.t_first[P.i0 + 1]));
   const FracIdx T =
       frac_index((A.tlay[(size_t)c * A.nlay + j] - t0) / G.dt, G.t_hi);
   return {P.i0, T.i0, P.w1, T.w1, MOLES_PER_PA_F * (p1 - p0)};
@@ -169,11 +189,32 @@ __device__ __forceinline__ float bilinear(const float* tb, int n_t, int ng,
          tw1 * (pw0 * tb[ng] + pw1 * tb[(size_t)(n_t + 1) * ng]);
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The fast mode's bi-linear interpolation (ops/cuda/common.py's
+// _bilinear_fast): sum over the four corners of bf16(wp * wt) * k, each
+// corner product rounded itself (the factored form above would round
+// other values), the bf16 entries widened to f32 and summed in f32.
+// Scalar 2-byte loads: a row of 27 or 36 bf16 g-points is not 4-byte
+// aligned at every g.
+__device__ __forceinline__ float bilinear(const __nv_bfloat16* tb, int n_t,
+                                          int ng, float pw1, float tw1) {
+  const float pw0 = 1.0f - pw1, tw0 = 1.0f - tw1;
+  return bf16_round(pw0 * tw0) * __bfloat162float(tb[0]) +
+         bf16_round(pw1 * tw0) * __bfloat162float(tb[(size_t)n_t * ng]) +
+         bf16_round(pw0 * tw1) * __bfloat162float(tb[ng]) +
+         bf16_round(pw1 * tw1) * __bfloat162float(tb[(size_t)(n_t + 1) * ng]);
+}
+
 // Total gas optical depth of g-point g in layer j of column c for band B:
 // dense gases then the LUT gas, each clamped at zero before accumulation
-// (gas_optics_ecckd.f90:233-238).
+// (gas_optics_ecckd.f90:233-238).  T: the table's element type.
+template <typename T>
 __device__ float gas_tau(const Atmos& A, const Grid& G, const Band& B,
                          const LayerPoint& L, int c, int j, int g) {
+  const T* table = static_cast<const T*>(B.table);
   const int ng = B.ngpt, n_t = G.n_t;
   const size_t corner = (size_t)(L.ip * n_t + L.it);
   float tau = 0.0f;
@@ -183,15 +224,15 @@ __device__ float gas_tau(const Atmos& A, const Grid& G, const Band& B,
       const float w = S.vmr_kind == VMR_NONE
                           ? L.simple_w * S.b
                           : L.simple_w * (S.a * vmr_of(A, S, c, j) + S.b);
-      const float* tb = B.table + ((size_t)S.row0 + corner) * ng + g;
+      const T* tb = table + ((size_t)S.row0 + corner) * ng + g;
       tau += fmaxf(w * bilinear(tb, n_t, ng, L.wp, L.wt), 0.0f);
     } else {
       const float vmr = vmr_of(A, S, c, j);
       const FracIdx V = frac_index(
           (logf(fmaxf(vmr, S.mf0)) - S.log_mf0) / S.d_log, S.v_hi);
       const size_t stride_v = (size_t)G.n_p * n_t;
-      const float* tb =
-          B.table + ((size_t)S.row0 + V.i0 * stride_v + corner) * ng + g;
+      const T* tb =
+          table + ((size_t)S.row0 + V.i0 * stride_v + corner) * ng + g;
       const float lo = bilinear(tb, n_t, ng, L.wp, L.wt);
       const float hi = bilinear(tb + stride_v * ng, n_t, ng, L.wp, L.wt);
       const float coeff = (1.0f - V.w1) * lo + V.w1 * hi;
@@ -283,6 +324,7 @@ __device__ __forceinline__ float* cell(float* base, int row, int ncol, int c,
 
 // The LW solve of column c for one band: gas optics, Planck sources,
 // no-scattering sweeps at 1-4 angles, g-summed into W.up / W.dn.
+template <typename T>
 __device__ void lw_column(const Atmos& A, const Grid& G, const Band& B,
                           const LwSolve& W, int c, int lane) {
   const int nlay = A.nlay, ng = B.ngpt, ncol = A.ncol;
@@ -303,8 +345,8 @@ __device__ void lw_column(const Atmos& A, const Grid& G, const Band& B,
       const float sec = W.sec[0], w2pi = W.w2pi[0];
       float rad = 0.0f;
       for (int j = 0; j < nlay; ++j) {
-        const LayerPoint L = layer_point(A, G, c, j);
-        const float tau = gas_tau(A, G, B, L, c, j, g);
+        const LayerPoint L = layer_point<T>(A, G, c, j);
+        const float tau = gas_tau<T>(A, G, B, L, c, j, g);
         const float b_bot = planck_at(W, B, tlev[j + 1], g);
         float tr, sdn, sup;
         lw_layer_sources(tau * sec, planck_at(W, B, tlay[j], g), b_top,
@@ -332,8 +374,8 @@ __device__ void lw_column(const Atmos& A, const Grid& G, const Band& B,
       // (common.multi_angle_lw_sweeps), recomputing the layer sources in
       // the up sweep instead of staging them per angle.
       for (int j = 0; j < nlay; ++j) {
-        const LayerPoint L = layer_point(A, G, c, j);
-        const float tau = gas_tau(A, G, B, L, c, j, g);
+        const LayerPoint L = layer_point<T>(A, G, c, j);
+        const float tau = gas_tau<T>(A, G, B, L, c, j, g);
         const float b_bot = planck_at(W, B, tlev[j + 1], g);
         if (act) {
           *cell(S, j, ncol, c, ng, g) = tau;
@@ -378,6 +420,7 @@ __device__ void lw_column(const Atmos& A, const Grid& G, const Band& B,
 // The SW solve of column c for one band: gas optics + Rayleigh, the TOA
 // source mu0 * tsi_scale * solar, g = 0 two-stream, direct beam, adding up
 // and down, g-summed into W.up / W.dn.  The night mask is the caller's.
+template <typename T>
 __device__ void sw_column(const Atmos& A, const Grid& G, const Band& B,
                           const SwSolve& W, int c, int lane) {
   const int nlay = A.nlay, ng = B.ngpt, ncol = A.ncol;
@@ -401,9 +444,9 @@ __device__ void sw_column(const Atmos& A, const Grid& G, const Band& B,
     if (lane == 0) dn[0] += sum;
     const float ray = W.ray[g];
     for (int j = 0; j < nlay; ++j) {
-      const LayerPoint L = layer_point(A, G, c, j);
+      const LayerPoint L = layer_point<T>(A, G, c, j);
       const float tau_ray = L.simple_w * ray;
-      const float tau = gas_tau(A, G, B, L, c, j, g) + tau_ray;
+      const float tau = gas_tau<T>(A, G, B, L, c, j, g) + tau_ray;
       float r_dif, t_dif, r_dir, t_dir, t;
       two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir,
                     t);

@@ -24,8 +24,10 @@
 // scratch rows; the dependent per-layer chain leaves little ILP per warp,
 // so enough warps in flight (one per column) is what hides latency.
 //
-// Host interface (ctypes): ecckd_lw_launch(const LwArgs*, stream) returns
-// cudaGetLastError(); ecckd_lw_args_size() checks the mirror in
+// Host interface (ctypes): ecckd_lw_launch(const LwArgs*, stream)
+// (exact f32 table) and ecckd_lw_launch_fast (the fast mode's bf16
+// table, common.cuh "Table mode") each
+// return cudaGetLastError(); ecckd_lw_args_size() checks the mirror in
 // ops/cuda/lw.py.
 
 #include "common.cuh"
@@ -39,12 +41,21 @@ struct LwArgs {
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
     lw_kernel(const __grid_constant__ LwArgs args) {
   const int c = blockIdx.x * WARPS_PER_BLOCK + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (c >= args.atm.ncol) return;  // ragged edge: whole warps retire
-  lw_column(args.atm, args.grid, args.band, args.lw, c, lane);
+  lw_column<T>(args.atm, args.grid, args.band, args.lw, c, lane);
+}
+
+template <typename T>
+int launch(const LwArgs* args, void* stream) {
+  if (args->atm.ncol <= 0) return 0;
+  lw_kernel<T><<<blocks_for(args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -52,8 +63,9 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 extern "C" int ecckd_lw_args_size() { return (int)sizeof(LwArgs); }
 
 extern "C" int ecckd_lw_launch(const LwArgs* args, void* stream) {
-  if (args->atm.ncol <= 0) return 0;
-  lw_kernel<<<blocks_for(args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
-              static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
+  return launch<float>(args, stream);
+}
+
+extern "C" int ecckd_lw_launch_fast(const LwArgs* args, void* stream) {
+  return launch<__nv_bfloat16>(args, stream);
 }

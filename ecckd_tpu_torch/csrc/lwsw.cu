@@ -29,7 +29,9 @@
 // registers; holding the backward coefficients on chip is later work.
 //
 // Host interface (ctypes): ecckd_lwsw_launch(const LwswArgs*, stream)
-// returns cudaGetLastError() after the launch; ecckd_lwsw_args_size()
+// (exact f32 table) and ecckd_lwsw_launch_fast (the fast mode's bf16
+// table, common.cuh "Table mode")
+// each return cudaGetLastError() after the launch; ecckd_lwsw_args_size()
 // lets the wrapper check its struct mirror (ops/cuda/lwsw.py), and
 // ecckd_cuda_error_string() names an error code.
 
@@ -46,6 +48,7 @@ struct LwswArgs {
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
     lwsw_kernel(const __grid_constant__ LwswArgs args) {
   const int warp = blockIdx.x * WARPS_PER_BLOCK + threadIdx.x / 32;
@@ -53,9 +56,17 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
   const int c = warp >> 1;
   if (c >= args.atm.ncol) return;  // ragged edge: whole warps retire
   if ((warp & 1) == 0)
-    lw_column(args.atm, args.grid, args.lw_band, args.lw, c, lane);
+    lw_column<T>(args.atm, args.grid, args.lw_band, args.lw, c, lane);
   else
-    sw_column(args.atm, args.grid, args.sw_band, args.sw, c, lane);
+    sw_column<T>(args.atm, args.grid, args.sw_band, args.sw, c, lane);
+}
+
+template <typename T>
+int launch(const LwswArgs* args, void* stream) {
+  if (args->atm.ncol <= 0) return 0;
+  lwsw_kernel<T><<<blocks_for(2LL * args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -63,8 +74,9 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 extern "C" int ecckd_lwsw_args_size() { return (int)sizeof(LwswArgs); }
 
 extern "C" int ecckd_lwsw_launch(const LwswArgs* args, void* stream) {
-  if (args->atm.ncol <= 0) return 0;
-  lwsw_kernel<<<blocks_for(2LL * args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
-                static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
+  return launch<float>(args, stream);
+}
+
+extern "C" int ecckd_lwsw_launch_fast(const LwswArgs* args, void* stream) {
+  return launch<__nv_bfloat16>(args, stream);
 }

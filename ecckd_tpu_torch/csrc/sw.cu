@@ -21,8 +21,10 @@
 // layer and g-point; the sequential layer recurrences leave little ILP
 // per warp, so one warp per column keeps many warps in flight.
 //
-// Host interface (ctypes): ecckd_sw_launch(const SwArgs*, stream) returns
-// cudaGetLastError(); ecckd_sw_args_size() checks the mirror in
+// Host interface (ctypes): ecckd_sw_launch(const SwArgs*, stream)
+// (exact f32 table) and ecckd_sw_launch_fast (the fast mode's bf16
+// table, common.cuh "Table mode") each
+// return cudaGetLastError(); ecckd_sw_args_size() checks the mirror in
 // ops/cuda/sw.py.
 
 #include "common.cuh"
@@ -36,12 +38,21 @@ struct SwArgs {
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
     sw_kernel(const __grid_constant__ SwArgs args) {
   const int c = blockIdx.x * WARPS_PER_BLOCK + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (c >= args.atm.ncol) return;  // ragged edge: whole warps retire
-  sw_column(args.atm, args.grid, args.band, args.sw, c, lane);
+  sw_column<T>(args.atm, args.grid, args.band, args.sw, c, lane);
+}
+
+template <typename T>
+int launch(const SwArgs* args, void* stream) {
+  if (args->atm.ncol <= 0) return 0;
+  sw_kernel<T><<<blocks_for(args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -49,8 +60,9 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 extern "C" int ecckd_sw_args_size() { return (int)sizeof(SwArgs); }
 
 extern "C" int ecckd_sw_launch(const SwArgs* args, void* stream) {
-  if (args->atm.ncol <= 0) return 0;
-  sw_kernel<<<blocks_for(args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
-              static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
+  return launch<float>(args, stream);
+}
+
+extern "C" int ecckd_sw_launch_fast(const SwArgs* args, void* stream) {
+  return launch<__nv_bfloat16>(args, stream);
 }

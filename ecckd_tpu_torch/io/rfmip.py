@@ -14,18 +14,23 @@ The reference RFMIP I/O module (example/rfmip-rad-irf/mo_rfmip_io.F90):
 * writes a synthetic RFMIP-format file, so the drivers run and are tested
   without the original data.
 
-Arrays are numpy; files are netCDF3 through ``scipy.io.netcdf_file``.  The
-JAX package's native netCDF3 engine (``io/nc3_native.py``) is not ported;
-scipy reads and writes the same files.
+Arrays are numpy; files are netCDF3.  They are read through ``_NcFile``
+and written, as in the JAX package, through the native C++ engine
+(io/nc3_native.py, built at first use) where it can be built, and through
+``scipy.io.netcdf_file`` where it cannot (no C++ compiler).  Both give the
+same arrays bit for bit (``_NcFile``); ``io_engine`` names the one in use.
+The synthetic file is written with scipy, as the JAX package writes it.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 from scipy.io import netcdf_file
+
+from ecckd_tpu_torch.io import nc3_native
 
 # RFMIP long-name mapping for the fixed 6-gas request list
 # (utils.f90:41-70); forcing index 2 swaps cfc11 -> cfc11eq.
@@ -80,14 +85,73 @@ def _read(var) -> np.ndarray:
     return data.astype(data.dtype.newbyteorder("="), copy=True)
 
 
-def _read_scaled(f: netcdf_file, name: str) -> np.ndarray:
-    """Gas variable with its numeric ``units`` attribute multiplied in
-    (mo_rfmip_io.F90:266-282)."""
-    var = f.variables[name]
-    units = var.units
-    if isinstance(units, bytes):
-        units = units.decode()
-    return _read(var) * float(units)
+def io_engine() -> str:
+    """The netCDF engine this process reads and writes with: "native"
+    (io/nc3_native.py) or "scipy" (no C++ compiler to build it)."""
+    return "native" if nc3_native.load_library() is not None else "scipy"
+
+
+def _text(raw) -> str:
+    return raw.decode() if isinstance(raw, bytes) else raw
+
+
+class _NcFile:
+    """Reader facade over the native engine (where it can be built) or
+    scipy.io.netcdf (counterpart of the JAX package's ``_NcFile``).
+
+    Reads return each variable in its FILE dtype whichever engine parsed
+    it (the native engine decodes to float64 and ``read_exact`` converts
+    back losslessly), so every computation on them (units scaling, np.log,
+    content hashes) gives the same bits with either engine.  The ckd
+    loader (models/loader.py) reads through it too."""
+
+    def __init__(self, path: str):
+        self._native = self._scipy = None
+        if nc3_native.load_library() is not None:
+            self._native = nc3_native.NativeReader(path)
+        else:
+            self._scipy = netcdf_file(path, mmap=False)
+
+    def close(self) -> None:
+        (self._native or self._scipy).close()
+
+    def dim(self, name: str) -> int:
+        if self._native:
+            return self._native.dimensions[name]
+        return self._scipy.dimensions[name]
+
+    def has(self, name: str) -> bool:
+        if self._native:
+            return self._native.has_var(name)
+        return name in self._scipy.variables
+
+    def ndims(self, name: str) -> int:
+        if self._native:
+            return self._native.var_ndims(name)
+        return len(self._scipy.variables[name].dimensions)
+
+    def read(self, name: str) -> np.ndarray:
+        if self._native:
+            return self._native.read_exact(name)
+        return _read(self._scipy.variables[name])
+
+    def attr_tokens(self, name: str) -> List[str]:
+        """Whitespace tokens of a global text attribute."""
+        if self._native:
+            raw = self._native.att_text(None, name)
+            if raw is None:
+                raise AttributeError(name)
+            return raw.split()
+        return _text(getattr(self._scipy, name)).split()
+
+    def read_scaled(self, name: str) -> np.ndarray:
+        """Gas variable with its numeric ``units`` attribute multiplied in
+        (mo_rfmip_io.F90:266-282)."""
+        if self._native:
+            units = self._native.att_text(name, "units")
+        else:
+            units = _text(self._scipy.variables[name].units)
+        return self.read(name) * float(units)
 
 
 def _spread_expt(site_field: np.ndarray, nexp: int) -> np.ndarray:
@@ -100,15 +164,13 @@ def _spread_expt(site_field: np.ndarray, nexp: int) -> np.ndarray:
 
 def read_rfmip(path: str, forcing_index: int = 1) -> RFMIPData:
     """Load an RFMIP atmosphere file (schema: SURVEY.md section 2.7)."""
-    f = netcdf_file(path, mmap=False)
+    f = _NcFile(path)
     try:
-        nsite = f.dimensions["site"]
-        nlay = f.dimensions["layer"]
-        nlev = f.dimensions["level"]
-        nexp = f.dimensions["expt"]
+        nsite, nlay, nlev, nexp = (f.dim(n) for n in ("site", "layer",
+                                                      "level", "expt"))
         if nlev != nlay + 1:
             raise ValueError("number of levels should be nlay+1")
-        read = lambda name: _read(f.variables[name])
+        read = f.read
 
         # Pressures are experiment-invariant; temperatures are not.
         play = np.tile(read("pres_layer"), (nexp, 1))        # (site, layer)
@@ -123,14 +185,13 @@ def read_rfmip(path: str, forcing_index: int = 1) -> RFMIPData:
         sza = _spread_expt(read("solar_zenith_angle"), nexp)
 
         gases_3d = {
-            "h2o": _read_scaled(f, "water_vapor").reshape(nexp * nsite,
-                                                          nlay),
-            "o3": _read_scaled(f, "ozone").reshape(nexp * nsite, nlay),
+            "h2o": f.read_scaled("water_vapor").reshape(nexp * nsite, nlay),
+            "o3": f.read_scaled("ozone").reshape(nexp * nsite, nlay),
         }
         _, rfmip_names = rfmip_gas_names(forcing_index)
         gases_scalar = {}
         for kname, fname in zip(KDIST_GAS_NAMES, rfmip_names):
-            per_exp = _read_scaled(f, f"{fname}_GM")  # (expt,)
+            per_exp = f.read_scaled(f"{fname}_GM")  # (expt,)
             gases_scalar[kname] = np.repeat(per_exp, nsite)
         # no2 is known to some k-distributions but absent from RFMIP;
         # hard-set to zero (mo_rfmip_io.F90:256-260).
@@ -148,11 +209,21 @@ def read_rfmip(path: str, forcing_index: int = 1) -> RFMIPData:
 def _write_new(path: str, varname: str, data: np.ndarray, third_dim: str,
                units: str) -> None:
     """A fresh file holding ``data`` (expt, site, third_dim) as float64."""
+    dims = ("expt", "site", third_dim)
+    if nc3_native.load_library() is not None:
+        w = nc3_native.NativeWriter(path)
+        for name, size in zip(dims, data.shape):
+            w.def_dim(name, size)
+        w.def_var(varname, "d", dims)
+        w.put_att(varname, "units", units)
+        w.put_var(varname, data)
+        w.finish()
+        return
     f = netcdf_file(path, "w")
     try:
         for name, size in zip(("expt", "site", third_dim), data.shape):
             f.createDimension(name, size)
-        var = f.createVariable(varname, "f8", ("expt", "site", third_dim))
+        var = f.createVariable(varname, "f8", dims)
         var[:] = data
         var.units = units
     finally:
@@ -169,6 +240,9 @@ def write_fluxes(path: str, varname: str, fluxes: np.ndarray, nsite: int,
     """
     data = fluxes.reshape(nexp, nsite, fluxes.shape[1])
     if os.path.exists(path):
+        if nc3_native.load_library() is not None:
+            nc3_native.update_var(path, varname, data)
+            return
         f = netcdf_file(path, "a", mmap=False)
         try:
             var = f.variables[varname]

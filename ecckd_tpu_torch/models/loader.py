@@ -17,7 +17,9 @@ example/rfmip-rad-irf/mo_load_coefficients.F90:19-203):
 ``tables_nonneg`` and ``grid_key`` are computed exactly as the JAX loader
 computes them (the same content hash of the same dtype-cast grid arrays),
 so ``grid_key`` equality means the same thing in both packages.  Files are
-netCDF3-classic and read with ``scipy.io.netcdf_file``.
+netCDF3-classic, read through io/rfmip.py's ``_NcFile``: the native engine
+where it can be built, scipy otherwise, with the same values bit for bit
+either way.
 """
 from __future__ import annotations
 
@@ -26,10 +28,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from scipy.io import netcdf_file
 
 from ecckd_tpu_torch import constants
 from ecckd_tpu_torch.config import default_precision, numpy_dtype
+from ecckd_tpu_torch.io.rfmip import _NcFile
 from ecckd_tpu_torch.models.ckd import CKDModel
 
 COMPOSITE = "composite"
@@ -41,46 +43,19 @@ def _content_hash(a: np.ndarray) -> int:
     return int.from_bytes(h.digest(), "little")
 
 
-class _CkdFile:
-    """Thin reader over scipy's netCDF3 parser: variables come back in
-    their file dtype, native byte order."""
-
-    def __init__(self, path: str):
-        self._f = netcdf_file(path, "r", mmap=False)
-
-    def close(self) -> None:
-        self._f.close()
-
-    def has(self, name: str) -> bool:
-        return name in self._f.variables
-
-    def ndims(self, name: str) -> int:
-        return len(self._f.variables[name].dimensions)
-
-    def read(self, name: str) -> np.ndarray:
-        data = np.asarray(self._f.variables[name].data)
-        return data.astype(data.dtype.newbyteorder("="), copy=True)
-
-    def attr_tokens(self, name: str) -> List[str]:
-        """Whitespace tokens of a global text attribute."""
-        raw = getattr(self._f, name)
-        if isinstance(raw, bytes):
-            raw = raw.decode()
-        return raw.split()
-
-
 def load_ckd_model(path: str, dtype: Optional[torch.dtype] = None,
                    device=None) -> CKDModel:
     """Load a ckd-definition file into a CKDModel.
 
     Args:
       path: ckd-definition netCDF file (netCDF3 classic).
-      dtype: working dtype of the tables (default: precision policy, f32).
+      dtype: working dtype of the tables (default: precision policy, f32;
+        f64 after config.enable_f64_validation_mode).
       device: where the tables live (default: CPU).
     """
     if dtype is None:
         dtype = default_precision().dtype
-    f = _CkdFile(path)
+    f = _NcFile(path)
     try:
         fields = _read_fields(f, numpy_dtype(dtype))
     finally:
@@ -88,7 +63,7 @@ def load_ckd_model(path: str, dtype: Optional[torch.dtype] = None,
     return CKDModel.from_numpy(fields, device=device)
 
 
-def _read_fields(f: _CkdFile, np_dtype) -> Dict[str, object]:
+def _read_fields(f: _NcFile, np_dtype) -> Dict[str, object]:
     pressure = f.read("pressure")                     # (np,) [Pa]
     log_pressure = np.log(pressure)
     # File stores (temperature, pressure); the model indexes (p, T).

@@ -12,7 +12,9 @@ sw.py).
   ``check_inputs``: device, float32, contiguity and shape checks that
   raise on what a kernel does not take.
 * ``launch_chunks``: the launch loop over column chunks, which raises on a
-  non-zero ``cudaGetLastError()`` and counts launches.
+  non-zero ``cudaGetLastError()`` and counts launches per instantiation
+  (``launches`` for the exact table, ``fast_launches`` for the fast
+  mode's bf16 table; csrc/common.cuh "Table mode").
 
 nvcc and the build are reached only from ``library``, at the first launch,
 so the CPU tests import this module without a CUDA toolkit.
@@ -47,6 +49,7 @@ class GasSlice(ctypes.Structure):
 
 
 class Band(ctypes.Structure):
+    # table: float32, or bfloat16 in the fast mode (a void pointer in C).
     _fields_ = [("table", ctypes.c_void_p), ("ngpt", ctypes.c_int),
                 ("nslice", ctypes.c_int), ("s", GasSlice * MAX_SLICES)]
 
@@ -82,13 +85,15 @@ class SwSolve(ctypes.Structure):
 
 
 def library(name: str, args_type) -> ctypes.CDLL:
-    """Build (first use) and bind ``csrc/<name>.cu``, checking that its
+    """Build (first use) and bind ``csrc/<name>.cu`` (both entry points,
+    ``ecckd_<name>_launch`` and ``..._launch_fast``), checking that its
     argument struct has the size of the ctypes mirror ``args_type``."""
     from ecckd_tpu_torch.ops.cuda import build
     lib = build.load(name)
-    launch = getattr(lib, f"ecckd_{name}_launch")
-    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    launch.restype = ctypes.c_int
+    for entry in (f"ecckd_{name}_launch", f"ecckd_{name}_launch_fast"):
+        launch = getattr(lib, entry)
+        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
     size = getattr(lib, f"ecckd_{name}_args_size")
     size.argtypes = []
     size.restype = ctypes.c_int
@@ -219,9 +224,11 @@ def band_tensors(prefix: str, band: plan_mod.BandInputs
 
 def check_inputs(kernel: str, atm: plan_mod.Atmosphere,
                  tensors: Dict[str, torch.Tensor],
-                 shapes: Dict[str, Tuple[int, ...]]) -> None:
-    """Raise unless every tensor is float32, contiguous and on tlay's CUDA
-    device, and ``tensors[name]`` has ``shapes[name]``."""
+                 shapes: Dict[str, Tuple[int, ...]],
+                 fast: bool = False) -> None:
+    """Raise unless every tensor is float32 (the tables bfloat16 if
+    ``fast``), contiguous and on tlay's CUDA device, and ``tensors[name]``
+    has ``shapes[name]``."""
     tensors = dict(plev=atm.plev, tlay=atm.tlay, vmr_prof=atm.vmr_prof,
                    vmr_col=atm.vmr_col, **tensors)
     device = atm.tlay.device
@@ -229,8 +236,10 @@ def check_inputs(kernel: str, atm: plan_mod.Atmosphere,
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{kernel} kernel: {name} is on {t.device}, "
                              f"expected one CUDA device ({device})")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{kernel} kernel takes float32; {name} is "
+        want = (torch.bfloat16 if fast and name.endswith("table")
+                 else torch.float32)
+        if t.dtype != want:
+            raise ValueError(f"{kernel} kernel takes {want} {name}; it is "
                              f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel} kernel: {name} is not contiguous")
@@ -268,14 +277,18 @@ def sw_shapes(sw: plan_mod.SwInputs, ncol: int, prefix: str = ""):
 
 def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
-                  counted, device) -> None:
+                  counted, device, fast: bool = False) -> None:
     """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
-    ``device``'s current stream, with the arguments ``make_args(c0, c1)``;
-    each launch adds one to ``counted.launches``.  The launch runs with
-    ``device`` as the host thread's current device: the runtime launches
-    on the current device, and another card's stream there is an error."""
+    ``device``'s current stream, with the arguments ``make_args(c0, c1)``:
+    the exact entry point, or ``..._launch_fast`` if ``fast``.  Each launch
+    adds one to ``counted.launches`` (``counted.fast_launches`` if
+    ``fast``).  The launch runs with ``device`` as the host thread's
+    current device: the runtime launches on the current device, and
+    another card's stream there is an error."""
     lib = library(name, args_type)
-    launch = getattr(lib, f"ecckd_{name}_launch")
+    suffix = "_fast" if fast else ""
+    launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
+    counter = "fast_launches" if fast else "launches"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for c0 in range(0, ncol, column_chunk):
@@ -283,6 +296,6 @@ def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
             rc = launch(ctypes.byref(args), stream)
             if rc != 0:
                 raise RuntimeError(
-                    f"{name} kernel launch failed: CUDA error {rc} "
+                    f"{name}{suffix} kernel launch failed: CUDA error {rc} "
                     f"({lib.ecckd_cuda_error_string(rc).decode()})")
-            counted.launches += 1
+            setattr(counted, counter, getattr(counted, counter) + 1)

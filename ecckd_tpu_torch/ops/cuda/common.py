@@ -5,7 +5,9 @@
   ``two_stream_g0``, ``sw_adding_up_step``, ``sw_adding_dn_step``).
 * The bodies of one band's solve, ``gas_tau_plain``, ``lw_plain`` and
   ``sw_plain`` (common.cuh's ``gas_tau``, ``lw_column``, ``sw_column``),
-  on the host preparation of ops/cuda/plan.py, and the night mask.
+  on the host preparation of ops/cuda/plan.py, and the night mask.  The
+  table mode travels with the prepared band: a band whose table is bf16
+  (plan.model_arrays(fast=True)) runs the fast mode's interpolation.
 
 ``lwsw_fluxes_plain``, ``lw_fluxes_plain`` and ``sw_fluxes_plain`` are
 built from these, at any dtype and on any device, as the three kernels are
@@ -104,16 +106,56 @@ def sw_adding_dn_step(t_dif, r_dif, denom, dn, albedo_next, src_next,
     return dn_next, up_next
 
 
+def interp_points(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs):
+    """The band's (p, T) interpolation points (ops/interp.py) in its
+    grid's dtype: the working dtype, or float32 in the fast mode, where
+    the arithmetic is common.cuh's layer_point (plan.model_arrays says
+    why)."""
+    arr = band.arrays
+    grid = arr.temperature_grid
+    # The grid constants as tensors on the device: PyTorch's CUDA division
+    # by a Python number multiplies by its reciprocal, which rounds
+    # otherwise than the kernel's division.
+    const = lambda x: torch.tensor(x, dtype=grid.dtype, device=grid.device)
+    p_iw = interp.pressure_index(atm.plev.to(grid.dtype), const(arr.log_p0),
+                                 const(arr.d_log_p), band.n_p)
+    return p_iw, interp.temperature_index(atm.tlay.to(grid.dtype), p_iw,
+                                          grid)
+
+
+def _bilinear_fast(table: torch.Tensor, row0: torch.Tensor, n_t: int,
+                   p_iw: interp.IndexWeight, t_iw: interp.IndexWeight
+                   ) -> torch.Tensor:
+    """The fast mode's (p, T) interpolation of the (rows, ngpt) table at
+    lower corner rows ``row0``: the TPU's one bf16 MXU pass of the one-hot
+    contraction, sum_corners bf16(wp * wt) * bf16(k), written out.  The
+    float32 corner products are rounded to bf16 here; the table already
+    holds bf16 values.  Sums in the table's (working) dtype."""
+    pw1, tw1 = p_iw.w1[..., None], t_iw.w1[..., None]
+    pw0, tw0 = 1.0 - pw1, 1.0 - tw1
+    bf16 = lambda w: w.to(torch.bfloat16).to(table.dtype)
+    take = lambda off: torch.index_select(
+        table, 0, (row0 + off).reshape(-1)).reshape(*row0.shape, -1)
+    return (bf16(pw0 * tw0) * take(0) + bf16(pw1 * tw0) * take(n_t)
+            + bf16(pw0 * tw1) * take(1) + bf16(pw1 * tw1) * take(n_t + 1))
+
+
 def gas_tau_plain(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs,
                   simple_w: torch.Tensor) -> torch.Tensor:
     """(ncol, nlay, ngpt) gas optical depth of one band on its own model's
     (p, T) grid, from the flat table, the gas plan and the vmr stacks, per
-    gas clamped at zero (common.cuh's gas_tau)."""
+    gas clamped at zero (common.cuh's gas_tau).
+
+    On a fast-mode band (bf16 table) each (p, T) interpolation is
+    ``_bilinear_fast`` at float32 points (``interp_points``); the LUT
+    gas's mole-fraction weights, the gas weights and the clamp stay in the
+    working dtype, as on the TPU (ops/pallas/common.py: the mole-fraction
+    weight is applied after the contraction)."""
     arr = band.arrays
-    p_iw = interp.pressure_index(atm.plev, arr.log_p0, arr.d_log_p, band.n_p)
-    t_iw = interp.temperature_index(atm.tlay, p_iw, arr.temperature_grid)
-    table = arr.table
+    p_iw, t_iw = interp_points(atm, band)
+    table = arr.table.to(atm.tlay.dtype)
     n_pt = band.n_p * band.n_t
+    corner = p_iw.i0 * band.n_t + t_iw.i0
 
     def vmr(slot):
         kind, idx = band.vmr_kinds[slot]
@@ -127,14 +169,26 @@ def gas_tau_plain(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs,
         if sl.kind == plan_mod.KIND_DENSE:
             w = (simple_w * sl.b if sl.vmr_slot < 0
                  else simple_w * (sl.a * vmr(sl.vmr_slot) + sl.b))
-            coeff = interp.bilinear_gather(table[sl.row0:sl.row0 + n_pt],
-                                           band.n_t, p_iw, t_iw)
+            if arr.fast:
+                coeff = _bilinear_fast(table, sl.row0 + corner, band.n_t,
+                                       p_iw, t_iw)
+            else:
+                coeff = interp.bilinear_gather(
+                    table[sl.row0:sl.row0 + n_pt], band.n_t, p_iw, t_iw)
         else:
             v = vmr(sl.vmr_slot)
-            rows = len(sl.mf_grid) * n_pt
-            coeff = interp.trilinear_gather(
-                table[sl.row0:sl.row0 + rows], band.n_p, band.n_t, p_iw,
-                t_iw, interp.vmr_index(v, sl.mf_grid))
+            v_iw = interp.vmr_index(v, sl.mf_grid)
+            if arr.fast:
+                lo, hi = (_bilinear_fast(
+                    table, sl.row0 + (v_iw.i0 + dv) * n_pt + corner,
+                    band.n_t, p_iw, t_iw) for dv in (0, 1))
+                vw1 = v_iw.w1[..., None]
+                coeff = (1.0 - vw1) * lo + vw1 * hi
+            else:
+                rows = len(sl.mf_grid) * n_pt
+                coeff = interp.trilinear_gather(
+                    table[sl.row0:sl.row0 + rows], band.n_p, band.n_t, p_iw,
+                    t_iw, v_iw)
             w = simple_w * v
         tau = tau + torch.clamp(w[..., None] * coeff, min=0.0)
     return tau

@@ -7,15 +7,17 @@ the model's own (p, T) grid.  It takes CUDA tensors and launches
 ``csrc/lw.cu`` (float32 only), or raises.  ``lw_fluxes_plain`` is the same
 computation in plain PyTorch (ops/cuda/common.py's ``lw_plain``, which the
 merged plain version runs too), any dtype on any device.  Returns
-(flux_up, flux_dn), each (ncol, nlay+1).
+(flux_up, flux_dn), each (ncol, nlay+1).  Both take ``mxu_mode`` as
+ops/cuda/lwsw.py does (the fast mode: the bf16 table, ``fast_launches``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ecckd_tpu_torch import config
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod
@@ -32,9 +34,11 @@ class _Args(ctypes.Structure):
 
 def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
                  column_chunk: int) -> Fluxes2:
-    """Launch csrc/lw.cu over column chunks on the current stream."""
+    """Launch csrc/lw.cu over column chunks on the current stream, in
+    the band's table mode."""
     ncol, nlay = atm.tlay.shape
-    binding.check_inputs("lw", atm, *binding.lw_shapes(lw, ncol, nlay))
+    fast = lw.arrays.fast
+    binding.check_inputs("lw", atm, *binding.lw_shapes(lw, ncol, nlay), fast)
     dev = atm.tlay.device
     up, dn = (torch.zeros((ncol, nlay + 1), dtype=torch.float32, device=dev)
               for _ in range(2))
@@ -51,18 +55,20 @@ def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
                      lw=binding.lw_struct(lw, c0, c1, up, dn, scratch))
 
     binding.launch_chunks("lw", _Args, ncol, chunk, make_args,
-                          lw_fluxes_cuda, dev)
+                          lw_fluxes_cuda, dev, fast)
     return up, dn
 
 
 def lw_fluxes_plain(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                     tlev: torch.Tensor, tsfc: torch.Tensor,
                     emis_gpt: torch.Tensor, gas_concs: GasConcs,
-                    n_gauss_angles: int = 1) -> Fluxes2:
+                    n_gauss_angles: int = 1,
+                    mxu_mode: Optional[str] = None) -> Fluxes2:
     """The kernel's computation in plain PyTorch, in tlay's dtype on
     tlay's device.  Arguments as ``lw_fluxes_cuda``."""
     atm, lw = plan_mod.prepare_lw(model, plev, tlay, tlev, tsfc, emis_gpt,
-                                  gas_concs, n_gauss_angles)
+                                  gas_concs, n_gauss_angles,
+                                  config.is_fast(mxu_mode))
     return common.lw_plain(atm, lw)
 
 
@@ -70,23 +76,28 @@ def lw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                    tlev: torch.Tensor, tsfc: torch.Tensor,
                    emis_gpt: torch.Tensor, gas_concs: GasConcs,
                    n_gauss_angles: int = 1,
-                   column_chunk: int = DEFAULT_COLUMN_CHUNK) -> Fluxes2:
+                   column_chunk: int = DEFAULT_COLUMN_CHUNK,
+                   mxu_mode: Optional[str] = None) -> Fluxes2:
     """LW broadband fluxes through the CUDA kernel.
 
     Args mirror pipeline.lw_fluxes with the emissivity already per
     g-point, emis_gpt (ncol, ngpt); column_chunk: columns per launch
-    (bounds the scratch memory).
+    (bounds the scratch memory); mxu_mode: table mode (None: config's,
+    read now).
 
     Takes float32 CUDA tensors and launches the kernel; anything else
     raises (ValueError), CPU tensors and inputs that require grad
     included: ``lw_fluxes_plain`` is the version for those.  Each launch
-    adds one to ``lw_fluxes_cuda.launches``.
+    adds one to ``lw_fluxes_cuda.launches`` (exact) or ``.fast_launches``
+    (fast).
     """
     binding.require_cuda("lw_fluxes_cuda", tlay, plev, tlev, tsfc, emis_gpt,
                          gas_concs)
     atm, lw = plan_mod.prepare_lw(model, plev, tlay, tlev, tsfc, emis_gpt,
-                                  gas_concs, n_gauss_angles)
+                                  gas_concs, n_gauss_angles,
+                                  config.is_fast(mxu_mode))
     return _kernel_core(atm, lw, column_chunk)
 
 
 lw_fluxes_cuda.launches = 0
+lw_fluxes_cuda.fast_launches = 0

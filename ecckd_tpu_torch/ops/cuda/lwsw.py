@@ -13,14 +13,20 @@ version is ops/cuda/common.py's ``lw_plain`` + ``sw_plain``, the bodies
 lw_fluxes_plain and sw_fluxes_plain run too, as the kernel runs
 common.cuh's column bodies.  Returns (lw_up, lw_dn, sw_up, sw_dn), each
 (ncol, nlay+1).
+
+Both take ``mxu_mode``, the JAX package's mode string
+(``config.set_mxu_precision``; None reads the current one at the call): in
+the fast mode the plain version interpolates the bf16 table and the
+wrapper launches the kernel's fast entry point (``fast_launches``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ecckd_tpu_torch import config
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod
@@ -38,11 +44,14 @@ class _Args(ctypes.Structure):
 
 def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
                  sw: plan_mod.SwInputs, column_chunk: int) -> Fluxes4:
-    """Launch csrc/lwsw.cu over column chunks on the current stream."""
+    """Launch csrc/lwsw.cu over column chunks on the current stream, in
+    the bands' table mode (both in one mode: plan.prepare)."""
     ncol, nlay = atm.tlay.shape
+    fast = lw.arrays.fast
     lw_t, lw_s = binding.lw_shapes(lw, ncol, nlay, "lw_")
     sw_t, sw_s = binding.sw_shapes(sw, ncol, "sw_")
-    binding.check_inputs("lwsw", atm, {**lw_t, **sw_t}, {**lw_s, **sw_s})
+    binding.check_inputs("lwsw", atm, {**lw_t, **sw_t}, {**lw_s, **sw_s},
+                         fast)
     dev = atm.tlay.device
     outs = [torch.zeros((ncol, nlay + 1), dtype=torch.float32, device=dev)
             for _ in range(4)]
@@ -66,7 +75,7 @@ def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
                                           sw_scratch))
 
     binding.launch_chunks("lwsw", _Args, ncol, chunk, make_args,
-                          lwsw_fluxes_cuda, dev)
+                          lwsw_fluxes_cuda, dev, fast)
     return tuple(outs)
 
 
@@ -85,13 +94,14 @@ def lwsw_fluxes_plain(model_lw: CKDModel, model_sw: CKDModel,
                       tlev: torch.Tensor, tsfc: torch.Tensor,
                       emis_gpt: torch.Tensor, gas_concs: GasConcs,
                       sfc_alb: torch.Tensor, tsi: torch.Tensor,
-                      sza_deg: torch.Tensor, n_gauss_angles: int = 1
-                      ) -> Fluxes4:
+                      sza_deg: torch.Tensor, n_gauss_angles: int = 1,
+                      mxu_mode: Optional[str] = None) -> Fluxes4:
     """The kernel's computation in plain PyTorch, in tlay's dtype on
     tlay's device.  Arguments as ``lwsw_fluxes_cuda``."""
     atm, lw, sw = plan_mod.prepare(model_lw, model_sw, plev, tlay, tlev,
                                    tsfc, emis_gpt, gas_concs, sfc_alb, tsi,
-                                   sza_deg, n_gauss_angles)
+                                   sza_deg, n_gauss_angles,
+                                   config.is_fast(mxu_mode))
     return _night_masked(sw, _plain_core(atm, lw, sw))
 
 
@@ -101,25 +111,31 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
                      emis_gpt: torch.Tensor, gas_concs: GasConcs,
                      sfc_alb: torch.Tensor, tsi: torch.Tensor,
                      sza_deg: torch.Tensor, n_gauss_angles: int = 1,
-                     column_chunk: int = DEFAULT_COLUMN_CHUNK) -> Fluxes4:
+                     column_chunk: int = DEFAULT_COLUMN_CHUNK,
+                     mxu_mode: Optional[str] = None) -> Fluxes4:
     """Both bands' broadband fluxes through the merged CUDA kernel.
 
     Args mirror pipeline.lw_sw_fluxes with the surface already per g-point:
       emis_gpt: (ncol, ngpt_lw) emissivity; sfc_alb: (ncol,) or
       (ncol, ngpt_sw) albedo; tsi (ncol,) [W m-2]; sza_deg (ncol,).
       column_chunk: columns per launch (bounds the scratch memory).
+      mxu_mode: table mode (None: config's, read now); the fast mode
+        launches the fast entry point.
 
     Takes float32 CUDA tensors and launches the kernel; anything else
     raises (ValueError), CPU tensors and inputs that require grad
     included: ``lwsw_fluxes_plain`` is the version for those.  Each launch
-    adds one to ``lwsw_fluxes_cuda.launches``.
+    adds one to ``lwsw_fluxes_cuda.launches`` (exact) or
+    ``lwsw_fluxes_cuda.fast_launches`` (fast).
     """
     binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
                          emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
     atm, lw, sw = plan_mod.prepare(model_lw, model_sw, plev, tlay, tlev,
                                    tsfc, emis_gpt, gas_concs, sfc_alb, tsi,
-                                   sza_deg, n_gauss_angles)
+                                   sza_deg, n_gauss_angles,
+                                   config.is_fast(mxu_mode))
     return _night_masked(sw, _kernel_core(atm, lw, sw, column_chunk))
 
 
 lwsw_fluxes_cuda.launches = 0
+lwsw_fluxes_cuda.fast_launches = 0

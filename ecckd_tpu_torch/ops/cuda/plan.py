@@ -11,7 +11,8 @@ builds:
   gases first in request order, then the LUT gas;
 * the model's tables flattened in natural (gas, [mole fraction,] p, T, g)
   order with g fastest, so the kernel's per-warp gather at one grid corner
-  is one contiguous ngpt-float row;
+  is one contiguous ngpt-entry row; in the fast mode (config.is_fast) the
+  same table rounded to bf16;
 * the stacked vmr rows shared by the models of one solve: (ncol, n_prof,
   nlay) profiles and (ncol, n_col) well-mixed rows, each gas stored once;
 * TSI scale, mu0 and the night mask; emissivity and albedo per g-point.
@@ -22,7 +23,8 @@ arrays and grid: ``prepare_lw`` / ``prepare_sw`` build the single-band
 solves, ``prepare`` the merged one (a mergeable pair only).
 
 The gas plan and the model arrays are cached on the model object (keyed
-by request / dtype / device); the per-call arrays are rebuilt per call.
+by request / dtype / device / table mode); the per-call arrays are rebuilt
+per call.
 Unlike the TPU plan there is no ``tables_nonneg`` or one-LUT-gas
 precondition: the kernel clamps per gas and g-point as the reference does.
 """
@@ -111,7 +113,9 @@ def build_plan(model: CKDModel, gas_names: Tuple[str, ...]) -> GasPlan:
 
 @dataclasses.dataclass(frozen=True)
 class ModelArrays:
-    """A model's arrays in one working dtype on one device."""
+    """A model's arrays in one working dtype on one device.  In the fast
+    mode the table is bfloat16 and the (p, T) grid and its constants are
+    float32 at every working dtype (model_arrays)."""
     table: torch.Tensor                  # (rows, ngpt) flat tables
     temperature_grid: torch.Tensor       # (n_p, n_t)
     t_first: torch.Tensor                # (n_p,) its first column
@@ -125,23 +129,42 @@ class ModelArrays:
     planck_t0: float = 0.0
     planck_dt: float = 0.0
 
+    @property
+    def fast(self) -> bool:
+        """Whether the table is the fast mode's bf16 one."""
+        return self.table.dtype == torch.bfloat16
 
-def model_arrays(model: CKDModel, dtype: torch.dtype, device) -> ModelArrays:
-    """Flattened tables and grid constants, cached per (dtype, device)."""
+
+def model_arrays(model: CKDModel, dtype: torch.dtype, device,
+                 fast: bool = False) -> ModelArrays:
+    """Flattened tables and grid constants, cached per (dtype, device,
+    mode).
+
+    In the fast mode, whatever the working dtype, the table is the float32
+    table rounded to bf16 (nearest even), and the (p, T) grid and its
+    constants are float32: the fast mode's corner weights are rounded to
+    bf16 from the kernels' float32 interpolation weights.  Computed in
+    float64 instead, they differ from those by ~1e-6, which moves about
+    one product in a thousand across a bf16 rounding boundary (a whole
+    bf16 step) and the fluxes by up to ~2e-4 of their scale.  The Planck,
+    solar and Rayleigh arrays stay in the working dtype."""
     device = torch.device(device)
-    key = ("arrays", dtype, device)
+    key = ("arrays", dtype, device, fast)
     if key in model._cache:
         return model._cache[key]
-    cast = lambda x: None if x is None else x.to(
-        device=device, dtype=dtype).contiguous()
+    cast = lambda x, dt=dtype: None if x is None else x.to(
+        device=device, dtype=dt).contiguous()
     ng = model.ngpt
     table = torch.cat([model.coeff_dense.reshape(-1, ng)]
                       + [t.reshape(-1, ng) for t in model.coeff_lut])
-    lp = cast(model.log_pressure)
-    tg = cast(model.temperature_grid)
+    grid_dtype = torch.float32 if fast else dtype
+    lp = cast(model.log_pressure, grid_dtype)
+    tg = cast(model.temperature_grid, grid_dtype)
     pt = cast(model.planck_temperature)
+    table = (table.to(device=device, dtype=torch.float32).to(
+        torch.bfloat16).contiguous() if fast else cast(table))
     arrays = ModelArrays(
-        table=cast(table), temperature_grid=tg,
+        table=table, temperature_grid=tg,
         t_first=tg[:, 0].contiguous(),
         planck_temperature=pt,
         planck_function=cast(model.planck_function),
@@ -272,23 +295,23 @@ def _atmosphere(models, gas_concs: GasConcs, plev: torch.Tensor,
 
 def _lw_inputs(model: CKDModel, plan_kinds, tlay: torch.Tensor,
                tlev: torch.Tensor, tsfc: torch.Tensor, emis_gpt: torch.Tensor,
-               n_gauss_angles: int) -> LwInputs:
+               n_gauss_angles: int, fast: bool) -> LwInputs:
     if not 1 <= n_gauss_angles <= 4:
         raise ValueError(f"n_gauss_angles must be in 1..4, got "
                          f"{n_gauss_angles}")
     dtype, device = tlay.dtype, tlay.device
     f = lambda x: x.to(device=device, dtype=dtype).contiguous()
-    return LwInputs(*plan_kinds, model_arrays(model, dtype, device),
+    return LwInputs(*plan_kinds, model_arrays(model, dtype, device, fast),
                     tlev=f(tlev), tsfc=f(tsfc), emis=f(emis_gpt),
                     n_gauss_angles=n_gauss_angles)
 
 
 def _sw_inputs(model: CKDModel, plan_kinds, tlay: torch.Tensor,
                sfc_alb: torch.Tensor, tsi: torch.Tensor,
-               sza_deg: torch.Tensor) -> SwInputs:
+               sza_deg: torch.Tensor, fast: bool) -> SwInputs:
     dtype, device = tlay.dtype, tlay.device
     f = lambda x: x.to(device=device, dtype=dtype).contiguous()
-    arrays = model_arrays(model, dtype, device)
+    arrays = model_arrays(model, dtype, device, fast)
     tsi_scale, usecol, mu0, alb = surface_prep(
         arrays.solar, f(sfc_alb), f(tsi), f(sza_deg), model.ngpt, dtype)
     return SwInputs(*plan_kinds, arrays, alb=alb, mu0=mu0.contiguous(),
@@ -297,34 +320,38 @@ def _sw_inputs(model: CKDModel, plan_kinds, tlay: torch.Tensor,
 
 def prepare_lw(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                tlev: torch.Tensor, tsfc: torch.Tensor, emis_gpt: torch.Tensor,
-               gas_concs: GasConcs, n_gauss_angles: int = 1
-               ) -> Tuple[Atmosphere, LwInputs]:
-    """The LW-only solve's inputs in tlay's dtype on tlay's device."""
+               gas_concs: GasConcs, n_gauss_angles: int = 1,
+               fast: bool = False) -> Tuple[Atmosphere, LwInputs]:
+    """The LW-only solve's inputs in tlay's dtype on tlay's device (the
+    fast mode's bf16 table if ``fast``)."""
     if not model.source_is_internal():
         raise ValueError("the LW path takes a longwave ckd model")
     atm, (pk,) = _atmosphere((model,), gas_concs, plev, tlay)
     return atm, _lw_inputs(model, pk, tlay, tlev, tsfc, emis_gpt,
-                           n_gauss_angles)
+                           n_gauss_angles, fast)
 
 
 def prepare_sw(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                gas_concs: GasConcs, sfc_alb: torch.Tensor, tsi: torch.Tensor,
-               sza_deg: torch.Tensor) -> Tuple[Atmosphere, SwInputs]:
-    """The SW-only solve's inputs in tlay's dtype on tlay's device."""
+               sza_deg: torch.Tensor, fast: bool = False
+               ) -> Tuple[Atmosphere, SwInputs]:
+    """The SW-only solve's inputs in tlay's dtype on tlay's device (the
+    fast mode's bf16 table if ``fast``)."""
     if not model.source_is_external():
         raise ValueError("the SW path takes a shortwave ckd model")
     atm, (pk,) = _atmosphere((model,), gas_concs, plev, tlay)
-    return atm, _sw_inputs(model, pk, tlay, sfc_alb, tsi, sza_deg)
+    return atm, _sw_inputs(model, pk, tlay, sfc_alb, tsi, sza_deg, fast)
 
 
 def prepare(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
             tlay: torch.Tensor, tlev: torch.Tensor, tsfc: torch.Tensor,
             emis_gpt: torch.Tensor, gas_concs: GasConcs,
             sfc_alb: torch.Tensor, tsi: torch.Tensor, sza_deg: torch.Tensor,
-            n_gauss_angles: int = 1
+            n_gauss_angles: int = 1, fast: bool = False
             ) -> Tuple[Atmosphere, LwInputs, SwInputs]:
     """The merged solve's inputs in tlay's dtype on tlay's device: one
-    Atmosphere (both plans' vmrs, each gas once) and both bands."""
+    Atmosphere (both plans' vmrs, each gas once) and both bands, in one
+    table mode."""
     if not model_lw.source_is_internal() or not model_sw.source_is_external():
         raise ValueError("the merged path takes a longwave and a shortwave "
                          "ckd model, in that order")
@@ -334,5 +361,5 @@ def prepare(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
     atm, (pk_lw, pk_sw) = _atmosphere((model_lw, model_sw), gas_concs, plev,
                                       tlay)
     return (atm, _lw_inputs(model_lw, pk_lw, tlay, tlev, tsfc, emis_gpt,
-                            n_gauss_angles),
-            _sw_inputs(model_sw, pk_sw, tlay, sfc_alb, tsi, sza_deg))
+                            n_gauss_angles, fast),
+            _sw_inputs(model_sw, pk_sw, tlay, sfc_alb, tsi, sza_deg, fast))

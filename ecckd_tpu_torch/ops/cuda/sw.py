@@ -9,15 +9,17 @@ takes CUDA tensors and launches ``csrc/sw.cu`` (float32 only), or raises.
 ``sw_fluxes_plain`` is the same computation in plain PyTorch
 (ops/cuda/common.py's ``sw_plain``, which the merged plain version runs
 too), any dtype on any device.  Returns (flux_up, flux_dn), each
-(ncol, nlay+1).
+(ncol, nlay+1).  Both take ``mxu_mode`` as ops/cuda/lwsw.py does (the fast
+mode: the bf16 table, ``fast_launches``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ecckd_tpu_torch import config
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod
@@ -35,9 +37,10 @@ class _Args(ctypes.Structure):
 def _kernel_core(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs,
                  column_chunk: int) -> Fluxes2:
     """Launch csrc/sw.cu over column chunks on the current stream (before
-    the night mask)."""
+    the night mask), in the band's table mode."""
     ncol, nlay = atm.tlay.shape
-    binding.check_inputs("sw", atm, *binding.sw_shapes(sw, ncol))
+    fast = sw.arrays.fast
+    binding.check_inputs("sw", atm, *binding.sw_shapes(sw, ncol), fast)
     dev = atm.tlay.device
     up, dn = (torch.zeros((ncol, nlay + 1), dtype=torch.float32, device=dev)
               for _ in range(2))
@@ -55,40 +58,45 @@ def _kernel_core(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs,
                      sw=binding.sw_struct(sw, c0, c1, up, dn, scratch))
 
     binding.launch_chunks("sw", _Args, ncol, chunk, make_args,
-                          sw_fluxes_cuda, dev)
+                          sw_fluxes_cuda, dev, fast)
     return up, dn
 
 
 def sw_fluxes_plain(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                     gas_concs: GasConcs, sfc_alb: torch.Tensor,
-                    tsi: torch.Tensor, sza_deg: torch.Tensor) -> Fluxes2:
+                    tsi: torch.Tensor, sza_deg: torch.Tensor,
+                    mxu_mode: Optional[str] = None) -> Fluxes2:
     """The kernel's computation in plain PyTorch, in tlay's dtype on
     tlay's device.  Arguments as ``sw_fluxes_cuda``."""
     atm, sw = plan_mod.prepare_sw(model, plev, tlay, gas_concs, sfc_alb, tsi,
-                                  sza_deg)
+                                  sza_deg, config.is_fast(mxu_mode))
     return common.night_masked(sw, *common.sw_plain(atm, sw))
 
 
 def sw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                    gas_concs: GasConcs, sfc_alb: torch.Tensor,
                    tsi: torch.Tensor, sza_deg: torch.Tensor,
-                   column_chunk: int = DEFAULT_COLUMN_CHUNK) -> Fluxes2:
+                   column_chunk: int = DEFAULT_COLUMN_CHUNK,
+                   mxu_mode: Optional[str] = None) -> Fluxes2:
     """SW broadband fluxes through the CUDA kernel.
 
     Args mirror pipeline.sw_fluxes with the albedo spectrally constant
     (ncol,) or per g-point (ncol, ngpt); tsi (ncol,) [W m-2]; sza_deg
-    (ncol,); column_chunk: columns per launch (bounds the scratch memory).
+    (ncol,); column_chunk: columns per launch (bounds the scratch memory);
+    mxu_mode: table mode (None: config's, read now).
 
     Takes float32 CUDA tensors and launches the kernel; anything else
     raises (ValueError), CPU tensors and inputs that require grad
     included: ``sw_fluxes_plain`` is the version for those.  Each launch
-    adds one to ``sw_fluxes_cuda.launches``.
+    adds one to ``sw_fluxes_cuda.launches`` (exact) or ``.fast_launches``
+    (fast).
     """
     binding.require_cuda("sw_fluxes_cuda", tlay, plev, gas_concs, sfc_alb,
                          tsi, sza_deg)
     atm, sw = plan_mod.prepare_sw(model, plev, tlay, gas_concs, sfc_alb, tsi,
-                                  sza_deg)
+                                  sza_deg, config.is_fast(mxu_mode))
     return common.night_masked(sw, *_kernel_core(atm, sw, column_chunk))
 
 
 sw_fluxes_cuda.launches = 0
+sw_fluxes_cuda.fast_launches = 0

@@ -24,6 +24,15 @@ otherwise (float64, CPU tensors, ``top_at_1=False``,
 grad while grad is enabled: the kernels define no backward, so gradients
 run on the torch path).  Asking for ``"cuda"`` where a needed kernel does
 not apply raises, with the reason.
+
+The table mode (``config.set_mxu_precision``; ``--fast``) is read by the
+kernel routes at each call: the fast mode launches each kernel's fast
+entry point.  The torch route ignores the mode and interpolates the
+tables exactly, as the JAX package's XLA path ignores its MXU mode.
+
+With ``utils.checks.enable_nan_debugging`` on, each stage's output is
+checked (gas optics and the solver on the torch route, the fluxes on a
+kernel route) and the first non-finite one raises, naming its stage.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
 from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
 from ecckd_tpu_torch.solvers.lw import rte_lw
 from ecckd_tpu_torch.solvers.sw import rte_sw
+from ecckd_tpu_torch.utils.checks import check_stage
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -128,6 +138,7 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                 model, plev, tlay, tlev, tsfc, emis_gpt, gas_concs,
                 n_gauss_angles=n_gauss_angles,
                 column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+            check_stage("lw kernel", flux_up=up, flux_dn=dn)
             return FluxesBroadband(flux_up=up, flux_dn=dn)
         _refuse_cuda(backend, "lw", refusal)
     if column_chunk is not None and ncol > column_chunk:
@@ -141,10 +152,16 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     props, sources = gas_optics_lw(
         model, plev, tlay, tsfc, gas_concs, tlev,
         logarithmic_interpolation=logarithmic_interpolation)
+    check_stage("gas_optics_lw", tau=props.tau,
+                lay_source=sources.lay_source,
+                lev_source_inc=sources.lev_source_inc,
+                lev_source_dec=sources.lev_source_dec,
+                sfc_source=sources.sfc_source)
     emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, props.tau.dtype,
                                tlay.device)
     flux_up, flux_dn = rte_lw(props, sources, emis_gpt, top_at_1=top_at_1,
                               n_gauss_angles=n_gauss_angles)
+    check_stage("rte_lw", flux_up=flux_up, flux_dn=flux_dn)
     return FluxesBroadband(flux_up=flux_up, flux_dn=flux_dn)
 
 
@@ -177,6 +194,7 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
             up, dn = sw_fluxes_cuda(
                 model, plev, tlay, gas_concs, alb, tsi, sza_deg,
                 column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+            check_stage("sw kernel", flux_up=up, flux_dn=dn)
             return FluxesBroadband(flux_up=up, flux_dn=dn)
         _refuse_cuda(backend, "sw", refusal)
     if column_chunk is not None and ncol > column_chunk:
@@ -189,6 +207,8 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     props, toa_src = gas_optics_sw(
         model, plev, tlay, gas_concs,
         logarithmic_interpolation=logarithmic_interpolation)
+    check_stage("gas_optics_sw", tau=props.tau, ssa=props.ssa,
+                toa_src=toa_src)
     dtype, device = props.tau.dtype, tlay.device
 
     # Renormalise the incoming solar flux to the requested TSI.
@@ -207,6 +227,7 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     alb_gpt = _surface_to_gpt(model, sfc_alb, ncol, dtype, device)
     flux_up, flux_dn, _ = rte_sw(props, mu0, toa_flux, alb_gpt, alb_gpt,
                                  top_at_1=top_at_1)
+    check_stage("rte_sw", flux_up=flux_up, flux_dn=flux_dn)
     mask = usecol[:, None].to(dtype)
     return FluxesBroadband(flux_up=flux_up * mask, flux_dn=flux_dn * mask)
 
@@ -270,6 +291,8 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
             model_lw, model_sw, plev, tlay, tlev, tsfc, emis_gpt, gas_concs,
             alb, tsi, sza_deg, n_gauss_angles=n_gauss_angles,
             column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+        check_stage("lwsw kernel", lw_flux_up=lu, lw_flux_dn=ld,
+                    sw_flux_up=su, sw_flux_dn=sd)
         return (FluxesBroadband(flux_up=lu, flux_dn=ld),
                 FluxesBroadband(flux_up=su, flux_dn=sd))
     return (lw_fluxes(model_lw, plev, tlay, tlev, tsfc, sfc_emis, gas_concs,

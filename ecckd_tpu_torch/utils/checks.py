@@ -5,7 +5,13 @@
   (mo_simple_netcdf.F90:331-339);
 * ``assert_all_finite``: a finiteness guard on a tensor.  PyTorch runs
   eagerly, so it checks at the call and raises there (reading one flag
-  back from the device).
+  back from the device);
+* ``enable_nan_debugging``: the counterpart of the JAX package's switch
+  (``jax_debug_nans``, which checks every op's result).  Here the pipeline
+  checks each stage's output (``check_stage``): gas optics and the solver
+  on the torch route, the fluxes on the kernel routes, and raises at the
+  stage that made the first non-finite value.  Each check reads one flag
+  back from the device, so it is off by default.
 """
 from __future__ import annotations
 
@@ -17,6 +23,25 @@ import torch
 
 class InputValidationError(ValueError):
     pass
+
+
+_NAN_DEBUG = False
+
+
+def enable_nan_debugging(enabled: bool = True) -> None:
+    """Check every pipeline stage's output for NaN and infinity
+    (``check_stage``); a FloatingPointError names the first stage that
+    made one."""
+    global _NAN_DEBUG
+    _NAN_DEBUG = bool(enabled)
+
+
+def check_stage(stage: str, **tensors: torch.Tensor) -> None:
+    """With NaN debugging on, ``assert_all_finite`` on each tensor, named
+    "<stage> <name>"; a no-op otherwise."""
+    if _NAN_DEBUG:
+        for name, x in tensors.items():
+            assert_all_finite(x, f"{stage} {name}")
 
 
 def validate_inputs(plev: np.ndarray, tlay: np.ndarray,

@@ -252,3 +252,52 @@ def test_inputs_that_require_grad_keep_the_kernels_out(models):
     with torch.no_grad():        # no graph wanted: the kernel runs
         call()
     assert lw_fluxes_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("kernel,lw_key,sw_key", [
+    ("lwsw", "lw", "sw"), ("lwsw", "lw_neg", "sw_neg"), ("lw", "lw", None),
+    ("lw", "lw_rrtmgp", None), ("sw", None, "sw"), ("sw", None, "sw_p47")])
+def test_fast_kernels_match_the_fast_plain_version(models, kernel, lw_key,
+                                                   sw_key):
+    """The fast entry points (bf16 tables): within 5e-5 of the fast plain
+    version at f64, within 5e-4 of the exact one and not equal to it; the
+    fast launches are counted apart; an exact call after a fast one on the
+    same model is the exact kernel's result bit for bit."""
+    f32, f64 = torch.float32, torch.float64
+    ncol, nlay = 301, 23
+    b32, b64 = batch(ncol, nlay, f32, seed=6), batch(ncol, nlay, f64, seed=6)
+    ng = models[lw_key, f32].ngpt if lw_key else 1
+    emis = lambda b: b["emis"][:, None].expand(ncol, ng).contiguous()
+    fns = {"lwsw": (lwsw_fluxes_cuda, lwsw_fluxes_plain),
+           "lw": (lw_fluxes_cuda, lw_fluxes_plain),
+           "sw": (sw_fluxes_cuda, sw_fluxes_plain)}[kernel]
+
+    def run(fn, dt, b, **kw):
+        lw = models[lw_key, dt] if lw_key else None
+        sw = models[sw_key, dt] if sw_key else None
+        if kernel == "lwsw":
+            return solve(fn, lw, sw, b, emis(b), **kw)
+        if kernel == "lw":
+            return fn(lw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                      emis(b), b["concs"], **kw)
+        return fn(sw, b["plev"], b["tlay"], b["concs"], b["alb"], b["tsi"],
+                  b["sza"], **kw)
+
+    cuda_fn, plain_fn = fns
+    exact_before = run(cuda_fn, f32, b32)
+    before = (cuda_fn.launches, cuda_fn.fast_launches)
+    fast = run(cuda_fn, f32, b32, mxu_mode="bf16", column_chunk=128)
+    torch.cuda.synchronize()
+    assert (cuda_fn.launches, cuda_fn.fast_launches) == (before[0],
+                                                         before[1] + 3)
+    exact_after = run(cuda_fn, f32, b32)
+    assert all(torch.equal(a, e) for a, e in zip(exact_after, exact_before))
+    ref_fast = run(plain_fn, f64, b64, mxu_mode="bf16")
+    ref_exact = run(plain_fn, f64, b64)
+    for band in range(0, len(fast), 2):
+        sl = slice(band, band + 2)
+        assert_close(fast[sl], ref_fast[sl])
+        scale = max(float(r.abs().max()) for r in ref_exact[sl])
+        err = max(float((g.double() - r).abs().max())
+                  for g, r in zip(fast[sl], ref_exact[sl])) / scale
+        assert 0.0 < err <= 5e-4, err

@@ -4,8 +4,10 @@ A subprocess with ``sys.modules["jax"] = None`` (and the same for
 ``ecckd_tpu``), so any import of either raises, imports every module of
 ``ecckd_tpu_torch`` and runs on the CPU: the merged slice, ``lw_fluxes``
 and ``sw_fluxes``, the combined RFMIP driver (``--device cpu``) on a
-synthetic RFMIP file written by the port, ``scale_bench`` with
-``--out-dir``, and the column split over two CPU devices.
+synthetic RFMIP file written by the port, through the native netCDF3
+engine and again with ``--fast`` (the torch route: the same files), the
+fast plain version, ``scale_bench`` with ``--out-dir``, and the column
+split over two CPU devices.
 """
 import os
 import subprocess
@@ -59,6 +61,28 @@ with tempfile.TemporaryDirectory() as d:
     rsd = read_fluxes(os.path.join(
         d, "rsd_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc"), "rsd")
     assert rsd.shape == (6, 7) and np.isfinite(rsd).all()
+    from ecckd_tpu_torch import config
+    from ecckd_tpu_torch.io import nc3_native
+    from ecckd_tpu_torch.io.rfmip import io_engine
+    assert nc3_native.load_library() is not None and io_engine() == "native"
+    fast_dir, metrics = os.path.join(d, "fast"), os.path.join(d, "m.json")
+    assert ecckd_rfmip.main([rfmip, ckd["lw_fsck"], ckd["sw_wide"],
+                             "--device", "cpu", "--output-dir", fast_dir,
+                             "--fast", "--metrics-json", metrics]) == 0
+    import json
+    m = json.load(open(metrics))
+    assert (m["io_engine"], m["mxu_precision"]) == ("native", "bf16")
+    assert np.array_equal(read_fluxes(os.path.join(
+        fast_dir, "rsd_Efx_RTE-ecckd_rad-irf_r1i1p1f1_gn.nc"), "rsd"), rsd)
+    from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_plain
+    emis_gpt = T("emis")[:, None].expand(-1, lw.ngpt)
+    plain = lambda **kw: lwsw_fluxes_plain(
+        lw, sw, T("plev"), T("tlay"), T("tlev"), T("tsfc"), emis_gpt,
+        b["concs"], T("alb"), T("tsi"), T("sza"), **kw)
+    fast, exact = plain(), plain(mxu_mode="bf16x3")
+    assert all(torch.isfinite(f).all() for f in fast)
+    assert not torch.equal(fast[0], exact[0])
+    config.set_mxu_precision("bf16x3")
     from ecckd_tpu_torch.cli import scale_bench
     from ecckd_tpu_torch.parallel import mesh
     flx = os.path.join(d, "flx")

@@ -1,0 +1,312 @@
+"""On-card parity gate of the port's CUDA kernels, in both table modes.
+
+The port's counterpart of tools/chip_parity.py: every kernel (float32) on
+the card against its plain PyTorch version at float64 on the card, which
+runs the same computation in the same table mode.  Imports no JAX.
+
+Cases: the adversarial batch (pressures over 2.6 decades at the surface,
+temperatures past both Planck-table ends in every 8th column, h2o over
+five decades per cell, ch4 below its reference, an unknown gas, day,
+grazing and night suns) through the merged kernel (K1/K2, lwsw.cu), the
+LW kernel (K3, lw.cu) and the SW kernel (K4, sw.cu): nlay 1/2/8/60/137,
+1-4 Gauss angles, a chunked launch, the negative-entry models, the
+36-g-point lw_rrtmgp and a SW model on a 47-point grid (``CASES``).  The
+synthetic ckd files always; with ``--data-dir``, also the shipped ecCKD
+1.2 files in that directory, over tools/chip_parity.py's set of cases.
+
+Each mode has its bound, under the JAX package's names (``BOUNDS``): the
+kernel against the exact plain f64 version within 5e-5 of the flux scale
+in ``bf16x3`` and 5e-4 in the fast mode ``bf16``, where it must also
+differ (> 0); and in every mode within 5e-5 of the plain f64 version of
+its own mode (``SAME_MODE_BOUND``).
+
+Usage:
+  python tools/cuda_parity.py [--out PARITY_CUDA.json] [--modes bf16x3,bf16]
+                              [--data-dir DIR] [--ncol 549]
+Writes one JSON artifact; exit status 0 iff every case is inside its
+bounds.  chip_smoke.py runs ``run_case`` over ``CASES`` (phases 4, 12).
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO_ROOT not in sys.path:
+    sys.path.insert(0, _REPO_ROOT)
+
+# max|kernel - plain f64 exact| / flux scale per mode (tools/chip_parity.py).
+BOUNDS = {"bf16x3": 5.0e-5, "bf16": 5.0e-4,
+          "highest": 5.0e-5, "default": 5.0e-4}
+SAME_MODE_BOUND = 5.0e-5
+
+SYNTHETIC = (  # model key, synthetic kind, negative entries, pressure points
+    ("lw", "lw_fsck", False, 53), ("sw", "sw_wide", False, 53),
+    ("lw_neg", "lw_fsck", True, 53), ("sw_neg", "sw_wide", True, 53),
+    ("lw_rrtmgp", "lw_rrtmgp", False, 53), ("sw_p47", "sw_wide", False, 47))
+
+SHIPPED = {"fsck": "ecckd-1.2_lw_ckd-definition_climate_fsck-tol0.0161.nc",
+           "rrtmgp": "ecckd-1.2_lw_ckd-definition_climate_rrtmgp-tol0.061.nc",
+           "wide": "ecckd-1.2_sw_ckd-definition_climate_wide-tol0.05.nc"}
+
+# kernel, name, ncol, nlay, angles, lw model, sw model, column chunk
+CASES = [
+    ("lwsw", "nlay1", 1037, 1, 1, "lw", "sw", None),
+    ("lwsw", "nlay2", 1037, 2, 1, "lw", "sw", None),
+    ("lwsw", "nlay8", 1037, 8, 1, "lw", "sw", None),
+    ("lwsw", "rfmip_1800x60", 1800, 60, 1, "lw", "sw", None),
+    ("lwsw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", "sw", 768),
+    ("lwsw", "nlay137", 1037, 137, 1, "lw", "sw", None),
+    ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None),
+    ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None),
+    ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None),
+    ("lwsw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", "sw_neg", None),
+    ("lwsw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", "sw_neg",
+     None),
+    ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None),
+    ("lw", "rfmip_1800x60", 1800, 60, 1, "lw", None, None),
+    ("lw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", None, 768),
+    ("lw", "nlay1", 1037, 1, 1, "lw", None, None),
+    ("lw", "nlay2", 1037, 2, 1, "lw", None, None),
+    ("lw", "nlay8", 1037, 8, 1, "lw", None, None),
+    ("lw", "nlay137", 1037, 137, 1, "lw", None, None),
+    ("lw", "angles2_nlay60", 1037, 60, 2, "lw", None, None),
+    ("lw", "angles3_nlay60", 1037, 60, 3, "lw", None, None),
+    ("lw", "angles4_nlay60", 1037, 60, 4, "lw", None, None),
+    ("lw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", None, None),
+    ("lw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", None, None),
+    ("lw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", None, None),
+    ("lw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", None, 512),
+    ("sw", "rfmip_1800x60", 1800, 60, 1, None, "sw", None),
+    ("sw", "rfmip_1800x60_chunk768", 1800, 60, 1, None, "sw", 768),
+    ("sw", "nlay1", 1037, 1, 1, None, "sw", None),
+    ("sw", "nlay2", 1037, 2, 1, None, "sw", None),
+    ("sw", "nlay8", 1037, 8, 1, None, "sw", None),
+    ("sw", "nlay137", 1037, 137, 1, None, "sw", None),
+    ("sw", "negative_entry_nlay60", 1037, 60, 1, None, "sw_neg", None),
+    ("sw", "sw_p47_nlay60", 1037, 60, 1, None, "sw_p47", None),
+]
+
+
+def shipped_cases(ncol: int, nlay: int):
+    """tools/chip_parity.py's set on the shipped files."""
+    out = [("lw", f"shipped_fsck_angles{a}", ncol, nlay, a, "fsck", None,
+            None) for a in (1, 2, 3, 4)]
+    out += [("lw", f"shipped_rrtmgp_angles{a}", ncol, nlay, a, "rrtmgp",
+             None, None) for a in (1, 3)]
+    out += [("sw", "shipped_wide", ncol, nlay, 1, None, "wide", None)]
+    out += [("lwsw", f"shipped_merged_fsck_angles{a}", ncol, nlay, a, "fsck",
+             "wide", None) for a in (1, 2, 3, 4)]
+    out += [("lwsw", "shipped_merged_rrtmgp", ncol, nlay, 1, "rrtmgp",
+             "wide", None)]
+    return out
+
+
+def adversarial_batch(ncol: int, nlay: int, seed: int):
+    """Heterogeneous columns hitting the kernels' edge cases (numpy, f64):
+    (arrays, gases)."""
+    rng = np.random.default_rng(seed)
+    p_sfc = np.logspace(np.log10(270.0), np.log10(1.05e5), ncol)
+    rng.shuffle(p_sfc)
+    p_top = 10.0 ** rng.uniform(np.log10(0.8), np.log10(4.0), ncol)
+    plev = np.stack([np.logspace(np.log10(t), np.log10(s), nlay + 1)
+                     for t, s in zip(p_top, p_sfc)])
+    logp = np.log(0.5 * (plev[:, 1:] + plev[:, :-1]))
+    tlay = (288.0 - 55.0 * np.exp(-((logp - np.log(1.5e4)) ** 2) / 4.0)
+            + 3.0 * rng.standard_normal((ncol, nlay)))
+    tlev = (288.0 - 55.0 * np.exp(-((np.log(plev) - np.log(1.5e4)) ** 2)
+                                  / 4.0)
+            + 3.0 * rng.standard_normal((ncol, nlay + 1)))
+    extreme = np.arange(ncol) % 8 == 3
+    tlay[extreme] = rng.uniform(100.0, 360.0, (int(extreme.sum()), nlay))
+    tlev[extreme] = rng.uniform(100.0, 360.0, (int(extreme.sum()), nlay + 1))
+    gases = dict(
+        co2=np.full(ncol, 4.0e-4), ch4=np.full(ncol, 1.2e-6),
+        n2o=np.full(ncol, 3.3e-7), o2=np.full(ncol, 0.2095),
+        cfc11=np.full(ncol, 2.0e-10), cfc12=np.full(ncol, 5.0e-10),
+        h2o=10.0 ** rng.uniform(-6.8, -1.5, (ncol, nlay)),
+        o3=10.0 ** rng.uniform(-8.0, -5.2, (ncol, nlay)),
+        no2=np.full(ncol, 1.0e-9))
+    arrays = dict(plev=plev, tlay=tlay, tlev=tlev,
+                  tsfc=rng.uniform(110.0, 355.0, ncol),
+                  emis=np.linspace(0.7, 1.0, ncol),
+                  alb=np.linspace(0.02, 0.9, ncol),
+                  tsi=np.full(ncol, 1361.0),
+                  sza=np.linspace(0.0, 120.0, ncol))
+    return arrays, gases
+
+
+def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int):
+    """numpy batch -> CUDA tensors + GasConcs (float32 values rounded once,
+    so the float64 reference sees the kernel's exact inputs).  "emis" is
+    per g-point (the kernels' argument), "emis_col" per column (the
+    pipeline's)."""
+    import torch
+    from ecckd_tpu_torch.gases import GasConcs
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
+        device="cuda", dtype=dtype)
+    out = {k: t(v) for k, v in arrays.items()}
+    out["emis_col"] = out["emis"]
+    out["emis"] = out["emis"][:, None].expand(-1, ngpt_lw).contiguous()
+    out["concs"] = GasConcs.create([(k, t(v)) for k, v in gases.items()])
+    return out
+
+
+def flux_errors(got, ref):
+    """(max|d| / band flux scale per output, max|d|).  got/ref hold one
+    band's (up, dn) or both bands' (lw_up, lw_dn, sw_up, sw_dn)."""
+    rel, absolute = [], 0.0
+    for band in range(0, len(ref), 2):
+        scale = max(float(abs(r).max()) for r in ref[band:band + 2])
+        for g, r in zip(got[band:band + 2], ref[band:band + 2]):
+            d = float(abs(g.double() - r.double()).max())
+            rel.append(d / scale)
+            absolute = max(absolute, d)
+    return rel, absolute
+
+
+def solve(kernel: str, route: str, lw, sw, b, **kw):
+    """One kernel's wrapper (route "cuda") or plain version ("plain") on
+    batch b."""
+    from ecckd_tpu_torch.ops.cuda import lw as lw_mod, lwsw, sw as sw_mod
+    if kernel == "lwsw":
+        fn = getattr(lwsw, f"lwsw_fluxes_{route}")
+        return fn(lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                  b["emis"], b["concs"], b["alb"], b["tsi"], b["sza"], **kw)
+    if kernel == "lw":
+        fn = getattr(lw_mod, f"lw_fluxes_{route}")
+        return fn(lw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
+                  b["concs"], **kw)
+    kw.pop("n_gauss_angles", None)
+    fn = getattr(sw_mod, f"sw_fluxes_{route}")
+    return fn(sw, b["plev"], b["tlay"], b["concs"], b["alb"], b["tsi"],
+              b["sza"], **kw)
+
+
+def run_case(models: dict, case, seed: int, mode: str) -> dict:
+    """One case in one table mode: the kernel at f32 against the plain
+    version at f64 in the same mode, and (in the fast mode) against the
+    exact plain version.  ``models[key, dtype]`` are CUDA models."""
+    import torch
+    from ecckd_tpu_torch import config
+    from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
+    kernel, name, ncol, nlay, n_ang, lk, sk, chunk = case
+    f32, f64 = torch.float32, torch.float64
+    m = lambda key, dt: models[key, dt] if key else None
+    arrays, gases = adversarial_batch(ncol, nlay, seed)
+    ng = m(lk, f32).ngpt if lk else 1
+    b32, b64 = (on_card(arrays, gases, dt, ng) for dt in (f32, f64))
+    got = solve(kernel, "cuda", m(lk, f32), m(sk, f32), b32,
+                n_gauss_angles=n_ang, mxu_mode=mode,
+                column_chunk=chunk or DEFAULT_COLUMN_CHUNK)
+    ref = solve(kernel, "plain", m(lk, f64), m(sk, f64), b64,
+                n_gauss_angles=n_ang, mxu_mode=mode)
+    torch.cuda.synchronize()
+    rel, absolute = flux_errors(got, ref)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    out = {"kernel": kernel, "name": name, "shape": [ncol, nlay],
+           "angles": n_ang, "models": [lk, sk], "mode": mode,
+           "max_rel": max(rel), "rel": rel, "max_abs": absolute,
+           "finite": finite}
+    ok = finite and max(rel) <= SAME_MODE_BOUND
+    if config.is_fast(mode):
+        exact = solve(kernel, "plain", m(lk, f64), m(sk, f64), b64,
+                      n_gauss_angles=n_ang, mxu_mode="bf16x3")
+        out["max_rel_vs_exact"] = max(flux_errors(got, exact)[0])
+        ok = ok and 0.0 < out["max_rel_vs_exact"] <= BOUNDS[mode]
+    out["ok"] = ok
+    return out
+
+
+def load_models(work: str, data_dir=None) -> dict:
+    """Synthetic models (SYNTHETIC, seed 7) and, if ``data_dir`` holds
+    them, the shipped ones, each at f32 and f64 on the card."""
+    import torch
+    from ecckd_tpu_torch.io.synthetic import write_synthetic_ckd
+    from ecckd_tpu_torch.models.loader import load_ckd_model
+    paths = {}
+    for key, kind, neg, n_p in SYNTHETIC:
+        paths[key] = os.path.join(work, f"{key}.nc")
+        write_synthetic_ckd(paths[key], kind, seed=7, negative_entry=neg,
+                            n_pressure=n_p)
+    if data_dir:
+        for key, name in SHIPPED.items():
+            if os.path.isfile(os.path.join(data_dir, name)):
+                paths[key] = os.path.join(data_dir, name)
+    return {(key, dt): load_ckd_model(path, dtype=dt, device="cuda")
+            for key, path in paths.items()
+            for dt in (torch.float32, torch.float64)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="tools/cuda_parity.py")
+    ap.add_argument("--out", default="PARITY_CUDA.json")
+    ap.add_argument("--modes", default="bf16x3,bf16")
+    ap.add_argument("--data-dir", default=None,
+                    help="directory holding the shipped ecCKD 1.2 ckd files")
+    ap.add_argument("--ncol", type=int, default=549,
+                    help="columns of the shipped-file cases")
+    ap.add_argument("--nlay", type=int, default=60)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("cuda_parity: no CUDA card", file=sys.stderr)
+        return 1
+    from ecckd_tpu_torch import config
+    modes = args.modes.split(",")
+    for mode in modes:
+        config.is_fast(mode)       # an unknown mode string raises here
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory() as work:
+        models = load_models(work, args.data_dir)
+    cases = list(CASES)
+    shipped = all((k, torch.float32) in models for k in SHIPPED)
+    if shipped:
+        cases += shipped_cases(args.ncol, args.nlay)
+    results, ok = {}, True
+    for mode in modes:
+        rows = []
+        for i, case in enumerate(cases):
+            r = run_case(models, case, seed=100 + i, mode=mode)
+            rows.append(r)
+            ok = ok and r["ok"]
+            print(f"[{mode}] {'ok' if r['ok'] else 'FAIL'} {r['kernel']} "
+                  f"{r['name']}: max_rel {r['max_rel']:.3e} (same mode)"
+                  + (f", {r['max_rel_vs_exact']:.3e} vs exact"
+                     if "max_rel_vs_exact" in r else ""), file=sys.stderr)
+        key = "max_rel_vs_exact" if config.is_fast(mode) else "max_rel"
+        results[mode] = {
+            "bound": BOUNDS[mode], "same_mode_bound": SAME_MODE_BOUND,
+            "worst_max_rel": max(r["max_rel"] for r in rows),
+            "worst_vs_exact": max(r[key] for r in rows),
+            "pass": all(r["ok"] for r in rows), "cases": rows}
+    out = {"generated_by": "tools/cuda_parity.py",
+           "date": datetime.date.today().isoformat(), "card": card,
+           "reference": "plain PyTorch version at float64 on the card",
+           "shipped_files": shipped,
+           "pass": ok, "modes": results}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(f"cuda parity: {'PASS' if ok else 'FAIL'} -> {args.out} on {card}")
+    for mode, r in results.items():
+        print(f"  {mode}: worst vs exact {r['worst_vs_exact']:.3e} (bound "
+              f"{r['bound']:.1e}), worst vs its own mode "
+              f"{r['worst_max_rel']:.3e} (bound {SAME_MODE_BOUND:.1e}) over "
+              f"{len(r['cases'])} cases")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
