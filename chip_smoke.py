@@ -11,25 +11,33 @@ result line is printed:
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
 2. build: compiles csrc/lwsw.cu, lw.cu and sw.cu with nvcc from this
-   checkout, one nvcc each, all at once (timed; ptxas registers/spills);
-   each library holds the exact and the fast instantiation, and both entry
-   points are bound.
+   checkout, one nvcc each, all at once (timed; ptxas registers, spills
+   and barriers); each library holds the exact and the fast
+   instantiation, and both entry points are bound.
 3. models: writes the synthetic ckd files (shipped dimensions, values from
    a seed): lw_fsck, lw_rrtmgp (36 g-points), sw_wide, their
    negative-entry variants and sw_wide on a 47-point pressure grid, and
-   loads them with the port's loader.
+   loads them with the port's loader.  Then, for phase 2's merged kernel,
+   its staging plan (ops/cuda/lwsw.py stage_plan: bytes per column, C
+   columns per block, the dynamic shared memory per block or device
+   staging, threads) and the blocks per SM of the CUDA occupancy
+   calculator (ecckd_lwsw_occupancy), for the main path, 3 angles,
+   lw_rrtmgp and nlay 300.
 4. parity: each kernel (float32) against its plain PyTorch version at
    float64 on the card, case by case (tools/cuda_parity.py's CASES and
    run_case): max|d| / flux scale <= 5e-5 per output.  The merged kernel
-   (K1/K2): RFMIP 1800 x 60, nlay 1/2/8/137,
-   2-4 Gauss angles, a chunked launch, the negative-entry pair, lw_rrtmgp
-   with sw_wide.  The LW kernel (K3) and the SW kernel (K4): RFMIP
+   (K1/K2): RFMIP 1800 x 60, nlay 1/2/8/137, nlay 300 at 1 and 3 angles
+   (staged in device memory), 2-4 Gauss angles, a chunked launch, the
+   negative-entry pair, lw_rrtmgp with sw_wide at 1 and 3 angles.  The
+   LW kernel (K3) and the SW kernel (K4): RFMIP
    1800 x 60, nlay 1/2/8/137, a chunked launch, the negative-entry models;
    K3 also at 2-4 angles and on lw_rrtmgp, K4 on the 47-point grid.  The
    pair on two grids through lw_sw_fluxes(backend="cuda") must launch K3
    and K4 and not K1.
 5. shared code: on one mergeable batch, K3's LW and K4's SW outputs
-   against K1's (one device body, csrc/common.cuh; expected max|d| 0).
+   against K1's (the same per-(layer, g) arithmetic, csrc/common.cuh;
+   K1 sums over g-points in another order): <= 5e-5 of the flux scale,
+   and whether they are equal bit for bit.
 6. main paths at the 65,536 x 60 protocol batch, each driven with the
    launch counts set to 0 just before and read just after:
    pipeline.lw_sw_fluxes, lw_fluxes and sw_fluxes (backend="auto").  The
@@ -45,8 +53,11 @@ result line is printed:
    plain version, SW TOA down equal mu0 * TSI by day and 0 by night, and
    the combined driver's files match the separate drivers'.
 8. times: each kernel and its plain float32 version at 65,536 x 60 (and
-   the kernels at 1800 x 60) with CUDA events (warm-up, median of 10), with
-   and without host prep, beside the card's name and power limit.
+   the kernels at 1800 x 60, K1 at 3 angles) with CUDA events (warm-up,
+   median of 10), with and without host prep, beside the card's name and
+   power limit; each kernel's bound (``kernel_bound``: bytes over the HBM
+   rate or float operations over the f32 peak, the larger) and its
+   share of it.
 9. stream: cli/scale_bench.main at full width, 1,048,576 x 60 in chunks of
    65,536, full outputs, on the card.  A checking pass (one streamed pass)
    holds every chunk finite and the first 2048 columns of chunks 0 and 15
@@ -69,7 +80,8 @@ result line is printed:
    backend="cuda" and lw_fluxes_cuda raise.
 12. fast mode (config.set_mxu_precision("bf16"), --fast): each kernel's
    fast entry point at f32 against the fast plain version at f64 on phase
-   4's cases (<= 5e-5) and against the exact plain f64 (<= 5e-4, > 0);
+   4's cases, the deep columns included (<= 5e-5), and against the exact
+   plain f64 (<= 5e-4, > 0);
    lw_sw_fluxes, lw_fluxes and sw_fluxes (auto) at 65,536 x 60 in the fast
    mode, and ecckd_rfmip{,_lw,_sw} --fast at 100 x 18 x 60, each with the
    counts set to 0 before and read after: the fast entry points ran and
@@ -77,8 +89,8 @@ result line is printed:
    65,536 x 60, and the exact kernels again, interleaved (exact, fast,
    fast, exact), after the fast path has run.
 
-The last two lines are the kernels' JSON record (exact and fast entries)
-and
+The last two lines are the kernels' JSON record (exact and fast entries,
+each with its bound) and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -102,6 +114,66 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "lw": ("ecckd_tpu_torch/csrc/lw.cu", "ecckd_tpu/ops/pallas/lw.py:54"),
     "sw": ("ecckd_tpu_torch/csrc/sw.cu", "ecckd_tpu/ops/pallas/sw.py:39"),
 }
+
+
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (700 W)
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+# Float operations of the kernels' arithmetic, counting an add, multiply,
+# compare or select as 1 (an FMA as 2) and each accurate library call at
+# the operations of its CUDA implementation: expm1f 20, logf 15, a
+# division 8, sqrtf 6.  Per g-point: a dense gas 12 (bilinear 9, weight,
+# clamp, sum), a LUT gas 25, a Planck value 12, the LW layer sources 42,
+# one LW sweep step pair (down, up, their g-sums) 6, the SW Rayleigh sum
+# and two-stream 136, the SW direct / adding sweeps 43.  Per layer,
+# independent of g: the interpolation point 41, a dense gas weight 3, a
+# LUT index 30, a Planck point 12.
+OPS = dict(dense=12, lut=25, planck=12, lw_sources=42, lw_sweep=6,
+           sw_optics=136, sw_sweep=43, point=41, dense_w=3, lut_w=30,
+           planck_point=12)
+
+
+def kernel_bound(prep) -> dict:
+    """The least time the card could take for one kernel call on the
+    prepared inputs ``prep`` (plan.prepare / prepare_lw / prepare_sw):
+    the larger of the bytes it must move (each input read once, each
+    output written once, the tables once) over the HBM rate, and the
+    float operations the function needs (``OPS``, on this call's gases,
+    g-points, layers and angles) over the f32 peak.  The count is the
+    function's, the same for every kernel: per (layer, g-point) 2 Planck
+    values (nlay layer values and nlay + 1 level values per column, the
+    surface's within the rounding) and one set of LW layer sources per
+    angle, however often a kernel recomputes them."""
+    from ecckd_tpu_torch.ops.cuda import lwsw
+    atm, bands = prep[0], prep[1:]
+    ncol, nlay = atm.tlay.shape
+    tensors = [atm.plev, atm.tlay, atm.vmr_prof, atm.vmr_col]
+    per_layer = OPS["point"]
+    per_lg = 0
+    for band in bands:
+        nd, nl = lwsw.band_gases(band.plan)
+        gas = nd * OPS["dense"] + nl * OPS["lut"]
+        per_layer += nd * OPS["dense_w"] + nl * OPS["lut_w"]
+        arr = band.arrays
+        tensors += [arr.table, arr.t_first]
+        if hasattr(band, "tlev"):           # LW
+            n_ang = band.n_gauss_angles
+            per_layer += 2 * OPS["planck_point"]
+            tensors += [band.tlev, band.tsfc, band.emis, arr.planck_function]
+            sweeps = n_ang * (OPS["lw_sources"] + OPS["lw_sweep"])
+            per_lg += band.plan.ngpt * (gas + 2 * OPS["planck"] + sweeps)
+        else:                               # SW
+            tensors += [band.alb, band.mu0, band.tsi_scale, arr.solar,
+                        arr.rayleigh]
+            per_lg += band.plan.ngpt * (gas + OPS["sw_optics"]
+                                        + OPS["sw_sweep"])
+    n_out = 2 * len(bands)
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + n_out * ncol * (nlay + 1) * 4)
+    ops = ncol * nlay * (per_layer + per_lg)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "ops": ops, "bytes": nbytes}
 
 
 def nvidia_smi() -> str:
@@ -251,6 +323,34 @@ def run(card: str, work: str) -> int:
           f"{plan.models_mergeable(lw32, sw32)} | sw_p47 grid "
           f"{tuple(m32('sw_p47').temperature_grid.shape)} mergeable="
           f"{plan.models_mergeable(lw32, m32('sw_p47'))}", flush=True)
+
+    # K1's staging plan and the card's occupancy for it (the build of
+    # phase 2, on the models just loaded): the main path, 3 angles,
+    # lw_rrtmgp, and columns too deep for shared memory.
+    names = example_flux_batch(1, 1, np.float32)["concs"].names
+    gases = lambda key: lwsw.band_gases(plan.build_plan(m32(key), names))
+    props = torch.cuda.get_device_properties(0)
+    limits = (props.shared_memory_per_block_optin,
+              props.shared_memory_per_multiprocessor)
+    print(f"build: card shared memory {limits[0]} B per block (opt-in), "
+          f"{limits[1]} B per SM", flush=True)
+    for label, lw_key, nl, n_ang in (
+            ("main path", "lw", PROTOCOL[1], 1), ("3 angles", "lw",
+                                                  PROTOCOL[1], 3),
+            ("lw_rrtmgp", "lw_rrtmgp", PROTOCOL[1], 1),
+            ("deep", "lw", 300, 1)):
+        p = lwsw.stage_plan(nl, m32(lw_key).ngpt, sw32.ngpt, n_ang,
+                            gases(lw_key), gases("sw"), *limits)
+        per_sm = [lwsw._blocks_per_sm(p.threads, p.shared_bytes, fast, 0)
+                  for fast in (False, True)]
+        print(f"build: K1 staging, {label} ({lw_key} + sw, {nl} layers, "
+              f"{n_ang} angle(s)): {p.bytes_per_column} B per column, C = "
+              f"{p.slots} per block in "
+              + (f"{p.shared_bytes} B of dynamic shared memory"
+                 if p.shared else "device memory")
+              + f", {p.threads} threads, blocks per SM (occupancy "
+              f"calculator) {per_sm[0]} exact / {per_sm[1]} fast",
+              flush=True)
 
     # ---- 4. parity: kernel (f32) vs plain (f64) on the card -------------
     failures = []
@@ -476,7 +576,7 @@ def run(card: str, work: str) -> int:
     plain = {"lwsw": lwsw.lwsw_fluxes_plain, "lw": lw.lw_fluxes_plain,
              "sw": sw.sw_fluxes_plain}
     chunk = binding.DEFAULT_COLUMN_CHUNK
-    times = {}
+    times, bounds = {}, {}
     for name in KERNELS:
         prep = preps[name]
         k_ms = cuda_time_ms(lambda: modules[name]._kernel_core(*prep, chunk))
@@ -484,17 +584,29 @@ def run(card: str, work: str) -> int:
         k_e2e = cuda_time_ms(lambda: wrappers[name](*args[name]))
         p_e2e = cuda_time_ms(lambda: plain[name](*args[name]))
         times[name] = (k_ms, p_ms)
+        bounds[name] = kernel_bound(prep)
+        bd = bounds[name]
         print(f"times: {name} {ncol}x{nlay} 1 angle on {card}: kernel "
               f"{k_ms:.3f} ms ({ncol / k_ms * 1e3:.0f} columns/s), plain f32 "
               f"{p_ms:.3f} ms ({ncol / p_ms * 1e3:.0f} columns/s); with host "
               f"prep: kernel {k_e2e:.3f} ms, plain {p_e2e:.3f} ms (median "
-              f"of 10 after 2 warm-up, CUDA events)", flush=True)
+              f"of 10 after 2 warm-up, CUDA events) | bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['ops']:.4g} "
+              f"operations, {bd['bytes']:.4g} bytes), share of the bound "
+              f"{bd['bound_ms'] / k_ms:.4f}", flush=True)
     rr_prep = plan.prepare_lw(m32("lw_rrtmgp"), *args["lw"][1:5],
                               emis_gpt[:, :1].expand(-1, 36).contiguous(),
                               concs)
     rr_ms = cuda_time_ms(lambda: lw._kernel_core(*rr_prep, chunk))
     lw3 = plan.prepare_lw(*args["lw"], n_gauss_angles=3)
     lw3_ms = cuda_time_ms(lambda: lw._kernel_core(*lw3, chunk))
+    k2 = plan.prepare(*args["lwsw"], n_gauss_angles=3)
+    k2_ms = cuda_time_ms(lambda: lwsw._kernel_core(*k2, chunk))
+    k2_bound = kernel_bound(k2)
+    k1_rr = plan.prepare(m32("lw_rrtmgp"), *args["lwsw"][1:6],
+                         rr_prep[1].emis, *args["lwsw"][7:])
+    k1_rr_ms = cuda_time_ms(lambda: lwsw._kernel_core(*k1_rr, chunk))
+    k1_rr_bound = kernel_bound(k1_rr)
     n_r = nsite * nexp
     cut = lambda x: (x[:n_r] if isinstance(x, torch.Tensor)
                      and x.shape[:1] == (ncol,) else x)
@@ -508,7 +620,13 @@ def run(card: str, work: str) -> int:
     small_ms = {name: cuda_time_ms(
         lambda: modules[name]._kernel_core(*small_prep[name], chunk))
         for name in KERNELS}
-    print(f"times: lw kernel {ncol}x{nlay}: lw_rrtmgp (36 g-points) "
+    print(f"times: lwsw kernel {ncol}x{nlay} 3 angles (K2) {k2_ms:.3f} ms, "
+          f"bound {k2_bound['bound_ms']:.4f} ms by {k2_bound['bound_by']}, "
+          f"share {k2_bound['bound_ms'] / k2_ms:.4f} | lwsw kernel "
+          f"{ncol}x{nlay} lw_rrtmgp + sw_wide {k1_rr_ms:.3f} ms, bound "
+          f"{k1_rr_bound['bound_ms']:.4f} ms, share "
+          f"{k1_rr_bound['bound_ms'] / k1_rr_ms:.4f} | lw kernel "
+          f"{ncol}x{nlay}: lw_rrtmgp (36 g-points) "
           f"{rr_ms:.3f} ms, lw_fsck 3 angles {lw3_ms:.3f} ms | {n_r}x{nlay} "
           "kernels: " + ", ".join(f"{k} {v:.3f} ms"
                                   for k, v in small_ms.items())
@@ -850,7 +968,7 @@ def run(card: str, work: str) -> int:
     fast_preps = {"lwsw": plan.prepare(*args["lwsw"], fast=True),
                   "lw": plan.prepare_lw(*args["lw"], fast=True),
                   "sw": plan.prepare_sw(*args["sw"], fast=True)}
-    fast_times = {}
+    fast_times, fast_bounds = {}, {}
     for name in KERNELS:
         core = modules[name]._kernel_core
         exact = lambda: core(*preps[name], chunk)
@@ -859,8 +977,12 @@ def run(card: str, work: str) -> int:
                                                       exact))
         p_ms = cuda_time_ms(lambda: plain_core[name](*fast_preps[name]))
         fast_times[name] = (statistics.mean((f1, f2)), p_ms)
+        fast_bounds[name] = kernel_bound(fast_preps[name])
         print(f"times: {name}_fast {ncol}x{nlay} 1 angle on {card}: kernel "
-              f"{f1:.3f} / {f2:.3f} ms, fast plain f32 {p_ms:.3f} ms | "
+              f"{f1:.3f} / {f2:.3f} ms, fast plain f32 {p_ms:.3f} ms, bound "
+              f"{fast_bounds[name]['bound_ms']:.4f} ms by "
+              f"{fast_bounds[name]['bound_by']}, share "
+              f"{fast_bounds[name]['bound_ms'] / fast_times[name][0]:.4f} | "
               f"exact kernel now {e1:.3f} / {e2:.3f} ms, in phase 8 (before "
               f"any fast launch) {times[name][0]:.3f} ms (median of 10 after "
               f"2 warm-up, CUDA events)", flush=True)
@@ -869,15 +991,19 @@ def run(card: str, work: str) -> int:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)
         return 1
     print(card)
-    entries = [(name, main_launches, worst_abs, times) for name in KERNELS]
-    entries += [(name, fast_launches, fast_abs, fast_times)
+    entries = [(name, main_launches, worst_abs, times, bounds)
+               for name in KERNELS]
+    entries += [(name, fast_launches, fast_abs, fast_times, fast_bounds)
                 for name in KERNELS]
+    # library_ms: no one PyTorch call computes gas optics and a solver.
     print(json.dumps({"kernels": [{
         "name": name if tm is times else f"{name}_fast", "route": "cuda",
         "source": KERNELS[name][0], "replaces": KERNELS[name][1],
         "launches": launches[name], "max_abs_err": err[name],
-        "ms": tm[name][0], "plain_ms": tm[name][1]}
-        for name, launches, err, tm in entries]}))
+        "ms": tm[name][0], "plain_ms": tm[name][1],
+        "bound_ms": bd[name]["bound_ms"], "bound_by": bd[name]["bound_by"],
+        "library_ms": None}
+        for name, launches, err, tm, bd in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -500,6 +500,461 @@ __device__ void sw_column(const Atmos& A, const Grid& G, const Band& B,
   }
 }
 
+// ---- The tiled merged solve (lwsw.cu): per-column staging ----------------
+//
+// lwsw.cu splits a column's solve into optics, parallel over the column's
+// layers, and sweeps, serial over them, that meet in one staging area per
+// column (float32; each row holds ngpt floats, g fastest), in shared
+// memory or, for columns too deep for it, in a device memory slice
+// (ops/cuda/lwsw.py stage_plan sizes it):
+//   LW rows (ngpt_lw each): at 1 angle tr, src_dn, src_up (nlay each); at
+//     2-4 angles tau, B(layer) (nlay each) and B(level) (nlay+1);
+//   SW rows (ngpt_sw each): r_dif, t_dif (nlay each); r_dir (nlay+1),
+//     then r_dir * direct, then the source of the stack below each level;
+//     t_dir (nlay), then t_dir * direct; t (nlay+1), then the albedo of
+//     the stack below each level;
+//   the g-summed level fluxes: up and down (nlay+1 each) per LW angle,
+//     then SW up and down;
+//   the layer parameters (below): in layer j's r_dif row when they fit
+//     there, which the layer's optics overwrite only after reading them.
+// The arithmetic per (layer, g) is lw_column's / sw_column's above; only
+// where each value waits between the phases, and the order of the g-sums,
+// differ.
+
+constexpr int SW_RDIF = 0;  // SW row blocks, in units of nlay (+ offsets)
+
+__device__ __forceinline__ int sw_row_tdif(int nlay) { return nlay; }
+__device__ __forceinline__ int sw_row_src(int nlay) { return 2 * nlay; }
+__device__ __forceinline__ int sw_row_srcdn(int nlay) { return 3 * nlay + 1; }
+__device__ __forceinline__ int sw_row_alb(int nlay) { return 4 * nlay + 1; }
+
+// Layer parameters.  What the optics of a layer need that does not depend
+// on the g-point is computed once per layer, with lanes over layers,
+// before the optics: per layer, in order,
+//   the table corner ip * n_t + it (int bits), wp, wt, simple_w;
+//   for each gas of the LW band, then of the SW band: a dense gas's weight
+//   simple_w * (a * vmr + b); a LUT gas's first table row at its lower
+//   mole-fraction point (int bits), its weight w1 and simple_w * vmr.
+// The same float operations as layer_point / gas_tau, on the same floats.
+__device__ __forceinline__ int band_params(const Atmos& A, const Grid& G,
+                                          const Band& B, const LayerPoint& L,
+                                          int c, int j, float* p) {
+  int k = 0;
+  for (int s = 0; s < B.nslice; ++s) {
+    const GasSlice& S = B.s[s];
+    if (S.kind == KIND_DENSE) {
+      p[k++] = S.vmr_kind == VMR_NONE
+                   ? L.simple_w * S.b
+                   : L.simple_w * (S.a * vmr_of(A, S, c, j) + S.b);
+    } else {
+      const float vmr = vmr_of(A, S, c, j);
+      const FracIdx V = frac_index(
+          (logf(fmaxf(vmr, S.mf0)) - S.log_mf0) / S.d_log, S.v_hi);
+      p[k] = __int_as_float(S.row0 + V.i0 * G.n_p * G.n_t);
+      p[k + 1] = V.w1;
+      p[k + 2] = L.simple_w * vmr;
+      k += 3;
+    }
+  }
+  return k;
+}
+
+template <typename T>
+__device__ void lwsw_layer_params(const Atmos& A, const Grid& G,
+                                  const Band& BL, const Band& BS, int c,
+                                  int j, float* p) {
+  const LayerPoint L = layer_point<T>(A, G, c, j);
+  p[0] = __int_as_float(L.ip * G.n_t + L.it);
+  p[1] = L.wp;
+  p[2] = L.wt;
+  p[3] = L.simple_w;
+  const int k = band_params(A, G, BL, L, c, j, p + 4);
+  band_params(A, G, BS, L, c, j, p + 4 + k);
+}
+
+// bilinear's weights, formed once per layer: Corners<T>(wp, wt)(tb, d_t,
+// d_p) interpolates the block at tb (d_t: the next temperature, d_p: the
+// next pressure) with the same arithmetic as bilinear.
+template <typename T>
+struct Corners;
+
+template <>
+struct Corners<float> {
+  float pw0, pw1, tw0, tw1;
+  __device__ __forceinline__ Corners(float wp, float wt)
+      : pw0(1.0f - wp), pw1(wp), tw0(1.0f - wt), tw1(wt) {}
+  __device__ __forceinline__ float operator()(const float* tb, int d_t,
+                                              int d_p) const {
+    const float* tp = tb + d_p;
+    return tw0 * (pw0 * tb[0] + pw1 * tp[0]) +
+           tw1 * (pw0 * tb[d_t] + pw1 * tp[d_t]);
+  }
+};
+
+template <>
+struct Corners<__nv_bfloat16> {
+  float w00, w10, w01, w11;  // bf16(wp_i * wt_j), as bilinear rounds them
+  __device__ __forceinline__ Corners(float wp, float wt) {
+    const float pw0 = 1.0f - wp, tw0 = 1.0f - wt;
+    w00 = bf16_round(pw0 * tw0);
+    w10 = bf16_round(wp * tw0);
+    w01 = bf16_round(pw0 * wt);
+    w11 = bf16_round(wp * wt);
+  }
+  __device__ __forceinline__ float operator()(const __nv_bfloat16* tb,
+                                              int d_t, int d_p) const {
+    const __nv_bfloat16* tp = tb + d_p;
+    return w00 * __bfloat162float(tb[0]) + w10 * __bfloat162float(tp[0]) +
+           w01 * __bfloat162float(tb[d_t]) + w11 * __bfloat162float(tp[d_t]);
+  }
+};
+
+// gas_tau of one g-point from the layer parameters p of band B: cb is the
+// table at the layer's (p, T) corner row and the g-point.
+template <typename T>
+__device__ __forceinline__ float gas_tau_params(const Band& B, const Grid& G,
+                                                const T* cb,
+                                                const Corners<T>& w,
+                                                const float* p) {
+  const int ng = B.ngpt, d_p = G.n_t * ng, d_v = G.n_p * G.n_t * ng;
+  float tau = 0.0f;
+  int k = 0;
+  for (int s = 0; s < B.nslice; ++s) {
+    if (B.s[s].kind == KIND_DENSE) {
+      tau += fmaxf(p[k] * w(cb + B.s[s].row0 * ng, ng, d_p), 0.0f);
+      k += 1;
+    } else {
+      const T* tb = cb + __float_as_int(p[k]) * ng;
+      const float w1 = p[k + 1];
+      const float lo = w(tb, ng, d_p);
+      const float hi = w(tb + d_v, ng, d_p);
+      const float coeff = (1.0f - w1) * lo + w1 * hi;
+      tau += fmaxf(p[k + 2] * coeff, 0.0f);
+      k += 3;
+    }
+  }
+  return tau;
+}
+
+// planck_at split into its g-independent point and its per-g value.
+struct PlanckPoint {
+  int i0;
+  float w1, scale;
+  bool below;
+};
+
+__device__ __forceinline__ PlanckPoint planck_point(const LwSolve& W,
+                                                    float temp) {
+  const float idx = (temp - W.planck_t0) / W.planck_dt;
+  const int i0 = static_cast<int>(
+      fminf(fmaxf(floorf(idx), 0.0f), (float)(W.n_planck - 2)));
+  return {i0, idx - (float)i0, temp / W.planck_t0, !(idx >= 0.0f)};
+}
+
+// pg: the Planck table at the g-point.
+__device__ __forceinline__ float planck_gpt(const float* pg, int ng,
+                                            const PlanckPoint& q) {
+  const float b = q.below ? q.scale * pg[0]
+                          : (1.0f - q.w1) * pg[q.i0 * ng] +
+                                q.w1 * pg[(q.i0 + 1) * ng];
+  return b / PI_F;
+}
+
+// Optics of layer j of column c for both bands of a merged solve from its
+// layer parameters prm (the SW band's from prm + prm_sw): the LW rows of
+// lw_st and the SW rows of sw_st at layer j.  One warp, lane = g-point.
+// The parameters may share the SW rows of layer j: every store here
+// follows the last parameter read.
+template <typename T>
+__device__ void lwsw_layer_optics(const Atmos& A, const Grid& G,
+                                  const Band& BL, const Band& BS,
+                                  const LwSolve& W, const SwSolve& S, int c,
+                                  int j, int lane, const float* prm,
+                                  int prm_sw, float* lw_st, float* sw_st) {
+  const int nlay = A.nlay;
+  const int corner = __float_as_int(prm[0]);
+  const Corners<T> w(prm[1], prm[2]);
+  const float simple_w = prm[3];
+  const float* tlev = W.tlev + (size_t)c * (nlay + 1);
+  const PlanckPoint q_top = planck_point(W, tlev[j]);
+  const PlanckPoint q_bot = planck_point(W, tlev[j + 1]);
+  const PlanckPoint q_lay = planck_point(W, A.tlay[(size_t)c * nlay + j]);
+  const int ngl = BL.ngpt;
+  for (int g0 = 0; g0 < ngl; g0 += 32) {
+    const bool act = g0 + lane < ngl;
+    const int g = act ? g0 + lane : 0;
+    const float tau = gas_tau_params<T>(
+        BL, G, static_cast<const T*>(BL.table) + (corner * ngl + g), w,
+        prm + 4);
+    const float* pg = W.planck + g;
+    const float b_top = planck_gpt(pg, ngl, q_top);
+    const float b_bot = planck_gpt(pg, ngl, q_bot);
+    const float b_lay = planck_gpt(pg, ngl, q_lay);
+    if (!act) continue;
+    if (W.n_ang == 1) {
+      float tr, sdn, sup;
+      lw_layer_sources(tau * W.sec[0], b_lay, b_top, b_bot,
+                       sqrtf(FLT_EPSILON), tr, sdn, sup);
+      lw_st[j * ngl + g] = tr;
+      lw_st[(nlay + j) * ngl + g] = sdn;
+      lw_st[(2 * nlay + j) * ngl + g] = sup;
+    } else {
+      lw_st[j * ngl + g] = tau;
+      lw_st[(nlay + j) * ngl + g] = b_lay;
+      lw_st[(2 * nlay + j) * ngl + g] = b_top;
+      if (j == nlay - 1) lw_st[3 * nlay * ngl + g] = b_bot;
+    }
+  }
+  const int ngs = BS.ngpt;
+  const float mu0 = S.mu0[c];
+  const float inv_mu0 = 1.0f / mu0;
+  for (int g0 = 0; g0 < ngs; g0 += 32) {
+    const bool act = g0 + lane < ngs;
+    const int g = act ? g0 + lane : 0;
+    const float tau_ray = simple_w * S.ray[g];
+    const float tau =
+        gas_tau_params<T>(BS, G,
+                          static_cast<const T*>(BS.table) + (corner * ngs + g),
+                          w, prm + prm_sw) +
+        tau_ray;
+    float r_dif, t_dif, r_dir, t_dir, t;
+    two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir, t);
+    __syncwarp();  // every lane has read prm before any lane overwrites it
+    if (!act) continue;
+    sw_st[(SW_RDIF + j) * ngs + g] = r_dif;
+    sw_st[(sw_row_tdif(nlay) + j) * ngs + g] = t_dif;
+    sw_st[(sw_row_src(nlay) + j) * ngs + g] = r_dir;
+    sw_st[(sw_row_srcdn(nlay) + j) * ngs + g] = t_dir;
+    sw_st[(sw_row_alb(nlay) + j) * ngs + g] = t;
+  }
+}
+
+// The g-sums of K values at once (K a power of two, <= 32): each halving
+// step keeps half of the values and adds the other half from the partner
+// lane, so lanes [k * 32 / K, (k + 1) * 32 / K) end with the sum over all
+// 32 lanes of value k, in K - 1 + log2(32 / K) shuffles instead of
+// 5 K.  Returns this lane's sum; it is value lane / (32 / K)'s.
+template <int K>
+__device__ __forceinline__ float warp_sums(float (&v)[K], int lane) {
+#pragma unroll
+  for (int n = K, off = 16; n > 1; n >>= 1, off >>= 1) {
+    const bool hi = lane & off;
+#pragma unroll
+    for (int q = 0; q < n / 2; ++q) {
+      const float keep = hi ? v[q + n / 2] : v[q];
+      const float send = hi ? v[q] : v[q + n / 2];
+      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  float u = v[0];
+#pragma unroll
+  for (int off = 16 / K; off > 0; off >>= 1)
+    u += __shfl_xor_sync(0xffffffffu, u, off);
+  return u;
+}
+
+// Layers per step of the staged sweeps: a step loads its SWEEP_K layers'
+// coefficients first, runs the recurrence through them, then g-sums the
+// SWEEP_K levels together, so neither the loads nor the shuffles wait on
+// one layer at a time.
+constexpr int SWEEP_K = 4;
+
+// The LW sweeps of column c at Gauss angle a from its staged rows st,
+// g-summed into this angle's level accumulators up / dn (lane 0 adds, over
+// g-chunks in lw_column's order).
+__device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
+                                                 const Band& B, int nlay,
+                                                 int c, int lane, int a,
+                                                 const float* st,
+                                                 float* __restrict__ up,
+                                                 float* __restrict__ dn) {
+  constexpr int K = SWEEP_K;
+  const int ng = B.ngpt;
+  const float thresh = sqrtf(FLT_EPSILON);
+  const float sec = W.sec[a], w2pi = W.w2pi[a];
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    const bool act = g0 + lane < ng;
+    const int g = act ? g0 + lane : 0;
+    const float* const stg = st + g;
+    auto at = [&](int row) { return stg[row * ng]; };
+    const float e = W.emis[(size_t)c * ng + g];
+    const float b_sfc = planck_at(W, B, W.tsfc[c], g);
+    // Transmittance and source of layer j in one direction: staged at 1
+    // angle, from the staged tau and Planck terms otherwise.
+    auto layer = [&](int j, bool down, float& tr, float& src) {
+      if (W.n_ang == 1) {
+        tr = at(j);
+        src = at((down ? nlay : 2 * nlay) + j);
+      } else {
+        float sdn, sup;
+        lw_layer_sources(at(j) * sec, at(nlay + j), at(2 * nlay + j),
+                         at(2 * nlay + j + 1), thresh, tr, sdn, sup);
+        src = down ? sdn : sup;
+      }
+    };
+    float rad = 0.0f;
+    for (int j0 = 0; j0 < nlay; j0 += K) {
+      float tr[K], src[K], r[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        layer(min(j0 + k, nlay - 1), true, tr[k], src[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (j0 + k < nlay) rad = tr[k] * rad + src[k];
+        r[k] = act ? rad : 0.0f;
+      }
+      const float sum = warp_sums(r, lane);
+      const int k = lane / (32 / K);
+      if (lane % (32 / K) == 0 && j0 + k < nlay) dn[j0 + k + 1] += w2pi * sum;
+    }
+    rad = e * b_sfc + (1.0f - e) * rad;
+    float last[1] = {act ? rad : 0.0f};
+    const float sum = warp_sums(last, lane);
+    if (lane == 0) up[nlay] += w2pi * sum;
+    for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
+      float tr[K], src[K], r[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        layer(max(j0 - k, 0), false, tr[k], src[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (j0 - k >= 0) rad = tr[k] * rad + src[k];
+        r[k] = act ? rad : 0.0f;
+      }
+      const float sum = warp_sums(r, lane);
+      const int k = lane / (32 / K);
+      if (lane % (32 / K) == 0 && j0 - k >= 0) up[j0 - k] += w2pi * sum;
+    }
+  }
+}
+
+// The SW sweeps of column c from its staged rows st (rewritten in place):
+// direct beam, adding up, adding down, g-summed into up / dn.  The adding
+// denominator is recomputed in the down pass from the staged albedo, the
+// same float operation on the same floats as in the up pass.
+__device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
+                                                 const Band& B, int nlay,
+                                                 int c, int lane, float* st,
+                                                 float* __restrict__ up,
+                                                 float* __restrict__ dn) {
+  constexpr int K = SWEEP_K;
+  const int ng = B.ngpt;
+  const int R_TDIF = sw_row_tdif(nlay), R_SRC = sw_row_src(nlay),
+            R_SRCDN = sw_row_srcdn(nlay), R_ALB = sw_row_alb(nlay);
+  const float mu0 = W.mu0[c];
+  const float scale = W.tsi_scale[c];
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    const bool act = g0 + lane < ng;
+    const int g = act ? g0 + lane : 0;
+    float* const stg = st + g;
+    auto at = [&](int row) { return stg + row * ng; };
+    // Direct beam: r_dir and t_dir become the layer sources.
+    float direct = mu0 * scale * W.solar[g];
+    float top[1] = {act ? direct : 0.0f};
+    const float top_sum = warp_sums(top, lane);
+    if (lane == 0) dn[0] += top_sum;
+    for (int j0 = 0; j0 < nlay; j0 += K) {
+      float r_dir[K], t_dir[K], t[K], r[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = min(j0 + k, nlay - 1);
+        r_dir[k] = *at(R_SRC + j);
+        t_dir[k] = *at(R_SRCDN + j);
+        t[k] = *at(R_ALB + j);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (j0 + k < nlay) {
+          r_dir[k] = r_dir[k] * direct;
+          t_dir[k] = t_dir[k] * direct;
+          direct = t[k] * direct;
+        }
+        r[k] = act ? direct : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (act && j0 + k < nlay) {
+          *at(R_SRC + j0 + k) = r_dir[k];
+          *at(R_SRCDN + j0 + k) = t_dir[k];
+        }
+      const float sum = warp_sums(r, lane);
+      const int k = lane / (32 / K);
+      if (lane % (32 / K) == 0 && j0 + k < nlay) dn[j0 + k + 1] += sum;
+    }
+    // Upward adding pass (common.sw_adding_up_step): the albedo and the
+    // source below each level replace t and the layer's upward source.
+    float albedo = W.alb[(size_t)c * ng + g];
+    float src = albedo * direct;
+    if (act) {
+      *at(R_ALB + nlay) = albedo;
+      *at(R_SRC + nlay) = src;
+    }
+    for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
+      float r_dif[K], t_dif[K], su[K], sd[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = max(j0 - k, 0);
+        r_dif[k] = *at(SW_RDIF + j);
+        t_dif[k] = *at(R_TDIF + j);
+        su[k] = *at(R_SRC + j);
+        sd[k] = *at(R_SRCDN + j);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (j0 - k >= 0) {
+          const float denom = 1.0f / (1.0f - r_dif[k] * albedo);
+          const float src_new =
+              su[k] + t_dif[k] * denom * (src + albedo * sd[k]);
+          albedo = r_dif[k] + t_dif[k] * t_dif[k] * albedo * denom;
+          src = src_new;
+        }
+        su[k] = src;
+        sd[k] = albedo;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (act && j0 - k >= 0) {
+          *at(R_SRC + j0 - k) = su[k];
+          *at(R_ALB + j0 - k) = sd[k];
+        }
+    }
+    float toa[1] = {act ? src : 0.0f};
+    const float toa_sum = warp_sums(toa, lane);
+    if (lane == 0) up[0] += toa_sum;
+    // Downward adding pass (common.sw_adding_dn_step).
+    float dif = 0.0f;
+    for (int j0 = 0; j0 < nlay; j0 += K) {
+      float r_dif[K], t_dif[K], sd[K], alb[K], src_next[K], denom[K];
+      float v[2 * K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = min(j0 + k, nlay - 1);
+        r_dif[k] = *at(SW_RDIF + j);
+        t_dif[k] = *at(R_TDIF + j);
+        sd[k] = *at(R_SRCDN + j);
+        alb[k] = *at(R_ALB + j + 1);
+        src_next[k] = *at(R_SRC + j + 1);
+        denom[k] = 1.0f / (1.0f - r_dif[k] * alb[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float upv = 0.0f;
+        if (j0 + k < nlay) {
+          dif = (t_dif[k] * dif + r_dif[k] * src_next[k] + sd[k]) * denom[k];
+          upv = dif * alb[k] + src_next[k];
+        }
+        v[k] = act ? dif : 0.0f;
+        v[K + k] = act ? upv : 0.0f;
+      }
+      // v[k]: diffuse down at level j0 + k + 1; v[K + k]: up there.
+      const float sum = warp_sums(v, lane);
+      const int k = lane / (16 / K);
+      if (lane % (16 / K) == 0 && j0 + k % K < nlay)
+        (k < K ? dn : up)[j0 + k % K + 1] += sum;
+    }
+  }
+}
+
 // Blocks of WARPS_PER_BLOCK warps covering `warps` warps.
 inline int blocks_for(long long warps) {
   return (int)((warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);

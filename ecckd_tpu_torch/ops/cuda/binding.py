@@ -35,8 +35,11 @@ from ecckd_tpu_torch.solvers.quadrature import gauss_angles
 MAX_SLICES = 16  # csrc/common.cuh
 
 DEFAULT_COLUMN_CHUNK = 65536
-"""Columns per kernel launch: bounds the per-layer scratch (merged kernel
-at nlay 60: ~54 KB per column, ~3.5 GB per 65,536-column chunk)."""
+"""Columns per kernel launch: bounds the per-layer scratch of the LW and
+SW kernels (at nlay 60 ~15 KB and ~39 KB per column), and of the merged
+kernel where its staging goes to device memory (ops/cuda/lwsw.py
+stage_plan: nlay >~ 250); the merged kernel stages nlay 60 in shared
+memory."""
 
 
 class GasSlice(ctypes.Structure):
@@ -154,15 +157,20 @@ def sw_scratch_rows(nlay: int) -> int:
     return 6 * nlay + 2
 
 
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    """A tensor's device address; 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def lw_struct(lw: plan_mod.LwInputs, c0: int, c1: int, up: torch.Tensor,
-              dn: torch.Tensor, scratch: torch.Tensor) -> LwSolve:
+              dn: torch.Tensor, scratch: Optional[torch.Tensor]) -> LwSolve:
     arr = lw.arrays
     out = LwSolve(tlev=lw.tlev[c0:c1].data_ptr(),
                   tsfc=lw.tsfc[c0:c1].data_ptr(),
                   emis=lw.emis[c0:c1].data_ptr(),
                   planck=arr.planck_function.data_ptr(),
                   up=up[c0:c1].data_ptr(), dn=dn[c0:c1].data_ptr(),
-                  scratch=scratch.data_ptr(),
+                  scratch=_ptr(scratch),
                   n_planck=arr.planck_function.shape[0],
                   n_ang=lw.n_gauss_angles, planck_t0=arr.planck_t0,
                   planck_dt=arr.planck_dt)
@@ -173,12 +181,12 @@ def lw_struct(lw: plan_mod.LwInputs, c0: int, c1: int, up: torch.Tensor,
 
 
 def sw_struct(sw: plan_mod.SwInputs, c0: int, c1: int, up: torch.Tensor,
-              dn: torch.Tensor, scratch: torch.Tensor) -> SwSolve:
+              dn: torch.Tensor, scratch: Optional[torch.Tensor]) -> SwSolve:
     return SwSolve(alb=sw.alb[c0:c1].data_ptr(), mu0=sw.mu0[c0:c1].data_ptr(),
                    tsi_scale=sw.tsi_scale[c0:c1].data_ptr(),
                    solar=sw.arrays.solar.data_ptr(),
                    ray=sw.arrays.rayleigh.data_ptr(), up=up[c0:c1].data_ptr(),
-                   dn=dn[c0:c1].data_ptr(), scratch=scratch.data_ptr())
+                   dn=dn[c0:c1].data_ptr(), scratch=_ptr(scratch))
 
 
 def grad_refusal(*inputs) -> Optional[str]:

@@ -102,6 +102,71 @@ def test_kernel_matches_plain_f64(models, n_angles, pair):
             assert err <= BOUND, err
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("n_angles", [1, 3])
+def test_kernel_stages_deep_columns_in_device_memory(models, n_angles, mode):
+    """nlay 300 does not fit in shared memory: the merged kernel stages
+    it in a device slice per block (ops/cuda/lwsw.py stage_plan) and
+    still matches the plain version at f64 in its table mode."""
+    from ecckd_tpu_torch.ops.cuda import lwsw, plan
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    ncol, nlay = 61, 300
+    b32, b64 = batch(ncol, nlay, torch.float32, seed=2), batch(
+        ncol, nlay, torch.float64, seed=2)
+    expand = lambda e: e[:, None].expand(ncol, lw.ngpt).contiguous()
+    prep = plan.prepare(lw, sw, b32["plev"], b32["tlay"], b32["tlev"],
+                        b32["tsfc"], expand(b32["emis"]), b32["concs"],
+                        b32["alb"], b32["tsi"], b32["sza"], n_angles,
+                        fast=mode == "bf16")
+    stage, per_sm = lwsw.occupancy(*prep)
+    assert not stage.shared and stage.shared_bytes == 0 and per_sm >= 1
+    counter = "fast_launches" if mode == "bf16" else "launches"
+    before = getattr(lwsw_fluxes_cuda, counter)
+    got = solve(lwsw_fluxes_cuda, lw, sw, b32, expand(b32["emis"]),
+                n_gauss_angles=n_angles, mxu_mode=mode)
+    torch.cuda.synchronize()
+    assert getattr(lwsw_fluxes_cuda, counter) == before + 1
+    ref = solve(lwsw_fluxes_plain, models["lw", torch.float64],
+                models["sw", torch.float64], b64, expand(b64["emis"]),
+                n_gauss_angles=n_angles, mxu_mode=mode)
+    for band in (slice(0, 2), slice(2, 4)):
+        assert_close(got[band], ref[band])
+
+
+def test_kernel_with_layer_parameters_in_their_own_place(models,
+                                                        monkeypatch):
+    """A SW band of more than 32 g-points, or more layer parameters than
+    one r_dif row holds, puts the layer parameters after the accumulators
+    (stage_plan); forced here on the synthetic pair, whose parameters fit
+    in the row."""
+    import dataclasses
+    from ecckd_tpu_torch.ops.cuda import lwsw
+    plan_for = lwsw._plan_for
+
+    def own_place(atm, lw_in, sw_in):
+        p = plan_for(atm, lw_in, sw_in)
+        per_layer = p.prm_sw + sum(
+            1 if n == 0 else 3 for n in
+            (s.kind for s in sw_in.plan.slices))
+        nlay = atm.tlay.shape[1]
+        return dataclasses.replace(
+            p, prm_floats=per_layer * nlay, prm_stride=per_layer,
+            prm_base=p.lw_floats + p.sw_floats + p.acc_floats)
+
+    monkeypatch.setattr(lwsw, "_plan_for", own_place)
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    ncol, nlay = 301, 23
+    b32, b64 = batch(ncol, nlay, torch.float32), batch(ncol, nlay,
+                                                       torch.float64)
+    expand = lambda e: e[:, None].expand(ncol, lw.ngpt).contiguous()
+    got = solve(lwsw_fluxes_cuda, lw, sw, b32, expand(b32["emis"]))
+    torch.cuda.synchronize()
+    ref = solve(lwsw_fluxes_plain, models["lw", torch.float64],
+                models["sw", torch.float64], b64, expand(b64["emis"]))
+    for band in (slice(0, 2), slice(2, 4)):
+        assert_close(got[band], ref[band])
+
+
 def assert_close(got, ref):
     """max|d| over the flux scale of the outputs, per output."""
     scale = max(float(r.abs().max()) for r in ref)

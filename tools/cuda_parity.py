@@ -10,7 +10,8 @@ five decades per cell, ch4 below its reference, an unknown gas, day,
 grazing and night suns) through the merged kernel (K1/K2, lwsw.cu), the
 LW kernel (K3, lw.cu) and the SW kernel (K4, sw.cu): nlay 1/2/8/60/137,
 1-4 Gauss angles, a chunked launch, the negative-entry models, the
-36-g-point lw_rrtmgp and a SW model on a 47-point grid (``CASES``).  The
+36-g-point lw_rrtmgp and a SW model on a 47-point grid, and for K1 also
+nlay 300, whose columns it stages in device memory (``CASES``).  The
 synthetic ckd files always; with ``--data-dir``, also the shipped ecCKD
 1.2 files in that directory, over tools/chip_parity.py's set of cases.
 
@@ -71,6 +72,11 @@ CASES = [
     ("lwsw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", "sw_neg",
      None),
     ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None),
+    ("lwsw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", "sw", None),
+    # Columns too deep for shared memory: K1 stages them in device memory.
+    ("lwsw", "nlay300_device_staging", 1037, 300, 1, "lw", "sw", None),
+    ("lwsw", "nlay300_device_staging_angles3", 1037, 300, 3, "lw", "sw",
+     None),
     ("lw", "rfmip_1800x60", 1800, 60, 1, "lw", None, None),
     ("lw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", None, 768),
     ("lw", "nlay1", 1037, 1, 1, "lw", None, None),
