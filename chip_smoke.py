@@ -10,19 +10,22 @@ result line is printed:
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
-2. build: compiles csrc/lwsw.cu, lw.cu and sw.cu with nvcc from this
-   checkout, one nvcc each, all at once (timed; ptxas registers, spills
-   and barriers); each library holds the exact and the fast
-   instantiation, and both entry points are bound.
+2. build: compiles csrc/lwsw.cu, lw.cu and sw.cu (the staged body of
+   csrc/staged.cuh with both bands, the LW band, the SW band) with nvcc
+   from this checkout, one nvcc each, all at once (timed; ptxas
+   registers, spills and barriers); each library holds the exact and the
+   fast instantiations, and both entry points are bound.
 3. models: writes the synthetic ckd files (shipped dimensions, values from
    a seed): lw_fsck, lw_rrtmgp (36 g-points), sw_wide, their
    negative-entry variants and sw_wide on a 47-point pressure grid, and
-   loads them with the port's loader.  Then, for phase 2's merged kernel,
-   its staging plan (ops/cuda/lwsw.py stage_plan: bytes per column, C
+   loads them with the port's loader.  Then, for phase 2's kernels, their
+   staging plans (ops/cuda/staged.py stage_plan: bytes per column, C
    columns per block, the dynamic shared memory per block or device
    staging, threads) and the blocks per SM of the CUDA occupancy
-   calculator (ecckd_lwsw_occupancy), for the main path, 3 angles,
-   lw_rrtmgp and nlay 300.
+   calculator (ecckd_<name>_occupancy): K1 for the main path, 3 angles,
+   lw_rrtmgp and nlay 300; K3 and K4 for their main paths, K3 at 3 angles
+   and on lw_rrtmgp, K4 on sw_p47, and both at the depth they stage in
+   device memory (nlay 600 and 430).
 4. parity: each kernel (float32) against its plain PyTorch version at
    float64 on the card, case by case (tools/cuda_parity.py's CASES and
    run_case): max|d| / flux scale <= 5e-5 per output.  The merged kernel
@@ -30,8 +33,12 @@ result line is printed:
    (staged in device memory), 2-4 Gauss angles, a chunked launch, the
    negative-entry pair, lw_rrtmgp with sw_wide at 1 and 3 angles.  The
    LW kernel (K3) and the SW kernel (K4): RFMIP
-   1800 x 60, nlay 1/2/8/137, a chunked launch, the negative-entry models;
-   K3 also at 2-4 angles and on lw_rrtmgp, K4 on the 47-point grid.  The
+   1800 x 60, nlay 1/2/8/137, a chunked launch, the negative-entry models,
+   the depth each stages in device memory (K3 nlay 600 at 1 and 3
+   angles, K4 nlay 430); K3 also at 2-4 angles and on lw_rrtmgp at 1, 3
+   and 4 angles, K4 on the 47-point grid.  Each kernel also on a gas set
+   without cfc11, cfc12 and n2o: band shapes other than the shipped ones,
+   which run the kernels' run-time instantiations in shared memory.  The
    pair on two grids through lw_sw_fluxes(backend="cuda") must launch K3
    and K4 and not K1.
 5. shared code: on one mergeable batch, K3's LW and K4's SW outputs
@@ -53,11 +60,13 @@ result line is printed:
    plain version, SW TOA down equal mu0 * TSI by day and 0 by night, and
    the combined driver's files match the separate drivers'.
 8. times: each kernel and its plain float32 version at 65,536 x 60 (and
-   the kernels at 1800 x 60, K1 at 3 angles) with CUDA events (warm-up,
-   median of 10), with and without host prep, beside the card's name and
-   power limit; each kernel's bound (``kernel_bound``: bytes over the HBM
-   rate or float operations over the f32 peak, the larger) and its
-   share of it.
+   the kernels at 1800 x 60, K3 + K4 against K1 at both sizes) with CUDA
+   events (warm-up, median of 10), with and without host prep, beside the
+   card's name and power limit; each kernel's bound (``kernel_bound``:
+   bytes over the HBM rate or float operations over the f32 peak, the
+   larger) and its share of it.  Then, each with bound and share, at
+   65,536 columns: K3 on lw_rrtmgp and at 3 angles, K4 on sw_p47, K1 at 3
+   and 4 angles (K2), on lw_rrtmgp and at nlay 137.
 9. stream: cli/scale_bench.main at full width, 1,048,576 x 60 in chunks of
    65,536, full outputs, on the card.  A checking pass (one streamed pass)
    holds every chunk finite and the first 2048 columns of chunks 0 and 15
@@ -108,6 +117,7 @@ FAST_BOUND = 5e-4       # the fast mode against the exact plain version
 PROTOCOL = (65536, 60)  # BENCH_CONFIGS protocol batch (columns, layers)
 RFMIP = (100, 18, 60)   # the reference's RFMIP workload (sites, expts, layers)
 STREAM = 1_048_576      # scale_bench's default million-column run
+DEEP = {"lw": 600, "sw": 430}  # depths K3 / K4 stage in device memory
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "lwsw": ("ecckd_tpu_torch/csrc/lwsw.cu",
              "ecckd_tpu/ops/pallas/lwsw.py:61"),
@@ -143,14 +153,14 @@ def kernel_bound(prep) -> dict:
     values (nlay layer values and nlay + 1 level values per column, the
     surface's within the rounding) and one set of LW layer sources per
     angle, however often a kernel recomputes them."""
-    from ecckd_tpu_torch.ops.cuda import lwsw
+    from ecckd_tpu_torch.ops.cuda import staged
     atm, bands = prep[0], prep[1:]
     ncol, nlay = atm.tlay.shape
     tensors = [atm.plev, atm.tlay, atm.vmr_prof, atm.vmr_col]
     per_layer = OPS["point"]
     per_lg = 0
     for band in bands:
-        nd, nl = lwsw.band_gases(band.plan)
+        nd, nl = staged.band_gases(band.plan)
         gas = nd * OPS["dense"] + nl * OPS["lut"]
         per_layer += nd * OPS["dense_w"] + nl * OPS["lut_w"]
         arr = band.arrays
@@ -269,7 +279,7 @@ def run(card: str, work: str) -> int:
                                               write_synthetic_ckd)
     from ecckd_tpu_torch.models.loader import load_ckd_model
     from ecckd_tpu_torch.ops.cuda import (binding, build, common, lw, lwsw,
-                                          plan, sw)
+                                          plan, staged, sw)
     from tools import cuda_parity
     from tools.cuda_parity import flux_errors, on_card, solve
     wrappers = {"lwsw": lwsw.lwsw_fluxes_cuda, "lw": lw.lw_fluxes_cuda,
@@ -291,9 +301,9 @@ def run(card: str, work: str) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         lib_paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
-    for name, mod in modules.items():
+    for name in modules:
         # binds both entry points and checks the struct
-        binding.library(name, mod._Args)
+        binding.library(name, binding.ARGS[name])
     build_s = time.perf_counter() - t0
     for name, path in lib_paths.items():
         ptxas = [ln.strip() for ln in open(f"{path}.ptxas.txt")
@@ -324,28 +334,48 @@ def run(card: str, work: str) -> int:
           f"{tuple(m32('sw_p47').temperature_grid.shape)} mergeable="
           f"{plan.models_mergeable(lw32, m32('sw_p47'))}", flush=True)
 
-    # K1's staging plan and the card's occupancy for it (the build of
-    # phase 2, on the models just loaded): the main path, 3 angles,
-    # lw_rrtmgp, and columns too deep for shared memory.
+    # The staging plans and the card's occupancy for them (the builds of
+    # phase 2, on the models just loaded): K1 on the main path, at 3
+    # angles, on lw_rrtmgp and on columns too deep for shared memory; K3
+    # and K4 on their main paths, K3 at 3 angles and on lw_rrtmgp, K4 on
+    # sw_p47, and both on columns too deep for shared memory.
     names = example_flux_batch(1, 1, np.float32)["concs"].names
-    gases = lambda key: lwsw.band_gases(plan.build_plan(m32(key), names))
+    gases = lambda key: (staged.band_gases(plan.build_plan(m32(key), names))
+                         if key else (0, 0))
     props = torch.cuda.get_device_properties(0)
     limits = (props.shared_memory_per_block_optin,
               props.shared_memory_per_multiprocessor)
     print(f"build: card shared memory {limits[0]} B per block (opt-in), "
           f"{limits[1]} B per SM", flush=True)
-    for label, lw_key, nl, n_ang in (
-            ("main path", "lw", PROTOCOL[1], 1), ("3 angles", "lw",
-                                                  PROTOCOL[1], 3),
-            ("lw_rrtmgp", "lw_rrtmgp", PROTOCOL[1], 1),
-            ("deep", "lw", 300, 1)):
-        p = lwsw.stage_plan(nl, m32(lw_key).ngpt, sw32.ngpt, n_ang,
-                            gases(lw_key), gases("sw"), *limits)
-        per_sm = [lwsw._blocks_per_sm(p.threads, p.shared_bytes, fast, 0)
+    for kernel, label, lw_key, sw_key, nl, n_ang in (
+            ("lwsw", "main path", "lw", "sw", PROTOCOL[1], 1),
+            ("lwsw", "3 angles", "lw", "sw", PROTOCOL[1], 3),
+            ("lwsw", "lw_rrtmgp", "lw_rrtmgp", "sw", PROTOCOL[1], 1),
+            ("lwsw", "deep", "lw", "sw", 300, 1),
+            ("lw", "main path", "lw", None, PROTOCOL[1], 1),
+            ("lw", "3 angles", "lw", None, PROTOCOL[1], 3),
+            ("lw", "lw_rrtmgp", "lw_rrtmgp", None, PROTOCOL[1], 1),
+            ("lw", "deep", "lw", None, DEEP["lw"], 1),
+            ("sw", "main path", None, "sw", PROTOCOL[1], 1),
+            ("sw", "sw_p47", None, "sw_p47", PROTOCOL[1], 1),
+            ("sw", "deep", None, "sw", DEEP["sw"], 1)):
+        ng_lw = m32(lw_key).ngpt if lw_key else 0
+        ng_sw = m32(sw_key).ngpt if sw_key else 0
+        blocks, slots, sets = staged.SHAPES[kernel]
+        p = staged.stage_plan(nl, ng_lw, ng_sw, n_ang, gases(lw_key),
+                              gases(sw_key), *limits, blocks_per_sm=blocks,
+                              max_slots=slots, sets=sets)
+        n_t = m32(lw_key or sw_key).temperature_grid.shape[1]
+        band = lambda key, ng: key and (ng, gases(key)[0], sum(gases(key)))
+        shape = (band(lw_key, ng_lw), band(sw_key, ng_sw), n_t)
+        per_sm = [staged.blocks_per_sm(kernel, shape, p.threads,
+                                       p.shared_bytes, fast, 0)
                   for fast in (False, True)]
-        print(f"build: K1 staging, {label} ({lw_key} + sw, {nl} layers, "
-              f"{n_ang} angle(s)): {p.bytes_per_column} B per column, C = "
-              f"{p.slots} per block in "
+        tag = {"lwsw": "K1", "lw": "K3", "sw": "K4"}[kernel]
+        print(f"build: {tag} staging, {label} ({lw_key or ''}"
+              f"{'+' if lw_key and sw_key else ''}{sw_key or ''}, {nl} "
+              f"layers, {n_ang} angle(s)): {p.bytes_per_column} B per "
+              f"column, C = {p.slots} per block, S = {p.sets} sweep sets, in "
               + (f"{p.shared_bytes} B of dynamic shared memory"
                  if p.shared else "device memory")
               + f", {p.threads} threads, blocks per SM (occupancy "
@@ -356,7 +386,7 @@ def run(card: str, work: str) -> int:
     failures = []
     worst_abs = dict.fromkeys(KERNELS, 0.0)
     for i, case in enumerate(cuda_parity.CASES):
-        kernel, name, ncol, nlay, n_ang, lk, sk, _ = case
+        kernel, name, ncol, nlay, n_ang, lk, sk, _, _ = case
         r = cuda_parity.run_case(models, case, seed=100 + i, mode="bf16x3")
         worst_abs[kernel] = max(worst_abs[kernel], r["max_abs"])
         if not r["ok"]:
@@ -594,19 +624,39 @@ def run(card: str, work: str) -> int:
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['ops']:.4g} "
               f"operations, {bd['bytes']:.4g} bytes), share of the bound "
               f"{bd['bound_ms'] / k_ms:.4f}", flush=True)
-    rr_prep = plan.prepare_lw(m32("lw_rrtmgp"), *args["lw"][1:5],
-                              emis_gpt[:, :1].expand(-1, 36).contiguous(),
-                              concs)
-    rr_ms = cuda_time_ms(lambda: lw._kernel_core(*rr_prep, chunk))
-    lw3 = plan.prepare_lw(*args["lw"], n_gauss_angles=3)
-    lw3_ms = cuda_time_ms(lambda: lw._kernel_core(*lw3, chunk))
-    k2 = plan.prepare(*args["lwsw"], n_gauss_angles=3)
-    k2_ms = cuda_time_ms(lambda: lwsw._kernel_core(*k2, chunk))
-    k2_bound = kernel_bound(k2)
-    k1_rr = plan.prepare(m32("lw_rrtmgp"), *args["lwsw"][1:6],
-                         rr_prep[1].emis, *args["lwsw"][7:])
-    k1_rr_ms = cuda_time_ms(lambda: lwsw._kernel_core(*k1_rr, chunk))
-    k1_rr_bound = kernel_bound(k1_rr)
+    # More shapes of each kernel at 65,536 columns, each with its bound:
+    # K3 on lw_rrtmgp (36 g-points) and at 3 angles, K4 on sw_p47 (its own
+    # 47-point grid), K1/K2 at 3 and 4 angles, on lw_rrtmgp and at nlay 137
+    # (where K1's ring holds one column per block).
+    rr_emis = emis_gpt[:, :1].expand(-1, 36).contiguous()
+    deep_n = 137
+    deep = example_flux_batch(ncol, deep_n, np.float32, device="cuda")
+    td = {k: torch.as_tensor(v, device="cuda") for k, v in deep.items()
+          if k != "concs"}
+    shapes = {
+        ("lw", "lw_rrtmgp"): plan.prepare_lw(
+            m32("lw_rrtmgp"), *args["lw"][1:5], rr_emis, concs),
+        ("lw", "3 angles"): plan.prepare_lw(*args["lw"], n_gauss_angles=3),
+        ("sw", "sw_p47"): plan.prepare_sw(m32("sw_p47"), *args["sw"][1:]),
+        ("lwsw", "3 angles (K2)"): plan.prepare(*args["lwsw"],
+                                               n_gauss_angles=3),
+        ("lwsw", "4 angles (K2)"): plan.prepare(*args["lwsw"],
+                                               n_gauss_angles=4),
+        ("lwsw", "lw_rrtmgp + sw_wide"): plan.prepare(
+            m32("lw_rrtmgp"), *args["lwsw"][1:6], rr_emis,
+            *args["lwsw"][7:]),
+        ("lwsw", f"nlay {deep_n}"): plan.prepare(
+            lw32, sw32, td["plev"], td["tlay"], td["tlev"], td["tsfc"],
+            td["emis"][:, None].expand(-1, lw32.ngpt).contiguous(),
+            deep["concs"], td["alb"], td["tsi"], td["sza"]),
+    }
+    for (name, label), prep in shapes.items():
+        ms = cuda_time_ms(lambda: modules[name]._kernel_core(*prep, chunk))
+        bd = kernel_bound(prep)
+        n = prep[0].tlay.shape[1]
+        print(f"times: {name} kernel {ncol}x{n} {label}: {ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, share "
+              f"{bd['bound_ms'] / ms:.4f} | on {card}", flush=True)
     n_r = nsite * nexp
     cut = lambda x: (x[:n_r] if isinstance(x, torch.Tensor)
                      and x.shape[:1] == (ncol,) else x)
@@ -620,17 +670,12 @@ def run(card: str, work: str) -> int:
     small_ms = {name: cuda_time_ms(
         lambda: modules[name]._kernel_core(*small_prep[name], chunk))
         for name in KERNELS}
-    print(f"times: lwsw kernel {ncol}x{nlay} 3 angles (K2) {k2_ms:.3f} ms, "
-          f"bound {k2_bound['bound_ms']:.4f} ms by {k2_bound['bound_by']}, "
-          f"share {k2_bound['bound_ms'] / k2_ms:.4f} | lwsw kernel "
-          f"{ncol}x{nlay} lw_rrtmgp + sw_wide {k1_rr_ms:.3f} ms, bound "
-          f"{k1_rr_bound['bound_ms']:.4f} ms, share "
-          f"{k1_rr_bound['bound_ms'] / k1_rr_ms:.4f} | lw kernel "
-          f"{ncol}x{nlay}: lw_rrtmgp (36 g-points) "
-          f"{rr_ms:.3f} ms, lw_fsck 3 angles {lw3_ms:.3f} ms | {n_r}x{nlay} "
-          "kernels: " + ", ".join(f"{k} {v:.3f} ms"
-                                  for k, v in small_ms.items())
-          + f" | on {card}", flush=True)
+    print(f"times: {n_r}x{nlay} kernels: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in small_ms.items())
+          + f" | K3 + K4 {small_ms['lw'] + small_ms['sw']:.3f} ms against K1 "
+          f"{small_ms['lwsw']:.3f} ms; at {ncol}x{nlay} K3 + K4 "
+          f"{times['lw'][0] + times['sw'][0]:.3f} ms against K1 "
+          f"{times['lwsw'][0]:.3f} ms | on {card}", flush=True)
 
     # ---- 9. stream: scale_bench at 1,048,576 x 60 ---------------------------
     from ecckd_tpu_torch.cli import scale_bench
@@ -876,7 +921,7 @@ def run(card: str, work: str) -> int:
     from ecckd_tpu_torch import config
     fast_abs = dict.fromkeys(KERNELS, 0.0)
     for i, case in enumerate(cuda_parity.CASES):
-        kernel, name, ncol_c, nlay_c, n_ang, lk, sk, _ = case
+        kernel, name, ncol_c, nlay_c, n_ang, lk, sk, _, _ = case
         r = cuda_parity.run_case(models, case, seed=100 + i, mode="bf16")
         fast_abs[kernel] = max(fast_abs[kernel], r["max_abs"])
         if not r["ok"]:

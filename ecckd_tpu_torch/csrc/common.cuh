@@ -2,7 +2,8 @@
 // LW + SW), lw.cu (LW only) and sw.cu (SW only).  The port's counterpart of
 // the JAX package's single homes in ecckd_tpu/ops/pallas/common.py: the
 // gas optics of one band, the Planck source, the LW layer sources, the
-// g = 0 two-stream and the column bodies of both solvers live here once.
+// g = 0 two-stream and the staged sweeps of both solvers live here once;
+// staged.cuh builds the three kernels' common body from them.
 //
 // Every function takes the inputs of ONE band: the shared per-column
 // atmosphere (Atmos), the band's own (p, T) interpolation grid (Grid), its
@@ -11,26 +12,33 @@
 // (their grids are equal there); the single-band kernels pass their own
 // model's grid.
 //
-// Layout.  One warp per (column, band); lane = g-point, in a warp-uniform
-// loop over chunks of 32 g-points so any ngpt works (padded lanes compute
-// on g-point 0 and contribute 0 to the sums).  Tables are flattened in
-// natural (gas, [mole fraction,] p, T, g) order with g fastest, so the
-// warp's gather at one grid corner is one coalesced 128-byte read.
-// Per-column pointers start at the launch's first column; scratch is laid
-// out (row, column, g) over the launch's columns.
+// Layout.  Lane = g-point in a warp-uniform loop over chunks of 32
+// g-points, so any ngpt works (padded lanes compute on g-point 0 and
+// contribute 0 to the sums).  Tables are flattened in natural (gas,
+// [mole fraction,] p, T, g) order with g fastest, so the warp's gather at
+// one grid corner is one coalesced 128-byte read.  Per-column pointers
+// start at the launch's first column.
 //
-// Table mode.  gas_tau and the column bodies are templates on the table's
-// element type T: float interpolates the f32 table exactly (the JAX
-// package's bf16x3 mode); __nv_bfloat16 is the fast mode (its bf16 mode):
-// bf16 table entries and bf16-rounded corner weights, f32 sums, as the
-// TPU's one bf16 MXU pass of the one-hot contraction computes.  Each
-// kernel library holds both instantiations, with one entry point each.
+// Table mode.  The optics are templates on the table's element type T:
+// float interpolates the f32 table exactly (the JAX package's bf16x3
+// mode); __nv_bfloat16 is the fast mode (its bf16 mode): bf16 table
+// entries and bf16-rounded corner weights, f32 sums, as the TPU's one bf16
+// MXU pass of the one-hot contraction computes.  Each kernel library
+// holds both instantiations, with one entry point each.
+//
+// Shapes.  The optics and sweeps take a band's g-points and its dense and
+// LUT gas counts (Shape<NG, ND, NL>) and the grid's temperature points NT
+// as template constants where a kernel instantiates them (0: read at run
+// time): each table corner, Planck row and staging row is then one base
+// plus an immediate offset, and the gas loops unroll.  Table rows are
+// reached through 32-bit element indices (one wide multiply-add each).
 //
 // Accuracy.  Built without fast-math: expm1f/expf/logf/sqrtf and the
 // divides are the IEEE-accurate calls (a fast exp cost ~3e-4 in flux on
-// the TPU).  The floors of common.two_stream_g0 (tau >= 1e-8, the
-// eps*tau^2 guard on D) and the thin-layer threshold sqrt(eps_f32) are
-// kept.  The per-gas, per-g-point clamp max(w*k, 0) is the reference's
+// the TPU); only the Planck source's division by pi is a product with
+// 1/pi.  The floors of common.two_stream_g0 (tau >= 1e-8, the eps*tau^2
+// guard on D) and the thin-layer threshold sqrt(eps_f32) are kept.  The
+// per-gas, per-g-point clamp max(w*k, 0) is the reference's
 // (optical_depth.py), so no table sign precondition applies.
 //
 // Each kernel library is one translation unit that includes this header
@@ -47,11 +55,10 @@
 namespace {
 
 constexpr int MAX_SLICES = 16;
-constexpr int WARPS_PER_BLOCK = 4;
 constexpr int KIND_DENSE = 0;
 constexpr int VMR_NONE = 0;
 constexpr int VMR_PROFILE = 1;
-constexpr float PI_F = (float)3.14159265359;
+constexpr float INV_PI_F = (float)(1.0 / 3.14159265359);
 constexpr float MOLES_PER_PA_F = (float)(1.0 / (9.80665 * 0.001 * 28.970));
 
 }  // namespace
@@ -66,12 +73,14 @@ struct GasSlice {
   float mf0, log_mf0, d_log, v_hi;  // LUT axis; v_hi = n_mf - 1.001
 };
 
-// One model's gas plan and flat table.
+// One model's gas plan and flat table.  The dense gases come first
+// (s[0, ndense)), then the LUT gases.
 struct Band {
   const void* table;  // (rows, ngpt), g fastest: float, or __nv_bfloat16
                       // in the fast mode
   int ngpt;
   int nslice;
+  int ndense;
   GasSlice s[MAX_SLICES];
 };
 
@@ -98,10 +107,8 @@ struct LwSolve {
   const float* tsfc;    // (ncol)
   const float* emis;    // (ncol, ngpt)
   const float* planck;  // (n_planck, ngpt)
-  float* up;            // (ncol, nlay+1), zeroed by the caller (accumulated)
+  float* up;            // (ncol, nlay+1), each level written once
   float* dn;
-  float* scratch;       // (rows, ncol, ngpt): 2*nlay rows (1 angle), else
-                        // 3*nlay+1
   int n_planck, n_ang;
   float planck_t0, planck_dt;
   float sec[4];
@@ -115,18 +122,25 @@ struct SwSolve {
   const float* tsi_scale;  // (ncol)
   const float* solar;      // (ngpt)
   const float* ray;        // (ngpt)
-  float* up;               // (ncol, nlay+1), zeroed by the caller
+  float* up;               // (ncol, nlay+1), each level written once
   float* dn;
-  float* scratch;          // (6*nlay+2, ncol, ngpt)
 };
 
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// A band's g-points, dense gases and LUT gases as template constants, 0
+// to read them at run time; NG = -1: a band the kernel does not solve.
+template <int NG_, int ND_ = 0, int NL_ = 0>
+struct Shape {
+  static constexpr int NG = NG_, ND = ND_, NL = NL_;
+};
+using NoBand = Shape<-1>;
+
+// A template constant where a kernel instantiates it (> 0), else the
+// run-time value.
+template <int N>
+__device__ __forceinline__ int fixed_or(int runtime) {
+  return N > 0 ? N : runtime;
 }
 
 struct FracIdx {
@@ -180,86 +194,35 @@ __device__ __forceinline__ float vmr_of(const Atmos& A, const GasSlice& S,
   return A.vmr_scal[(size_t)c * A.n_scal + S.vmr_idx];
 }
 
-// Bi-linear (p, T) interpolation of the table block starting at tb
-// (already offset to the lower corner and the g-point).
-__device__ __forceinline__ float bilinear(const float* tb, int n_t, int ng,
-                                          float pw1, float tw1) {
-  const float pw0 = 1.0f - pw1, tw0 = 1.0f - tw1;
-  return tw0 * (pw0 * tb[0] + pw1 * tb[(size_t)n_t * ng]) +
-         tw1 * (pw0 * tb[ng] + pw1 * tb[(size_t)(n_t + 1) * ng]);
-}
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The fast mode's bi-linear interpolation (ops/cuda/common.py's
-// _bilinear_fast): sum over the four corners of bf16(wp * wt) * k, each
-// corner product rounded itself (the factored form above would round
-// other values), the bf16 entries widened to f32 and summed in f32.
-// Scalar 2-byte loads: a row of 27 or 36 bf16 g-points is not 4-byte
-// aligned at every g.
-__device__ __forceinline__ float bilinear(const __nv_bfloat16* tb, int n_t,
-                                          int ng, float pw1, float tw1) {
-  const float pw0 = 1.0f - pw1, tw0 = 1.0f - tw1;
-  return bf16_round(pw0 * tw0) * __bfloat162float(tb[0]) +
-         bf16_round(pw1 * tw0) * __bfloat162float(tb[(size_t)n_t * ng]) +
-         bf16_round(pw0 * tw1) * __bfloat162float(tb[ng]) +
-         bf16_round(pw1 * tw1) * __bfloat162float(tb[(size_t)(n_t + 1) * ng]);
-}
+// The Planck source (ops/planck.py) at one temperature, split into its
+// g-independent part, computed once per layer or level (PlanckAt), and its
+// per-g value (planck_value): linear interpolation with top-end
+// extrapolation, below the table B = (T/T0)*row0, times 1/pi.
+struct PlanckAt {
+  int off;  // i0 * ngpt, or -1 below the table
+  float w;  // w1, or T/T0 below the table
+};
 
-// Total gas optical depth of g-point g in layer j of column c for band B:
-// dense gases then the LUT gas, each clamped at zero before accumulation
-// (gas_optics_ecckd.f90:233-238).  T: the table's element type.
-template <typename T>
-__device__ float gas_tau(const Atmos& A, const Grid& G, const Band& B,
-                         const LayerPoint& L, int c, int j, int g) {
-  const T* table = static_cast<const T*>(B.table);
-  const int ng = B.ngpt, n_t = G.n_t;
-  const size_t corner = (size_t)(L.ip * n_t + L.it);
-  float tau = 0.0f;
-  for (int s = 0; s < B.nslice; ++s) {
-    const GasSlice& S = B.s[s];
-    if (S.kind == KIND_DENSE) {
-      const float w = S.vmr_kind == VMR_NONE
-                          ? L.simple_w * S.b
-                          : L.simple_w * (S.a * vmr_of(A, S, c, j) + S.b);
-      const T* tb = table + ((size_t)S.row0 + corner) * ng + g;
-      tau += fmaxf(w * bilinear(tb, n_t, ng, L.wp, L.wt), 0.0f);
-    } else {
-      const float vmr = vmr_of(A, S, c, j);
-      const FracIdx V = frac_index(
-          (logf(fmaxf(vmr, S.mf0)) - S.log_mf0) / S.d_log, S.v_hi);
-      const size_t stride_v = (size_t)G.n_p * n_t;
-      const T* tb =
-          table + ((size_t)S.row0 + V.i0 * stride_v + corner) * ng + g;
-      const float lo = bilinear(tb, n_t, ng, L.wp, L.wt);
-      const float hi = bilinear(tb + stride_v * ng, n_t, ng, L.wp, L.wt);
-      const float coeff = (1.0f - V.w1) * lo + V.w1 * hi;
-      tau += fmaxf((L.simple_w * vmr) * coeff, 0.0f);
-    }
-  }
-  return tau;
-}
-
-// Planck intensity (ops/planck.py): linear interpolation with top-end
-// extrapolation, below-grid scaling B = (T/T0)*row0, divided by PI.
-// ngpt is read from the band here, not passed in a register: as a
-// register argument it cost the merged kernel 5 % on an H100.
-__device__ __forceinline__ float planck_at(const LwSolve& W, const Band& B,
-                                           float temp, int g) {
-  const int ng = B.ngpt;
+__device__ __forceinline__ PlanckAt planck_at(const LwSolve& W, int ng,
+                                              float temp) {
   const float idx = (temp - W.planck_t0) / W.planck_dt;
   const int i0 = static_cast<int>(
       fminf(fmaxf(floorf(idx), 0.0f), (float)(W.n_planck - 2)));
-  const float w1 = idx - (float)i0;
-  float b;
-  if (idx >= 0.0f)
-    b = (1.0f - w1) * W.planck[(size_t)i0 * ng + g] +
-        w1 * W.planck[(size_t)(i0 + 1) * ng + g];
-  else
-    b = (temp / W.planck_t0) * W.planck[g];
-  return b / PI_F;
+  if (idx >= 0.0f) return {i0 * ng, idx - (float)i0};
+  return {-1, temp / W.planck_t0};
+}
+
+// The value at g-point g of the Planck table planck.
+__device__ __forceinline__ float planck_value(const float* planck, int g,
+                                              int ng, int off, float w) {
+  const float* q = planck + (unsigned)(max(off, 0) + g);
+  const float x = q[0], y = q[ng];
+  const float b = off >= 0 ? (1.0f - w) * x + w * y : w * x;
+  return b * INV_PI_F;
 }
 
 // common.lw_layer_sources: transmittance and linear-in-tau path sources at
@@ -316,197 +279,13 @@ __device__ __forceinline__ void two_stream_g0(float tau, float u, float mu0,
   t_dir = fminf(fmaxf(t_dir, 0.0f), 1.0f - t - r_dir);
 }
 
-// Scratch cell (row, column, g): one warp's row is ngpt contiguous floats.
-__device__ __forceinline__ float* cell(float* base, int row, int ncol, int c,
-                                       int ng, int g) {
-  return base + ((size_t)row * ncol + c) * ng + g;
-}
-
-// The LW solve of column c for one band: gas optics, Planck sources,
-// no-scattering sweeps at 1-4 angles, g-summed into W.up / W.dn.
-template <typename T>
-__device__ void lw_column(const Atmos& A, const Grid& G, const Band& B,
-                          const LwSolve& W, int c, int lane) {
-  const int nlay = A.nlay, ng = B.ngpt, ncol = A.ncol;
-  const float thresh = sqrtf(FLT_EPSILON);
-  float* up = W.up + (size_t)c * (nlay + 1);
-  float* dn = W.dn + (size_t)c * (nlay + 1);
-  const float* tlev = W.tlev + (size_t)c * (nlay + 1);
-  const float* tlay = A.tlay + (size_t)c * nlay;
-  float* S = W.scratch;
-  for (int g0 = 0; g0 < ng; g0 += 32) {
-    const bool act = g0 + lane < ng;
-    const int g = act ? g0 + lane : 0;
-    const float e = W.emis[(size_t)c * ng + g];
-    const float b_sfc = planck_at(W, B, W.tsfc[c], g);
-    float b_top = planck_at(W, B, tlev[0], g);
-    if (W.n_ang == 1) {
-      // Layer pass with the fused down sweep; stage trans and src_up.
-      const float sec = W.sec[0], w2pi = W.w2pi[0];
-      float rad = 0.0f;
-      for (int j = 0; j < nlay; ++j) {
-        const LayerPoint L = layer_point<T>(A, G, c, j);
-        const float tau = gas_tau<T>(A, G, B, L, c, j, g);
-        const float b_bot = planck_at(W, B, tlev[j + 1], g);
-        float tr, sdn, sup;
-        lw_layer_sources(tau * sec, planck_at(W, B, tlay[j], g), b_top,
-                         b_bot, thresh, tr, sdn, sup);
-        rad = tr * rad + sdn;
-        const float sum = warp_sum(act ? rad : 0.0f);
-        if (lane == 0) dn[j + 1] += w2pi * sum;
-        if (act) {
-          *cell(S, j, ncol, c, ng, g) = tr;
-          *cell(S, nlay + j, ncol, c, ng, g) = sup;
-        }
-        b_top = b_bot;
-      }
-      rad = e * b_sfc + (1.0f - e) * rad;
-      float sum = warp_sum(act ? rad : 0.0f);
-      if (lane == 0) up[nlay] += w2pi * sum;
-      for (int j = nlay - 1; j >= 0; --j) {
-        rad = *cell(S, j, ncol, c, ng, g) * rad +
-              *cell(S, nlay + j, ncol, c, ng, g);
-        sum = warp_sum(act ? rad : 0.0f);
-        if (lane == 0) up[j] += w2pi * sum;
-      }
-    } else {
-      // Stage tau, layer Planck and level Planck; sweep per angle
-      // (common.multi_angle_lw_sweeps), recomputing the layer sources in
-      // the up sweep instead of staging them per angle.
-      for (int j = 0; j < nlay; ++j) {
-        const LayerPoint L = layer_point<T>(A, G, c, j);
-        const float tau = gas_tau<T>(A, G, B, L, c, j, g);
-        const float b_bot = planck_at(W, B, tlev[j + 1], g);
-        if (act) {
-          *cell(S, j, ncol, c, ng, g) = tau;
-          *cell(S, nlay + j, ncol, c, ng, g) = planck_at(W, B, tlay[j], g);
-          *cell(S, 2 * nlay + j, ncol, c, ng, g) = b_top;
-          if (j == nlay - 1) *cell(S, 3 * nlay, ncol, c, ng, g) = b_bot;
-        }
-        b_top = b_bot;
-      }
-      for (int a = 0; a < W.n_ang; ++a) {
-        const float sec = W.sec[a], w2pi = W.w2pi[a];
-        float rad = 0.0f;
-        float tr, sdn, sup, sum;
-        for (int j = 0; j < nlay; ++j) {
-          lw_layer_sources(*cell(S, j, ncol, c, ng, g) * sec,
-                           *cell(S, nlay + j, ncol, c, ng, g),
-                           *cell(S, 2 * nlay + j, ncol, c, ng, g),
-                           *cell(S, 2 * nlay + j + 1, ncol, c, ng, g), thresh,
-                           tr, sdn, sup);
-          rad = tr * rad + sdn;
-          sum = warp_sum(act ? rad : 0.0f);
-          if (lane == 0) dn[j + 1] += w2pi * sum;
-        }
-        rad = e * b_sfc + (1.0f - e) * rad;
-        sum = warp_sum(act ? rad : 0.0f);
-        if (lane == 0) up[nlay] += w2pi * sum;
-        for (int j = nlay - 1; j >= 0; --j) {
-          lw_layer_sources(*cell(S, j, ncol, c, ng, g) * sec,
-                           *cell(S, nlay + j, ncol, c, ng, g),
-                           *cell(S, 2 * nlay + j, ncol, c, ng, g),
-                           *cell(S, 2 * nlay + j + 1, ncol, c, ng, g), thresh,
-                           tr, sdn, sup);
-          rad = tr * rad + sup;
-          sum = warp_sum(act ? rad : 0.0f);
-          if (lane == 0) up[j] += w2pi * sum;
-        }
-      }
-    }
-  }
-}
-
-// The SW solve of column c for one band: gas optics + Rayleigh, the TOA
-// source mu0 * tsi_scale * solar, g = 0 two-stream, direct beam, adding up
-// and down, g-summed into W.up / W.dn.  The night mask is the caller's.
-template <typename T>
-__device__ void sw_column(const Atmos& A, const Grid& G, const Band& B,
-                          const SwSolve& W, int c, int lane) {
-  const int nlay = A.nlay, ng = B.ngpt, ncol = A.ncol;
-  float* up = W.up + (size_t)c * (nlay + 1);
-  float* dn = W.dn + (size_t)c * (nlay + 1);
-  float* S = W.scratch;
-  // Scratch rows: r_dif, t_dif, src_up (then denom), src_dn, and the
-  // per-level albedo / source of the stack below (nlay+1 each).
-  const int R_RDIF = 0, R_TDIF = nlay, R_SRCUP = 2 * nlay, R_SRCDN = 3 * nlay,
-            R_ALB = 4 * nlay, R_SRC = 5 * nlay + 1;
-  const float mu0 = W.mu0[c];
-  const float inv_mu0 = 1.0f / mu0;
-  const float scale = W.tsi_scale[c];
-  for (int g0 = 0; g0 < ng; g0 += 32) {
-    const bool act = g0 + lane < ng;
-    const int g = act ? g0 + lane : 0;
-    auto at = [&](int row) { return cell(S, row, ncol, c, ng, g); };
-    // Layer pass with the fused direct-beam sweep.
-    float direct = mu0 * scale * W.solar[g];
-    float sum = warp_sum(act ? direct : 0.0f);
-    if (lane == 0) dn[0] += sum;
-    const float ray = W.ray[g];
-    for (int j = 0; j < nlay; ++j) {
-      const LayerPoint L = layer_point<T>(A, G, c, j);
-      const float tau_ray = L.simple_w * ray;
-      const float tau = gas_tau<T>(A, G, B, L, c, j, g) + tau_ray;
-      float r_dif, t_dif, r_dir, t_dir, t;
-      two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir,
-                    t);
-      if (act) {
-        *at(R_RDIF + j) = r_dif;
-        *at(R_TDIF + j) = t_dif;
-        *at(R_SRCUP + j) = r_dir * direct;
-        *at(R_SRCDN + j) = t_dir * direct;
-      }
-      direct = t * direct;
-      sum = warp_sum(act ? direct : 0.0f);
-      if (lane == 0) dn[j + 1] += sum;
-    }
-    // Upward adding pass (common.sw_adding_up_step).
-    float albedo = W.alb[(size_t)c * ng + g];
-    float src = albedo * direct;
-    if (act) {
-      *at(R_ALB + nlay) = albedo;
-      *at(R_SRC + nlay) = src;
-    }
-    for (int j = nlay - 1; j >= 0; --j) {
-      const float r_dif = *at(R_RDIF + j), t_dif = *at(R_TDIF + j);
-      const float denom = 1.0f / (1.0f - r_dif * albedo);
-      const float src_new =
-          *at(R_SRCUP + j) + t_dif * denom * (src + albedo * *at(R_SRCDN + j));
-      albedo = r_dif + t_dif * t_dif * albedo * denom;
-      src = src_new;
-      if (act) {
-        *at(R_SRCUP + j) = denom;
-        *at(R_ALB + j) = albedo;
-        *at(R_SRC + j) = src;
-      }
-    }
-    sum = warp_sum(act ? src : 0.0f);
-    if (lane == 0) up[0] += sum;
-    // Downward adding pass (common.sw_adding_dn_step).
-    float dif = 0.0f;
-    for (int j = 0; j < nlay; ++j) {
-      const float src_next = *at(R_SRC + j + 1);
-      dif = (*at(R_TDIF + j) * dif + *at(R_RDIF + j) * src_next +
-             *at(R_SRCDN + j)) *
-            *at(R_SRCUP + j);
-      const float upv = dif * *at(R_ALB + j + 1) + src_next;
-      const float sd = warp_sum(act ? dif : 0.0f);
-      const float su = warp_sum(act ? upv : 0.0f);
-      if (lane == 0) {
-        dn[j + 1] += sd;
-        up[j + 1] += su;
-      }
-    }
-  }
-}
-
-// ---- The tiled merged solve (lwsw.cu): per-column staging ----------------
+// ---- Per-column staging ---------------------------------------------------
 //
-// lwsw.cu splits a column's solve into optics, parallel over the column's
-// layers, and sweeps, serial over them, that meet in one staging area per
-// column (float32; each row holds ngpt floats, g fastest), in shared
-// memory or, for columns too deep for it, in a device memory slice
-// (ops/cuda/lwsw.py stage_plan sizes it):
+// Each kernel splits a column's solve into optics, parallel over the
+// column's layers, and sweeps, serial over them, that meet in one staging
+// area per column (float32; each row holds ngpt floats, g fastest), in
+// shared memory or, for columns too deep for it, in a device memory slice
+// (ops/cuda/staged.py stage_plan sizes it):
 //   LW rows (ngpt_lw each): at 1 angle tr, src_dn, src_up (nlay each); at
 //     2-4 angles tau, B(layer) (nlay each) and B(level) (nlay+1);
 //   SW rows (ngpt_sw each): r_dif, t_dif (nlay each); r_dir (nlay+1),
@@ -515,11 +294,9 @@ __device__ void sw_column(const Atmos& A, const Grid& G, const Band& B,
 //     the stack below each level;
 //   the g-summed level fluxes: up and down (nlay+1 each) per LW angle,
 //     then SW up and down;
-//   the layer parameters (below): in layer j's r_dif row when they fit
-//     there, which the layer's optics overwrite only after reading them.
-// The arithmetic per (layer, g) is lw_column's / sw_column's above; only
-// where each value waits between the phases, and the order of the g-sums,
-// differ.
+//   the layer parameters (below): in the layer's first row of the band
+//     solved last (SW's r_dif, else LW's tr / tau) when they fit there,
+//     which the layer's optics overwrite only after reading them.
 
 constexpr int SW_RDIF = 0;  // SW row blocks, in units of nlay (+ offsets)
 
@@ -532,13 +309,16 @@ __device__ __forceinline__ int sw_row_alb(int nlay) { return 4 * nlay + 1; }
 // on the g-point is computed once per layer, with lanes over layers,
 // before the optics: per layer, in order,
 //   the table corner ip * n_t + it (int bits), wp, wt, simple_w;
+//   with an LW band: the Planck points (PlanckAt, off as int bits) of the
+//   layer temperature and of the layer's lower level j + 1;
 //   for each gas of the LW band, then of the SW band: a dense gas's weight
 //   simple_w * (a * vmr + b); a LUT gas's first table row at its lower
 //   mole-fraction point (int bits), its weight w1 and simple_w * vmr.
-// The same float operations as layer_point / gas_tau, on the same floats.
+// The same float operations as the layer's point and gas weights always
+// took, on the same floats.
 __device__ __forceinline__ int band_params(const Atmos& A, const Grid& G,
-                                          const Band& B, const LayerPoint& L,
-                                          int c, int j, float* p) {
+                                           const Band& B, const LayerPoint& L,
+                                           int c, int j, float* p) {
   int k = 0;
   for (int s = 0; s < B.nslice; ++s) {
     const GasSlice& S = B.s[s];
@@ -559,22 +339,37 @@ __device__ __forceinline__ int band_params(const Atmos& A, const Grid& G,
   return k;
 }
 
+__device__ __forceinline__ void planck_params(const LwSolve& W, int ng,
+                                              float temp, float* p) {
+  const PlanckAt q = planck_at(W, ng, temp);
+  p[0] = __int_as_float(q.off);
+  p[1] = q.w;
+}
+
+// The parameters of layer j of column c for the bands present (BL: LW,
+// BS: SW; null when absent) into p.
 template <typename T>
-__device__ void lwsw_layer_params(const Atmos& A, const Grid& G,
-                                  const Band& BL, const Band& BS, int c,
-                                  int j, float* p) {
+__device__ void layer_params(const Atmos& A, const Grid& G, const Band* BL,
+                             const Band* BS, const LwSolve* W, int c, int j,
+                             float* p) {
   const LayerPoint L = layer_point<T>(A, G, c, j);
   p[0] = __int_as_float(L.ip * G.n_t + L.it);
   p[1] = L.wp;
   p[2] = L.wt;
   p[3] = L.simple_w;
-  const int k = band_params(A, G, BL, L, c, j, p + 4);
-  band_params(A, G, BS, L, c, j, p + 4 + k);
+  int k = 4;
+  if (BL != nullptr) {
+    planck_params(*W, BL->ngpt, A.tlay[(size_t)c * A.nlay + j], p + 4);
+    planck_params(*W, BL->ngpt, W->tlev[(size_t)c * (A.nlay + 1) + j + 1],
+                  p + 6);
+    k = 8 + band_params(A, G, *BL, L, c, j, p + 8);
+  }
+  if (BS != nullptr) band_params(A, G, *BS, L, c, j, p + k);
 }
 
-// bilinear's weights, formed once per layer: Corners<T>(wp, wt)(tb, d_t,
-// d_p) interpolates the block at tb (d_t: the next temperature, d_p: the
-// next pressure) with the same arithmetic as bilinear.
+// The layer's bi-linear corner weights: Corners<T>(wp, wt)(tb, d_t, d_p)
+// interpolates the block at tb (d_t: the next temperature, d_p: the next
+// pressure) on the table of element type T.
 template <typename T>
 struct Corners;
 
@@ -591,9 +386,13 @@ struct Corners<float> {
   }
 };
 
+// The fast mode (ops/cuda/common.py's _bilinear_fast): sum over the four
+// corners of bf16(wp * wt) * k, each corner product rounded itself, the
+// bf16 entries widened to f32 and summed in f32.  Scalar 2-byte loads: a
+// row of 27 or 36 bf16 g-points is not 4-byte aligned at every g.
 template <>
 struct Corners<__nv_bfloat16> {
-  float w00, w10, w01, w11;  // bf16(wp_i * wt_j), as bilinear rounds them
+  float w00, w10, w01, w11;  // bf16(wp_i * wt_j)
   __device__ __forceinline__ Corners(float wp, float wt) {
     const float pw0 = 1.0f - wp, tw0 = 1.0f - wt;
     w00 = bf16_round(pw0 * tw0);
@@ -609,123 +408,126 @@ struct Corners<__nv_bfloat16> {
   }
 };
 
-// gas_tau of one g-point from the layer parameters p of band B: cb is the
-// table at the layer's (p, T) corner row and the g-point.
-template <typename T>
+// Total gas optical depth of one g-point from the layer parameters p of
+// band B (p at the band's gas weights): idx is the element index of the
+// layer's (p, T) corner row at the g-point.  Dense gases then LUT gases,
+// each clamped at zero before accumulation (gas_optics_ecckd.f90:233-238).
+template <typename T, class S, int NT>
 __device__ __forceinline__ float gas_tau_params(const Band& B, const Grid& G,
-                                                const T* cb,
+                                                int idx,
                                                 const Corners<T>& w,
                                                 const float* p) {
-  const int ng = B.ngpt, d_p = G.n_t * ng, d_v = G.n_p * G.n_t * ng;
+  const T* table = static_cast<const T*>(B.table);
+  const int ng = fixed_or<S::NG>(B.ngpt), d_p = fixed_or<NT>(G.n_t) * ng;
+  const int nd = fixed_or<S::ND>(B.ndense);
+  const int ns = S::ND > 0 ? S::ND + S::NL : B.nslice;
   float tau = 0.0f;
-  int k = 0;
-  for (int s = 0; s < B.nslice; ++s) {
-    if (B.s[s].kind == KIND_DENSE) {
-      tau += fmaxf(p[k] * w(cb + B.s[s].row0 * ng, ng, d_p), 0.0f);
-      k += 1;
-    } else {
-      const T* tb = cb + __float_as_int(p[k]) * ng;
-      const float w1 = p[k + 1];
-      const float lo = w(tb, ng, d_p);
-      const float hi = w(tb + d_v, ng, d_p);
-      const float coeff = (1.0f - w1) * lo + w1 * hi;
-      tau += fmaxf(p[k + 2] * coeff, 0.0f);
-      k += 3;
-    }
+  for (int s = 0; s < nd; ++s)
+    tau += fmaxf(
+        p[s] * w(table + (unsigned)(idx + B.s[s].row0 * ng), ng, d_p), 0.0f);
+  const int d_v = G.n_p * d_p;
+  for (int s = nd, k = nd; s < ns; ++s, k += 3) {
+    const T* tb = table + (unsigned)(idx + __float_as_int(p[k]) * ng);
+    const float w1 = p[k + 1];
+    const float lo = w(tb, ng, d_p);
+    const float hi = w(tb + d_v, ng, d_p);
+    const float coeff = (1.0f - w1) * lo + w1 * hi;
+    tau += fmaxf(p[k + 2] * coeff, 0.0f);
   }
   return tau;
 }
 
-// planck_at split into its g-independent point and its per-g value.
-struct PlanckPoint {
-  int i0;
-  float w1, scale;
-  bool below;
-};
-
-__device__ __forceinline__ PlanckPoint planck_point(const LwSolve& W,
-                                                    float temp) {
-  const float idx = (temp - W.planck_t0) / W.planck_dt;
-  const int i0 = static_cast<int>(
-      fminf(fmaxf(floorf(idx), 0.0f), (float)(W.n_planck - 2)));
-  return {i0, idx - (float)i0, temp / W.planck_t0, !(idx >= 0.0f)};
-}
-
-// pg: the Planck table at the g-point.
-__device__ __forceinline__ float planck_gpt(const float* pg, int ng,
-                                            const PlanckPoint& q) {
-  const float b = q.below ? q.scale * pg[0]
-                          : (1.0f - q.w1) * pg[q.i0 * ng] +
-                                q.w1 * pg[(q.i0 + 1) * ng];
-  return b / PI_F;
-}
-
-// Optics of layer j of column c for both bands of a merged solve from its
-// layer parameters prm (the SW band's from prm + prm_sw): the LW rows of
-// lw_st and the SW rows of sw_st at layer j.  One warp, lane = g-point.
-// The parameters may share the SW rows of layer j: every store here
-// follows the last parameter read.
-template <typename T>
-__device__ void lwsw_layer_optics(const Atmos& A, const Grid& G,
-                                  const Band& BL, const Band& BS,
-                                  const LwSolve& W, const SwSolve& S, int c,
-                                  int j, int lane, const float* prm,
-                                  int prm_sw, float* lw_st, float* sw_st) {
-  const int nlay = A.nlay;
-  const int corner = __float_as_int(prm[0]);
-  const Corners<T> w(prm[1], prm[2]);
-  const float simple_w = prm[3];
-  const float* tlev = W.tlev + (size_t)c * (nlay + 1);
-  const PlanckPoint q_top = planck_point(W, tlev[j]);
-  const PlanckPoint q_bot = planck_point(W, tlev[j + 1]);
-  const PlanckPoint q_lay = planck_point(W, A.tlay[(size_t)c * nlay + j]);
-  const int ngl = BL.ngpt;
-  for (int g0 = 0; g0 < ngl; g0 += 32) {
-    const bool act = g0 + lane < ngl;
+// The LW optics of layers [ja, jb) of column c from their parameters
+// (layer j's at prm + j * prm_stride): at 1 angle the rows tr, src_dn,
+// src_up of lw_st, at 2-4 angles tau, B(layer) and B(level).  Each level's
+// Planck value is computed once: the layer's lower level from its
+// parameters, carried as the next layer's upper one.  One warp, lane =
+// g-point.  The parameters may share the rows stored here: every store
+// follows the warp's last read of them.
+template <typename T, class S, int NT>
+__device__ __forceinline__ void lw_optics(const Atmos& A, const Grid& G,
+                                          const Band& B, const LwSolve& W,
+                                          int c, int ja, int jb, int lane,
+                                          const float* prm, int prm_stride,
+                                          float* lw_st) {
+  const int nlay = A.nlay, ng = fixed_or<S::NG>(B.ngpt);
+  const float thresh = sqrtf(FLT_EPSILON);
+  const PlanckAt top = planck_at(W, ng, W.tlev[(size_t)c * (nlay + 1) + ja]);
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : 0;
-    const float tau = gas_tau_params<T>(
-        BL, G, static_cast<const T*>(BL.table) + (corner * ngl + g), w,
-        prm + 4);
-    const float* pg = W.planck + g;
-    const float b_top = planck_gpt(pg, ngl, q_top);
-    const float b_bot = planck_gpt(pg, ngl, q_bot);
-    const float b_lay = planck_gpt(pg, ngl, q_lay);
-    if (!act) continue;
-    if (W.n_ang == 1) {
-      float tr, sdn, sup;
-      lw_layer_sources(tau * W.sec[0], b_lay, b_top, b_bot,
-                       sqrtf(FLT_EPSILON), tr, sdn, sup);
-      lw_st[j * ngl + g] = tr;
-      lw_st[(nlay + j) * ngl + g] = sdn;
-      lw_st[(2 * nlay + j) * ngl + g] = sup;
-    } else {
-      lw_st[j * ngl + g] = tau;
-      lw_st[(nlay + j) * ngl + g] = b_lay;
-      lw_st[(2 * nlay + j) * ngl + g] = b_top;
-      if (j == nlay - 1) lw_st[3 * nlay * ngl + g] = b_bot;
+    float b_top = planck_value(W.planck, g, ng, top.off, top.w);
+    for (int j = ja; j < jb; ++j) {
+      const float* p = prm + j * prm_stride;
+      const Corners<T> w(p[1], p[2]);
+      const float tau = gas_tau_params<T, S, NT>(
+          B, G, __float_as_int(p[0]) * ng + g, w, p + 8);
+      const float b_lay =
+          planck_value(W.planck, g, ng, __float_as_int(p[4]), p[5]);
+      const float b_bot =
+          planck_value(W.planck, g, ng, __float_as_int(p[6]), p[7]);
+      float* st = lw_st + j * ng + g;
+      if (W.n_ang == 1) {
+        float tr, sdn, sup;
+        lw_layer_sources(tau * W.sec[0], b_lay, b_top, b_bot, thresh, tr, sdn,
+                         sup);
+        __syncwarp();
+        if (act) {
+          st[0] = tr;
+          st[nlay * ng] = sdn;
+          st[2 * nlay * ng] = sup;
+        }
+      } else {
+        __syncwarp();
+        if (act) {
+          st[0] = tau;
+          st[nlay * ng] = b_lay;
+          st[2 * nlay * ng] = b_top;
+          if (j == nlay - 1) st[(2 * nlay + 1) * ng] = b_bot;  // row 3 nlay
+        }
+      }
+      b_top = b_bot;
     }
   }
-  const int ngs = BS.ngpt;
+}
+
+// The SW optics of layers [ja, jb) of column c from their parameters (the
+// SW band's gas weights at + prm_sw): the rows r_dif, t_dif, r_dir, t_dir
+// and t of sw_st.  As lw_optics, every store follows the warp's last read
+// of the layer's parameters.
+template <typename T, class Sh, int NT>
+__device__ __forceinline__ void sw_optics(const Atmos& A, const Grid& G,
+                                          const Band& B, const SwSolve& S,
+                                          int c, int ja, int jb, int lane,
+                                          const float* prm, int prm_stride,
+                                          int prm_sw, float* sw_st) {
+  const int nlay = A.nlay, ng = fixed_or<Sh::NG>(B.ngpt);
   const float mu0 = S.mu0[c];
   const float inv_mu0 = 1.0f / mu0;
-  for (int g0 = 0; g0 < ngs; g0 += 32) {
-    const bool act = g0 + lane < ngs;
-    const int g = act ? g0 + lane : 0;
-    const float tau_ray = simple_w * S.ray[g];
-    const float tau =
-        gas_tau_params<T>(BS, G,
-                          static_cast<const T*>(BS.table) + (corner * ngs + g),
-                          w, prm + prm_sw) +
-        tau_ray;
-    float r_dif, t_dif, r_dir, t_dir, t;
-    two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir, t);
-    __syncwarp();  // every lane has read prm before any lane overwrites it
-    if (!act) continue;
-    sw_st[(SW_RDIF + j) * ngs + g] = r_dif;
-    sw_st[(sw_row_tdif(nlay) + j) * ngs + g] = t_dif;
-    sw_st[(sw_row_src(nlay) + j) * ngs + g] = r_dir;
-    sw_st[(sw_row_srcdn(nlay) + j) * ngs + g] = t_dir;
-    sw_st[(sw_row_alb(nlay) + j) * ngs + g] = t;
+  for (int j = ja; j < jb; ++j) {
+    const float* p = prm + j * prm_stride;
+    const Corners<T> w(p[1], p[2]);
+    const float simple_w = p[3];
+    for (int g0 = 0; g0 < ng; g0 += 32) {
+      const bool act = g0 + lane < ng;
+      const int g = act ? g0 + lane : 0;
+      const float tau_ray = simple_w * S.ray[g];
+      const float tau = gas_tau_params<T, Sh, NT>(
+                            B, G, __float_as_int(p[0]) * ng + g, w,
+                            p + prm_sw) +
+                        tau_ray;
+      float r_dif, t_dif, r_dir, t_dir, t;
+      two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir,
+                    t);
+      __syncwarp();
+      if (!act) continue;
+      float* st = sw_st + j * ng + g;
+      st[SW_RDIF * ng] = r_dif;
+      st[sw_row_tdif(nlay) * ng] = t_dif;
+      st[sw_row_src(nlay) * ng] = r_dir;
+      st[sw_row_srcdn(nlay) * ng] = t_dir;
+      st[sw_row_alb(nlay) * ng] = t;
+    }
   }
 }
 
@@ -754,14 +556,16 @@ __device__ __forceinline__ float warp_sums(float (&v)[K], int lane) {
 }
 
 // Layers per step of the staged sweeps: a step loads its SWEEP_K layers'
-// coefficients first, runs the recurrence through them, then g-sums the
-// SWEEP_K levels together, so neither the loads nor the shuffles wait on
-// one layer at a time.
+// coefficients first (each row block at one base plus immediate offsets,
+// predicated on the layer existing), runs the recurrence through them,
+// then g-sums the SWEEP_K levels together, so neither the loads nor the
+// shuffles wait on one layer at a time.
 constexpr int SWEEP_K = 4;
 
 // The LW sweeps of column c at Gauss angle a from its staged rows st,
 // g-summed into this angle's level accumulators up / dn (lane 0 adds, over
-// g-chunks in lw_column's order).
+// g-chunks in order).
+template <int NG>
 __device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
                                                  const Band& B, int nlay,
                                                  int c, int lane, int a,
@@ -769,35 +573,40 @@ __device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
                                                  float* __restrict__ up,
                                                  float* __restrict__ dn) {
   constexpr int K = SWEEP_K;
-  const int ng = B.ngpt;
+  const int ng = fixed_or<NG>(B.ngpt);
   const float thresh = sqrtf(FLT_EPSILON);
   const float sec = W.sec[a], w2pi = W.w2pi[a];
+  const PlanckAt sfc = planck_at(W, ng, W.tsfc[c]);
   for (int g0 = 0; g0 < ng; g0 += 32) {
     const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : 0;
-    const float* const stg = st + g;
-    auto at = [&](int row) { return stg[row * ng]; };
+    // The row blocks at this g-point: tr / tau, src_dn / B(layer),
+    // src_up / B(level).
+    const float* const r0 = st + g;
+    const float* const r1 = r0 + nlay * ng;
+    const float* const r2 = r1 + nlay * ng;
     const float e = W.emis[(size_t)c * ng + g];
-    const float b_sfc = planck_at(W, B, W.tsfc[c], g);
+    const float b_sfc = planck_value(W.planck, g, ng, sfc.off, sfc.w);
     // Transmittance and source of layer j in one direction: staged at 1
     // angle, from the staged tau and Planck terms otherwise.
     auto layer = [&](int j, bool down, float& tr, float& src) {
+      const int o = j * ng;
       if (W.n_ang == 1) {
-        tr = at(j);
-        src = at((down ? nlay : 2 * nlay) + j);
+        tr = r0[o];
+        src = (down ? r1 : r2)[o];
       } else {
         float sdn, sup;
-        lw_layer_sources(at(j) * sec, at(nlay + j), at(2 * nlay + j),
-                         at(2 * nlay + j + 1), thresh, tr, sdn, sup);
+        lw_layer_sources(r0[o] * sec, r1[o], r2[o], r2[o + ng], thresh, tr,
+                         sdn, sup);
         src = down ? sdn : sup;
       }
     };
     float rad = 0.0f;
     for (int j0 = 0; j0 < nlay; j0 += K) {
-      float tr[K], src[K], r[K];
+      float tr[K] = {}, src[K] = {}, r[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        layer(min(j0 + k, nlay - 1), true, tr[k], src[k]);
+        if (j0 + k < nlay) layer(j0 + k, true, tr[k], src[k]);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 + k < nlay) rad = tr[k] * rad + src[k];
@@ -812,10 +621,10 @@ __device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
     const float sum = warp_sums(last, lane);
     if (lane == 0) up[nlay] += w2pi * sum;
     for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
-      float tr[K], src[K], r[K];
+      float tr[K] = {}, src[K] = {}, r[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        layer(max(j0 - k, 0), false, tr[k], src[k]);
+        if (j0 - k >= 0) layer(j0 - k, false, tr[k], src[k]);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 - k >= 0) rad = tr[k] * rad + src[k];
@@ -832,36 +641,41 @@ __device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
 // direct beam, adding up, adding down, g-summed into up / dn.  The adding
 // denominator is recomputed in the down pass from the staged albedo, the
 // same float operation on the same floats as in the up pass.
+template <int NG>
 __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
                                                  const Band& B, int nlay,
                                                  int c, int lane, float* st,
                                                  float* __restrict__ up,
                                                  float* __restrict__ dn) {
   constexpr int K = SWEEP_K;
-  const int ng = B.ngpt;
-  const int R_TDIF = sw_row_tdif(nlay), R_SRC = sw_row_src(nlay),
-            R_SRCDN = sw_row_srcdn(nlay), R_ALB = sw_row_alb(nlay);
+  const int ng = fixed_or<NG>(B.ngpt);
   const float mu0 = W.mu0[c];
   const float scale = W.tsi_scale[c];
   for (int g0 = 0; g0 < ng; g0 += 32) {
     const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : 0;
-    float* const stg = st + g;
-    auto at = [&](int row) { return stg + row * ng; };
+    // The row blocks at this g-point (common.cuh "Per-column staging"),
+    // row j of each at [j * ng].
+    float* const rdif = st + g;
+    float* const tdif = rdif + sw_row_tdif(nlay) * ng;
+    float* const src_r = rdif + sw_row_src(nlay) * ng;
+    float* const srcdn = rdif + sw_row_srcdn(nlay) * ng;
+    float* const alb_r = rdif + sw_row_alb(nlay) * ng;
     // Direct beam: r_dir and t_dir become the layer sources.
     float direct = mu0 * scale * W.solar[g];
     float top[1] = {act ? direct : 0.0f};
     const float top_sum = warp_sums(top, lane);
     if (lane == 0) dn[0] += top_sum;
     for (int j0 = 0; j0 < nlay; j0 += K) {
-      float r_dir[K], t_dir[K], t[K], r[K];
+      const int o = j0 * ng;
+      float r_dir[K] = {}, t_dir[K] = {}, t[K] = {}, r[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int j = min(j0 + k, nlay - 1);
-        r_dir[k] = *at(R_SRC + j);
-        t_dir[k] = *at(R_SRCDN + j);
-        t[k] = *at(R_ALB + j);
-      }
+      for (int k = 0; k < K; ++k)
+        if (j0 + k < nlay) {
+          r_dir[k] = src_r[o + k * ng];
+          t_dir[k] = srcdn[o + k * ng];
+          t[k] = alb_r[o + k * ng];
+        }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 + k < nlay) {
@@ -874,8 +688,8 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (act && j0 + k < nlay) {
-          *at(R_SRC + j0 + k) = r_dir[k];
-          *at(R_SRCDN + j0 + k) = t_dir[k];
+          src_r[o + k * ng] = r_dir[k];
+          srcdn[o + k * ng] = t_dir[k];
         }
       const float sum = warp_sums(r, lane);
       const int k = lane / (32 / K);
@@ -886,19 +700,20 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
     float albedo = W.alb[(size_t)c * ng + g];
     float src = albedo * direct;
     if (act) {
-      *at(R_ALB + nlay) = albedo;
-      *at(R_SRC + nlay) = src;
+      alb_r[nlay * ng] = albedo;
+      src_r[nlay * ng] = src;
     }
     for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
-      float r_dif[K], t_dif[K], su[K], sd[K];
+      const int o = j0 * ng;
+      float r_dif[K] = {}, t_dif[K] = {}, su[K] = {}, sd[K] = {};
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int j = max(j0 - k, 0);
-        r_dif[k] = *at(SW_RDIF + j);
-        t_dif[k] = *at(R_TDIF + j);
-        su[k] = *at(R_SRC + j);
-        sd[k] = *at(R_SRCDN + j);
-      }
+      for (int k = 0; k < K; ++k)
+        if (j0 - k >= 0) {
+          r_dif[k] = rdif[o - k * ng];
+          t_dif[k] = tdif[o - k * ng];
+          su[k] = src_r[o - k * ng];
+          sd[k] = srcdn[o - k * ng];
+        }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 - k >= 0) {
@@ -914,8 +729,8 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (act && j0 - k >= 0) {
-          *at(R_SRC + j0 - k) = su[k];
-          *at(R_ALB + j0 - k) = sd[k];
+          src_r[o - k * ng] = su[k];
+          alb_r[o - k * ng] = sd[k];
         }
     }
     float toa[1] = {act ? src : 0.0f};
@@ -924,16 +739,19 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
     // Downward adding pass (common.sw_adding_dn_step).
     float dif = 0.0f;
     for (int j0 = 0; j0 < nlay; j0 += K) {
-      float r_dif[K], t_dif[K], sd[K], alb[K], src_next[K], denom[K];
+      const int o = j0 * ng;
+      float r_dif[K] = {}, t_dif[K] = {}, sd[K] = {}, alb[K] = {},
+            src_next[K] = {}, denom[K];
       float v[2 * K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int j = min(j0 + k, nlay - 1);
-        r_dif[k] = *at(SW_RDIF + j);
-        t_dif[k] = *at(R_TDIF + j);
-        sd[k] = *at(R_SRCDN + j);
-        alb[k] = *at(R_ALB + j + 1);
-        src_next[k] = *at(R_SRC + j + 1);
+        if (j0 + k < nlay) {
+          r_dif[k] = rdif[o + k * ng];
+          t_dif[k] = tdif[o + k * ng];
+          sd[k] = srcdn[o + k * ng];
+          alb[k] = alb_r[o + (k + 1) * ng];
+          src_next[k] = src_r[o + (k + 1) * ng];
+        }
         denom[k] = 1.0f / (1.0f - r_dif[k] * alb[k]);
       }
 #pragma unroll
@@ -953,11 +771,6 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
         (k < K ? dn : up)[j0 + k % K + 1] += sum;
     }
   }
-}
-
-// Blocks of WARPS_PER_BLOCK warps covering `warps` warps.
-inline int blocks_for(long long warps) {
-  return (int)((warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
 }
 
 }  // namespace

@@ -1,58 +1,76 @@
 // Shortwave flux kernel for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel ecckd_tpu/ops/pallas/sw.py::_sw_kernel (wrapper
-// sw_fluxes_fused): for every column, one SW ckd model's gas optical depth
-// plus Rayleigh, the TOA source mu0 * tsi_scale * solar, the g = 0
-// two-stream coefficients, the direct beam, and the adding passes up and
-// down, reduced over g-points to (ncol, nlay+1) up and down fluxes.  Night
-// columns run with mu0 = 1; the wrapper zeroes them after the kernel
+// Replaces the TPU kernel ecckd_tpu/ops/pallas/sw.py:39 _sw_kernel
+// (wrapper sw_fluxes_fused): for every column, one SW ckd model's gas
+// optical depth plus Rayleigh, the TOA source mu0 * tsi_scale * solar, the
+// g = 0 two-stream coefficients, the direct beam, and the adding passes up
+// and down, reduced over g-points to (ncol, nlay+1) up and down fluxes, on
+// the model's own (p, T) grid (a SW model need not share the LW model's).
+// Night columns run with mu0 = 1; the wrapper zeroes them after the kernel
 // (ops/cuda/sw.py), as sw_fluxes_fused does (sw.py:325).
 //
-// The column body is common.cuh's sw_column, the same device code the
-// merged kernel runs for its SW band, here on the model's own (p, T)
-// grid: a SW model need not share the LW model's grid.
+// What bounds it on this card.  Per (layer, g-point) ~220 float
+// operations of optics (6 gases' gathers, the two-stream with a sqrtf, two
+// accurate expm1f and a divide) and ~43 of sweeps: operations bound it,
+// 0.42 ms at 65,536 x 60 at the f32 peak (chip_smoke.py phase 8).  A warp
+// per column walking its layers in order (the first design) spent ~1,000
+// warp instructions per (column, layer) on it (tools/sass_count.py), with
+// 17 device-memory accesses per (layer, g-point) for the adding passes'
+// rows: instruction issue set its pace.
 //
-// Layout.  One warp per column; lane = g-point in chunks of 32.  The layer
-// pass is fused with the direct-beam sweep; the adding passes read
-// 6*nlay+2 scratch rows laid out (row, column, g).
+// Design: staged.cuh's body with the SW band alone.  Optics warps compute
+// the layer parameters once per layer (lanes over layers), then each
+// layer's two-stream coefficients for all g-points, gathering every table
+// corner at an immediate offset from one base (the shipped model's 27
+// g-points, gas counts and 6 temperatures are template constants); the
+// parameters in the layer's r_dif row.  The serial sweep (~117
+// instructions per layer on one warp) would starve behind the optics, so
+// S = 3 sets of one SW sweep warp each run the direct beam and both
+// adding passes of earlier columns from shared memory, rewriting their
+// rows in place, and write each level once (~505 instructions per
+// (column, layer) in all).  Columns too deep for shared memory
+// (nlay >~ 420) are staged in a device slice per block.
 //
-// What bounds it on this card: as lwsw.cu's SW half, the L2 gathers per
-// layer and g-point and the DRAM round trip of six scratch floats per
-// layer and g-point; the sequential layer recurrences leave little ILP
-// per warp, so one warp per column keeps many warps in flight.
-//
-// Host interface (ctypes): ecckd_sw_launch(const SwArgs*, stream)
-// (exact f32 table) and ecckd_sw_launch_fast (the fast mode's bf16
-// table, common.cuh "Table mode") each
-// return cudaGetLastError(); ecckd_sw_args_size() checks the mirror in
-// ops/cuda/sw.py.
+// Host interface (ctypes): ecckd_sw_launch(const SwArgs*, stream) (exact
+// f32 table) and ecckd_sw_launch_fast (the fast mode's bf16 table,
+// common.cuh "Table mode") each return cudaGetLastError();
+// ecckd_sw_occupancy(const SwArgs*, fast) the blocks per SM of the launch
+// configuration, or -1; ecckd_sw_args_size() checks the mirror in
+// ops/cuda/binding.py.
 
-#include "common.cuh"
+#include "staged.cuh"
 
 struct SwArgs {
   Atmos atm;
   Grid grid;
   Band band;
   SwSolve sw;
+  Tile tile;
 };
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+template <typename T, class S, int NT, bool SHARED>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
     sw_kernel(const __grid_constant__ SwArgs args) {
-  const int c = blockIdx.x * WARPS_PER_BLOCK + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (c >= args.atm.ncol) return;  // ragged edge: whole warps retire
-  sw_column<T>(args.atm, args.grid, args.band, args.sw, c, lane);
+  staged_body<T, NoBand, S, NT, SHARED>(args.atm, args.grid, nullptr,
+                                        &args.band, nullptr, &args.sw,
+                                        args.tile);
+}
+
+// The shipped model's shape as constants; any other, and device staging,
+// at run time.
+template <typename T>
+KernelFn<SwArgs> pick(const SwArgs* a) {
+  if (!staged_in_shared(a->tile)) return sw_kernel<T, Shape<0>, 0, false>;
+  if (a->grid.n_t == SHIPPED_NT && has_shape<WideShape>(a->band))
+    return sw_kernel<T, WideShape, SHIPPED_NT, true>;
+  return sw_kernel<T, Shape<0>, 0, true>;
 }
 
 template <typename T>
 int launch(const SwArgs* args, void* stream) {
-  if (args->atm.ncol <= 0) return 0;
-  sw_kernel<T><<<blocks_for(args->atm.ncol), WARPS_PER_BLOCK * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
+  return launch_staged(pick<T>(args), args, stream);
 }
 
 }  // namespace
@@ -65,4 +83,9 @@ extern "C" int ecckd_sw_launch(const SwArgs* args, void* stream) {
 
 extern "C" int ecckd_sw_launch_fast(const SwArgs* args, void* stream) {
   return launch<__nv_bfloat16>(args, stream);
+}
+
+extern "C" int ecckd_sw_occupancy(const SwArgs* args, int fast) {
+  return fast ? occupancy_staged(pick<__nv_bfloat16>(args), args)
+              : occupancy_staged(pick<float>(args), args);
 }

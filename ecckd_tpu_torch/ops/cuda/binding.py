@@ -2,9 +2,11 @@
 sw.py).
 
 * Mirrors of ``csrc/common.cuh``'s structs (``GasSlice``, ``Band``,
-  ``Grid``, ``Atmos``, ``LwSolve``, ``SwSolve``); each kernel's argument
-  struct is composed of them, and ``library`` checks its size against the
-  C side's ``ecckd_<name>_args_size()`` before the first launch.
+  ``Grid``, ``Atmos``, ``LwSolve``, ``SwSolve``), of ``csrc/staged.cuh``'s
+  staging plan ``Tile`` and of the three kernels' argument structs composed
+  of them (``LwswArgs``, ``LwArgs``, ``SwArgs``: ``ARGS``); ``library``
+  checks each one's size against the C side's ``ecckd_<name>_args_size()``
+  before the first launch.
 * Functions that fill them from the host preparation (ops/cuda/plan.py)
   for the columns [c0, c1) of one launch.
 * ``require_cuda`` / ``grad_refusal``: a wrapper raises on CPU tensors
@@ -35,11 +37,9 @@ from ecckd_tpu_torch.solvers.quadrature import gauss_angles
 MAX_SLICES = 16  # csrc/common.cuh
 
 DEFAULT_COLUMN_CHUNK = 65536
-"""Columns per kernel launch: bounds the per-layer scratch of the LW and
-SW kernels (at nlay 60 ~15 KB and ~39 KB per column), and of the merged
-kernel where its staging goes to device memory (ops/cuda/lwsw.py
-stage_plan: nlay >~ 250); the merged kernel stages nlay 60 in shared
-memory."""
+"""Columns per kernel launch.  The kernels' staging does not grow with it:
+shared memory, or for columns too deep for that (ops/cuda/staged.py
+stage_plan) a device slice per persistent block, whose count it caps."""
 
 
 class GasSlice(ctypes.Structure):
@@ -54,7 +54,8 @@ class GasSlice(ctypes.Structure):
 class Band(ctypes.Structure):
     # table: float32, or bfloat16 in the fast mode (a void pointer in C).
     _fields_ = [("table", ctypes.c_void_p), ("ngpt", ctypes.c_int),
-                ("nslice", ctypes.c_int), ("s", GasSlice * MAX_SLICES)]
+                ("nslice", ctypes.c_int), ("ndense", ctypes.c_int),
+                ("s", GasSlice * MAX_SLICES)]
 
 
 class Grid(ctypes.Structure):
@@ -73,8 +74,7 @@ class Atmos(ctypes.Structure):
 
 class LwSolve(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in ("tlev", "tsfc", "emis",
-                                                "planck", "up", "dn",
-                                                "scratch")]
+                                                "planck", "up", "dn")]
                 + [("n_planck", ctypes.c_int), ("n_ang", ctypes.c_int),
                    ("planck_t0", ctypes.c_float),
                    ("planck_dt", ctypes.c_float),
@@ -83,8 +83,38 @@ class LwSolve(ctypes.Structure):
 
 class SwSolve(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("alb", "mu0", "tsi_scale",
-                                               "solar", "ray", "up", "dn",
-                                               "scratch")]
+                                               "solar", "ray", "up", "dn")]
+
+
+class Tile(ctypes.Structure):
+    """Mirror of csrc/staged.cuh's Tile (ops/cuda/staged.py stage_plan)."""
+    _fields_ = ([("stage", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in (
+                    "slots", "sets", "blocks", "threads", "shared_bytes",
+                    "col_floats", "lw_floats", "sw_floats", "prm_base",
+                    "prm_stride", "prm_sw")])
+
+
+class LwswArgs(ctypes.Structure):
+    """Mirror of csrc/lwsw.cu's LwswArgs."""
+    _fields_ = [("atm", Atmos), ("grid", Grid), ("lw_band", Band),
+                ("sw_band", Band), ("lw", LwSolve), ("sw", SwSolve),
+                ("tile", Tile)]
+
+
+class LwArgs(ctypes.Structure):
+    """Mirror of csrc/lw.cu's LwArgs."""
+    _fields_ = [("atm", Atmos), ("grid", Grid), ("band", Band),
+                ("lw", LwSolve), ("tile", Tile)]
+
+
+class SwArgs(ctypes.Structure):
+    """Mirror of csrc/sw.cu's SwArgs."""
+    _fields_ = [("atm", Atmos), ("grid", Grid), ("band", Band),
+                ("sw", SwSolve), ("tile", Tile)]
+
+
+ARGS = {"lwsw": LwswArgs, "lw": LwArgs, "sw": SwArgs}
 
 
 def library(name: str, args_type) -> ctypes.CDLL:
@@ -114,8 +144,11 @@ def band_struct(band: plan_mod.BandInputs) -> Band:
     if len(slices) > MAX_SLICES:
         raise ValueError(f"{len(slices)} contributing gases; the kernels "
                          f"take at most {MAX_SLICES}")
+    ndense = sum(sl.kind == plan_mod.KIND_DENSE for sl in slices)
+    if any(sl.kind == plan_mod.KIND_DENSE for sl in slices[ndense:]):
+        raise ValueError("the kernels take a gas plan's dense gases first")
     out = Band(table=band.arrays.table.data_ptr(), ngpt=band.plan.ngpt,
-               nslice=len(slices))
+               nslice=len(slices), ndense=ndense)
     for i, sl in enumerate(slices):
         vkind, vidx = (band.vmr_kinds[sl.vmr_slot] if sl.vmr_slot >= 0
                        else (plan_mod.VMR_NONE, 0))
@@ -149,28 +182,14 @@ def atmos_struct(atm: plan_mod.Atmosphere, c0: int, c1: int) -> Atmos:
                  n_scal=atm.vmr_col.shape[1])
 
 
-def lw_scratch_rows(lw: plan_mod.LwInputs, nlay: int) -> int:
-    return 2 * nlay if lw.n_gauss_angles == 1 else 3 * nlay + 1
-
-
-def sw_scratch_rows(nlay: int) -> int:
-    return 6 * nlay + 2
-
-
-def _ptr(t: Optional[torch.Tensor]) -> int:
-    """A tensor's device address; 0 (null) for None."""
-    return 0 if t is None else t.data_ptr()
-
-
 def lw_struct(lw: plan_mod.LwInputs, c0: int, c1: int, up: torch.Tensor,
-              dn: torch.Tensor, scratch: Optional[torch.Tensor]) -> LwSolve:
+              dn: torch.Tensor) -> LwSolve:
     arr = lw.arrays
     out = LwSolve(tlev=lw.tlev[c0:c1].data_ptr(),
                   tsfc=lw.tsfc[c0:c1].data_ptr(),
                   emis=lw.emis[c0:c1].data_ptr(),
                   planck=arr.planck_function.data_ptr(),
                   up=up[c0:c1].data_ptr(), dn=dn[c0:c1].data_ptr(),
-                  scratch=_ptr(scratch),
                   n_planck=arr.planck_function.shape[0],
                   n_ang=lw.n_gauss_angles, planck_t0=arr.planck_t0,
                   planck_dt=arr.planck_dt)
@@ -181,12 +200,12 @@ def lw_struct(lw: plan_mod.LwInputs, c0: int, c1: int, up: torch.Tensor,
 
 
 def sw_struct(sw: plan_mod.SwInputs, c0: int, c1: int, up: torch.Tensor,
-              dn: torch.Tensor, scratch: Optional[torch.Tensor]) -> SwSolve:
+              dn: torch.Tensor) -> SwSolve:
     return SwSolve(alb=sw.alb[c0:c1].data_ptr(), mu0=sw.mu0[c0:c1].data_ptr(),
                    tsi_scale=sw.tsi_scale[c0:c1].data_ptr(),
                    solar=sw.arrays.solar.data_ptr(),
                    ray=sw.arrays.rayleigh.data_ptr(), up=up[c0:c1].data_ptr(),
-                   dn=dn[c0:c1].data_ptr(), scratch=_ptr(scratch))
+                   dn=dn[c0:c1].data_ptr())
 
 
 def grad_refusal(*inputs) -> Optional[str]:

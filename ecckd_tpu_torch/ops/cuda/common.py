@@ -4,8 +4,9 @@
   ``ecckd_tpu/ops/pallas/common.py`` (``lw_layer_sources``,
   ``two_stream_g0``, ``sw_adding_up_step``, ``sw_adding_dn_step``).
 * The bodies of one band's solve, ``gas_tau_plain``, ``lw_plain`` and
-  ``sw_plain`` (common.cuh's ``gas_tau``, ``lw_column``, ``sw_column``),
-  on the host preparation of ops/cuda/plan.py, and the night mask.  The
+  ``sw_plain`` (common.cuh's ``gas_tau_params``, ``lw_optics`` with
+  ``lw_sweeps_staged``, ``sw_optics`` with ``sw_sweeps_staged``), on the
+  host preparation of ops/cuda/plan.py, and the night mask.  The
   table mode travels with the prepared band: a band whose table is bf16
   (plan.model_arrays(fast=True)) runs the fast mode's interpolation.
 
@@ -144,7 +145,7 @@ def gas_tau_plain(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs,
                   simple_w: torch.Tensor) -> torch.Tensor:
     """(ncol, nlay, ngpt) gas optical depth of one band on its own model's
     (p, T) grid, from the flat table, the gas plan and the vmr stacks, per
-    gas clamped at zero (common.cuh's gas_tau).
+    gas clamped at zero (common.cuh's gas_tau_params).
 
     On a fast-mode band (bf16 table) each (p, T) interpolation is
     ``_bilinear_fast`` at float32 points (``interp_points``); the LUT
@@ -200,9 +201,10 @@ def _simple_weight(atm: plan_mod.Atmosphere) -> torch.Tensor:
 
 
 def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs):
-    """One LW band (common.cuh's lw_column): gas optics, Planck sources and
-    the sweeps per angle (common.multi_angle_lw_sweeps; at 1 angle the same
-    per-layer math as the fused layer pass).  Returns (up, dn)."""
+    """One LW band (common.cuh's lw_optics and lw_sweeps_staged): gas
+    optics, Planck sources and the sweeps per angle
+    (common.multi_angle_lw_sweeps; at 1 angle the same per-layer math as
+    the staged sources).  Returns (up, dn)."""
     tau = gas_tau_plain(atm, lw, _simple_weight(atm))
     arr = lw.arrays
     planck = lambda t: planck_source(t, arr.planck_temperature,
@@ -233,9 +235,9 @@ def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs):
 
 
 def sw_plain(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs):
-    """One SW band (common.cuh's sw_column): gas optics + Rayleigh, the
-    direct beam, then adding up and down (sw_adding_*_step).  Returns
-    (up, dn) before the night mask."""
+    """One SW band (common.cuh's sw_optics and sw_sweeps_staged): gas
+    optics + Rayleigh, the direct beam, then adding up and down
+    (sw_adding_*_step).  Returns (up, dn) before the night mask."""
     simple_w = _simple_weight(atm)
     tau_gas = gas_tau_plain(atm, sw, simple_w)
     arr = sw.arrays

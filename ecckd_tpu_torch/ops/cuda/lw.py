@@ -4,15 +4,16 @@
 ``ops/pallas/lw.py::lw_fluxes_fused`` (TPU kernel ``_lw_kernel``): one LW
 model's broadband up and down fluxes, ``top_at_1``, 1-4 Gauss angles, on
 the model's own (p, T) grid.  It takes CUDA tensors and launches
-``csrc/lw.cu`` (float32 only), or raises.  ``lw_fluxes_plain`` is the same
-computation in plain PyTorch (ops/cuda/common.py's ``lw_plain``, which the
-merged plain version runs too), any dtype on any device.  Returns
+``csrc/lw.cu`` (float32 only; the staged body of csrc/staged.cuh with
+the LW band alone, sized by ops/cuda/staged.py stage_plan), or raises.
+``lw_fluxes_plain`` is the same computation in plain PyTorch
+(ops/cuda/common.py's ``lw_plain``, which the merged plain version runs
+too), any dtype on any device.  Returns
 (flux_up, flux_dn), each (ncol, nlay+1).  Both take ``mxu_mode`` as
 ops/cuda/lwsw.py does (the fast mode: the bf16 table, ``fast_launches``).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -20,43 +21,22 @@ import torch
 from ecckd_tpu_torch import config
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
-from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod
+from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod, staged
 from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
 
 Fluxes2 = Tuple[torch.Tensor, torch.Tensor]
 
 
-class _Args(ctypes.Structure):
-    """Mirror of csrc/lw.cu's LwArgs."""
-    _fields_ = [("atm", binding.Atmos), ("grid", binding.Grid),
-                ("band", binding.Band), ("lw", binding.LwSolve)]
-
-
 def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
-                 column_chunk: int) -> Fluxes2:
-    """Launch csrc/lw.cu over column chunks on the current stream, in
-    the band's table mode."""
+                 column_chunk: int, **launch) -> Fluxes2:
+    """Launch csrc/lw.cu (staged.run_staged, which takes ``launch``: the
+    staged body with the LW band alone) after the input checks, in the
+    band's table mode."""
     ncol, nlay = atm.tlay.shape
-    fast = lw.arrays.fast
-    binding.check_inputs("lw", atm, *binding.lw_shapes(lw, ncol, nlay), fast)
-    dev = atm.tlay.device
-    up, dn = (torch.zeros((ncol, nlay + 1), dtype=torch.float32, device=dev)
-              for _ in range(2))
-    if ncol == 0:
-        return up, dn
-    chunk = max(1, min(int(column_chunk), ncol))
-    scratch = torch.empty((binding.lw_scratch_rows(lw, nlay), chunk,
-                           lw.plan.ngpt), dtype=torch.float32, device=dev)
-    grid, band = binding.grid_struct(lw), binding.band_struct(lw)
-
-    def make_args(c0: int, c1: int) -> _Args:
-        return _Args(atm=binding.atmos_struct(atm, c0, c1), grid=grid,
-                     band=band,
-                     lw=binding.lw_struct(lw, c0, c1, up, dn, scratch))
-
-    binding.launch_chunks("lw", _Args, ncol, chunk, make_args,
-                          lw_fluxes_cuda, dev, fast)
-    return up, dn
+    binding.check_inputs("lw", atm, *binding.lw_shapes(lw, ncol, nlay),
+                         lw.arrays.fast)
+    return tuple(staged.run_staged(atm, lw, None, column_chunk,
+                                 lw_fluxes_cuda, **launch))
 
 
 def lw_fluxes_plain(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
@@ -82,7 +62,9 @@ def lw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
     Args mirror pipeline.lw_fluxes with the emissivity already per
     g-point, emis_gpt (ncol, ngpt); column_chunk: columns per launch
-    (bounds the scratch memory); mxu_mode: table mode (None: config's,
+    (the staging does not grow with it: shared memory, or a device slice
+    per persistent block for columns too deep for that, nlay >~ 590 at
+    32 g-points and one angle); mxu_mode: table mode (None: config's,
     read now).
 
     Takes float32 CUDA tensors and launches the kernel; anything else

@@ -5,7 +5,9 @@
 model's broadband up and down fluxes, ``top_at_1``, on the model's own
 (p, T) grid, with the TOA source renormalised to the requested TSI and
 night columns (run with mu0 = 1) zeroed after the solve (sw.py:325).  It
-takes CUDA tensors and launches ``csrc/sw.cu`` (float32 only), or raises.
+takes CUDA tensors and launches ``csrc/sw.cu`` (float32 only; the staged
+body of csrc/staged.cuh with the SW band alone, sized by
+ops/cuda/staged.py stage_plan), or raises.
 ``sw_fluxes_plain`` is the same computation in plain PyTorch
 (ops/cuda/common.py's ``sw_plain``, which the merged plain version runs
 too), any dtype on any device.  Returns (flux_up, flux_dn), each
@@ -14,7 +16,6 @@ mode: the bf16 table, ``fast_launches``).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -22,44 +23,22 @@ import torch
 from ecckd_tpu_torch import config
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
-from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod
+from ecckd_tpu_torch.ops.cuda import binding, common, plan as plan_mod, staged
 from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
 
 Fluxes2 = Tuple[torch.Tensor, torch.Tensor]
 
 
-class _Args(ctypes.Structure):
-    """Mirror of csrc/sw.cu's SwArgs."""
-    _fields_ = [("atm", binding.Atmos), ("grid", binding.Grid),
-                ("band", binding.Band), ("sw", binding.SwSolve)]
-
-
 def _kernel_core(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs,
-                 column_chunk: int) -> Fluxes2:
-    """Launch csrc/sw.cu over column chunks on the current stream (before
-    the night mask), in the band's table mode."""
-    ncol, nlay = atm.tlay.shape
-    fast = sw.arrays.fast
-    binding.check_inputs("sw", atm, *binding.sw_shapes(sw, ncol), fast)
-    dev = atm.tlay.device
-    up, dn = (torch.zeros((ncol, nlay + 1), dtype=torch.float32, device=dev)
-              for _ in range(2))
-    if ncol == 0:
-        return up, dn
-    chunk = max(1, min(int(column_chunk), ncol))
-    scratch = torch.empty((binding.sw_scratch_rows(nlay), chunk,
-                           sw.plan.ngpt), dtype=torch.float32, device=dev)
-    # The SW model's own grid: it need not be the LW model's.
-    grid, band = binding.grid_struct(sw), binding.band_struct(sw)
-
-    def make_args(c0: int, c1: int) -> _Args:
-        return _Args(atm=binding.atmos_struct(atm, c0, c1), grid=grid,
-                     band=band,
-                     sw=binding.sw_struct(sw, c0, c1, up, dn, scratch))
-
-    binding.launch_chunks("sw", _Args, ncol, chunk, make_args,
-                          sw_fluxes_cuda, dev, fast)
-    return up, dn
+                 column_chunk: int, **launch) -> Fluxes2:
+    """Launch csrc/sw.cu (staged.run_staged, which takes ``launch``: the
+    staged body with the SW band alone, on the SW model's own grid) after
+    the input checks, in the band's table mode; before the night mask."""
+    ncol = atm.tlay.shape[0]
+    binding.check_inputs("sw", atm, *binding.sw_shapes(sw, ncol),
+                         sw.arrays.fast)
+    return tuple(staged.run_staged(atm, None, sw, column_chunk,
+                                 sw_fluxes_cuda, **launch))
 
 
 def sw_fluxes_plain(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
@@ -82,8 +61,10 @@ def sw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
     Args mirror pipeline.sw_fluxes with the albedo spectrally constant
     (ncol,) or per g-point (ncol, ngpt); tsi (ncol,) [W m-2]; sza_deg
-    (ncol,); column_chunk: columns per launch (bounds the scratch memory);
-    mxu_mode: table mode (None: config's, read now).
+    (ncol,); column_chunk: columns per launch (the staging does not grow
+    with it: shared memory, or a device slice per persistent block for
+    columns too deep for that, nlay >~ 420 at 27 g-points); mxu_mode:
+    table mode (None: config's, read now).
 
     Takes float32 CUDA tensors and launches the kernel; anything else
     raises (ValueError), CPU tensors and inputs that require grad

@@ -1,6 +1,6 @@
-"""PyTorch port on a CUDA card: the merged LW+SW, LW and SW kernels, their
-routing, the stream (parallel/scale.py) and the refusal of inputs that
-require grad.
+"""PyTorch port on a CUDA card: the merged LW+SW, LW and SW kernels (one
+staged body, csrc/staged.cuh), their routing, the stream
+(parallel/scale.py) and the refusal of inputs that require grad.
 
 These tests need a card and skip without one (marker ``cuda``).  They
 import neither jax nor tests/conftest.py, so on a machine with a card and
@@ -48,10 +48,11 @@ def models(tmp_path_factory):
     return out
 
 
-def batch(ncol, nlay, dtype, seed=0):
+def batch(ncol, nlay, dtype, seed=0, drop=()):
     """Heterogeneous columns on the card: pressures over two decades at the
     surface, h2o over five decades, ch4 below its reference, day, grazing
-    and night suns.  Values are rounded to float32 once for both dtypes."""
+    and night suns; the gases in ``drop`` left out.  Values are rounded to
+    float32 once for both dtypes."""
     rng = np.random.default_rng(seed)
     p_sfc = np.logspace(np.log10(500.0), np.log10(1.05e5), ncol)
     plev = np.stack([np.geomspace(1.0, s, nlay + 1) for s in p_sfc])
@@ -62,6 +63,7 @@ def batch(ncol, nlay, dtype, seed=0):
                  co2=np.full(ncol, 4.0e-4), ch4=np.full(ncol, 1.2e-6),
                  n2o=np.full(ncol, 3.3e-7), o2=np.full(ncol, 0.2095),
                  cfc11=np.full(ncol, 2e-10), cfc12=np.full(ncol, 5e-10))
+    gases = {k: v for k, v in gases.items() if k not in drop}
     return dict(
         plev=t(plev), tlay=t(rng.uniform(150.0, 320.0, (ncol, nlay))),
         tlev=t(rng.uniform(150.0, 320.0, (ncol, nlay + 1))),
@@ -106,9 +108,9 @@ def test_kernel_matches_plain_f64(models, n_angles, pair):
 @pytest.mark.parametrize("n_angles", [1, 3])
 def test_kernel_stages_deep_columns_in_device_memory(models, n_angles, mode):
     """nlay 300 does not fit in shared memory: the merged kernel stages
-    it in a device slice per block (ops/cuda/lwsw.py stage_plan) and
+    it in a device slice per block (ops/cuda/staged.py stage_plan) and
     still matches the plain version at f64 in its table mode."""
-    from ecckd_tpu_torch.ops.cuda import lwsw, plan
+    from ecckd_tpu_torch.ops.cuda import plan, staged
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     ncol, nlay = 61, 300
     b32, b64 = batch(ncol, nlay, torch.float32, seed=2), batch(
@@ -118,7 +120,7 @@ def test_kernel_stages_deep_columns_in_device_memory(models, n_angles, mode):
                         b32["tsfc"], expand(b32["emis"]), b32["concs"],
                         b32["alb"], b32["tsi"], b32["sza"], n_angles,
                         fast=mode == "bf16")
-    stage, per_sm = lwsw.occupancy(*prep)
+    stage, per_sm = staged.occupancy(*prep)
     assert not stage.shared and stage.shared_bytes == 0 and per_sm >= 1
     counter = "fast_launches" if mode == "bf16" else "launches"
     before = getattr(lwsw_fluxes_cuda, counter)
@@ -133,6 +135,114 @@ def test_kernel_stages_deep_columns_in_device_memory(models, n_angles, mode):
         assert_close(got[band], ref[band])
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("kernel,n_angles", [("lw", 1), ("lw", 3),
+                                             ("sw", 1)])
+def test_single_band_kernels_stage_deep_columns_in_device_memory(
+        models, kernel, n_angles, mode):
+    """nlay 600 (LW) and 430 (SW) do not fit in shared memory: K3 and K4
+    stage them in a device slice per block (ops/cuda/staged.py stage_plan)
+    and still match their plain versions at f64 in the table mode."""
+    from ecckd_tpu_torch.ops.cuda import plan, staged
+    ncol, nlay = 61, {"lw": 600, "sw": 430}[kernel]
+    b32, b64 = batch(ncol, nlay, torch.float32, seed=5), batch(
+        ncol, nlay, torch.float64, seed=5)
+    fast = mode == "bf16"
+    if kernel == "lw":
+        m = lambda dt: models["lw", dt]
+        emis = lambda b: b["emis"][:, None].expand(
+            ncol, m(torch.float32).ngpt).contiguous()
+        run = lambda fn, dt, b, **kw: fn(
+            m(dt), b["plev"], b["tlay"], b["tlev"], b["tsfc"], emis(b),
+            b["concs"], n_gauss_angles=n_angles, mxu_mode=mode, **kw)
+        prep = plan.prepare_lw(m(torch.float32), b32["plev"], b32["tlay"],
+                               b32["tlev"], b32["tsfc"], emis(b32),
+                               b32["concs"], n_angles, fast=fast)
+        cuda_fn, plain_fn = lw_fluxes_cuda, lw_fluxes_plain
+        bands = (prep[1], None)
+    else:
+        m = lambda dt: models["sw", dt]
+        run = lambda fn, dt, b, **kw: fn(
+            m(dt), b["plev"], b["tlay"], b["concs"], b["alb"], b["tsi"],
+            b["sza"], mxu_mode=mode, **kw)
+        prep = plan.prepare_sw(m(torch.float32), b32["plev"], b32["tlay"],
+                               b32["concs"], b32["alb"], b32["tsi"],
+                               b32["sza"], fast=fast)
+        cuda_fn, plain_fn = sw_fluxes_cuda, sw_fluxes_plain
+        bands = (None, prep[1])
+    stage, per_sm = staged.occupancy(prep[0], *bands)
+    assert not stage.shared and stage.shared_bytes == 0 and per_sm >= 1
+    counter = "fast_launches" if fast else "launches"
+    before = getattr(cuda_fn, counter)
+    got = run(cuda_fn, torch.float32, b32)
+    torch.cuda.synchronize()
+    assert getattr(cuda_fn, counter) == before + 1
+    assert_close(got, run(plain_fn, torch.float64, b64))
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("kernel,lw_key,n_angles", [
+    ("lwsw", "lw", 1), ("lwsw", "lw_rrtmgp", 3), ("lw", "lw", 1),
+    ("lw", "lw_rrtmgp", 3), ("sw", None, 1)])
+def test_kernels_on_other_band_shapes_in_shared_memory(models, kernel,
+                                                       lw_key, n_angles,
+                                                       mode):
+    """Without cfc11, cfc12 and n2o both bands have 4 dense gases, not the
+    shipped shapes' 7 (LW) and 5 (SW) that the kernels instantiate as
+    template constants (csrc/staged.cuh), so each kernel takes its
+    run-time instantiation, here staged in shared memory; it matches the
+    plain version at f64 in the table mode."""
+    from ecckd_tpu_torch.ops.cuda import plan, staged
+    ncol, nlay, fast = 301, 23, mode == "bf16"
+    drop = ("cfc11", "cfc12", "n2o")
+    b32, b64 = (batch(ncol, nlay, dt, seed=4, drop=drop)
+                for dt in (torch.float32, torch.float64))
+    sw_key = None if kernel == "lw" else "sw"
+    m = lambda key, dt: models[key, dt] if key else None
+    ngpt = m(lw_key, torch.float32).ngpt if lw_key else 1
+    emis = lambda b: b["emis"][:, None].expand(ncol, ngpt).contiguous()
+    lw_args = lambda b: (b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                         emis(b), b["concs"])
+    sw_args = lambda b: (b["plev"], b["tlay"], b["concs"], b["alb"],
+                         b["tsi"], b["sza"])
+    lw32, sw32 = m(lw_key, torch.float32), m(sw_key, torch.float32)
+    if kernel == "lwsw":
+        atm, lw_in, sw_in = plan.prepare(lw32, sw32, *lw_args(b32),
+                                         *sw_args(b32)[3:], n_angles,
+                                         fast=fast)
+        run = lambda fn, dt, b: solve(fn, m(lw_key, dt), m(sw_key, dt), b,
+                                      emis(b), n_gauss_angles=n_angles,
+                                      mxu_mode=mode)
+        cuda_fn, plain_fn, bands = (lwsw_fluxes_cuda, lwsw_fluxes_plain,
+                                    (slice(0, 2), slice(2, 4)))
+    elif kernel == "lw":
+        (atm, lw_in), sw_in = plan.prepare_lw(lw32, *lw_args(b32), n_angles,
+                                              fast=fast), None
+        run = lambda fn, dt, b: fn(m(lw_key, dt), *lw_args(b),
+                                   n_gauss_angles=n_angles, mxu_mode=mode)
+        cuda_fn, plain_fn, bands = (lw_fluxes_cuda, lw_fluxes_plain,
+                                    (slice(0, 2),))
+    else:
+        lw_in, (atm, sw_in) = None, plan.prepare_sw(sw32, *sw_args(b32),
+                                                    fast=fast)
+        run = lambda fn, dt, b: fn(m(sw_key, dt), *sw_args(b),
+                                   mxu_mode=mode)
+        cuda_fn, plain_fn, bands = (sw_fluxes_cuda, sw_fluxes_plain,
+                                    (slice(0, 2),))
+    for band in (lw_in, sw_in):
+        assert band is None or staged.band_gases(band.plan) == (4, 1)
+    stage, per_sm = staged.occupancy(atm, lw_in, sw_in)
+    assert stage.shared and per_sm >= 1
+    counter = "fast_launches" if fast else "launches"
+    before = getattr(cuda_fn, counter)
+    got = run(cuda_fn, torch.float32, b32)
+    torch.cuda.synchronize()
+    assert getattr(cuda_fn, counter) == before + 1
+    ref = run(plain_fn, torch.float64, b64)
+    for band in bands:
+        assert_close(got[band], ref[band])
+
+
 def test_kernel_with_layer_parameters_in_their_own_place(models,
                                                         monkeypatch):
     """A SW band of more than 32 g-points, or more layer parameters than
@@ -140,8 +250,8 @@ def test_kernel_with_layer_parameters_in_their_own_place(models,
     (stage_plan); forced here on the synthetic pair, whose parameters fit
     in the row."""
     import dataclasses
-    from ecckd_tpu_torch.ops.cuda import lwsw
-    plan_for = lwsw._plan_for
+    from ecckd_tpu_torch.ops.cuda import staged
+    plan_for = staged.plan_for
 
     def own_place(atm, lw_in, sw_in):
         p = plan_for(atm, lw_in, sw_in)
@@ -153,7 +263,7 @@ def test_kernel_with_layer_parameters_in_their_own_place(models,
             p, prm_floats=per_layer * nlay, prm_stride=per_layer,
             prm_base=p.lw_floats + p.sw_floats + p.acc_floats)
 
-    monkeypatch.setattr(lwsw, "_plan_for", own_place)
+    monkeypatch.setattr(staged, "plan_for", own_place)
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     ncol, nlay = 301, 23
     b32, b64 = batch(ncol, nlay, torch.float32), batch(ncol, nlay,

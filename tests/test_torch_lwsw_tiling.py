@@ -1,5 +1,5 @@
 """PyTorch port: the merged kernel's staging plan and argument layout
-(ops/cuda/lwsw.py), and its plain version on columns too deep for shared
+(ops/cuda/staged.py), and its plain version on columns too deep for shared
 memory.
 
 The kernel itself (csrc/lwsw.cu) runs only on a card; these tests hold
@@ -9,8 +9,9 @@ what the host decides for it:
   block), shared memory or a device slice, threads per block, and where
   the layer parameters go, against counts written out here by hand from
   csrc/common.cuh's row layout;
-* the ctypes mirror of ``LwswArgs`` / ``LwswTile``: field order as the C
-  source declares it, offsets and size by hand;
+* the ctypes mirror of ``LwswArgs`` and of the staging plan ``Tile``
+  (csrc/staged.cuh): field order as the C source declares it, offsets and
+  size by hand;
 * ``lwsw_fluxes_plain`` at nlay 300 (the device-staging case) at float64
   against JAX's XLA ``lw_fluxes`` + ``sw_fluxes``: max|d| / flux scale
   <= 1e-7, the bound of tests/test_torch_lwsw.py, so the reference the
@@ -29,7 +30,7 @@ import jax.numpy as jnp
 from torch_parity import (ckd_paths, flux_batch, jax_concs,  # noqa: F401
                           load_both, torch_concs)
 from ecckd_tpu import pipeline as jpipe
-from ecckd_tpu_torch.ops.cuda import binding, lwsw, plan
+from ecckd_tpu_torch.ops.cuda import binding, lwsw, plan, staged
 
 torch.set_num_threads(2)
 
@@ -47,8 +48,8 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
     lw_rows = 3 * nlay if n_ang == 1 else 3 * nlay + 1  # tr/src or tau/B
     sw_rows = 5 * nlay + 2        # r_dif, t_dif, r_dir+1, t_dir, t+1
     acc = 2 * (nlay + 1) * (n_ang + 1)  # up, dn per LW angle, then SW
-    per_layer = (4 + gases_lw[0] + 3 * gases_lw[1] + gases_sw[0]
-                 + 3 * gases_sw[1])
+    per_layer = (8 + gases_lw[0] + 3 * gases_lw[1] + gases_sw[0]
+                 + 3 * gases_sw[1])        # 4 Planck words with LW
     in_rows = ng_sw <= 32 and per_layer <= ng_sw
     floats = (lw_rows * ng_lw + sw_rows * ng_sw + acc
               + (0 if in_rows else per_layer * nlay))
@@ -65,14 +66,14 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
 @pytest.mark.parametrize("ng_lw", [32, 36])
 @pytest.mark.parametrize("nlay", [1, 2, 8, 60, 137, 300])
 def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
-    p = lwsw.stage_plan(nlay, ng_lw, 27, n_ang, GASES_LW, GASES_SW, *H100)
+    p = staged.stage_plan(nlay, ng_lw, 27, n_ang, GASES_LW, GASES_SW, *H100)
     floats, c, shared, smem, threads, in_rows = by_hand(nlay, ng_lw, 27,
                                                         n_ang)
     assert p.col_floats == floats and p.bytes_per_column == 4 * floats
     assert (p.slots, p.shared, p.shared_bytes, p.threads) == (c, shared,
                                                              smem, threads)
     assert (p.prm_floats == 0) == in_rows
-    assert p.prm_sw == 4 + GASES_LW[0] + 3 * GASES_LW[1]
+    assert p.prm_sw == 8 + GASES_LW[0] + 3 * GASES_LW[1]
     # Layer j's parameters sit in its r_dif row, after the LW rows.
     assert (p.prm_base, p.prm_stride) == (p.lw_floats, 27)
 
@@ -80,21 +81,21 @@ def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
 def test_stage_plan_at_the_main_path_and_the_edges():
     """Literal numbers for the cases the card runs (nlay 60: two columns
     of 56,632 B per block, two blocks of 512 threads per SM)."""
-    main = lwsw.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100)
+    main = staged.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (main.lw_floats, main.sw_floats, main.acc_floats) == (5760, 8154,
                                                                  244)
     assert (main.bytes_per_column, main.slots, main.shared_bytes,
             main.threads) == (56632, 2, 113264, 512)
-    four = lwsw.stage_plan(60, 32, 27, 4, GASES_LW, GASES_SW, *H100)
+    four = staged.stage_plan(60, 32, 27, 4, GASES_LW, GASES_SW, *H100)
     assert (four.bytes_per_column, four.shared_bytes, four.threads) == (
         58224, 116448, 1024)          # two blocks would need 234,944 B
-    rrtmgp = lwsw.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100)
+    rrtmgp = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (rrtmgp.bytes_per_column, rrtmgp.slots, rrtmgp.threads) == (
         59512, 2, 1024)
-    deep = lwsw.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
+    deep = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (deep.bytes_per_column, deep.slots, deep.shared) == (129012, 1,
                                                                 True)
-    device = lwsw.stage_plan(300, 32, 27, 1, GASES_LW, GASES_SW, *H100)
+    device = staged.stage_plan(300, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (device.bytes_per_column, device.slots, device.shared,
             device.shared_bytes, device.threads) == (282232, 2, False, 0,
                                                      512)
@@ -106,7 +107,7 @@ def test_stage_plan_follows_the_cards_shared_memory(nlay):
     per SM (an A100's), nlay 60 keeps C = 2 in one block of 1024 threads
     per SM, and nlay 137 still fits one column."""
     small = (166_912, 167_936)
-    p = lwsw.stage_plan(nlay, 32, 27, 1, GASES_LW, GASES_SW, *small)
+    p = staged.stage_plan(nlay, 32, 27, 1, GASES_LW, GASES_SW, *small)
     _, c, shared, smem, threads, _ = by_hand(nlay, 32, 27, 1, limits=small)
     assert (p.slots, p.shared, p.shared_bytes, p.threads) == (c, shared,
                                                              smem, threads)
@@ -120,8 +121,8 @@ def test_stage_plan_follows_the_cards_shared_memory(nlay):
 def test_layer_parameters_get_a_place_of_their_own(ng_sw, gases_lw):
     """More SW g-points than one chunk, or more parameters than the r_dif
     row holds: the parameters go after the accumulators."""
-    p = lwsw.stage_plan(60, 32, ng_sw, 1, gases_lw, GASES_SW, *H100)
-    per_layer = 4 + gases_lw[0] + 3 * gases_lw[1] + 5 + 3
+    p = staged.stage_plan(60, 32, ng_sw, 1, gases_lw, GASES_SW, *H100)
+    per_layer = 8 + gases_lw[0] + 3 * gases_lw[1] + 5 + 3
     assert p.prm_floats == per_layer * 60 and p.prm_stride == per_layer
     assert p.prm_base == p.lw_floats + p.sw_floats + p.acc_floats
     assert p.col_floats == by_hand(60, 32, ng_sw, 1, gases_lw)[0]
@@ -132,43 +133,49 @@ def test_band_gases_of_the_synthetic_models(ckd_paths):
     for key, want in (("lw", GASES_LW), ("lw_rrtmgp", GASES_LW),
                       ("sw", GASES_SW)):
         _, model = load_both(ckd_paths[key], torch.float32)
-        assert lwsw.band_gases(plan.build_plan(model, names)) == want
+        assert staged.band_gases(plan.build_plan(model, names)) == want
 
 
-def c_fields(struct: str):
-    """Field names of a struct in csrc/lwsw.cu, in declaration order."""
-    src = (Path(lwsw.__file__).parents[2] / "csrc" / "lwsw.cu").read_text()
+def c_fields(struct: str, source: str = "lwsw.cu"):
+    """Field names of a struct in csrc/<source>, in declaration order."""
+    src = (Path(lwsw.__file__).parents[2] / "csrc" / source).read_text()
     body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
-    body = re.sub(r"//[^\n]*", "", body)
+    body = re.sub(r"//[^\n]*|\[[^\]]*\]", "", body)
     return [n for decl in body.split(";") if decl.strip()
             for n in re.findall(r"(\w+)\s*(?:,|$)", decl.strip())]
 
 
 def test_args_mirror_the_c_structs():
-    assert [f for f, _ in lwsw._Tile._fields_] == c_fields("LwswTile")
-    assert [f for f, _ in lwsw._Args._fields_] == c_fields("LwswArgs")
-    # By hand: a pointer, then ten ints; the structs before it as in
-    # common.cuh (Atmos 48, Grid 40, Band 720 twice, LwSolve 104, SwSolve
-    # 64 bytes).
-    assert ctypes.sizeof(lwsw._Tile) == 8 + 10 * 4
-    assert [getattr(lwsw._Tile, f).offset for f, _ in lwsw._Tile._fields_] \
-        == [0] + list(range(8, 48, 4))
+    tile, args = binding.Tile, binding.LwswArgs
+    assert [f for f, _ in tile._fields_] == c_fields("Tile", "staged.cuh")
+    assert [f for f, _ in args._fields_] == c_fields("LwswArgs")
+    for struct in ("Band", "LwSolve", "SwSolve"):
+        assert [f for f, _ in getattr(binding, struct)._fields_] == \
+            c_fields(struct, "common.cuh")
+    # By hand: a pointer, then eleven ints (padded to 8 bytes); the
+    # structs before it as in
+    # common.cuh (Atmos 48, Grid 40, Band 728 twice (a pointer, three
+    # ints, 16 slices of 44 bytes, padded to 8), LwSolve 96, SwSolve 56
+    # bytes).
+    assert ctypes.sizeof(tile) == 8 + 11 * 4 + 4
+    assert [getattr(tile, f).offset for f, _ in tile._fields_] \
+        == [0] + list(range(8, 52, 4))
     sizes = [ctypes.sizeof(t) for t in (binding.Atmos, binding.Grid,
                                         binding.Band, binding.LwSolve,
                                         binding.SwSolve)]
-    assert sizes == [48, 40, 720, 104, 64]
-    assert lwsw._Args.tile.offset == 48 + 40 + 2 * 720 + 104 + 64
-    assert ctypes.sizeof(lwsw._Args) == 1696 + 48
+    assert sizes == [48, 40, 728, 96, 56]
+    assert args.tile.offset == 48 + 40 + 2 * 728 + 96 + 56
+    assert ctypes.sizeof(args) == 1696 + 56
 
 
 def test_tile_struct_carries_the_plan():
-    p = lwsw.stage_plan(60, 32, 27, 3, GASES_LW, GASES_SW, *H100)
-    t = lwsw.tile_struct(p, blocks=264)
-    assert (t.stage, t.slots, t.blocks, t.threads, t.shared_bytes) == (
-        None, 2, 264, 512, p.shared_bytes)
+    p = staged.stage_plan(60, 32, 27, 3, GASES_LW, GASES_SW, *H100)
+    t = staged.tile_struct(p, blocks=264)
+    assert (t.stage, t.slots, t.sets, t.blocks, t.threads,
+            t.shared_bytes) == (None, 2, 1, 264, 512, p.shared_bytes)
     assert (t.col_floats, t.lw_floats, t.sw_floats) == (
         p.col_floats, p.lw_floats, p.sw_floats)
-    assert (t.prm_base, t.prm_stride, t.prm_sw) == (p.lw_floats, 27, 14)
+    assert (t.prm_base, t.prm_stride, t.prm_sw) == (p.lw_floats, 27, 18)
 
 
 @pytest.mark.parametrize("n_angles", [1, 3])
@@ -196,5 +203,5 @@ def test_plain_f64_at_nlay300_matches_jax_xla(ckd_paths, n_angles):
             err = float(np.abs(g.numpy() - np.asarray(r)).max()) / scale
             assert err <= 1e-7, err
     # That depth is the one the kernel stages in device memory.
-    assert not lwsw.stage_plan(300, tl.ngpt, ts.ngpt, n_angles, GASES_LW,
+    assert not staged.stage_plan(300, tl.ngpt, ts.ngpt, n_angles, GASES_LW,
                                GASES_SW, *H100).shared

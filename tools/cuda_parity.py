@@ -10,8 +10,11 @@ five decades per cell, ch4 below its reference, an unknown gas, day,
 grazing and night suns) through the merged kernel (K1/K2, lwsw.cu), the
 LW kernel (K3, lw.cu) and the SW kernel (K4, sw.cu): nlay 1/2/8/60/137,
 1-4 Gauss angles, a chunked launch, the negative-entry models, the
-36-g-point lw_rrtmgp and a SW model on a 47-point grid, and for K1 also
-nlay 300, whose columns it stages in device memory (``CASES``).  The
+36-g-point lw_rrtmgp (K3 at 1, 3 and 4 angles) and a SW model on a
+47-point grid, the depths each kernel stages in device memory (K1
+nlay 300, K3 600, K4 430), and a gas set without cfc11, cfc12 and n2o,
+whose band shapes run each kernel's run-time instantiation (``CASES``).
+The
 synthetic ckd files always; with ``--data-dir``, also the shipped ecCKD
 1.2 files in that directory, over tools/chip_parity.py's set of cases.
 
@@ -57,61 +60,91 @@ SHIPPED = {"fsck": "ecckd-1.2_lw_ckd-definition_climate_fsck-tol0.0161.nc",
            "rrtmgp": "ecckd-1.2_lw_ckd-definition_climate_rrtmgp-tol0.061.nc",
            "wide": "ecckd-1.2_sw_ckd-definition_climate_wide-tol0.05.nc"}
 
-# kernel, name, ncol, nlay, angles, lw model, sw model, column chunk
+# The shipped models' band shapes under the RFMIP gases run kernel
+# instantiations with their g-points, gas counts and temperatures as
+# template constants (csrc/staged.cuh); without these gases every band has
+# fewer dense gases, so the kernels take their run-time instantiation.
+RUNTIME_SHAPE_DROP = ("cfc11", "cfc12", "n2o")
+
+# kernel, name, ncol, nlay, angles, lw model, sw model, column chunk,
+# gases left out of the batch
 CASES = [
-    ("lwsw", "nlay1", 1037, 1, 1, "lw", "sw", None),
-    ("lwsw", "nlay2", 1037, 2, 1, "lw", "sw", None),
-    ("lwsw", "nlay8", 1037, 8, 1, "lw", "sw", None),
-    ("lwsw", "rfmip_1800x60", 1800, 60, 1, "lw", "sw", None),
-    ("lwsw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", "sw", 768),
-    ("lwsw", "nlay137", 1037, 137, 1, "lw", "sw", None),
-    ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None),
-    ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None),
-    ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None),
-    ("lwsw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", "sw_neg", None),
+    ("lwsw", "nlay1", 1037, 1, 1, "lw", "sw", None, ()),
+    ("lwsw", "nlay2", 1037, 2, 1, "lw", "sw", None, ()),
+    ("lwsw", "nlay8", 1037, 8, 1, "lw", "sw", None, ()),
+    ("lwsw", "rfmip_1800x60", 1800, 60, 1, "lw", "sw", None, ()),
+    ("lwsw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", "sw", 768, ()),
+    ("lwsw", "nlay137", 1037, 137, 1, "lw", "sw", None, ()),
+    ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None, ()),
+    ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None, ()),
+    ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None, ()),
+    ("lwsw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", "sw_neg", None,
+     ()),
     ("lwsw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", "sw_neg",
-     None),
-    ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None),
-    ("lwsw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", "sw", None),
+     None, ()),
+    ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None, ()),
+    ("lwsw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", "sw", None, ()),
     # Columns too deep for shared memory: K1 stages them in device memory.
-    ("lwsw", "nlay300_device_staging", 1037, 300, 1, "lw", "sw", None),
+    ("lwsw", "nlay300_device_staging", 1037, 300, 1, "lw", "sw", None, ()),
     ("lwsw", "nlay300_device_staging_angles3", 1037, 300, 3, "lw", "sw",
-     None),
-    ("lw", "rfmip_1800x60", 1800, 60, 1, "lw", None, None),
-    ("lw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", None, 768),
-    ("lw", "nlay1", 1037, 1, 1, "lw", None, None),
-    ("lw", "nlay2", 1037, 2, 1, "lw", None, None),
-    ("lw", "nlay8", 1037, 8, 1, "lw", None, None),
-    ("lw", "nlay137", 1037, 137, 1, "lw", None, None),
-    ("lw", "angles2_nlay60", 1037, 60, 2, "lw", None, None),
-    ("lw", "angles3_nlay60", 1037, 60, 3, "lw", None, None),
-    ("lw", "angles4_nlay60", 1037, 60, 4, "lw", None, None),
-    ("lw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", None, None),
-    ("lw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", None, None),
-    ("lw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", None, None),
-    ("lw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", None, 512),
-    ("sw", "rfmip_1800x60", 1800, 60, 1, None, "sw", None),
-    ("sw", "rfmip_1800x60_chunk768", 1800, 60, 1, None, "sw", 768),
-    ("sw", "nlay1", 1037, 1, 1, None, "sw", None),
-    ("sw", "nlay2", 1037, 2, 1, None, "sw", None),
-    ("sw", "nlay8", 1037, 8, 1, None, "sw", None),
-    ("sw", "nlay137", 1037, 137, 1, None, "sw", None),
-    ("sw", "negative_entry_nlay60", 1037, 60, 1, None, "sw_neg", None),
-    ("sw", "sw_p47_nlay60", 1037, 60, 1, None, "sw_p47", None),
+     None, ()),
+    ("lw", "rfmip_1800x60", 1800, 60, 1, "lw", None, None, ()),
+    ("lw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", None, 768, ()),
+    ("lw", "nlay1", 1037, 1, 1, "lw", None, None, ()),
+    ("lw", "nlay2", 1037, 2, 1, "lw", None, None, ()),
+    ("lw", "nlay8", 1037, 8, 1, "lw", None, None, ()),
+    ("lw", "nlay137", 1037, 137, 1, "lw", None, None, ()),
+    ("lw", "angles2_nlay60", 1037, 60, 2, "lw", None, None, ()),
+    ("lw", "angles3_nlay60", 1037, 60, 3, "lw", None, None, ()),
+    ("lw", "angles4_nlay60", 1037, 60, 4, "lw", None, None, ()),
+    ("lw", "negative_entry_nlay60", 1037, 60, 1, "lw_neg", None, None, ()),
+    ("lw", "negative_entry_angles3", 1037, 60, 3, "lw_neg", None, None, ()),
+    ("lw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", None, None, ()),
+    ("lw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", None, 512, ()),
+    ("lw", "lw_rrtmgp_angles4", 1037, 60, 4, "lw_rrtmgp", None, None, ()),
+    # Columns too deep for shared memory: K3 and K4 stage them in device
+    # memory (ops/cuda/staged.py stage_plan).
+    ("lw", "nlay600_device_staging", 1037, 600, 1, "lw", None, None, ()),
+    ("lw", "nlay600_device_staging_angles3", 1037, 600, 3, "lw", None, None,
+     ()),
+    ("sw", "rfmip_1800x60", 1800, 60, 1, None, "sw", None, ()),
+    ("sw", "rfmip_1800x60_chunk768", 1800, 60, 1, None, "sw", 768, ()),
+    ("sw", "nlay1", 1037, 1, 1, None, "sw", None, ()),
+    ("sw", "nlay2", 1037, 2, 1, None, "sw", None, ()),
+    ("sw", "nlay8", 1037, 8, 1, None, "sw", None, ()),
+    ("sw", "nlay137", 1037, 137, 1, None, "sw", None, ()),
+    ("sw", "negative_entry_nlay60", 1037, 60, 1, None, "sw_neg", None, ()),
+    ("sw", "sw_p47_nlay60", 1037, 60, 1, None, "sw_p47", None, ()),
+    ("sw", "nlay430_device_staging", 1037, 430, 1, None, "sw", None, ()),
+    # Other band shapes: the run-time instantiations in shared memory.
+    ("lwsw", "runtime_shape_nlay60", 1037, 60, 1, "lw", "sw", None,
+     RUNTIME_SHAPE_DROP),
+    ("lwsw", "runtime_shape_lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp",
+     "sw", None, RUNTIME_SHAPE_DROP),
+    ("lw", "runtime_shape_nlay60", 1037, 60, 1, "lw", None, None,
+     RUNTIME_SHAPE_DROP),
+    ("lw", "runtime_shape_nlay137_angles3", 1037, 137, 3, "lw", None, None,
+     RUNTIME_SHAPE_DROP),
+    ("lw", "runtime_shape_lw_rrtmgp", 1037, 60, 1, "lw_rrtmgp", None, None,
+     RUNTIME_SHAPE_DROP),
+    ("sw", "runtime_shape_nlay60", 1037, 60, 1, None, "sw", None,
+     RUNTIME_SHAPE_DROP),
+    ("sw", "runtime_shape_sw_p47_nlay137", 1037, 137, 1, None, "sw_p47",
+     None, RUNTIME_SHAPE_DROP),
 ]
 
 
 def shipped_cases(ncol: int, nlay: int):
     """tools/chip_parity.py's set on the shipped files."""
     out = [("lw", f"shipped_fsck_angles{a}", ncol, nlay, a, "fsck", None,
-            None) for a in (1, 2, 3, 4)]
+            None, ()) for a in (1, 2, 3, 4)]
     out += [("lw", f"shipped_rrtmgp_angles{a}", ncol, nlay, a, "rrtmgp",
-             None, None) for a in (1, 3)]
-    out += [("sw", "shipped_wide", ncol, nlay, 1, None, "wide", None)]
+             None, None, ()) for a in (1, 3)]
+    out += [("sw", "shipped_wide", ncol, nlay, 1, None, "wide", None, ())]
     out += [("lwsw", f"shipped_merged_fsck_angles{a}", ncol, nlay, a, "fsck",
-             "wide", None) for a in (1, 2, 3, 4)]
+             "wide", None, ()) for a in (1, 2, 3, 4)]
     out += [("lwsw", "shipped_merged_rrtmgp", ncol, nlay, 1, "rrtmgp",
-             "wide", None)]
+             "wide", None, ())]
     return out
 
 
@@ -203,10 +236,11 @@ def run_case(models: dict, case, seed: int, mode: str) -> dict:
     import torch
     from ecckd_tpu_torch import config
     from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
-    kernel, name, ncol, nlay, n_ang, lk, sk, chunk = case
+    kernel, name, ncol, nlay, n_ang, lk, sk, chunk, drop = case
     f32, f64 = torch.float32, torch.float64
     m = lambda key, dt: models[key, dt] if key else None
     arrays, gases = adversarial_batch(ncol, nlay, seed)
+    gases = {k: v for k, v in gases.items() if k not in drop}
     ng = m(lk, f32).ngpt if lk else 1
     b32, b64 = (on_card(arrays, gases, dt, ng) for dt in (f32, f64))
     got = solve(kernel, "cuda", m(lk, f32), m(sk, f32), b32,
@@ -218,7 +252,8 @@ def run_case(models: dict, case, seed: int, mode: str) -> dict:
     rel, absolute = flux_errors(got, ref)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     out = {"kernel": kernel, "name": name, "shape": [ncol, nlay],
-           "angles": n_ang, "models": [lk, sk], "mode": mode,
+           "angles": n_ang, "models": [lk, sk], "gases_left_out": list(drop),
+           "mode": mode,
            "max_rel": max(rel), "rel": rel, "max_abs": absolute,
            "finite": finite}
     ok = finite and max(rel) <= SAME_MODE_BOUND
