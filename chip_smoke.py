@@ -81,12 +81,15 @@ result line is printed:
    against --no-shard (files bitwise equal, merged kernel launched); then
    a one-rank NCCL process group and mesh.distributed_columns_call against
    the single call (bitwise), and the group destroyed.
-11. profiling and gradients: utils/profiling.trace around one
-   lw_sw_fluxes(auto) call at 65,536 x 60: the trace must name the merged
-   kernel; prints the device time and the share of the call the card was
-   idle.  lw_fluxes(auto) on float32 CUDA tensors with tlay requiring
-   grad launches no kernel and back-propagates finite gradients;
-   backend="cuda" and lw_fluxes_cuda raise.
+11. profiling and gradients: utils/profiling.trace around an eager and a
+   replayed (utils/capture.jit) lw_sw_fluxes(auto) call at 65,536 x 60
+   and 1800 x 60, each the second of two calls under the profiler: the
+   trace must name the merged kernel; prints the device time, the share
+   of the call the card was idle, when its first device event starts and
+   the CUDA runtime calls in it.  lw_fluxes(auto) on float32 CUDA
+   tensors with tlay requiring grad launches no kernel and
+   back-propagates finite gradients; backend="cuda" and lw_fluxes_cuda
+   raise.
 12. fast mode (config.set_mxu_precision("bf16"), --fast): each kernel's
    fast entry point at f32 against the fast plain version at f64 on phase
    4's cases, the deep columns included (<= 5e-5), and against the exact
@@ -97,6 +100,18 @@ result line is printed:
    the exact ones did not.  Times each fast kernel and its plain version at
    65,536 x 60, and the exact kernels again, interleaved (exact, fast,
    fast, exact), after the fast path has run.
+13. captured calls: utils/capture.jit of lw_sw_fluxes (K1, K2 at 3
+   angles, K1 at nlay 300 in device staging), lw_fluxes (K3) and
+   sw_fluxes (K4) at 65,536 x 60 and 1800 x 60, exact and then fast mode
+   (K5) on one jitted function: warm-up, capture and replays equal the
+   eager call bit for bit, on the first inputs and on new ones (other
+   tlay, tsfc and sza, night columns among them); each call returns
+   fresh tensors and leaves earlier ones unchanged; each call's launch
+   counts equal the eager call's, in the mode's counter only; a mode
+   switch captures anew.  Times the eager wrapper, the captured call and
+   the kernel alone (CUDA events, median of 10), and scale_bench's step
+   eager against captured.  Inputs that require grad must raise, and so
+   must a capture of a function that reads the card back.
 
 The last two lines are the kernels' JSON record (exact and fast entries,
 each with its bound) and
@@ -244,6 +259,58 @@ def busy_idle(events, t0: float, t1: float):
             busy += b - a
             end = b
     return busy, 1.0 - busy / (t1 - t0)
+
+
+def trace_call(drive, trace_dir: str):
+    """Trace two calls of ``drive()`` (utils/profiling.trace), the second
+    in a span named "call": the first takes the profiler's own first-call
+    costs.  None if the trace names no lwsw_kernel or has no span; else
+    the span to the last device event (ms), the device time, its kernels
+    and lwsw_kernel's part, the device-busy time, the idle share of the
+    span, when the first device event starts after the span does, and
+    the CUDA runtime calls in the span (name, count, ms), most time
+    first."""
+    import torch
+    from ecckd_tpu_torch.utils import profiling
+    with profiling.trace(trace_dir):
+        drive()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("call"):
+            drive()
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    device_ev = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    kernel_ev = [e for e in device_ev if e.get("cat") == "kernel"]
+    lwsw_ev = [e for e in kernel_ev if "lwsw_kernel" in e["name"]]
+    span = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == "call"]
+    if not (lwsw_ev and span):
+        return None
+    t0 = span[0]["ts"]
+    t1 = max([t0 + span[0]["dur"]] + [e["ts"] + e["dur"] for e in device_ev
+                                      if e["ts"] >= t0])
+    device_ev = [e for e in device_ev if e["ts"] >= t0]
+    kernel_ev = [e for e in kernel_ev if e["ts"] >= t0]
+    lwsw_ev = [e for e in lwsw_ev if e["ts"] >= t0]
+    busy, idle = busy_idle(device_ev, t0, t1)
+    runtime = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and t0 <= e["ts"] < t1:
+            n, us = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, us + e["dur"])
+    return {"name": lwsw_ev[0]["name"] if lwsw_ev else "",
+            "call_ms": (t1 - t0) / 1e3,
+            "device_ms": sum(e["dur"] for e in kernel_ev) / 1e3,
+            "kernels": len(kernel_ev),
+            "lwsw_ms": sum(e["dur"] for e in lwsw_ev) / 1e3,
+            "busy_ms": busy / 1e3, "idle": idle,
+            "lead_ms": (min(e["ts"] for e in device_ev) - t0) / 1e3
+            if device_ev else float("nan"),
+            "runtime": sorted(((k, n, us / 1e3) for k, (n, us)
+                               in runtime.items()), key=lambda r: -r[2])}
 
 
 def main() -> int:
@@ -815,15 +882,18 @@ def run(card: str, work: str) -> int:
 
     solve_lwsw = lambda ml, ms, *a: pipeline.lw_sw_fluxes(ml, ms, *a,
                                                           backend="auto")
-    call_args = (lw32, sw32, t["plev"], t["tlay"], t["tlev"], t["tsfc"],
-                 t["emis"], concs, t["alb"], t["tsi"], t["sza"])
-    single = solve_lwsw(*call_args)
+
+    def call_args(b, gases, ml=lw32, ms=sw32):
+        return (ml, ms, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                b["emis"], gases, b["alb"], b["tsi"], b["sza"])
+
+    single = solve_lwsw(*call_args(t, concs))
     pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
     try:
         rank, size = pmesh.world()
         reset_counts()
         gathered = pmesh.distributed_columns_call(
-            solve_lwsw, torch.device("cuda", 0), call_args, ncol,
+            solve_lwsw, torch.device("cuda", 0), call_args(t, concs), ncol,
             replicated_argnums=(0, 1))
         torch.cuda.synchronize()
         launched = counts()
@@ -842,41 +912,38 @@ def run(card: str, work: str) -> int:
           f"{not torch.distributed.is_initialized()}", flush=True)
 
     # ---- 11. profiling and gradients ----------------------------------------
-    from ecckd_tpu_torch.utils import profiling
-    drive = paths_run["lwsw"]
-    drive()
-    torch.cuda.synchronize()
-    trace_dir = os.path.join(work, "trace")
-    with profiling.trace(trace_dir):
-        with torch.profiler.record_function("lw_sw_fluxes"):
-            drive()
+    from ecckd_tpu_torch.utils import capture
+    replayed = capture.jit(pipeline.lw_sw_fluxes)
+    t_small = {k: cut(v) for k, v in t.items()}
+    traced = (
+        ("eager call", ncol, paths_run["lwsw"]),
+        ("replayed call", ncol, lambda: replayed(*call_args(t, concs))),
+        ("eager call", nsite * nexp, lambda: pipeline.lw_sw_fluxes(
+            *call_args(t_small, small_concs))),
+        ("replayed call", nsite * nexp,
+         lambda: replayed(*call_args(t_small, small_concs))))
+    for i, (label, n, drive) in enumerate(traced):
+        drive()
+        drive()     # a captured call: warm-up, capture
         torch.cuda.synchronize()
-    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-    device_ev = [e for e in events if e.get("cat") in (
-        "kernel", "gpu_memcpy", "gpu_memset")]
-    kernel_ev = [e for e in device_ev if e.get("cat") == "kernel"]
-    lwsw_ev = [e for e in kernel_ev if "lwsw_kernel" in e["name"]]
-    span = [e for e in events if e.get("cat") == "user_annotation"
-            and e.get("name") == "lw_sw_fluxes"]
-    ok = bool(lwsw_ev and span)
-    if ok:
-        t0 = span[0]["ts"]
-        t1 = max([span[0]["ts"] + span[0]["dur"]]
-                 + [e["ts"] + e["dur"] for e in device_ev])
-        busy, idle = busy_idle(device_ev, t0, t1)
-        print(f"profile: ok trace names {lwsw_ev[0]['name'][:60]!r} | call "
-              f"{(t1 - t0) / 1e3:.3f} ms (profiler on), device time "
-              f"{sum(e['dur'] for e in kernel_ev) / 1e3:.3f} ms in "
-              f"{len(kernel_ev)} kernels, lwsw_kernel "
-              f"{sum(e['dur'] for e in lwsw_ev) / 1e3:.3f} ms, device busy "
-              f"{busy / 1e3:.3f} ms, idle share {idle:.4f} | {ncol}x{nlay} "
-              f"on {card}", flush=True)
-    else:
-        failures.append("profile")
-        print(f"profile: FAIL no lwsw_kernel among {len(kernel_ev)} device "
-              f"kernels, or no call span ({len(span)})", flush=True)
+        r = trace_call(drive, os.path.join(work, f"trace{i}"))
+        if r is not None and not r["name"]:
+            r = None
+        if r is None:
+            failures.append(f"profile {label} {n}")
+            print(f"profile: FAIL {label} {n}x{nlay}: no lwsw_kernel in the "
+                  "trace, or no call span", flush=True)
+            continue
+        print(f"profile: ok {label} {n}x{nlay}: trace names "
+              f"{r['name'][:60]!r} | call {r['call_ms']:.3f} ms (profiler "
+              f"on), device time {r['device_ms']:.3f} ms in {r['kernels']} "
+              f"kernels, lwsw_kernel {r['lwsw_ms']:.3f} ms, device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle']:.4f}, first "
+              f"device event at +{r['lead_ms']:.3f} ms | CUDA runtime in the "
+              "call: " + ", ".join(f"{k} x{n} {ms:.3f} ms"
+                                   for k, n, ms in r["runtime"][:5])
+              + f" | on {card}", flush=True)
+    del replayed
 
     n_g = 2048
     g = {k: v[:n_g] for k, v in t.items()}
@@ -1031,6 +1098,166 @@ def run(card: str, work: str) -> int:
               f"exact kernel now {e1:.3f} / {e2:.3f} ms, in phase 8 (before "
               f"any fast launch) {times[name][0]:.3f} ms (median of 10 after "
               f"2 warm-up, CUDA events)", flush=True)
+
+    # ---- 13. captured calls ---------------------------------------------------
+    def leaves(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [x for f in out for x in (f.flux_up, f.flux_dn)]
+
+    def equal(got, ref):
+        return all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    def other_inputs(b):
+        # Other tlay, tsfc and sza, night columns among them: a replay
+        # must read its own inputs, not the captured call's.
+        j = torch.arange(b["tlay"].shape[0], device="cuda").float()
+        return dict(b, tlay=b["tlay"] + 4.0 * torch.cos(0.1 * j)[:, None],
+                    tsfc=b["tsfc"] - 6.0, sza=b["sza"].flip(0))
+
+    def lw_args(b, gases):
+        return (lw32, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
+                gases)
+
+    def sw_args(b, gases):
+        return (sw32, b["plev"], b["tlay"], gases, b["alb"], b["tsi"],
+                b["sza"])
+
+    def prep_for(kernel, b, gases, n_ang=1):
+        emis = b["emis"][:, None].expand(-1, lw32.ngpt).contiguous()
+        if kernel == "lwsw":
+            return plan.prepare(*call_args(b, gases)[:6], emis, gases,
+                                b["alb"], b["tsi"], b["sza"], n_ang)
+        if kernel == "lw":
+            return plan.prepare_lw(*lw_args(b, gases)[:5], emis, gases,
+                                   n_ang)
+        return plan.prepare_sw(*sw_args(b, gases))
+
+    deep_n = 300   # K1 stages these columns in device memory (phase 3)
+    deep = example_flux_batch(16384, deep_n, np.float32, device="cuda")
+    t_deep = {k: torch.as_tensor(v, device="cuda") for k, v in deep.items()
+              if k != "concs"}
+    both = ("bf16x3", "bf16")
+    captured_paths = (  # label, kernel, fn, args, batch, gases, kw, modes
+        ("K1", "lwsw", pipeline.lw_sw_fluxes, call_args, t, concs, {}, both),
+        ("K2", "lwsw", pipeline.lw_sw_fluxes, call_args, t, concs,
+         {"n_gauss_angles": 3}, ("bf16x3",)),
+        ("K3", "lw", pipeline.lw_fluxes, lw_args, t, concs, {}, both),
+        ("K4", "sw", pipeline.sw_fluxes, sw_args, t, concs, {}, both),
+        ("K1", "lwsw", pipeline.lw_sw_fluxes, call_args, t_small,
+         small_concs, {}, both),
+        ("K3", "lw", pipeline.lw_fluxes, lw_args, t_small, small_concs, {},
+         both),
+        ("K4", "sw", pipeline.sw_fluxes, sw_args, t_small, small_concs, {},
+         both),
+        ("K1", "lwsw", pipeline.lw_sw_fluxes, call_args, t_deep,
+         deep["concs"], {}, ("bf16x3",)))
+    for label, kernel, fn, make, b, gases, kw, modes in captured_paths:
+        n, nl = b["tlay"].shape
+        args_a, args_b = make(b, gases), make(other_inputs(b), gases)
+        jitted = capture.jit(fn)
+        for m, mode in enumerate(modes):
+            config.set_mxu_precision(mode)
+            try:
+                name = f"{kernel}_fast" if config.is_fast() else kernel
+                reset_counts()
+                ref_a = leaves(fn(*args_a, **kw))
+                torch.cuda.synchronize()
+                eager_counts = counts()
+                ref_b = leaves(fn(*args_b, **kw))
+                outs, per_call = [], []
+                # warm-up, capture and replay, replay on new inputs, replay
+                for args in (args_a, args_a, args_b, args_a):
+                    reset_counts()
+                    outs.append(leaves(jitted(*args, **kw)))
+                    torch.cuda.synchronize()
+                    per_call.append(counts())
+            finally:
+                config.set_mxu_precision("bf16x3")
+            ptrs = [o.data_ptr() for out in outs for o in out]
+            checks = {
+                "warm-up, capture, replays equal eager bitwise": equal(
+                    outs[0], ref_a) and equal(outs[1], ref_a)
+                and equal(outs[3], ref_a),
+                "replay on new inputs equals eager on them": equal(outs[2],
+                                                                   ref_b),
+                "fresh tensors, earlier ones unchanged": len(set(ptrs))
+                == len(ptrs),
+                f"per call {name} launches == eager's": eager_counts[name] > 0
+                and all(v == 0 for k, v in eager_counts.items() if k != name)
+                and all(c == eager_counts for c in per_call),
+                "captured anew per table mode": len(jitted.entries) == m + 1
+                and all(e.graph is not None
+                        for e in jitted.entries.values()),
+            }
+            ok = all(checks.values())
+            if not ok:
+                failures.append(f"captured {label} {n}x{nl} {mode}")
+            print(f"captured: {'ok' if ok else 'FAIL'} {label} "
+                  f"capture.jit({fn.__name__}) {n}x{nl} {kw or ''} mode "
+                  f"{mode}: launches per call {eager_counts[name]} ({name}) "
+                  "| " + " | ".join(f"{k}: {v}" for k, v in checks.items()),
+                  flush=True)
+        if label in ("K2",) or nl == deep_n:
+            continue
+        prep = prep_for(kernel, b, gases)
+        eager = lambda: fn(*args_a, **kw)
+        replay = lambda: jitted(*args_a, **kw)
+        alone = lambda: modules[kernel]._kernel_core(*prep, chunk)
+        ms = [cuda_time_ms(f) for f in (eager, replay, alone, alone, replay,
+                                        eager)]
+        print(f"captured times: {label} {fn.__name__} {n}x{nl} on {card}: "
+              f"eager wrapper {ms[0]:.3f} / {ms[5]:.3f} ms, captured call "
+              f"{ms[1]:.3f} / {ms[4]:.3f} ms, kernel alone {ms[2]:.3f} / "
+              f"{ms[3]:.3f} ms (median of 10 after 2 warm-up, CUDA events, "
+              "in the order eager, captured, kernel, kernel, captured, "
+              "eager)", flush=True)
+    del jitted
+
+    # scale_bench's step (full outputs) eager and captured, at its chunk.
+    step = scale_bench.make_step("full")
+    captured_step = capture.jit(step)
+    step_args = (*call_args(t, concs)[:7], t["alb"], t["tsi"], t["sza"],
+                 concs)
+    want = step(*step_args)
+    got = [captured_step(*step_args) for _ in range(3)]
+    ok = all(equal(g, want) for g in got)
+    ms = [cuda_time_ms(f) for f in (
+        lambda: step(*step_args), lambda: captured_step(*step_args),
+        lambda: captured_step(*step_args), lambda: step(*step_args))]
+    if not ok:
+        failures.append("captured scale_bench step")
+    print(f"captured: {'ok' if ok else 'FAIL'} scale_bench step (full "
+          f"outputs) {ncol}x{nlay} on {card}: eager {ms[0]:.3f} / "
+          f"{ms[3]:.3f} ms, captured {ms[1]:.3f} / {ms[2]:.3f} ms (median "
+          f"of 10, CUDA events, eager, captured, captured, eager) | replays "
+          f"equal the eager step bitwise: {ok}", flush=True)
+    del captured_step
+
+    # What capture refuses: inputs that require grad, and a function that
+    # reads the card back inside the graph (the capture raises).
+    refused = {}
+    grad_jit = capture.jit(pipeline.lw_fluxes)
+    try:
+        grad_jit(*lw_args(dict(g, tlay=tlay_g), concs_g))
+    except ValueError as e:
+        refused["grad"] = "requires grad" in str(e)
+    bad = capture.jit(lambda x: x * float(x.sum()))
+    x = t["tsfc"].clone()
+    bad(x)                     # the warm-up runs eagerly
+    try:
+        bad(x)                 # the capture
+    except Exception as e:     # noqa: BLE001 (torch's capture error)
+        refused["failed capture"] = type(e).__name__
+    torch.cuda.synchronize()
+    after = leaves(pipeline.lw_sw_fluxes(*call_args(t, concs)))
+    checks = {"grad refused": refused.get("grad", False),
+              "failed capture raised": "failed capture" in refused,
+              "card usable after": equal(after, leaves(paths_run["lwsw"]()))}
+    ok = all(checks.values())
+    if not ok:
+        failures.append("capture refusals")
+    print(f"captured: {'ok' if ok else 'FAIL'} refusals {refused} | "
+          + " | ".join(f"{k}: {v}" for k, v in checks.items()), flush=True)
 
     if failures:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)

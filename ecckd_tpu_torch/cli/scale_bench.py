@@ -34,6 +34,31 @@ REF_ITERS = 8
 """Batched steps per compute-reference epoch (one barrier at the end)."""
 
 
+def make_step(outputs_mode: str) -> Callable:
+    """The benchmark's step on one chunk: the merged LW+SW solve, reduced
+    to the streamed outputs of ``outputs_mode`` (--outputs).  The step
+    runs eagerly; utils/capture.jit of it is the captured step that
+    chip_smoke.py times beside it."""
+    from ecckd_tpu_torch.pipeline import lw_sw_fluxes
+
+    def step(lw_m, sw_m, plev, tlay, tlev, tsfc, emis, alb, tsi, sza, concs):
+        # The merged kernel on a card (one launch per chunk); the plain
+        # torch path elsewhere.
+        flw, fsw = lw_sw_fluxes(lw_m, sw_m, plev, tlay, tlev, tsfc, emis,
+                                concs, alb, tsi, sza, n_gauss_angles=1,
+                                backend="auto")
+        if outputs_mode == "full":
+            return (flw.flux_up, flw.flux_dn, fsw.flux_up, fsw.flux_dn)
+        if outputs_mode == "boundary":
+            # OLR, LW surface heating, reflected SW, SW surface insolation.
+            return (flw.flux_up[:, 0], flw.flux_dn[:, -1],
+                    fsw.flux_up[:, 0], fsw.flux_dn[:, -1])
+        # toa-net: net downward radiation at TOA (the climate diagnostic).
+        return (fsw.flux_dn[:, 0] - fsw.flux_up[:, 0] - flw.flux_up[:, 0],)
+
+    return step
+
+
 def main(argv=None, consume: Optional[Callable] = None) -> int:
     """Run the benchmark.  ``consume(host_outputs, chunk_id)``, where
     given, sees every streamed chunk of every measured pass after the
@@ -95,7 +120,6 @@ def main(argv=None, consume: Optional[Callable] = None) -> int:
     from ecckd_tpu_torch.parallel import mesh as pmesh
     from ecckd_tpu_torch.parallel.scale import (call_placed, place_pytree,
                                                 run_weak_scaling)
-    from ecckd_tpu_torch.pipeline import lw_sw_fluxes
 
     device = torch_device(args.device)
     mesh = [device]
@@ -110,21 +134,7 @@ def main(argv=None, consume: Optional[Callable] = None) -> int:
     sw = load_ckd_model(args.sw_file, dtype=torch.float32, device=home)
     outputs_mode = args.outputs
 
-    def step(lw_m, sw_m, plev, tlay, tlev, tsfc, emis, alb, tsi, sza, concs):
-        # The merged kernel on a card (one launch per chunk); the plain
-        # torch path elsewhere.
-        flw, fsw = lw_sw_fluxes(lw_m, sw_m, plev, tlay, tlev, tsfc, emis,
-                                concs, alb, tsi, sza, n_gauss_angles=1,
-                                backend="auto")
-        if outputs_mode == "full":
-            return (flw.flux_up, flw.flux_dn, fsw.flux_up, fsw.flux_dn)
-        if outputs_mode == "boundary":
-            # OLR, LW surface heating, reflected SW, SW surface insolation.
-            return (flw.flux_up[:, 0], flw.flux_dn[:, -1],
-                    fsw.flux_up[:, 0], fsw.flux_dn[:, -1])
-        # toa-net: net downward radiation at TOA (the climate diagnostic).
-        return (fsw.flux_dn[:, 0] - fsw.flux_up[:, 0] - flw.flux_up[:, 0],)
-
+    step = make_step(outputs_mode)
     # Weak-scaling input: one RFMIP-shaped base chunk, placed ONCE on the
     # first device; per chunk only the surface temperature is uploaded
     # (perturbed so chunks are not byte-identical, guarding against

@@ -148,10 +148,14 @@ class CKDModel:
         return self.temp_max
 
     def gpt_weights_per_band(self, per_band: torch.Tensor) -> torch.Tensor:
-        """Expand a per-band array (..., nband) to per-g-point (..., ngpt)."""
-        idx = torch.as_tensor(self.gpt2band, dtype=torch.long,
-                              device=per_band.device)
-        return torch.index_select(per_band, -1, idx)
+        """Expand a per-band array (..., nband) to per-g-point (..., ngpt).
+        The index is made once per device and cached, so a later call
+        copies nothing from the host (utils/capture.py captures it)."""
+        key = ("gpt2band", per_band.device)
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(
+                self.gpt2band, dtype=torch.long, device=per_band.device)
+        return torch.index_select(per_band, -1, self._cache[key])
 
     def weight_scale_offset(self, gas_index: int) -> Tuple[float, float]:
         """(a, b) such that the mass-path weight of gas ``g`` is

@@ -24,6 +24,7 @@ so the CPU tests import this module without a CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -117,10 +118,13 @@ class SwArgs(ctypes.Structure):
 ARGS = {"lwsw": LwswArgs, "lw": LwArgs, "sw": SwArgs}
 
 
+@functools.lru_cache(maxsize=None)
 def library(name: str, args_type) -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/<name>.cu`` (both entry points,
     ``ecckd_<name>_launch`` and ``..._launch_fast``), checking that its
-    argument struct has the size of the ctypes mirror ``args_type``."""
+    argument struct has the size of the ctypes mirror ``args_type``.
+    Bound once per name, as ``build.load`` loads once: a launch finds the
+    bound library in the cache."""
     from ecckd_tpu_torch.ops.cuda import build
     lib = build.load(name)
     for entry in (f"ecckd_{name}_launch", f"ecckd_{name}_launch_fast"):

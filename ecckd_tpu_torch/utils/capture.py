@@ -1,0 +1,216 @@
+"""The port's jit unit: ``jit(fn)`` runs a call of ``fn`` on the card as
+one CUDA graph, captured once per shape and replayed.
+
+Counterpart of ``jax.jit`` at the JAX package's call sites (bench.py's
+step, ``ecckd_tpu/cli/scale_bench.py``): there a repeated call of a
+pipeline function costs one dispatch, its host preparation fused around
+the kernel.  Here
+``pipeline.lw_sw_fluxes`` re-runs its preparation (ops/cuda/plan.py
+``prepare``, the ctypes structs, the launch) as Python and small torch
+ops on every call; ``jit(pipeline.lw_sw_fluxes)`` records that call's
+device work once in a ``torch.cuda.CUDAGraph`` and replays it.
+
+Per key (``key``: ``fn``, every non-tensor argument by value and each
+model by identity, each tensor's shape, dtype, device and strides, a
+``GasConcs``'s names and values the same way, the table mode
+``config.is_fast()`` and the NaN-debugging switch; tensor values never):
+
+* the first call runs ``fn`` eagerly: the warm-up that capture needs
+  (gas plans, flat tables, the kernels' libraries and occupancy, all
+  cached at first use), so a one-shot caller pays nothing;
+* the second call captures ``fn`` on static input buffers that the entry
+  owns, then replays it;
+* every later call copies each tensor input into its static buffer,
+  replays, and returns fresh outputs (copies), as ``jax.jit`` returns
+  fresh arrays.
+
+Calls whose tensors all lie on the CPU run ``fn`` eagerly.  A failed
+capture raises: there is no eager fallback.  Inputs that require grad
+while grad is enabled raise ``ValueError``: a graph defines no backward.
+
+An entry holds its models and their caches (``CKDModel._cache``: the
+tables the graph reads at their captured addresses), so a model stays
+alive, and its ``id`` unused by another, while the entry lives.
+
+Launch counts stay true: the kernel wrappers count a launch in Python
+(ops/cuda/binding.py ``launch_chunks``), which capture runs once without
+running a kernel and replay does not run at all.  The entry takes back
+what capture counted and adds it on every replay.  With NaN debugging on
+(``utils.checks``), whose checks read the device and cannot run inside a
+graph, capture runs without it and the replayed outputs are checked as
+stage "captured call".
+
+This module imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ecckd_tpu_torch import config
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
+from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
+from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
+from ecckd_tpu_torch.utils import checks
+from ecckd_tpu_torch.utils.tree import tree_leaves, tree_map
+
+COUNTERS = tuple((w, c) for w in (lwsw_fluxes_cuda, lw_fluxes_cuda,
+                                  sw_fluxes_cuda)
+                 for c in ("launches", "fast_launches"))
+"""The kernel wrappers' launch counts that a replay adds back."""
+
+
+def _arg_key(x) -> tuple:
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), x.dtype, x.device, x.stride())
+    if isinstance(x, GasConcs):
+        return ("gases", x.names, tuple(_arg_key(v) for v in x.values))
+    if isinstance(x, CKDModel):
+        return ("model", id(x))
+    if any(isinstance(leaf, torch.Tensor) for leaf in tree_leaves(x)):
+        raise TypeError(f"capture.jit: a {type(x).__name__} of tensors is "
+                        "not an argument it takes; pass the tensors alone")
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"capture.jit: an argument of type "
+                        f"{type(x).__name__} is neither a tensor, GasConcs, "
+                        "a model nor hashable") from None
+    return ("value", type(x), x)
+
+
+def key(fn: Callable, args: tuple, kwargs: Dict[str, Any]) -> tuple:
+    """The cache key of the call ``fn(*args, **kwargs)``: everything that
+    decides what the captured graph does, and no tensor value."""
+    return (fn, tuple(_arg_key(a) for a in args),
+            tuple((k, _arg_key(v)) for k, v in sorted(kwargs.items())),
+            config.is_fast(), checks.nan_debugging())
+
+
+def _tensors(args: tuple, kwargs: Dict[str, Any]) -> List[torch.Tensor]:
+    return [t for t in tree_leaves((args, dict(sorted(kwargs.items()))))
+            if isinstance(t, torch.Tensor)]
+
+
+def _card(fn: Callable, tensors: List[torch.Tensor]
+          ) -> Optional[torch.device]:
+    """The one CUDA device of the call's tensors, or None if every tensor
+    lies on the CPU; raises on inputs that require grad and on tensors
+    spread over devices."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"capture.jit({fn.__name__}): an input requires grad and a CUDA "
+            f"graph defines no backward; call {fn.__module__}."
+            f"{fn.__name__} itself for gradients")
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return None
+    if len(devices) > 1:
+        raise ValueError(
+            f"capture.jit({fn.__name__}): tensors on "
+            f"{sorted(map(str, devices))}; a captured call reads all its "
+            "tensors on one card (a CUDA graph cannot read host memory)")
+    return devices.pop()
+
+
+def _counts() -> List[int]:
+    return [getattr(w, c) for w, c in COUNTERS]
+
+
+def _add_counts(delta: List[int], sign: int = 1) -> None:
+    for (w, c), d in zip(COUNTERS, delta):
+        setattr(w, c, getattr(w, c) + sign * d)
+
+
+class _Entry:
+    """One key's warm-up, graph and static buffers."""
+
+    def __init__(self, args: tuple, kwargs: Dict[str, Any]):
+        self.models = [a for a in (*args, *kwargs.values())
+                       if isinstance(a, CKDModel)]
+        self.caches: List[dict] = []
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.inputs: List[torch.Tensor] = []
+        self.outputs = None
+        self.static_out: List[torch.Tensor] = []
+        self.launched: List[int] = []
+        self.done: Optional[torch.cuda.Event] = None
+
+    def capture(self, fn: Callable, args: tuple,
+                kwargs: Dict[str, Any]) -> None:
+        """Capture ``fn`` on clones of the inputs (the static buffers,
+        which then hold this call's values)."""
+        clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+        s_args, s_kwargs = tree_map(clone, (args, kwargs))
+        self.inputs = _tensors(s_args, s_kwargs)
+        # The arrays the models' caches hold, which the graph reads at
+        # the addresses it captured.
+        self.caches = [dict(m._cache) for m in self.models]
+        graph = torch.cuda.CUDAGraph()
+        nan = checks.nan_debugging()
+        before = _counts()
+        checks.enable_nan_debugging(False)
+        try:
+            with torch.cuda.graph(graph):
+                self.outputs = fn(*s_args, **s_kwargs)
+        finally:
+            checks.enable_nan_debugging(nan)
+            self.launched = [a - b for a, b in zip(_counts(), before)]
+            _add_counts(self.launched, -1)
+        self.graph = graph
+        self.static_out = [t for t in tree_leaves(self.outputs)
+                           if isinstance(t, torch.Tensor)]
+        self.done = torch.cuda.Event()
+
+    def replay(self, inputs: List[torch.Tensor]):
+        """Copy the inputs in (after the previous replay's copies out, on
+        whichever stream they ran), replay, copy the outputs out into
+        fresh tensors.  Each copy is one multi-tensor launch (as torch's
+        optimizers use), not one per tensor: the host's time per call is
+        what a replay is for."""
+        stream = torch.cuda.current_stream()
+        stream.wait_event(self.done)
+        torch._foreach_copy_(self.inputs, inputs)
+        self.graph.replay()
+        _add_counts(self.launched)
+        fresh = [torch.empty_like(t) for t in self.static_out]
+        torch._foreach_copy_(fresh, self.static_out)
+        self.done.record(stream)
+        it = iter(fresh)
+        return tree_map(lambda t: next(it) if isinstance(t, torch.Tensor)
+                        else t, self.outputs)
+
+
+def jit(fn: Callable) -> Callable:
+    """``fn`` captured once per key in a CUDA graph and replayed (see the
+    module docstring).  The returned callable takes ``fn``'s arguments;
+    its ``entries`` maps each key seen to its entry."""
+    entries: Dict[tuple, _Entry] = {}
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        tensors = _tensors(args, kwargs)
+        device = _card(fn, tensors)
+        if device is None:
+            return fn(*args, **kwargs)
+        k = key(fn, args, kwargs)
+        entry = entries.get(k)
+        if entry is None:
+            entries[k] = _Entry(args, kwargs)
+            return fn(*args, **kwargs)
+        with torch.cuda.device(device):
+            if entry.graph is None:
+                entry.capture(fn, args, kwargs)
+            out = entry.replay(tensors)
+        if k[-1]:
+            checks.check_stage("captured call", **{
+                f"output {i}": t for i, t in enumerate(tree_leaves(out))
+                if isinstance(t, torch.Tensor)})
+        return out
+
+    call.entries = entries
+    return call

@@ -36,6 +36,11 @@ def enable_nan_debugging(enabled: bool = True) -> None:
     _NAN_DEBUG = bool(enabled)
 
 
+def nan_debugging() -> bool:
+    """Whether NaN debugging is on (``enable_nan_debugging``)."""
+    return _NAN_DEBUG
+
+
 def check_stage(stage: str, **tensors: torch.Tensor) -> None:
     """With NaN debugging on, ``assert_all_finite`` on each tensor, named
     "<stage> <name>"; a no-op otherwise."""

@@ -476,3 +476,76 @@ def test_fast_kernels_match_the_fast_plain_version(models, kernel, lw_key,
         err = max(float((g.double() - r).abs().max())
                   for g, r in zip(fast[sl], ref_exact[sl])) / scale
         assert 0.0 < err <= 5e-4, err
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("path", ["lw_sw_fluxes", "lw_fluxes", "sw_fluxes"])
+def test_captured_calls_replay_the_eager_call(models, path, mode):
+    """utils/capture.jit on the card: the first call runs eagerly, the
+    second captures, every later one replays.  Each equals the eager call
+    on its own inputs bit for bit, returns fresh tensors (an earlier
+    result is not overwritten), and the launch counts grow by the kernel
+    launches that ran, in the table mode's counter only."""
+    from ecckd_tpu_torch import config
+    from ecckd_tpu_torch.utils import capture
+    f32 = torch.float32
+    lw, sw = models["lw", f32], models["sw", f32]
+    fn = getattr(pipeline, path)
+    args = {"lw_sw_fluxes": lambda b: (
+                lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                b["emis"], b["concs"], b["alb"], b["tsi"], b["sza"]),
+            "lw_fluxes": lambda b: (
+                lw, b["plev"], b["tlay"], b["tlev"], b["tsfc"], b["emis"],
+                b["concs"]),
+            "sw_fluxes": lambda b: (
+                sw, b["plev"], b["tlay"], b["concs"], b["alb"], b["tsi"],
+                b["sza"])}[path]
+    wrapper = {"lw_sw_fluxes": lwsw_fluxes_cuda, "lw_fluxes": lw_fluxes_cuda,
+               "sw_fluxes": sw_fluxes_cuda}[path]
+    counter = "fast_launches" if mode == "bf16" else "launches"
+    other = "launches" if mode == "bf16" else "fast_launches"
+    leaves = lambda out: [x for f in (out if isinstance(out, tuple)
+                                      else (out,))
+                          for x in (f.flux_up, f.flux_dn)]
+    jitted = capture.jit(fn)
+    batches = [batch(301, 23, f32, seed=s) for s in (0, 1, 2, 0)]
+    config.set_mxu_precision(mode)
+    try:
+        refs = [leaves(fn(*args(b))) for b in batches]
+        outs = []
+        for b in batches:
+            before = (getattr(wrapper, counter), getattr(wrapper, other))
+            outs.append(leaves(jitted(*args(b))))
+            torch.cuda.synchronize()
+            assert (getattr(wrapper, counter), getattr(wrapper, other)) == (
+                before[0] + 1, before[1])
+    finally:
+        config.set_mxu_precision("bf16x3")
+    for got, ref in zip(outs, refs):
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    ptrs = [o.data_ptr() for out in outs for o in out]
+    assert len(set(ptrs)) == len(ptrs)
+    (entry,) = jitted.entries.values()
+    assert entry.graph is not None
+
+
+def test_captured_call_checks_its_outputs_with_nan_debugging(models):
+    """With NaN debugging on, a replay's outputs are checked as the stage
+    "captured call" (the pipeline's own checks read the card and cannot
+    run inside the graph).  A NaN TSI gives NaN SW fluxes by day."""
+    from ecckd_tpu_torch.utils import capture, checks
+    sw = models["sw", torch.float32]
+    jitted = capture.jit(pipeline.sw_fluxes)
+    b = batch(64, 9, torch.float32, seed=5)
+    args = lambda tsi: (sw, b["plev"], b["tlay"], b["concs"], b["alb"], tsi,
+                        b["sza"])
+    checks.enable_nan_debugging()
+    try:
+        for _ in range(3):
+            got = jitted(*args(b["tsi"]))
+        eager = pipeline.sw_fluxes(*args(b["tsi"]))
+        assert torch.equal(got.flux_dn, eager.flux_dn)
+        with pytest.raises(FloatingPointError, match="captured call"):
+            jitted(*args(torch.full_like(b["tsi"], float("nan"))))
+    finally:
+        checks.enable_nan_debugging(False)

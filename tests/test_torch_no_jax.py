@@ -2,12 +2,12 @@
 
 A subprocess with ``sys.modules["jax"] = None`` (and the same for
 ``ecckd_tpu``), so any import of either raises, imports every module of
-``ecckd_tpu_torch`` and runs on the CPU: the merged slice, ``lw_fluxes``
-and ``sw_fluxes``, the combined RFMIP driver (``--device cpu``) on a
-synthetic RFMIP file written by the port, through the native netCDF3
-engine and again with ``--fast`` (the torch route: the same files), the
-fast plain version, ``scale_bench`` with ``--out-dir``, and the column
-split over two CPU devices.
+``ecckd_tpu_torch`` and runs on the CPU: the merged slice (also through
+``utils/capture.jit``), ``lw_fluxes`` and ``sw_fluxes``, the combined
+RFMIP driver (``--device cpu``) on a synthetic RFMIP file written by the
+port, through the native netCDF3 engine and again with ``--fast`` (the
+torch route: the same files), the fast plain version, ``scale_bench``
+with ``--out-dir``, and the column split over two CPU devices.
 """
 import os
 import subprocess
@@ -47,6 +47,14 @@ with tempfile.TemporaryDirectory() as d:
     sw = load_ckd_model(ckd["sw_wide"])
     out = lw_sw_fluxes(lw, sw, T("plev"), T("tlay"), T("tlev"), T("tsfc"),
                        T("emis"), b["concs"], T("alb"), T("tsi"), T("sza"))
+    from ecckd_tpu_torch import capture
+    jitted = capture.jit(lw_sw_fluxes)
+    for _ in range(3):
+        again = jitted(lw, sw, T("plev"), T("tlay"), T("tlev"), T("tsfc"),
+                       T("emis"), b["concs"], T("alb"), T("tsi"), T("sza"))
+        assert all(torch.equal(g.flux_up, e.flux_up)
+                   and torch.equal(g.flux_dn, e.flux_dn)
+                   for g, e in zip(again, out))
     out += (lw_fluxes(lw, T("plev"), T("tlay"), T("tlev"), T("tsfc"),
                       T("emis"), b["concs"], n_gauss_angles=3),
             sw_fluxes(sw, T("plev"), T("tlay"), b["concs"], T("alb"),
