@@ -112,6 +112,16 @@ result line is printed:
    the kernel alone (CUDA events, median of 10), and scale_bench's step
    eager against captured.  Inputs that require grad must raise, and so
    must a capture of a function that reads the card back.
+14. the bench: bench_cuda.main off its protocol, into a scratch
+   directory, each with the counts set to 0 before and read after: the
+   headline at 65,536 x 60 and configs at 8192 x 60, each exact and
+   --fast, so its gate runs over the headline and all six configurations
+   in both table modes, and its check after the timed window over every
+   case at the timed shape; then cpu_baseline at 256 columns.  Each line
+   must parse, values be > 0, parity_ok hold, every timed case be held
+   after its window (parity_timed), the card be named, the mode's
+   kernel entry points have run and no other, and nothing be written to
+   the scratch directory or the repository root.  Prints the lines.
 
 The last two lines are the kernels' JSON record (exact and fast entries,
 each with its bound) and
@@ -122,7 +132,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -199,16 +208,6 @@ def kernel_bound(prep) -> dict:
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "ops": ops, "bytes": nbytes}
-
-
-def nvidia_smi() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, warmup: int = 2, runs: int = 10) -> float:
@@ -322,7 +321,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi()
+    from ecckd_tpu_torch.utils.profiling import card_name
+    card = card_name()
     print(f"device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | count {torch.cuda.device_count()}",
           flush=True)
@@ -1258,6 +1258,88 @@ def run(card: str, work: str) -> int:
         failures.append("capture refusals")
     print(f"captured: {'ok' if ok else 'FAIL'} refusals {refused} | "
           + " | ".join(f"{k}: {v}" for k, v in checks.items()), flush=True)
+
+    # ---- 14. the bench: bench_cuda.py off-protocol, into a scratch dir ----
+    import bench_cuda
+
+    def bench_line(argv):
+        """(exit code, parsed last line or None) of bench_cuda.main."""
+        import contextlib
+        import io
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = bench_cuda.main(argv, artifact_dir=bench_dir)
+        except SystemExit as e:       # a failed gate or a refusal
+            rc = e.code
+        lines = buf.getvalue().strip().splitlines()
+        try:
+            return rc, json.loads(lines[-1])
+        except (IndexError, ValueError):
+            return rc, None
+
+    def root_state():
+        root = os.path.dirname(os.path.abspath(bench_cuda.__file__))
+        return {n: os.path.isfile(os.path.join(root, n))
+                and os.stat(os.path.join(root, n)).st_mtime_ns
+                for n in os.listdir(root)}
+
+    bench_dir = os.path.join(work, "bench_artifacts")
+    os.makedirs(bench_dir)
+    before = root_state()
+    n_cfg = 8192
+    bench_runs = (  # argv, the kernel entry that must run, the ones that not
+        (["--mode", "headline", "--ncol", str(ncol)], ("lwsw",),
+         ("lw", "sw", "lwsw_fast")),
+        (["--mode", "headline", "--ncol", str(ncol), "--fast"],
+         ("lwsw_fast",), ("lwsw", "lw", "sw")),
+        (["--mode", "configs", "--ncol", str(n_cfg)], ("lwsw", "lw"),
+         ("sw", "lwsw_fast", "lw_fast")),
+        (["--mode", "configs", "--ncol", str(n_cfg), "--fast"],
+         ("lwsw_fast", "lw_fast"), ("lwsw", "lw", "sw")))
+    for argv, ran, not_ran in bench_runs:
+        reset_counts()
+        rc, line = bench_line(argv)
+        torch.cuda.synchronize()
+        launched = counts()
+        line = line or {}
+        values = (list(line["configs"].values()) if "configs" in line
+                  else [line.get("value", 0.0)])
+        checks = {
+            "rc == 0": rc == 0,
+            "line parses": bool(line),
+            "value > 0": all(v > 0 for v in values),
+            "parity_ok": line.get("parity_ok") is True,
+            "timed shape held": bool(line.get("parity_timed")) and all(
+                r["ok"] for r in line["parity_timed"].values()),
+            "off protocol": line.get("protocol") is False,
+            "on the card": line.get("device") == card,
+            f"{'/'.join(ran)} launched": all(launched[k] > 0 for k in ran),
+            "no other entry point": all(launched[k] == 0 for k in not_ran),
+        }
+        ok = all(checks.values())
+        if not ok:
+            failures.append(f"bench {' '.join(argv)}")
+        print(f"bench: {'ok' if ok else 'FAIL'} bench_cuda.py "
+              f"{' '.join(argv)} launches={launched} | " + " | ".join(
+                  f"{k}: {v}" for k, v in checks.items()), flush=True)
+        print(f"bench line: {json.dumps(line)}", flush=True)
+    rc, line = bench_line(["--mode", "cpu_baseline", "--ncol", "256"])
+    line = line or {}
+    written = sorted(os.listdir(bench_dir))
+    checks = {"rc == 0": rc == 0, "line parses": bool(line),
+              "value > 0": line.get("value", 0.0) > 0,
+              "no artifact written off protocol": written == [],
+              "nothing written to the repository root":
+              root_state() == before}
+    ok = all(checks.values())
+    if not ok:
+        failures.append("bench cpu_baseline / artifacts")
+    print(f"bench: {'ok' if ok else 'FAIL'} bench_cuda.py --mode cpu_baseline"
+          f" --ncol 256 | " + " | ".join(f"{k}: {v}"
+                                         for k, v in checks.items()),
+          flush=True)
+    print(f"bench line: {json.dumps(line)}", flush=True)
 
     if failures:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)

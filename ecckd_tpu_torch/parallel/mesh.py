@@ -38,13 +38,15 @@ fails the run instead of hanging it."""
 def make_column_mesh(devices: Optional[Sequence] = None
                      ) -> List[torch.device]:
     """The devices the column axis is split over: the given ones, or every
-    local CUDA card (the CPU where there is none)."""
+    local CUDA card.  Without a card it raises: a split on the CPU is
+    asked for by naming it (``["cpu"]``), never fallen into."""
     if devices is not None:
         return [torch.device(d) for d in devices]
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_column_mesh: no CUDA card; pass the "
+                           "devices (e.g. ['cpu']) to split on the CPU")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def pad_columns(n: int, n_shards: int) -> int:
@@ -185,16 +187,21 @@ def init_distributed(coordinator: Optional[str] = None,
                      device=None) -> None:
     """Join the process group at ``tcp://<coordinator>`` (host:port) as
     rank ``process_id`` of ``num_processes``: NCCL for a CUDA ``device``
-    (default: a card where there is one), Gloo on the CPU, with a finite
-    timeout.  A no-op for one process or none, unless a coordinator is
-    given, which makes a group of one."""
+    (the default), Gloo for ``device="cpu"``, with a finite timeout.  A
+    no-op for one process or none, unless a coordinator is given, which
+    makes a group of one.  Without a card and with no device named it
+    raises: Gloo on the CPU is asked for, never fallen into."""
     if not num_processes or (num_processes <= 1 and coordinator is None):
         return
     if coordinator is None or process_id is None:
         raise ValueError("a process group needs --coordinator host:port and "
                          "--process-id")
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: no CUDA card for NCCL; "
+                               "pass device='cpu' for a Gloo group on the "
+                               "CPU")
+        device = "cuda"
     backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     torch.distributed.init_process_group(
         backend, init_method=f"tcp://{coordinator}",

@@ -12,12 +12,15 @@ CPU tensors the work is already done and it returns at once.
   activity) written as a Chrome trace file.
 * ``time_fn``: steady-state seconds per call, ending with the barrier.
 * ``throughput_metrics``: the columns/s record, with the JAX keys.
+* ``card_name``: the card's name and power limit, the label kept beside
+  every device number.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import os
+import subprocess
 import time
 from typing import Dict, Iterator, Optional
 
@@ -107,6 +110,19 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
         out = fn(*args)
     done(out)
     return (time.perf_counter() - t0) / iters
+
+
+def card_name() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them; a
+    card may be set below its maximum power and then runs slower."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
 
 
 def throughput_metrics(ncol: int, seconds_per_step: float,

@@ -7,7 +7,9 @@ A subprocess with ``sys.modules["jax"] = None`` (and the same for
 RFMIP driver (``--device cpu``) on a synthetic RFMIP file written by the
 port, through the native netCDF3 engine and again with ``--fast`` (the
 torch route: the same files), the fast plain version, ``scale_bench``
-with ``--out-dir``, and the column split over two CPU devices.
+with ``--out-dir``, and the column split over two CPU devices; then
+imports ``bench_cuda`` and ``tools/check_cuda_perf_claims.py`` and runs
+``bench_cuda``'s ``cpu_baseline`` at 4 columns.
 """
 import os
 import subprocess
@@ -106,6 +108,11 @@ with tempfile.TemporaryDirectory() as d:
                                     replicated_argnums=(0,))
     assert split.flux_up.shape == (5, 8)
     assert torch.isfinite(split.flux_dn).all()
+import bench_cuda
+from tools import check_cuda_perf_claims
+rec = bench_cuda.run_bench("cpu_baseline", ncol=4, steps=1)
+assert rec["value"] > 0 and rec["precision"] == "float64"
+assert callable(check_cuda_perf_claims.check)
 assert not any(k == "jax" or k.startswith(("jax.", "ecckd_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))

@@ -51,7 +51,8 @@ def test_pad_to_mesh_matches_jax(ncol, n_dev):
 def test_make_column_mesh_and_shard_batch():
     assert tmesh.make_column_mesh(["cpu", "cpu"]) == [torch.device("cpu")] * 2
     if not torch.cuda.is_available():
-        assert tmesh.make_column_mesh() == [torch.device("cpu")]
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tmesh.make_column_mesh()
     a = np.arange(22.0).reshape(11, 2)
     pieces, ncol = tmesh.shard_batch([a, a[:, 0]], CPUS)
     assert ncol == 11 and len(pieces) == 4
@@ -139,6 +140,10 @@ def test_init_distributed_is_a_no_op_for_one_process():
     assert tmesh.world() == (0, 1)
     with pytest.raises(ValueError, match="--coordinator"):
         tmesh.init_distributed(None, 2, 0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tmesh.init_distributed("127.0.0.1:1", 2, 0)
+        assert not torch.distributed.is_initialized()
 
 
 WORKER = r"""

@@ -36,7 +36,6 @@ import argparse
 import datetime
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -182,15 +181,16 @@ def adversarial_batch(ncol: int, nlay: int, seed: int):
     return arrays, gases
 
 
-def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int):
-    """numpy batch -> CUDA tensors + GasConcs (float32 values rounded once,
-    so the float64 reference sees the kernel's exact inputs).  "emis" is
-    per g-point (the kernels' argument), "emis_col" per column (the
-    pipeline's)."""
+def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int,
+            device="cuda"):
+    """numpy batch -> tensors on ``device`` + GasConcs (float32 values
+    rounded once, so the float64 reference sees the kernel's exact
+    inputs).  "emis" is per g-point (the kernels' argument), "emis_col"
+    per column (the pipeline's)."""
     import torch
     from ecckd_tpu_torch.gases import GasConcs
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
-        device="cuda", dtype=dtype)
+        device=device, dtype=dtype)
     out = {k: t(v) for k, v in arrays.items()}
     out["emis_col"] = out["emis"]
     out["emis"] = out["emis"][:, None].expand(-1, ngpt_lw).contiguous()
@@ -304,10 +304,8 @@ def main(argv=None) -> int:
     modes = args.modes.split(",")
     for mode in modes:
         config.is_fast(mode)       # an unknown mode string raises here
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    from ecckd_tpu_torch.utils.profiling import card_name
+    card = card_name()
     with tempfile.TemporaryDirectory() as work:
         models = load_models(work, args.data_dir)
     cases = list(CASES)
