@@ -65,18 +65,28 @@ result line is printed:
    card's name and power limit; each kernel's bound (``kernel_bound``:
    bytes over the HBM rate or float operations over the f32 peak, the
    larger) and its share of it.  Then, each with bound and share, at
-   65,536 columns: K3 on lw_rrtmgp and at 3 angles, K4 on sw_p47, K1 at 3
-   and 4 angles (K2), on lw_rrtmgp and at nlay 137.
+   65,536 columns: K3 on lw_rrtmgp and at 3 angles (with its plain f32
+   version), K4 on sw_p47, K1 at 3 and 4 angles (K2), on lw_rrtmgp and
+   at nlay 137.
 9. stream: cli/scale_bench.main at full width, 1,048,576 x 60 in chunks of
-   65,536, full outputs, on the card.  A checking pass (one streamed pass)
-   holds every chunk finite and the first 2048 columns of chunks 0 and 15
-   against the float64 plain version; the measuring pass (best of 4
-   interleaved rounds) runs with the counts set to 0 before and read
-   after: the merged kernel once per chunk, K3 and K4 never.  Prints
-   columns/s, the compute reference, the overlap efficiency and the
-   per-phase host budget.  Then a journaled run at 262,144 columns,
-   two chunks zeroed in the journal and the files, and --resume: the
-   files must equal the first run's bit for bit.
+   65,536, full outputs, over every local card: the base chunk placed
+   over the cards once, each chunk built on every card from its resident
+   piece, the step captured per card (utils/capture.jit), each card's
+   outputs copied into their rows of one pinned host buffer.  A checking
+   pass (one streamed pass) holds every chunk finite and the first 2048
+   columns of chunks 0 and 15 against the float64 plain version, with
+   the counts set to 0 before and read after: the merged kernel exactly
+   once per step call per card (every chunk, the compute reference's
+   steps and the warm-ups), K3 and K4 never.  The same chunks on one card
+   (--no-shard) and split into three pieces on card 0 (the last one
+   padded) must equal its chunks bit for bit.  The measuring pass (best
+   of 4 interleaved rounds) counts the same way and prints the number of
+   cards, columns/s, the compute reference (the captured step on every
+   card's resident piece, no join, no D2H), the overlap efficiency and
+   the per-phase host budget; with fewer than four cards it prints that
+   four were not measured.  Then toa-net outputs, and a journaled run at
+   262,144 columns, two chunks zeroed in the journal and the files, and
+   --resume: the files must equal the first run's bit for bit.
 10. column split: ecckd_rfmip through the split over the local cards
    against --no-shard (files bitwise equal, merged kernel launched); then
    a one-rank NCCL process group and mesh.distributed_columns_call against
@@ -721,9 +731,16 @@ def run(card: str, work: str) -> int:
         ms = cuda_time_ms(lambda: modules[name]._kernel_core(*prep, chunk))
         bd = kernel_bound(prep)
         n = prep[0].tlay.shape[1]
-        print(f"times: {name} kernel {ncol}x{n} {label}: {ms:.3f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, share "
-              f"{bd['bound_ms'] / ms:.4f} | on {card}", flush=True)
+        # K3's other shapes with their plain f32 version (PERF.md's table
+        # of kernels has a row for each).
+        plain_ms = ""
+        if name == "lw":
+            p_ms = cuda_time_ms(lambda: plain_core[name](*prep))
+            plain_ms = f", plain f32 {p_ms:.3f} ms"
+        print(f"times: {name} kernel {ncol}x{n} {label}: {ms:.3f} ms"
+              f"{plain_ms}, bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']}, share {bd['bound_ms'] / ms:.4f} | on "
+              f"{card}", flush=True)
     n_r = nsite * nexp
     cut = lambda x: (x[:n_r] if isinstance(x, torch.Tensor)
                      and x.shape[:1] == (ncol,) else x)
@@ -744,22 +761,36 @@ def run(card: str, work: str) -> int:
           f"{times['lw'][0] + times['sw'][0]:.3f} ms against K1 "
           f"{times['lwsw'][0]:.3f} ms | on {card}", flush=True)
 
-    # ---- 9. stream: scale_bench at 1,048,576 x 60 ---------------------------
+    # ---- 9. stream: scale_bench at 1,048,576 x 60 over every local card ----
     from ecckd_tpu_torch.cli import scale_bench
+    from ecckd_tpu_torch.parallel.scale import run_weak_scaling
+    from ecckd_tpu_torch.utils import capture
+    n_cards = torch.cuda.device_count()
     chunk_cols = PROTOCOL[0]
     n_chunks = STREAM // chunk_cols
     stream_argv = ["--columns", str(STREAM), "--chunk", str(chunk_cols),
                    "--nlay", str(nlay), "--outputs", "full", "--device",
                    "cuda", "--lw-file", paths["lw"], "--sw-file", paths["sw"]]
-    seen, samples = [], {}
+
+    def step_calls(rounds: int) -> int:
+        """Calls of scale_bench's step per card in one run: the compute
+        reference's warm-up and capture, one warm-up chunk, then per round
+        a reference epoch and every chunk."""
+        return 3 + rounds * (scale_bench.REF_ITERS + n_chunks)
+
+    seen, samples, kept = [], {}, {}
 
     def check(host, i):
         seen.append((i, all(bool(np.isfinite(a).all()) for a in host)))
+        kept[i] = [a.copy() for a in host]
         if i in (0, n_chunks - 1):
             samples[i] = [torch.as_tensor(a[:n_check].copy()) for a in host]
 
+    reset_counts()
     rc, line = run_cli(scale_bench.main, stream_argv + ["--repeats", "1"],
                        consume=check)
+    torch.cuda.synchronize()
+    launched = counts()
     # scale_bench's chunk i is the protocol batch with tsfc + 0.01 (i % 7).
     rel = []
     for i, got in sorted(samples.items()):
@@ -769,6 +800,7 @@ def run(card: str, work: str) -> int:
                     dict(b64, tsfc=torch.as_tensor(tsfc, device="cuda",
                                                    dtype=torch.float64)))
         rel.append(max(flux_errors(got, [r.cpu() for r in ref])[0]))
+    want = n_cards * step_calls(1)
     checks = {
         "rc == 0": rc == 0,
         f"{n_chunks} chunks once, in order": [i for i, _ in seen]
@@ -776,14 +808,61 @@ def run(card: str, work: str) -> int:
         "finite": all(ok for _, ok in seen),
         f"chunks 0 and {n_chunks - 1} first {n_check} columns vs plain f64":
         len(rel) == 2 and max(rel) <= BOUND,
+        f"lwsw launches == {n_cards} card(s) x {step_calls(1)} step calls":
+        launched["lwsw"] == want,
+        "no other kernel": all(v == 0 for k, v in launched.items()
+                               if k != "lwsw"),
     }
     ok = all(checks.values())
     if not ok:
         failures.append("stream check")
     print(f"stream: {'ok' if ok else 'FAIL'} scale_bench checking pass "
-          f"{STREAM}x{nlay} chunk {chunk_cols} | " + " | ".join(
+          f"{STREAM}x{nlay} chunk {chunk_cols} over {n_cards} card(s), "
+          f"captured step per card | launches={launched} | " + " | ".join(
               f"{k}: {v}" for k, v in checks.items())
           + f" | max|d|/scale={max(rel or [float('nan')]):.3e}", flush=True)
+
+    # The same chunks on one card (--no-shard), and split into three
+    # pieces on card 0 (21,846 columns each, the last with two padded
+    # ones): every chunk bit for bit equal to the run over every card.
+    def same_as_kept(host, i):
+        equal_chunks.append((i, all(np.array_equal(a, b) for a, b in
+                                    zip(host, kept.get(i, ())))))
+
+    equal_chunks = []
+    reset_counts()
+    rc1, _ = run_cli(scale_bench.main, stream_argv + [
+        "--repeats", "1", "--no-shard"], consume=same_as_kept)
+    torch.cuda.synchronize()
+    one_card, one_launched = equal_chunks, counts()
+    equal_chunks = []
+    card0 = [torch.device("cuda", 0)] * 3
+    reset_counts()
+    run_weak_scaling(
+        capture.jit(scale_bench.make_step("full")),
+        scale_bench.resident_chunks(lw32, sw32, example_flux_batch(
+            chunk_cols, nlay, np.float32), card0, chunk_cols),
+        n_chunks, chunk_cols, mesh=card0, consume=same_as_kept)
+    torch.cuda.synchronize()
+    pieces, pieces_launched = equal_chunks, counts()
+    every = lambda got: (len(got) == n_chunks and all(eq for _, eq in got))
+    checks = {
+        "one card rc == 0": rc1 == 0,
+        "one card bitwise": every(one_card),
+        f"one card lwsw launches == {step_calls(1)}":
+        one_launched["lwsw"] == step_calls(1),
+        "3 pieces on card 0 bitwise": every(pieces),
+        f"3 pieces lwsw launches == 3 x {n_chunks + 1}":
+        pieces_launched["lwsw"] == 3 * (n_chunks + 1),
+    }
+    ok = all(checks.values())
+    if not ok:
+        failures.append("stream bitwise")
+    print(f"stream: {'ok' if ok else 'FAIL'} the {n_cards}-card stream's "
+          f"{n_chunks} chunks against one card (--no-shard) and against 3 "
+          "pieces on card 0 | " + " | ".join(
+              f"{k}: {v}" for k, v in checks.items()), flush=True)
+    kept.clear()
 
     reset_counts()
     rc, line = run_cli(scale_bench.main, stream_argv)
@@ -797,9 +876,12 @@ def run(card: str, work: str) -> int:
     checks = {
         "rc == 0": rc == 0,
         f"n_chunks == {n_chunks}": sm.get("n_chunks") == n_chunks,
-        f"lwsw launches >= {n_chunks} per pass":
-        rounds > 0 and launched["lwsw"] >= n_chunks * rounds,
-        "no lw/sw kernel": launched["lw"] == 0 and launched["sw"] == 0,
+        f"n_devices == {n_cards}": sm.get("n_devices") == n_cards,
+        f"lwsw launches == {n_cards} card(s) x {step_calls(rounds)} step "
+        "calls": rounds > 0 and launched["lwsw"] == n_cards * step_calls(
+            rounds),
+        "no other kernel": all(v == 0 for k, v in launched.items()
+                               if k != "lwsw"),
     }
     ok = all(checks.values())
     if not ok:
@@ -807,13 +889,16 @@ def run(card: str, work: str) -> int:
     budget = ("wall_s", "dispatch_s", "d2h_issue_s", "drain_wait_s",
               "consume_s")
     print(f"stream: {'ok' if ok else 'FAIL'} scale_bench {STREAM}x{nlay} "
-          f"chunk {chunk_cols} full outputs, best of {rounds} on {card}: "
-          f"columns_per_sec {sm.get('columns_per_sec')} | "
-          f"compute_ref_cols_per_sec {sm.get('compute_ref_cols_per_sec')} | "
-          f"overlap_efficiency {sm.get('overlap_efficiency')} | budget "
+          f"chunk {chunk_cols} full outputs over {n_cards} card(s), best of "
+          f"{rounds} on {card}: columns_per_sec {sm.get('columns_per_sec')} "
+          f"| compute_ref_cols_per_sec {sm.get('compute_ref_cols_per_sec')} "
+          f"| overlap_efficiency {sm.get('overlap_efficiency')} | budget "
           + " ".join(f"{k}={sm.get(k)}" for k in budget)
           + f" | launches={launched} | " + " | ".join(
               f"{k}: {v}" for k, v in checks.items()), flush=True)
+    if n_cards < 4:
+        print(f"stream: four cards not measured (this machine has "
+              f"{n_cards})", flush=True)
     rc, line = run_cli(scale_bench.main, stream_argv[:6] + [
         "--outputs", "toa-net"] + stream_argv[8:] + ["--repeats", "2"])
     tn = json.loads(line) if rc == 0 else {}

@@ -4,9 +4,12 @@
 Replicate RFMIP-shaped columns to ``--columns`` total and stream them
 through the combined LW+SW flux solve in ``--chunk``-column chunks, split
 over the local cards, with host-side output writes overlapped against
-device compute (parallel/scale.py).  On a card at f32 each chunk is one
-launch of the merged kernel (csrc/lwsw.cu).  Prints one JSON metrics
-line.
+device compute (parallel/scale.py).  The base chunk is placed over the
+cards once; each card builds every chunk from its resident piece, runs
+the step captured per card (utils/capture.jit, the JAX step's
+``@jax.jit``), and copies its outputs to the host itself.  On a card at
+f32 each chunk is one launch of the merged kernel (csrc/lwsw.cu) per
+card.  Prints one JSON metrics line.
 
 Example:
     python -m ecckd_tpu_torch.cli.scale_bench --columns 1048576 --chunk 65536
@@ -37,8 +40,7 @@ REF_ITERS = 8
 def make_step(outputs_mode: str) -> Callable:
     """The benchmark's step on one chunk: the merged LW+SW solve, reduced
     to the streamed outputs of ``outputs_mode`` (--outputs).  The step
-    runs eagerly; utils/capture.jit of it is the captured step that
-    chip_smoke.py times beside it."""
+    runs eagerly; ``main`` streams utils/capture.jit of it."""
     from ecckd_tpu_torch.pipeline import lw_sw_fluxes
 
     def step(lw_m, sw_m, plev, tlay, tlev, tsfc, emis, alb, tsi, sza, concs):
@@ -57,6 +59,30 @@ def make_step(outputs_mode: str) -> Callable:
         return (fsw.flux_dn[:, 0] - fsw.flux_up[:, 0] - flw.flux_up[:, 0],)
 
     return step
+
+
+def resident_chunks(lw, sw, base: dict, mesh, ncol: int) -> Callable:
+    """The stream's inputs: ``base`` (example_flux_batch) and the models
+    placed over ``mesh`` once (parallel/scale.place_pytree: one tree per
+    card when there are several), and ``chunk(i)``, chunk i's arguments
+    built from the resident ones where they lie: every card adds 0.01 K
+    times (i mod 7) to its own tsfc piece (so chunks are not
+    byte-identical, which guards against result caching) and nothing
+    crosses cards.  The models are whole leaves, so the column split
+    never reaches their tables, whatever ``ncol`` is."""
+    from ecckd_tpu_torch.parallel.scale import call_placed, place_pytree
+    placed = place_pytree(
+        (lw, sw, base["plev"], base["tlay"], base["tlev"], base["tsfc"],
+         base["emis"], base["alb"], base["tsi"], base["sza"],
+         base["concs"]), mesh, ncol)
+    dtype = base["tsfc"].dtype.type
+
+    def chunk(i):
+        delta = dtype(0.01) * dtype(i % 7)
+        return call_placed(lambda *a: (*a[:5], a[5] + delta, *a[6:]),
+                           placed)
+
+    return chunk
 
 
 def main(argv=None, consume: Optional[Callable] = None) -> int:
@@ -118,8 +144,8 @@ def main(argv=None, consume: Optional[Callable] = None) -> int:
     from ecckd_tpu_torch.io.synthetic import example_flux_batch
     from ecckd_tpu_torch.models.loader import load_ckd_model
     from ecckd_tpu_torch.parallel import mesh as pmesh
-    from ecckd_tpu_torch.parallel.scale import (call_placed, place_pytree,
-                                                run_weak_scaling)
+    from ecckd_tpu_torch.parallel.scale import call_placed, run_weak_scaling
+    from ecckd_tpu_torch.utils import capture
 
     device = torch_device(args.device)
     mesh = [device]
@@ -134,23 +160,15 @@ def main(argv=None, consume: Optional[Callable] = None) -> int:
     sw = load_ckd_model(args.sw_file, dtype=torch.float32, device=home)
     outputs_mode = args.outputs
 
-    step = make_step(outputs_mode)
-    # Weak-scaling input: one RFMIP-shaped base chunk, placed ONCE on the
-    # first device; per chunk only the surface temperature is uploaded
-    # (perturbed so chunks are not byte-identical, guarding against
-    # accidental result caching).  This models the production streaming
-    # pattern where the reader uploads each chunk's deltas while the
-    # device computes.  The models are whole leaves of the chunk args, so
-    # the column split never reaches their tables, whatever --chunk is.
-    base = example_flux_batch(args.chunk, args.nlay, dtype, device=home)
-    batch = place_pytree(
-        (base["plev"], base["tlay"], base["tlev"], base["tsfc"],
-         base["emis"], base["alb"], base["tsi"], base["sza"],
-         base["concs"]), [home], args.chunk)
-
-    def chunk_builder(i):
-        tsfc = base["tsfc"] + dtype(0.01) * dtype(i % 7)
-        return (lw, sw, batch[0], batch[1], batch[2], tsfc, *batch[4:])
+    # One graph per card, captured at the second call on its pieces.
+    step = capture.jit(make_step(outputs_mode))
+    # Weak-scaling input: one RFMIP-shaped base chunk, placed ONCE over
+    # the cards; per chunk each card perturbs its surface temperature.
+    # This models the production streaming pattern where each card
+    # receives only its chunk's deltas while it computes.
+    chunk_builder = resident_chunks(
+        lw, sw, example_flux_batch(args.chunk, args.nlay, dtype), mesh,
+        args.chunk)
 
     n_chunks = args.columns // args.chunk
     sinks = [consume] if consume is not None else []
@@ -221,26 +239,35 @@ def main(argv=None, consume: Optional[Callable] = None) -> int:
 
     pending = [i for i in range(n_chunks) if i not in done]
 
-    # In-process COMPUTE reference: the same step on the same placed
-    # chunk, REF_ITERS steps queued back to back with one 4-byte fetch as
-    # the barrier, and no per-chunk D2H of the outputs.
-    # streamed / compute_ref is the overlap efficiency, measured in the
-    # same process and interleaved with the streamed passes.
-    ref_args = place_pytree(chunk_builder(0), mesh, args.chunk)
+    # In-process COMPUTE reference: the same captured step on the same
+    # resident chunk, on every card, REF_ITERS steps queued back to back
+    # with one 4-byte fetch per card as the barrier, and no join and no
+    # D2H of the outputs.  streamed / compute_ref is the overlap
+    # efficiency, measured in the same process and interleaved with the
+    # streamed passes.
+    ref_args = chunk_builder(0)
 
     def _ref_step():
+        """One 4-byte sum per card of the step's first output."""
         outs = call_placed(step, ref_args)
-        return outs[0][..., 0].sum() if outs[0].ndim > 1 else outs[0].sum()
+        pieces = (outs.trees if isinstance(outs, pmesh.ColumnShards)
+                  else (outs,))
+        return [o[0][..., 0].sum() if o[0].ndim > 1 else o[0].sum()
+                for o in pieces]
 
-    float(_ref_step())
-    float(_ref_step())
+    def barrier(sums):
+        for s in sums:
+            float(s)
+
+    barrier(_ref_step())        # the eager warm-up
+    barrier(_ref_step())        # the capture, on every card
 
     def ref_epoch() -> float:
         t0 = time.perf_counter()
         acc = _ref_step()
         for _ in range(REF_ITERS - 1):
-            acc = acc + _ref_step()
-        float(acc)
+            acc = [a + b for a, b in zip(acc, _ref_step())]
+        barrier(acc)
         return (time.perf_counter() - t0) / REF_ITERS
 
     rounds = 1 if args.out_dir else \

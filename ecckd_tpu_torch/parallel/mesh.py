@@ -7,9 +7,14 @@ pieces, one per device, lookup tables and models go whole to every
 device, and the outputs are joined in column order.  No collective runs
 inside the flux computation.
 
-* Local devices (``shard_columns_call``): each device runs ``fn`` on its
-  piece; kernel launches on different cards are asynchronous, so they
-  overlap.  The outputs are joined on the first device.
+* Local devices: ``split_columns`` places one piece per device once (a
+  ``ColumnShards``, the counterpart of arrays placed with the JAX
+  package's ``column_sharding`` / ``replicated``), and the pieces stay
+  there between calls.  ``map_shards`` runs ``fn`` on every piece and
+  leaves each output on its device, with its column offset; kernel
+  launches on different cards are asynchronous, so they overlap.
+  ``shard_columns_call`` is the one-shot form: split, run, and join the
+  outputs on the first device.
 * Processes (``distributed_columns_call``, after ``init_distributed``):
   rank r runs ``fn`` on piece r on its own device, and
   ``all_gather_into_tensor`` assembles the whole on every rank.
@@ -103,12 +108,25 @@ def place_leaf(x, device: torch.device):
 
 @dataclasses.dataclass(frozen=True)
 class ColumnShards:
-    """One argument tree per device: the column pieces of the padded batch
-    leaves and, whole, every other leaf.  ``ncol`` is the column count
-    before padding."""
+    """One tree per device, resident there between calls: the column
+    pieces of the padded batch leaves and, whole, every other leaf (or,
+    from ``map_shards``, each device's outputs).  Piece ``d`` holds
+    ``per`` rows from batch column ``offsets[d]`` on; its rows past
+    ``ncol``, the column count before padding, are padding."""
     trees: Tuple[Any, ...]
     devices: Tuple[torch.device, ...]
     ncol: int
+    offsets: Tuple[int, ...]
+
+    @property
+    def per(self) -> int:
+        return pad_columns(self.ncol, len(self.devices)) // len(self.devices)
+
+    def span(self, d: int) -> Tuple[int, int]:
+        """[lo, hi): the batch columns that piece ``d`` holds in its
+        first hi - lo rows; the rest of its rows are padding."""
+        lo = self.offsets[d]
+        return lo, max(lo, min(lo + self.per, self.ncol))
 
 
 def split_columns(tree, devices: Sequence[torch.device], ncol: int,
@@ -145,18 +163,36 @@ def split_columns(tree, devices: Sequence[torch.device], ncol: int,
                           for i, arg in enumerate(tree))
 
     trees = tuple(place(d, dev) for d, dev in enumerate(devices))
-    return ColumnShards(trees=trees, devices=devices, ncol=ncol)
+    return ColumnShards(trees=trees, devices=devices, ncol=ncol,
+                        offsets=tuple(d * per for d in range(n)))
+
+
+def map_shards(fn: Callable, shards: ColumnShards) -> ColumnShards:
+    """``fn(*tree)`` on every device's piece, queued one device after
+    another from this thread (on cards they then run at once).  Each
+    output stays on its device, unjoined, with its piece's offset; a
+    ``fn`` that returns a changed tree builds the next call's pieces
+    where they lie, and nothing crosses devices."""
+    return dataclasses.replace(
+        shards, trees=tuple(fn(*tree) for tree in shards.trees))
+
+
+def join_shards(shards: ColumnShards):
+    """The pieces' outputs (every leaf has a leading column axis) joined
+    in column order on the first device, padding dropped."""
+    first = shards.devices[0]
+    order = sorted(range(len(shards.trees)), key=shards.offsets.__getitem__)
+    spans = [shards.span(d) for d in order]
+    return tree_map(
+        lambda *xs: torch.cat([xs[d][:hi - lo].to(first)
+                               for d, (lo, hi) in zip(order, spans)]),
+        *shards.trees)
 
 
 def call_shards(fn: Callable, shards: ColumnShards):
-    """``fn(*tree)`` on every device's piece; the outputs (every leaf has
-    a leading column axis) joined in column order on the first device,
-    padding dropped."""
-    outs = [fn(*tree) for tree in shards.trees]
-    first = shards.devices[0]
-    return tree_map(
-        lambda *xs: torch.cat([x.to(first) for x in xs])[:shards.ncol],
-        *outs)
+    """``fn(*tree)`` on every device's piece, the outputs joined in column
+    order on the first device (map_shards, then join_shards)."""
+    return join_shards(map_shards(fn, shards))
 
 
 def shard_batch(arrays, devices: Sequence[torch.device]):

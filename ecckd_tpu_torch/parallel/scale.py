@@ -5,23 +5,31 @@ Scale the RFMIP workload to ~1M replicated columns, split over the local
 devices, and stream the broadband flux outputs back to the host
 *overlapped* with the next chunk's compute.
 
+Over several cards the stream runs as the JAX package's sharded one:
+the inputs are placed over the cards once and stay there (place_pytree,
+a ``mesh.ColumnShards``), each chunk is built from them on every card,
+``step`` runs on every card's piece, and each card's outputs go to the
+host over that card's own link.  Nothing passes through the first card.
+
 How the overlap works on a card (a CUDA call returns before it runs):
 
   for each chunk i:
-    1. place chunk i's inputs          (H2D of what changed)
-    2. step(*args)                     (queued on the current stream)
-    3. a copy stream waits on the current stream and copies every output
-       into pinned host buffers (non_blocking); ``record_stream`` keeps
-       the caching allocator from handing the device outputs to a later
-       chunk before the copy has run; an event marks the copy's end
-    4. drain chunk i-depth             (wait on its event only, then
-       ``consume`` while the card computes chunks i-depth+1 .. i)
+    1. build chunk i's inputs          (on the cards, from resident ones)
+    2. step(*args) on every piece      (queued on each card's current
+                                        stream)
+    3. on each card a copy stream waits on the current stream and copies
+       that card's outputs into its rows of one pinned host buffer per
+       output (non_blocking); ``record_stream`` keeps the caching
+       allocator from handing the device outputs to a later chunk before
+       the copy has run; an event per card marks its copies' end
+    4. drain chunk i-depth             (wait on its events only, then
+       ``consume`` while the cards compute chunks i-depth+1 .. i)
 
 The pinned buffers are a ring of depth + 1 slots: chunk i's slot is
 reused by chunk i + depth + 1, which is issued only after chunk i's
 ``consume`` has returned.  The host never waits on in-flight compute.
-On the CPU the step's outputs are the host outputs and the same loop
-runs without copies.
+On the CPU the step's outputs are the host outputs (pieces joined in
+column order) and the same loop runs without copies.
 """
 from __future__ import annotations
 
@@ -41,29 +49,43 @@ def place_pytree(tree, mesh: Optional[Sequence[torch.device]], ncol: int,
     """Place a tree of arguments: with one device (``mesh`` as from
     mesh.make_column_mesh) every leaf goes to it; with several, the
     leaves with a leading ``ncol`` axis are split over them and the rest
-    replicated (a ``mesh.ColumnShards``).  No mesh: numpy leaves become
-    CPU tensors and tensors stay where they are.  Pass ``batch_leaf``
-    (leaf -> bool) to mark batch leaves explicitly when a replicated
-    leaf's leading extent could coincide with ``ncol``."""
+    replicated, into resident pieces (a ``mesh.ColumnShards``; pieces
+    already placed over ``mesh`` are returned as they are).  No mesh:
+    numpy leaves become CPU tensors and tensors stay where they are.
+    Pass ``batch_leaf`` (leaf -> bool) to mark batch leaves explicitly
+    when a replicated leaf's leading extent could coincide with
+    ``ncol``."""
     if not mesh:
         return tree_map(lambda x: torch.as_tensor(x)
                         if isinstance(x, np.ndarray) else x, tree)
-    if len(mesh) == 1:
-        device = torch.device(mesh[0])
-        return tree_map(lambda x: pmesh.place_leaf(x, device), tree)
-    return pmesh.split_columns(tree, mesh, ncol, batch_leaf=batch_leaf)
+    devices = tuple(torch.device(d) for d in mesh)
+    if isinstance(tree, pmesh.ColumnShards):
+        if tree.devices != devices:
+            raise ValueError(f"place_pytree: pieces on {tree.devices}, "
+                             f"not on the mesh {devices}")
+        return tree
+    if len(devices) == 1:
+        return tree_map(lambda x: pmesh.place_leaf(x, devices[0]), tree)
+    return pmesh.split_columns(tree, devices, ncol, batch_leaf=batch_leaf)
 
 
-def call_placed(step: Callable, placed):
-    """``step`` on arguments from place_pytree: one call, or one per
-    device with the outputs joined (mesh.call_shards)."""
+def call_placed(fn: Callable, placed):
+    """``fn`` on arguments from place_pytree: one call, or one per device
+    with each output left on its device (mesh.map_shards, a
+    ``ColumnShards`` with the pieces' column offsets).  The stream's
+    step, and a chunk builder that changes the resident pieces on their
+    devices."""
     if isinstance(placed, pmesh.ColumnShards):
-        return pmesh.call_shards(step, placed)
-    return step(*placed)
+        return pmesh.map_shards(fn, placed)
+    return fn(*placed)
 
 
 def _host_view(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _is_card(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_cuda
 
 
 class _PinnedRing:
@@ -75,42 +97,64 @@ class _PinnedRing:
         self.streams = {}
 
     def fetch(self, outs, n: int):
-        """Queue the D2H copy of chunk ``n``'s CUDA outputs into its slot.
-        Returns (host tree, events that mark the copies' end)."""
-        devices = {x.device for x in tree_leaves(outs)
-                   if isinstance(x, torch.Tensor) and x.is_cuda}
-        if not devices:
-            return outs, []
-        for device in devices:
-            if device not in self.streams:
-                self.streams[device] = torch.cuda.Stream(device)
-            self.streams[device].wait_stream(
-                torch.cuda.current_stream(device))
+        """Queue the D2H copy of chunk ``n``'s CUDA outputs into its slot:
+        one pinned buffer per output leaf, which ends up holding the
+        whole chunk in column order without padding.  Each device's
+        outputs (a ``ColumnShards``' pieces: their rows ``span``) are
+        copied on that device's copy stream, after its current stream's
+        work.  Returns (host tree, one event per device that marks its
+        copies' end)."""
+        shards = outs if isinstance(outs, pmesh.ColumnShards) else None
+        parts = ([(t, shards.span(d)) for d, t in enumerate(shards.trees)]
+                 if shards else [(outs, None)])
+        if not any(_is_card(x) for tree, _ in parts
+                   for x in tree_leaves(tree)):
+            return (pmesh.join_shards(shards) if shards else outs), []
         slot = self.slots[n % len(self.slots)]
         keys = itertools.count()
 
-        def copy(x):
-            if not (isinstance(x, torch.Tensor) and x.is_cuda):
+        def buffer(x):
+            if not _is_card(x):
                 return x
             k = next(keys)
-            if k not in slot or slot[k].shape != x.shape \
+            shape = (shards.ncol, *x.shape[1:]) if shards else x.shape
+            if k not in slot or slot[k].shape != shape \
                     or slot[k].dtype != x.dtype:
                 # Every slot at once: the ring is allocated in the first
                 # chunk, not inside a timed pass.
                 for s in self.slots:
-                    s[k] = torch.empty(x.shape, dtype=x.dtype,
+                    s[k] = torch.empty(shape, dtype=x.dtype,
                                        pin_memory=True)
-            stream = self.streams[x.device]
-            with torch.cuda.stream(stream):
-                slot[k].copy_(x, non_blocking=True)
-            x.record_stream(stream)
             return slot[k]
 
-        host = tree_map(copy, outs)
+        host = tree_map(buffer, parts[0][0])
+        used = {}       # device -> its copy stream, after a wait
+
+        def stream(device):
+            if device not in used:
+                if device not in self.streams:
+                    self.streams[device] = torch.cuda.Stream(device)
+                used[device] = self.streams[device]
+                used[device].wait_stream(torch.cuda.current_stream(device))
+            return used[device]
+
+        for tree, span in parts:
+            for dst, x in zip(tree_leaves(host), tree_leaves(tree)):
+                if not _is_card(x):
+                    continue
+                if span is not None:
+                    lo, hi = span
+                    if hi == lo:
+                        continue            # a piece of padding only
+                    dst, x = dst[lo:hi], x[:hi - lo]
+                s = stream(x.device)
+                with torch.cuda.device(x.device), torch.cuda.stream(s):
+                    dst.copy_(x, non_blocking=True)
+                x.record_stream(s)
         events = []
-        for device in devices:
+        for s in used.values():
             events.append(torch.cuda.Event())
-            events[-1].record(self.streams[device])
+            events[-1].record(s)
         return host, events
 
 
@@ -192,11 +236,15 @@ def run_weak_scaling(step: Callable, chunk_builder: Callable[[int], tuple],
 
     Args:
       step: flux step taking the chunk args.
-      chunk_builder: ``i -> args tuple`` for chunk i (leading column axis
-        = chunk_cols on the batch leaves).
+      chunk_builder: ``i -> args`` for chunk i: a host or device tuple
+        (leading column axis = chunk_cols on the batch leaves), which is
+        placed over ``mesh``, or arguments already placed there (the
+        resident pieces of place_pytree, changed on their devices with
+        call_placed), which are used as they are.
       n_chunks: chunks to stream (total columns = n_chunks * chunk_cols).
       mesh: optional list of devices to place (one) or split (several)
-        each chunk over; see place_pytree.
+        each chunk over; see place_pytree.  Over several devices ``step``
+        runs on every piece, and ``consume`` sees the whole chunk.
       consume: optional host output sink (overlapped; see stream_chunks).
       warmup: untimed pre-run chunks (kernel build, caches, pinned ring).
       chunk_ids: explicit chunk ids to process (restart-at-chunk: pass the

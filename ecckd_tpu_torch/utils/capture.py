@@ -25,7 +25,14 @@ model by identity, each tensor's shape, dtype, device and strides, a
   fresh arrays.
 
 Calls whose tensors all lie on the CPU run ``fn`` eagerly.  A failed
-capture raises: there is no eager fallback.  Inputs that require grad
+capture raises: there is no eager fallback.
+
+A tensor's device is in the key, so the pieces of a column split over
+several cards (parallel/mesh.py ``ColumnShards``, the JAX step's
+``@jax.jit`` over a mesh) each get their own entry: a warm-up, a graph
+and static buffers on that card, and a replay queued on that card's
+current stream.  Nothing waits on the host between cards, and a capture
+that fails on any card raises.  Inputs that require grad
 while grad is enabled raise ``ValueError``: a graph defines no backward.
 
 An entry holds its models and their caches (``CKDModel._cache``: the
@@ -140,10 +147,15 @@ class _Entry:
         self.launched: List[int] = []
         self.done: Optional[torch.cuda.Event] = None
 
-    def capture(self, fn: Callable, args: tuple,
-                kwargs: Dict[str, Any]) -> None:
+    def capture(self, fn: Callable, args: tuple, kwargs: Dict[str, Any],
+                device: torch.device) -> None:
         """Capture ``fn`` on clones of the inputs (the static buffers,
-        which then hold this call's values)."""
+        which then hold this call's values), on a capture stream of
+        ``device``, the inputs' card.  ``torch.cuda.graph``'s default
+        capture stream is made once per process, on the card current at
+        its first use: a capture on another card would record nothing
+        and launch its kernels outside the capture, which the runtime
+        refuses."""
         clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
         s_args, s_kwargs = tree_map(clone, (args, kwargs))
         self.inputs = _tensors(s_args, s_kwargs)
@@ -155,7 +167,7 @@ class _Entry:
         before = _counts()
         checks.enable_nan_debugging(False)
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
                 self.outputs = fn(*s_args, **s_kwargs)
         finally:
             checks.enable_nan_debugging(nan)
@@ -199,12 +211,12 @@ def jit(fn: Callable) -> Callable:
             return fn(*args, **kwargs)
         k = key(fn, args, kwargs)
         entry = entries.get(k)
-        if entry is None:
-            entries[k] = _Entry(args, kwargs)
-            return fn(*args, **kwargs)
         with torch.cuda.device(device):
+            if entry is None:
+                entries[k] = _Entry(args, kwargs)
+                return fn(*args, **kwargs)
             if entry.graph is None:
-                entry.capture(fn, args, kwargs)
+                entry.capture(fn, args, kwargs, device)
             out = entry.replay(tensors)
         if k[-1]:
             checks.check_stage("captured call", **{

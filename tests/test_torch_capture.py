@@ -12,6 +12,7 @@
   ``prepare_sw``, ``pipeline._surface_to_gpt``) reads nothing back from
   the tensors and builds no cache: what capture needs on the card.
 * Inputs that require grad while grad is enabled raise.
+* Each entry captures on a capture stream made on its own card.
 """
 import numpy as np
 import pytest
@@ -240,3 +241,37 @@ def test_grad_inputs_are_refused(ckd_paths):
     assert torch.equal(out.flux_up, tpipe.lw_fluxes(*args(t["tlay"])).flux_up)
     with pytest.raises(ValueError, match="one card"):
         jitted(*args(torch.empty_like(t["tlay"], device="meta")))
+
+
+def test_each_card_captures_on_a_stream_of_its_own(monkeypatch):
+    """An entry captures on a capture stream made on its inputs' card.
+    ``torch.cuda.graph``'s default capture stream is made once per
+    process, on the card current at its first use; a capture for a second
+    card on it left that card's kernels outside the capture, and the
+    runtime refused them ("operation not permitted when stream is
+    capturing", four H100s).  The CUDA calls are stood in for here: the
+    stream each capture is handed, and the card it was made on."""
+    made = []
+
+    class Graph:
+        def __init__(self, graph, stream=None, **kw):
+            made.append(stream)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", Graph)
+    monkeypatch.setattr(torch.cuda, "Stream",
+                        lambda device=None: ("stream", device))
+    monkeypatch.setattr(torch.cuda, "Event", lambda: None)
+    x = torch.ones(3)
+    cards = [torch.device("cuda", d) for d in (0, 1, 3)]
+    for card in cards:
+        entry = capture._Entry((x,), {})
+        entry.capture(lambda t: t * 2.0, (x,), {}, card)
+        assert torch.equal(entry.outputs, x * 2.0)
+    assert made == [("stream", card) for card in cards]

@@ -1,6 +1,8 @@
 """PyTorch port on a CUDA card: the merged LW+SW, LW and SW kernels (one
 staged body, csrc/staged.cuh), their routing, the stream
-(parallel/scale.py) and the refusal of inputs that require grad.
+(parallel/scale.py; the sharded stream as three pieces on one card),
+captured calls on every card (two or more) and the refusal of inputs
+that require grad.
 
 These tests need a card and skip without one (marker ``cuda``).  They
 import neither jax nor tests/conftest.py, so on a machine with a card and
@@ -406,6 +408,69 @@ def test_stream_through_the_merged_kernel(models):
     for i, host in seen:
         for h, ref in zip(host, step(chunks[i])):
             np.testing.assert_array_equal(h, ref.cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["full", "toa-net"])
+def test_sharded_stream_equals_one_card(models, mode):
+    """The sharded stream (scale_bench.resident_chunks, capture.jit of its
+    step, the pinned ring's per-piece rows) as three pieces on card 0, the
+    last one padded, equals the same chunks on one card bit for bit; one
+    merged-kernel launch per chunk per piece."""
+    from ecckd_tpu_torch.cli import scale_bench
+    from ecckd_tpu_torch.io.synthetic import example_flux_batch
+    from ecckd_tpu_torch.parallel.scale import run_weak_scaling
+    from ecckd_tpu_torch.utils import capture
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    ncol, n_chunks = 1000, 4
+    streams, launched = [], []
+    for mesh in ([torch.device("cuda", 0)], [torch.device("cuda", 0)] * 3):
+        seen = []
+        before = lwsw_fluxes_cuda.launches
+        run_weak_scaling(
+            capture.jit(scale_bench.make_step(mode)),
+            scale_bench.resident_chunks(lw, sw, example_flux_batch(
+                ncol, 19, np.float32), mesh, ncol),
+            n_chunks, ncol, mesh=mesh, warmup=1,
+            consume=lambda host, i: seen.append((i, [a.copy()
+                                                     for a in host])))
+        launched.append(lwsw_fluxes_cuda.launches - before)
+        streams.append(seen)
+    assert launched == [n_chunks + 1, 3 * (n_chunks + 1)]
+    one, three = streams
+    assert [i for i, _ in three] == [i for i, _ in one] == list(
+        range(n_chunks))
+    for (_, got), (_, ref) in zip(three, one):
+        for g, r in zip(got, ref):
+            assert g.shape[0] == ncol and np.isfinite(g).all()
+            np.testing.assert_array_equal(g, r)
+
+
+def test_captured_calls_on_every_card(models):
+    """capture.jit of lw_sw_fluxes on the same batch on every local card
+    (two or more): warm-up, capture and replay on each card equal card
+    0's eager call bit for bit, one entry and one graph per card."""
+    from ecckd_tpu_torch.utils import capture
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more cards")
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    b = batch(512, 19, torch.float32)
+    ref = [f.cpu() for out in solve(pipeline.lw_sw_fluxes, lw, sw, b,
+                                    b["emis"])
+           for f in (out.flux_up, out.flux_dn)]
+    jitted = capture.jit(pipeline.lw_sw_fluxes)
+    for d in range(n_cards):
+        card = torch.device("cuda", d)
+        on = {k: (GasConcs(values=tuple(v.to(card) for v in x.values),
+                           names=x.names) if isinstance(x, GasConcs)
+                  else x.to(card)) for k, x in b.items()}
+        ml, ms = (lw.to(card), sw.to(card)) if d else (lw, sw)
+        for _ in range(3):
+            out = solve(jitted, ml, ms, on, on["emis"])
+            got = [f.cpu() for o in out for f in (o.flux_up, o.flux_dn)]
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert len(jitted.entries) == n_cards
+    assert all(e.graph is not None for e in jitted.entries.values())
 
 
 def test_inputs_that_require_grad_keep_the_kernels_out(models):

@@ -7,9 +7,11 @@ A subprocess with ``sys.modules["jax"] = None`` (and the same for
 RFMIP driver (``--device cpu``) on a synthetic RFMIP file written by the
 port, through the native netCDF3 engine and again with ``--fast`` (the
 torch route: the same files), the fast plain version, ``scale_bench``
-with ``--out-dir``, and the column split over two CPU devices; then
-imports ``bench_cuda`` and ``tools/check_cuda_perf_claims.py`` and runs
-``bench_cuda``'s ``cpu_baseline`` at 4 columns.
+with ``--out-dir``, the column split over two CPU devices, and the
+sharded stream over three (the one-device stream's values); then imports
+``bench_cuda``, ``chip_smoke``, ``tools/check_cuda_perf_claims.py`` and
+``tools/stream_scaling.py`` and runs ``bench_cuda``'s ``cpu_baseline`` at
+4 columns.
 """
 import os
 import subprocess
@@ -108,11 +110,28 @@ with tempfile.TemporaryDirectory() as d:
                                     replicated_argnums=(0,))
     assert split.flux_up.shape == (5, 8)
     assert torch.isfinite(split.flux_dn).all()
+    from ecckd_tpu_torch.parallel.scale import run_weak_scaling
+    from ecckd_tpu_torch.utils import capture
+    streams = []
+    for cpus in ([torch.device("cpu")], [torch.device("cpu")] * 3):
+        seen = []
+        run_weak_scaling(
+            capture.jit(scale_bench.make_step("full")),
+            scale_bench.resident_chunks(lw, sw, b, cpus, 5), 2, 5, mesh=cpus,
+            consume=lambda host, i: seen.append([a.copy() for a in host]))
+        streams.append(seen)
+    # float32 on the CPU: a piece's length can change a vectorised
+    # loop's tail, so allow the float32 rounding (test_torch_sharded_stream
+    # holds float64 bit for bit).
+    assert all(x.shape == y.shape and np.allclose(x, y, rtol=1e-5, atol=0)
+               for one, three in zip(*streams) for x, y in zip(one, three))
 import bench_cuda
-from tools import check_cuda_perf_claims
+import chip_smoke
+from tools import check_cuda_perf_claims, stream_scaling
 rec = bench_cuda.run_bench("cpu_baseline", ncol=4, steps=1)
 assert rec["value"] > 0 and rec["precision"] == "float64"
 assert callable(check_cuda_perf_claims.check)
+assert callable(stream_scaling.check) and callable(chip_smoke.kernel_bound)
 assert not any(k == "jax" or k.startswith(("jax.", "ecckd_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))
