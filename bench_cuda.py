@@ -286,18 +286,25 @@ def timed_columns(ncol: int) -> torch.Tensor:
                                    for c0 in sorted(starts)]))
 
 
-def timed_parity(cases: Dict[str, Case], b: dict, ncol: int,
-                 models64: dict, device_label: str) -> dict:
-    """Each case at the shape it was timed at: one more replay on the
-    timed batch ``b``, its ``timed_columns`` against the plain versions at
-    float64 on the same columns; {case: errors}.  Exits 1 as the gate
-    does."""
+def timed_batch(b: dict, ncol: int):
+    """(the ``timed_columns`` of batch ``b`` as an index on its device,
+    those columns of ``b`` at float64)."""
     idx = timed_columns(ncol).to(b["tlay"].device)
     pick = lambda v: (v[idx] if v.ndim >= 1 and v.shape[0] == ncol
                       else v).double()
     b64 = {k: pick(v) for k, v in b.items() if k != "concs"}
     b64["concs"] = GasConcs(values=tuple(pick(v) for v in b["concs"].values),
                             names=b["concs"].names)
+    return idx, b64
+
+
+def timed_parity(cases: Dict[str, Case], b: dict, ncol: int,
+                 models64: dict, device_label: str) -> dict:
+    """Each case at the shape it was timed at: one more replay on the
+    timed batch ``b``, its ``timed_columns`` against the plain versions at
+    float64 on the same columns; {case: errors}.  Exits 1 as the gate
+    does."""
+    idx, b64 = timed_batch(b, ncol)
     results = {}
     for name, case in cases.items():
         outs = [o[idx] for o in case(b)]

@@ -14,7 +14,8 @@ result line is printed:
    csrc/staged.cuh with both bands, the LW band, the SW band) with nvcc
    from this checkout, one nvcc each, all at once (timed; ptxas
    registers, spills and barriers); each library holds the exact and the
-   fast instantiations, and both entry points are bound.
+   fast instantiations, and both entry points are bound.  Phase 15's
+   checked builds (ops/cuda/ring_check.py) start at the same time.
 3. models: writes the synthetic ckd files (shipped dimensions, values from
    a seed): lw_fsck, lw_rrtmgp (36 g-points), sw_wide, their
    negative-entry variants and sw_wide on a 47-point pressure grid, and
@@ -133,6 +134,18 @@ result line is printed:
    kernel entry points have run and no other, and nothing be written to
    the scratch directory or the repository root.  Prints the lines.
 
+15. depth sweep and ring check: tools/shape_sweep_cuda.py's legs (nlay
+   30, 47, 60, 91 and 137, at 1 and 3 angles, capture.jit of
+   lw_sw_fluxes) in both table modes, timed at 16,384 columns: parity on
+   the adversarial batch and again after the timed window within the
+   sweep's bounds, columns/s > 0, each leg's staging plan; then the
+   kernels' checked build (tools/cuda_sanitize.py --checked, built with
+   phase 2's) over K1, K3 and K4 at nlay 60 and 137 at 1 angle and K1
+   and K3 at 3 angles, both table modes, at jitter 0 and one seed: no
+   violation, finite outputs bit for bit equal to the plain build's;
+   and the planted fault in K1, which the checker must report.  One
+   line per leg and the phase's seconds.
+
 The last two lines are the kernels' JSON record (exact and fast entries,
 each with its bound) and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
@@ -152,6 +165,10 @@ PROTOCOL = (65536, 60)  # BENCH_CONFIGS protocol batch (columns, layers)
 RFMIP = (100, 18, 60)   # the reference's RFMIP workload (sites, expts, layers)
 STREAM = 1_048_576      # scale_bench's default million-column run
 DEEP = {"lw": 600, "sw": 430}  # depths K3 / K4 stage in device memory
+SWEEP_NCOL = 16384      # phase 15's timed columns per sweep leg
+RING_CHECKED = ([(k, n, 1) for k in ("lwsw", "lw", "sw") for n in (60, 137)]
+                + [(k, n, 3) for k in ("lwsw", "lw") for n in (60, 137)])
+RING_PLANT = [("lwsw", 60, 1), ("lwsw", 137, 1)]
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "lwsw": ("ecckd_tpu_torch/csrc/lwsw.cu",
              "ecckd_tpu/ops/pallas/lwsw.py:61"),
@@ -375,9 +392,15 @@ def run(card: str, work: str) -> int:
         return out
 
     # ---- 2. build: one nvcc per kernel source, all started together -------
+    # (with phase 15's checked builds, which are waited for there)
+    from ecckd_tpu_torch.ops.cuda import ring_check
+    from tools import cuda_sanitize, shape_sweep_cuda
+    checked_builds = ([(k, ring_check.defines()) for k in KERNELS]
+                      + [("lwsw", ring_check.defines(plant=True))])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        lib_paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    pool = ThreadPoolExecutor(len(KERNELS) + len(checked_builds))
+    checked_jobs = [pool.submit(build.build, *job) for job in checked_builds]
+    lib_paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
     for name in modules:
         # binds both entry points and checks the struct
         binding.library(name, binding.ARGS[name])
@@ -388,7 +411,8 @@ def run(card: str, work: str) -> int:
         print(f"build: ok {name} {os.path.relpath(path)} | "
               + " | ".join(ptxas), flush=True)
     print(f"build: ok 3 kernels (exact and fast entry points each) in "
-          f"{build_s:.2f} s (parallel nvcc)", flush=True)
+          f"{build_s:.2f} s (parallel nvcc, beside phase 15's "
+          f"{len(checked_builds)} checked builds)", flush=True)
 
     # ---- 3. models --------------------------------------------------------
     models, paths = {}, {}
@@ -1425,6 +1449,57 @@ def run(card: str, work: str) -> int:
                                          for k, v in checks.items()),
           flush=True)
     print(f"bench line: {json.dumps(line)}", flush=True)
+
+    # ---- 15. depth sweep and the ring checker -------------------------------
+    import contextlib
+    import io
+    t15 = time.perf_counter()
+    for mode in ("bf16x3", "bf16"):
+        config.set_mxu_precision(mode)
+        try:   # the sweep's own notes (stderr) give way to one line a leg
+            with contextlib.redirect_stderr(io.StringIO()):
+                shapes = shape_sweep_cuda.sweep(ncol_time=SWEEP_NCOL,
+                                                iters=4, epochs=1)
+        finally:
+            config.set_mxu_precision("bf16x3")
+        for key, shape in shapes.items():
+            for ang, leg in shape["angles"].items():
+                ok = shape_sweep_cuda.judge(leg, mode)
+                if not ok:
+                    failures.append(f"sweep {key} {ang} angle(s) {mode}")
+                p = leg["plan"]
+                print(f"sweep: {'ok' if ok else 'FAIL'} nlay {shape['nlay']}"
+                      f" {ang} angle(s) {mode}: parity "
+                      f"{leg['parity']['max_rel']:.3e}"
+                      + (f" (vs exact {leg['parity']['vs_exact']:.3e})"
+                         if "vs_exact" in leg["parity"] else "")
+                      + f", after timing {leg['parity_timed']['max_rel']:.3e}"
+                      f" | {leg['columns_per_sec']:,.0f} columns/s at "
+                      f"{SWEEP_NCOL} columns, kernel {leg['kernel_ms']:.3f}"
+                      f" ms, share {leg['share']:.3f} | C = {p['C']}, S = "
+                      f"{p['S']}, {p['threads']} threads x "
+                      f"{p['blocks_per_sm']} per SM, {p['staging']} | first "
+                      f"call {leg['first_call_seconds']:.2f} s", flush=True)
+    t_wait = time.perf_counter()
+    for job in checked_jobs:
+        job.result()
+    pool.shutdown()
+    wait_s = time.perf_counter() - t_wait
+    ring = cuda_sanitize.run_checked(
+        configs=RING_CHECKED, plant_configs=RING_PLANT,
+        runs=[(0, 0, None), (cuda_sanitize.SEEDS[0],
+                             cuda_sanitize.JITTER_NS, cuda_sanitize.BLOCKS)])
+    if not ring["clean"]:
+        failures.append("ring check")
+    if not ring["pass"]:
+        failures.append(f"planted fault caught {ring['plant_caught']}")
+    print(f"ring check: {'ok' if ring['pass'] else 'FAIL'} "
+          f"{ring['configurations']} configurations, {ring['runs']} runs "
+          f"clean: {ring['clean']}; planted fault caught "
+          f"{ring['plant_caught']}", flush=True)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s (of which "
+          f"{wait_s:.1f} s waiting for the checked builds started in phase "
+          "2)", flush=True)
 
     if failures:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)

@@ -98,3 +98,5 @@ extern "C" int ecckd_lw_occupancy(const LwArgs* args, int fast) {
   return fast ? occupancy_staged(pick<__nv_bfloat16>(args), args)
               : occupancy_staged(pick<float>(args), args);
 }
+
+RING_ENTRY_POINTS(lw)

@@ -101,3 +101,5 @@ extern "C" int ecckd_lwsw_occupancy(const LwswArgs* args, int fast) {
   return fast ? occupancy_staged(pick<__nv_bfloat16>(args), args)
               : occupancy_staged(pick<float>(args), args);
 }
+
+RING_ENTRY_POINTS(lwsw)

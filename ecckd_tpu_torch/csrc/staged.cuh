@@ -21,10 +21,23 @@
 // Named barriers hand each slot from the optics warps to its set of sweep
 // warps (FULL) and back (FREE).  Every warp's body is in one kernel;
 // __launch_bounds__ holds 1024 threads per SM to 64 registers.
+//
+// Built with -DECCKD_CHECK_RING (ops/cuda/ring_check.py), the body also
+// checks that hand-over (csrc/ring_check.cuh: slot ledgers, NaN poison,
+// jitter, guard words); the RING(...) statements are that build's alone,
+// and without the define the body compiles as if they were not there.
 
 #pragma once
 
 #include "common.cuh"
+
+#ifdef ECCKD_CHECK_RING
+#include "ring_check.cuh"
+#define RING(...) __VA_ARGS__
+#else
+#define RING(...)
+#define RING_ENTRY_POINTS(NAME)
+#endif
 
 // The staging plan of one launch (ops/cuda/staged.py stage_plan).
 struct Tile {
@@ -74,6 +87,10 @@ constexpr int MAX_THREADS = 1024;
 constexpr int MAX_SLOTS = 4;
 constexpr int BAR_FULL = 1, BAR_FREE = BAR_FULL + MAX_SLOTS,
               BAR_LW_DONE = BAR_FREE + MAX_SLOTS;
+RING(static_assert(MAX_SLOTS <= RING_MAX_SLOTS, "ring ledgers too small");)
+#ifdef ECCKD_PLANT_SKIP_FREE
+constexpr int BAR_PLANT = BAR_LW_DONE + MAX_SLOTS;  // the planted fault's
+#endif
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
@@ -109,6 +126,11 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
   float* slots = SHARED
                      ? smem
                      : P.stage + (size_t)blockIdx.x * P.slots * P.col_floats;
+  RING(__shared__ unsigned ring_ledger[2 * RING_MAX_SLOTS];
+       const int sw_gases = SW ? 3 * BS->nslice - 2 * BS->ndense : 0;
+       const RingCheck ring(ring_ledger, slots, P.slots, P.col_floats, n_opt,
+                            n_set, P.prm_base, P.prm_stride,
+                            P.prm_sw + sw_gases, nlay);)
   if (warp < n_opt) {
     // 0. The layer parameters of this warp's layers, lanes over them;
     // 1. their optics, one layer at a time.
@@ -118,7 +140,22 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
       const float* prm = st + P.prm_base;
       const int r = (warp + i) % n_opt;
       const int ja = r * nlay / n_opt, jb = (r + 1) * nlay / n_opt;
+#ifdef ECCKD_PLANT_SKIP_FREE
+      // The planted fault (tools/cuda_sanitize.py --checked): in round 1
+      // of slot 0 the optics warps wait for each other (BAR_PLANT) but
+      // not for the slot's sweeps, and join FREE only after staging, so
+      // they may overwrite the staging that the sweeps still read.  Every
+      // barrier keeps its count and order, and the optics warps stay in
+      // step: without that, at C = 1 one would stage the slot's next
+      // column over layers another still stages, and read that one's
+      // rows as its layer parameters (integers).
+      const bool late_free = i == P.slots && s == 0;
+      if (late_free) bar_sync(BAR_PLANT, 32 * n_opt);
+      else if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
+#else
       if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
+#endif
+      RING(ring.freed(i, s, c);)
       for (int j = ja + lane; j < jb; j += 32)
         layer_params<T>(A, G, BL, BS, W, c, j,
                         st + P.prm_base + j * P.prm_stride);
@@ -129,6 +166,10 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
       if constexpr (SW)
         sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
                               P.prm_stride, P.prm_sw, st + P.lw_floats);
+#ifdef ECCKD_PLANT_SKIP_FREE
+      if (late_free) bar_sync(BAR_FREE + s, bar_threads);
+#endif
+      RING(ring.staging_done(i, s);)
       bar_arrive(BAR_FULL + s, bar_threads);
     }
   } else {
@@ -142,6 +183,7 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
       float* st = slots + (size_t)s * P.col_floats;
       float* acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
       bar_sync(BAR_FULL + s, bar_threads);
+      RING(ring.filled(i, s, c);)
       for (int q = lane; q < 2 * nlev; q += 32) acc[q] = 0.0f;
       __syncwarp();
       if (a == n_lw) {
@@ -153,6 +195,7 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
             S->up[(size_t)c * nlev + q] = acc[q];
             S->dn[(size_t)c * nlev + q] = acc[nlev + q];
           }
+          RING(ring.poison(st, P.lw_floats, P.lw_floats + P.sw_floats);)
         }
       } else if constexpr (LW) {
         lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, st, acc,
@@ -165,12 +208,18 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
           for (int b = 0; b < n_lw; ++b) v += acc0[2 * nlev * b + q];
           (q < nlev ? W->up : W->dn)[(size_t)c * nlev + q % nlev] = v;
         }
+        // Every LW warp of the set is done with the LW rows: one poisons
+        // them.
+        RING(if (n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
+             if (a == 0) ring.poison(st, 0, P.lw_floats);)
       }
       __syncwarp();
+      RING(ring.sweep_done(i, s);)
       if (c + P.slots * gridDim.x < ncol)
         bar_arrive(BAR_FREE + s, bar_threads);
     }
   }
+  RING(ring.finish();)
 }
 
 // The host side of a launch, for the args struct Args of one kernel (its

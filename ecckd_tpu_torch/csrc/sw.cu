@@ -89,3 +89,5 @@ extern "C" int ecckd_sw_occupancy(const SwArgs* args, int fast) {
   return fast ? occupancy_staged(pick<__nv_bfloat16>(args), args)
               : occupancy_staged(pick<float>(args), args);
 }
+
+RING_ENTRY_POINTS(sw)

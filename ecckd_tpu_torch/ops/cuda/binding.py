@@ -120,13 +120,18 @@ ARGS = {"lwsw": LwswArgs, "lw": LwArgs, "sw": SwArgs}
 
 @functools.lru_cache(maxsize=None)
 def library(name: str, args_type) -> ctypes.CDLL:
-    """Build (first use) and bind ``csrc/<name>.cu`` (both entry points,
-    ``ecckd_<name>_launch`` and ``..._launch_fast``), checking that its
-    argument struct has the size of the ctypes mirror ``args_type``.
-    Bound once per name, as ``build.load`` loads once: a launch finds the
-    bound library in the cache."""
+    """Build (first use) and bind ``csrc/<name>.cu`` (``bind``): the plain
+    build, with no defines, the only one a launch path loads.  Bound once
+    per name, as ``build.load`` loads once: a launch finds the bound
+    library in the cache."""
     from ecckd_tpu_torch.ops.cuda import build
-    lib = build.load(name)
+    return bind(build.load(name), name, args_type)
+
+
+def bind(lib: ctypes.CDLL, name: str, args_type) -> ctypes.CDLL:
+    """Bind a build of ``csrc/<name>.cu`` (both entry points,
+    ``ecckd_<name>_launch`` and ``..._launch_fast``), checking that its
+    argument struct has the size of the ctypes mirror ``args_type``."""
     for entry in (f"ecckd_{name}_launch", f"ecckd_{name}_launch_fast"):
         launch = getattr(lib, entry)
         launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -308,15 +313,17 @@ def sw_shapes(sw: plan_mod.SwInputs, ncol: int, prefix: str = ""):
 
 def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
-                  counted, device, fast: bool = False) -> None:
+                  counted, device, fast: bool = False,
+                  lib: Optional[ctypes.CDLL] = None) -> None:
     """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
     ``device``'s current stream, with the arguments ``make_args(c0, c1)``:
     the exact entry point, or ``..._launch_fast`` if ``fast``.  Each launch
     adds one to ``counted.launches`` (``counted.fast_launches`` if
     ``fast``).  The launch runs with ``device`` as the host thread's
     current device: the runtime launches on the current device, and
-    another card's stream there is an error."""
-    lib = library(name, args_type)
+    another card's stream there is an error.  ``lib``: a bound build of
+    the kernel (``bind``) in place of ``library``'s."""
+    lib = lib or library(name, args_type)
     suffix = "_fast" if fast else ""
     launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
     counter = "fast_launches" if fast else "launches"

@@ -49,11 +49,14 @@ class StagePlan:
     sets: int          # S: sets of sweep warps per block (S divides C)
     shared: bool       # staged in shared memory (else a device slice)
     threads: int       # threads per block
+    guard_floats: int = 0  # guard words after each slot: the ring
+                           # checker's build only (ops/cuda/ring_check.py)
 
     @property
     def col_floats(self) -> int:
+        """The floats of one slot: what a column stages, then the guard."""
         return (self.lw_floats + self.sw_floats + self.acc_floats
-                + self.prm_floats)
+                + self.prm_floats + self.guard_floats)
 
     @property
     def bytes_per_column(self) -> int:
@@ -166,12 +169,14 @@ def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
 
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(name: str, shape: tuple, threads: int, shared_bytes: int,
-                  fast: bool, device_index: int) -> int:
+                  fast: bool, device_index: int,
+                  lib: Optional[ctypes.CDLL] = None) -> int:
     """The CUDA occupancy calculator's blocks per SM for a launch
     configuration of kernel ``name`` (``ecckd_<name>_occupancy``) on one
-    card; ``shape`` (``launch_shape``) picks the instantiation."""
+    card; ``shape`` (``launch_shape``) picks the instantiation, ``lib`` a
+    bound build other than ``binding.library``'s."""
     args_type = binding.ARGS[name]
-    lib = binding.library(name, args_type)
+    lib = lib or binding.library(name, args_type)
     fn = getattr(lib, f"ecckd_{name}_occupancy")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -203,28 +208,33 @@ def launch_shape(lw: Optional[plan_mod.LwInputs],
 
 def occupancy(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
               sw: Optional[plan_mod.SwInputs],
-              plan: Optional[StagePlan] = None) -> Tuple[StagePlan, int]:
+              plan: Optional[StagePlan] = None,
+              lib: Optional[ctypes.CDLL] = None) -> Tuple[StagePlan, int]:
     """(the staging plan, blocks per SM) of the launch of the kernel for
     these prepared bands (both: the merged kernel; one, the other None:
-    its own) on their card; ``plan`` replaces ``plan_for``'s."""
+    its own) on their card; ``plan`` replaces ``plan_for``'s, ``lib``
+    the kernel's build (``blocks_per_sm``)."""
     plan = plan or plan_for(atm, lw, sw)
     return plan, blocks_per_sm(kernel_name(lw, sw), launch_shape(lw, sw),
                                plan.threads, plan.shared_bytes,
                                (lw or sw).arrays.fast,
-                               atm.tlay.device.index or 0)
+                               atm.tlay.device.index or 0, lib)
 
 
 def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                sw: Optional[plan_mod.SwInputs], column_chunk: int, counted,
                plan: Optional[StagePlan] = None,
-               max_blocks: Optional[int] = None):
+               max_blocks: Optional[int] = None,
+               lib: Optional[ctypes.CDLL] = None):
     """Launch the staged kernel for the bands present (csrc/lwsw.cu,
     lw.cu or sw.cu) over column chunks on the current stream, in the
     bands' table mode: persistent blocks, as many as the card holds at
     once, on ``stage_plan``'s staging (a device slice per block where a
     column does not fit in shared memory; ``max_blocks`` caps them).
     Returns the (ncol, nlay+1) outputs, (up, down) per band, LW first.
-    Launches count on ``counted`` (binding.launch_chunks)."""
+    Launches count on ``counted`` (binding.launch_chunks).  ``lib``: a
+    bound build of the kernel other than the plain one (the ring
+    checker's, ops/cuda/ring_check.py); the launch paths pass none."""
     ncol, nlay = atm.tlay.shape
     name = kernel_name(lw, sw)
     dev = atm.tlay.device
@@ -234,7 +244,7 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     if ncol == 0:
         return outs
     chunk = max(1, min(int(column_chunk), ncol))
-    plan, per_sm = occupancy(atm, lw, sw, plan)
+    plan, per_sm = occupancy(atm, lw, sw, plan, lib)
     blocks = min(chunk, max_blocks or chunk, per_sm * torch.cuda.
                  get_device_properties(dev).multi_processor_count)
     stage = None if plan.shared else torch.empty(
@@ -262,5 +272,5 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                          tile=tile, **bands, **solves)
 
     binding.launch_chunks(name, args_type, ncol, chunk, make_args, counted,
-                          dev, (lw or sw).arrays.fast)
+                          dev, (lw or sw).arrays.fast, lib)
     return outs

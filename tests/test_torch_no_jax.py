@@ -9,9 +9,10 @@ port, through the native netCDF3 engine and again with ``--fast`` (the
 torch route: the same files), the fast plain version, ``scale_bench``
 with ``--out-dir``, the column split over two CPU devices, and the
 sharded stream over three (the one-device stream's values); then imports
-``bench_cuda``, ``chip_smoke``, ``tools/check_cuda_perf_claims.py`` and
-``tools/stream_scaling.py`` and runs ``bench_cuda``'s ``cpu_baseline`` at
-4 columns.
+``bench_cuda``, ``chip_smoke``, ``tools/check_cuda_perf_claims.py``,
+``tools/stream_scaling.py``, ``tools/shape_sweep_cuda.py`` and
+``tools/cuda_sanitize.py``, runs ``bench_cuda``'s ``cpu_baseline`` at 4
+columns, and the depth sweep, which must raise without a card.
 """
 import os
 import subprocess
@@ -127,8 +128,16 @@ with tempfile.TemporaryDirectory() as d:
                for one, three in zip(*streams) for x, y in zip(one, three))
 import bench_cuda
 import chip_smoke
-from tools import check_cuda_perf_claims, stream_scaling
+from tools import (check_cuda_perf_claims, cuda_sanitize, shape_sweep_cuda,
+                   stream_scaling)
 rec = bench_cuda.run_bench("cpu_baseline", ncol=4, steps=1)
+try:
+    shape_sweep_cuda.main(["--out", os.devnull])
+except RuntimeError as e:
+    assert "no CUDA card" in str(e)
+else:
+    raise AssertionError("shape_sweep_cuda ran without a card")
+assert callable(cuda_sanitize.run_checked)
 assert rec["value"] > 0 and rec["precision"] == "float64"
 assert callable(check_cuda_perf_claims.check)
 assert callable(stream_scaling.check) and callable(chip_smoke.kernel_bound)
