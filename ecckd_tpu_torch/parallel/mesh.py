@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.utils import profiling
 from ecckd_tpu_torch.utils.tree import tree_map
 
 PROCESS_GROUP_TIMEOUT = datetime.timedelta(seconds=120)
@@ -172,9 +173,14 @@ def map_shards(fn: Callable, shards: ColumnShards) -> ColumnShards:
     another from this thread (on cards they then run at once).  Each
     output stays on its device, unjoined, with its piece's offset; a
     ``fn`` that returns a changed tree builds the next call's pieces
-    where they lie, and nothing crosses devices."""
-    return dataclasses.replace(
-        shards, trees=tuple(fn(*tree) for tree in shards.trees))
+    where they lie, and nothing crosses devices.  While a
+    ``torch.profiler`` records, each piece's call is one
+    ``shards.card<i>`` span (``i`` its device's CUDA index, 0 on the
+    CPU; utils/profiling.py)."""
+    run = profiling.steps()
+    return dataclasses.replace(shards, trees=tuple(
+        run("shards", fn, *tree, card=device)
+        for tree, device in zip(shards.trees, shards.devices)))
 
 
 def join_shards(shards: ColumnShards):

@@ -30,6 +30,19 @@ reused by chunk i + depth + 1, which is issued only after chunk i's
 ``consume`` has returned.  The host never waits on in-flight compute.
 On the CPU the step's outputs are the host outputs (pieces joined in
 column order) and the same loop runs without copies.
+
+What the host does is counted and, while a profiler records, named.
+``stream_chunks`` returns four host-clock counters summed over its
+chunks (``dispatch_s``, ``d2h_issue_s``, ``drain_wait_s``,
+``consume_s``) and ``wall_s``.  While a ``torch.profiler`` records, the
+issue of each chunk is spanned per card (utils/profiling.py, on the
+clock of the trace's CUDA activity): ``stream.dispatch`` around ``step``
+(on several cards holding a ``shards.card<i>`` span per piece, from
+``mesh.map_shards``, and each piece's ``capture.call``), and a
+``stream.fetch.card<i>`` span around each card's queued copies (``i``
+its CUDA index).  The wait on the copies and ``consume`` are timed by
+their counters alone.  Spans exist only while a profiler records;
+otherwise no range is entered.
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ import numpy as np
 import torch
 
 from ecckd_tpu_torch.parallel import mesh as pmesh
+from ecckd_tpu_torch.utils import profiling
 from ecckd_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -102,14 +116,16 @@ class _PinnedRing:
         whole chunk in column order without padding.  Each device's
         outputs (a ``ColumnShards``' pieces: their rows ``span``) are
         copied on that device's copy stream, after its current stream's
-        work.  Returns (host tree, one event per device that marks its
-        copies' end)."""
+        work, in one ``stream.fetch.card<i>`` span per device.  Returns
+        (host tree, one event per device that marks its copies' end)."""
         shards = outs if isinstance(outs, pmesh.ColumnShards) else None
-        parts = ([(t, shards.span(d)) for d, t in enumerate(shards.trees)]
-                 if shards else [(outs, None)])
-        if not any(_is_card(x) for tree, _ in parts
-                   for x in tree_leaves(tree)):
+        first = next((x for x in tree_leaves(
+            shards.trees if shards else outs) if _is_card(x)), None)
+        if first is None:
             return (pmesh.join_shards(shards) if shards else outs), []
+        parts = ([(t, shards.span(d), shards.devices[d])
+                  for d, t in enumerate(shards.trees)]
+                 if shards else [(outs, None, first.device)])
         slot = self.slots[n % len(self.slots)]
         keys = itertools.count()
 
@@ -138,12 +154,12 @@ class _PinnedRing:
                 used[device].wait_stream(torch.cuda.current_stream(device))
             return used[device]
 
-        for tree, span in parts:
+        def queue(tree, rows):
             for dst, x in zip(tree_leaves(host), tree_leaves(tree)):
                 if not _is_card(x):
                     continue
-                if span is not None:
-                    lo, hi = span
+                if rows is not None:
+                    lo, hi = rows
                     if hi == lo:
                         continue            # a piece of padding only
                     dst, x = dst[lo:hi], x[:hi - lo]
@@ -151,6 +167,10 @@ class _PinnedRing:
                 with torch.cuda.device(x.device), torch.cuda.stream(s):
                     dst.copy_(x, non_blocking=True)
                 x.record_stream(s)
+
+        run = profiling.steps()
+        for tree, rows, device in parts:
+            run("stream.fetch", queue, tree, rows, card=device)
         events = []
         for s in used.values():
             events.append(torch.cuda.Event())
@@ -183,12 +203,14 @@ def stream_chunks(step: Callable, chunks: Iterable[Tuple[tuple, object]],
     launches), d2h_issue_s (queueing the copies), drain_wait_s (waiting
     for a chunk's copy to end) and consume_s (host-side writes), so a
     below-compute streaming rate can be attributed to a pipeline phase.
-    """
+    While a profiler records, the issue is also spanned (the module
+    docstring)."""
     t0 = time.perf_counter()
     dispatch_s = d2h_issue_s = drain_wait_s = consume_s = 0.0
     n_chunks = 0
     ring = _PinnedRing(max(depth, 0) + 1)
     inflight: list = []  # (host outputs, copy events, meta), oldest first
+    run = profiling.steps()
 
     def drain(host, events, meta):
         nonlocal drain_wait_s, consume_s
@@ -203,7 +225,7 @@ def stream_chunks(step: Callable, chunks: Iterable[Tuple[tuple, object]],
 
     for args, meta in chunks:
         td = time.perf_counter()
-        outs = step(*args)
+        outs = run("stream.dispatch", step, *args)
         te = time.perf_counter()
         dispatch_s += te - td
         host, events = ring.fetch(outs, n_chunks)

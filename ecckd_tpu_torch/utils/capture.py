@@ -47,6 +47,22 @@ what capture counted and adds it on every replay.  With NaN debugging on
 graph, capture runs without it and the replayed outputs are checked as
 stage "captured call".
 
+The returned callable counts, beside ``entries``, its ``captures`` (graphs
+built) and ``replays`` (calls replayed).  In steady state ``captures``
+stays flat; a count that grows with the calls means a key that changes
+from call to call, each call building its graph again.
+
+While a ``torch.profiler`` records, each call is one ``capture.call``
+span (utils/profiling.py, on the clock of the trace's CUDA activity).
+It holds ``capture.key`` (``_tensors``, ``_card``, ``key`` and the
+entry's lookup) and, on a replayed call, in turn ``capture.copy_in``
+(the wait for the previous replay's copies out, and the copy into the
+static buffers), ``capture.replay`` (``graph.replay()``) and
+``capture.copy_out`` (the ``empty_like``s and the copy out).  A key's
+first call and its capture are counted (``entries``, ``captures``), not
+spanned: they fall in warm-up.  Spans exist only while a profiler
+records; otherwise a call enters no range.
+
 This module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -62,7 +78,7 @@ from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
-from ecckd_tpu_torch.utils import checks
+from ecckd_tpu_torch.utils import checks, profiling
 from ecckd_tpu_torch.utils.tree import tree_leaves, tree_map
 
 COUNTERS = tuple((w, c) for w in (lwsw_fluxes_cuda, lw_fluxes_cuda,
@@ -178,17 +194,27 @@ class _Entry:
                            if isinstance(t, torch.Tensor)]
         self.done = torch.cuda.Event()
 
-    def replay(self, inputs: List[torch.Tensor]):
+    def replay(self, inputs: List[torch.Tensor], run: Callable):
         """Copy the inputs in (after the previous replay's copies out, on
         whichever stream they ran), replay, copy the outputs out into
-        fresh tensors.  Each copy is one multi-tensor launch (as torch's
-        optimizers use), not one per tensor: the host's time per call is
-        what a replay is for."""
+        fresh tensors, each step run by ``run`` (profiling.steps).  Each
+        copy is one multi-tensor launch (as torch's optimizers use), not
+        one per tensor: the host's time per call is what a replay is
+        for."""
         stream = torch.cuda.current_stream()
+        run("capture.copy_in", self._copy_in, stream, inputs)
+        run("capture.replay", self._launch)
+        return run("capture.copy_out", self._copy_out, stream)
+
+    def _copy_in(self, stream, inputs: List[torch.Tensor]) -> None:
         stream.wait_event(self.done)
         torch._foreach_copy_(self.inputs, inputs)
+
+    def _launch(self) -> None:
         self.graph.replay()
         _add_counts(self.launched)
+
+    def _copy_out(self, stream):
         fresh = [torch.empty_like(t) for t in self.static_out]
         torch._foreach_copy_(fresh, self.static_out)
         self.done.record(stream)
@@ -200,29 +226,43 @@ class _Entry:
 def jit(fn: Callable) -> Callable:
     """``fn`` captured once per key in a CUDA graph and replayed (see the
     module docstring).  The returned callable takes ``fn``'s arguments;
-    its ``entries`` maps each key seen to its entry."""
+    its ``entries`` maps each key seen to its entry, and ``captures`` and
+    ``replays`` count the graphs built and the calls replayed."""
     entries: Dict[tuple, _Entry] = {}
 
-    @functools.wraps(fn)
-    def call(*args, **kwargs):
+    def lookup(args: tuple, kwargs: Dict[str, Any]):
         tensors = _tensors(args, kwargs)
         device = _card(fn, tensors)
         if device is None:
-            return fn(*args, **kwargs)
+            return tensors, None, None, None
         k = key(fn, args, kwargs)
-        entry = entries.get(k)
+        return tensors, device, k, entries.get(k)
+
+    def body(run: Callable, args: tuple, kwargs: Dict[str, Any]):
+        tensors, device, k, entry = run("capture.key", lookup, args, kwargs)
+        if device is None:
+            return fn(*args, **kwargs)
         with torch.cuda.device(device):
             if entry is None:
                 entries[k] = _Entry(args, kwargs)
                 return fn(*args, **kwargs)
             if entry.graph is None:
                 entry.capture(fn, args, kwargs, device)
-            out = entry.replay(tensors)
+                call.captures += 1
+            out = entry.replay(tensors, run)
+            call.replays += 1
         if k[-1]:
             checks.check_stage("captured call", **{
                 f"output {i}": t for i, t in enumerate(tree_leaves(out))
                 if isinstance(t, torch.Tensor)})
         return out
 
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        run = profiling.steps()
+        return run("capture.call", body, run, args, kwargs)
+
     call.entries = entries
+    call.captures = 0
+    call.replays = 0
     return call
