@@ -452,6 +452,7 @@ def run(card: str, work: str) -> int:
             ("lwsw", "main path", "lw", "sw", PROTOCOL[1], 1),
             ("lwsw", "3 angles", "lw", "sw", PROTOCOL[1], 3),
             ("lwsw", "lw_rrtmgp", "lw_rrtmgp", "sw", PROTOCOL[1], 1),
+            ("lwsw", "split", "lw", "sw", 137, 1),
             ("lwsw", "deep", "lw", "sw", 300, 1),
             ("lw", "main path", "lw", None, PROTOCOL[1], 1),
             ("lw", "3 angles", "lw", None, PROTOCOL[1], 3),
@@ -470,7 +471,8 @@ def run(card: str, work: str) -> int:
         band = lambda key, ng: key and (ng, gases(key)[0], sum(gases(key)))
         shape = (band(lw_key, ng_lw), band(sw_key, ng_sw), n_t)
         per_sm = [staged.blocks_per_sm(kernel, shape, p.threads,
-                                       p.shared_bytes, fast, 0)
+                                       p.shared_bytes, fast, 0,
+                                       split=p.split)
                   for fast in (False, True)]
         tag = {"lwsw": "K1", "lw": "K3", "sw": "K4"}[kernel]
         print(f"build: {tag} staging, {label} ({lw_key or ''}"
@@ -479,6 +481,8 @@ def run(card: str, work: str) -> int:
               f"column, C = {p.slots} per block, S = {p.sets} sweep sets, in "
               + (f"{p.shared_bytes} B of dynamic shared memory"
                  if p.shared else "device memory")
+              + (f" and LW rows of {4 * p.slice_floats} B per slot in device "
+                 "memory" if p.split else "")
               + f", {p.threads} threads, blocks per SM (occupancy "
               f"calculator) {per_sm[0]} exact / {per_sm[1]} fast",
               flush=True)
@@ -728,7 +732,7 @@ def run(card: str, work: str) -> int:
     # More shapes of each kernel at 65,536 columns, each with its bound:
     # K3 on lw_rrtmgp (36 g-points) and at 3 angles, K4 on sw_p47 (its own
     # 47-point grid), K1/K2 at 3 and 4 angles, on lw_rrtmgp and at nlay 137
-    # (where K1's ring holds one column per block).
+    # (where K1 stages on the split route).
     rr_emis = emis_gpt[:, :1].expand(-1, 36).contiguous()
     deep_n = 137
     deep = example_flux_batch(ncol, deep_n, np.float32, device="cuda")

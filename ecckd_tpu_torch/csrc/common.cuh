@@ -284,8 +284,9 @@ __device__ __forceinline__ void two_stream_g0(float tau, float u, float mu0,
 // Each kernel splits a column's solve into optics, parallel over the
 // column's layers, and sweeps, serial over them, that meet in one staging
 // area per column (float32; each row holds ngpt floats, g fastest), in
-// shared memory or, for columns too deep for it, in a device memory slice
-// (ops/cuda/staged.py stage_plan sizes it):
+// shared memory or, for columns too deep for it, in a device memory slice;
+// the merged kernel may split it, the LW rows in the slice and the rest in
+// shared memory, SW rows first (ops/cuda/staged.py stage_plan sizes it):
 //   LW rows (ngpt_lw each): at 1 angle tr, src_dn, src_up (nlay each); at
 //     2-4 angles tau, B(layer) (nlay each) and B(level) (nlay+1);
 //   SW rows (ngpt_sw each): r_dif, t_dif (nlay each); r_dir (nlay+1),

@@ -58,16 +58,19 @@ namespace {
 template <typename T, class S, int NT, bool SHARED>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     lw_kernel(const __grid_constant__ LwArgs args) {
-  staged_body<T, S, NoBand, NT, SHARED>(args.atm, args.grid, &args.band,
-                                        nullptr, &args.lw, nullptr,
-                                        args.tile);
+  staged_body<T, S, NoBand, NT, SHARED ? STAGE_SHARED : STAGE_DEVICE>(
+      args.atm, args.grid, &args.band, nullptr, &args.lw, nullptr,
+      args.tile);
 }
 
 // The shipped models' shapes as constants; any other, and device
 // staging, at run time.
 template <typename T>
 KernelFn<LwArgs> pick(const LwArgs* a) {
-  if (!staged_in_shared(a->tile)) return lw_kernel<T, Shape<0>, 0, false>;
+  // One band: no split route (stage_plan plans none).
+  if (staging_of(a->tile) == STAGE_SPLIT) return nullptr;
+  if (staging_of(a->tile) == STAGE_DEVICE)
+    return lw_kernel<T, Shape<0>, 0, false>;
   if (a->grid.n_t == SHIPPED_NT) {
     if (has_shape<FsckShape>(a->band))
       return lw_kernel<T, FsckShape, SHIPPED_NT, true>;

@@ -30,16 +30,19 @@
 // shipped models' shapes as constants (lw_fsck or lw_rrtmgp with sw_wide:
 // g-points, gas counts, 6 temperatures) and at run time for any other.
 // C = 2 columns per block where two fit in shared memory, each swept by
-// its own set (S = 2; nlay 60: two blocks of 512 threads per SM); a
-// column too deep for shared memory (nlay >~ 250 at these ngpt) is
-// staged in a device memory slice.
+// its own set (S = 2; nlay 60: two blocks of 512 threads per SM); where
+// only one whole column fits but two without their LW rows do (nlay
+// 124-208 at 1 angle), the split route keeps C = 2 with each slot's LW
+// rows in a device memory slice (L2-resident); a column too deep for
+// shared memory (nlay >~ 250 at these ngpt) is staged whole in the slice.
 
 // Host interface (ctypes): ecckd_lwsw_launch(const LwswArgs*, stream)
 // (exact f32 table) and ecckd_lwsw_launch_fast (the fast mode's bf16
 // table, common.cuh "Table mode") each return cudaGetLastError() after the
 // launch; ecckd_lwsw_occupancy(const LwswArgs*, fast) returns the blocks
 // per SM of a launch configuration (tile.threads, tile.shared_bytes; the
-// bands' shapes and the grid's n_t pick the instantiation), or -1;
+// route (staged.cuh staging_of), the bands' shapes and the grid's n_t
+// pick the instantiation), or -1;
 // ecckd_lwsw_args_size() lets the wrapper check its struct mirror
 // (ops/cuda/binding.py), and ecckd_cuda_error_string() names an error code.
 
@@ -60,24 +63,40 @@ namespace {
 template <typename T, class SL, class SS, int NT, bool SHARED>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     lwsw_kernel(const __grid_constant__ LwswArgs args) {
-  staged_body<T, SL, SS, NT, SHARED>(args.atm, args.grid, &args.lw_band,
-                                     &args.sw_band, &args.lw, &args.sw,
-                                     args.tile);
+  staged_body<T, SL, SS, NT, SHARED ? STAGE_SHARED : STAGE_DEVICE>(
+      args.atm, args.grid, &args.lw_band, &args.sw_band, &args.lw, &args.sw,
+      args.tile);
 }
 
-// The shipped models' shapes as constants; any other, and device
-// staging, at run time.
+// The split route (staged.cuh Staging): each slot's LW rows in the
+// block's device slice, its SW rows and accumulators in shared memory.
+template <typename T, class SL, class SS, int NT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    lwsw_split_kernel(const __grid_constant__ LwswArgs args) {
+  staged_body<T, SL, SS, NT, STAGE_SPLIT>(args.atm, args.grid,
+                                          &args.lw_band, &args.sw_band,
+                                          &args.lw, &args.sw, args.tile);
+}
+
+// The shipped models' shapes as constants, whole in shared memory or
+// split; any other shape, and device staging, at run time.
 template <typename T>
 KernelFn<LwswArgs> pick(const LwswArgs* a) {
-  if (!staged_in_shared(a->tile))
+  const Staging route = staging_of(a->tile);
+  if (route == STAGE_DEVICE)
     return lwsw_kernel<T, Shape<0>, Shape<0>, 0, false>;
+  const bool split = route == STAGE_SPLIT;
   if (a->grid.n_t == SHIPPED_NT && has_shape<WideShape>(a->sw_band)) {
     if (has_shape<FsckShape>(a->lw_band))
-      return lwsw_kernel<T, FsckShape, WideShape, SHIPPED_NT, true>;
+      return split ? lwsw_split_kernel<T, FsckShape, WideShape, SHIPPED_NT>
+                   : lwsw_kernel<T, FsckShape, WideShape, SHIPPED_NT, true>;
     if (has_shape<RrtmgpShape>(a->lw_band))
-      return lwsw_kernel<T, RrtmgpShape, WideShape, SHIPPED_NT, true>;
+      return split
+                 ? lwsw_split_kernel<T, RrtmgpShape, WideShape, SHIPPED_NT>
+                 : lwsw_kernel<T, RrtmgpShape, WideShape, SHIPPED_NT, true>;
   }
-  return lwsw_kernel<T, Shape<0>, Shape<0>, 0, true>;
+  return split ? lwsw_split_kernel<T, Shape<0>, Shape<0>, 0>
+               : lwsw_kernel<T, Shape<0>, Shape<0>, 0, true>;
 }
 
 template <typename T>

@@ -25,8 +25,9 @@
 //     fault's reads out of bounds instead of into the outputs;
 //   CANARY: nothing writes past a slot: RING_GUARD guard words after
 //     every slot (shared memory or the block's device slice; the host
-//     plan's col_floats includes them) keep their values from the
-//     kernel's start to its end.
+//     plan's col_floats includes them), and on the split route after
+//     every slot's LW rows in the device slice, keep their values from
+//     the kernel's start to its end.
 // Seeded jitter (__nanosleep, ring_config) at the four hand-over points
 // changes the warps' orderings from run to run.  Violations go to one
 // device record, read and reset through ecckd_<name>_ring_errors.
@@ -87,29 +88,39 @@ struct RingCheck {
   unsigned* staged;  // [RING_MAX_SLOTS] shared: optics warps' rounds
   unsigned* swept;   // [RING_MAX_SLOTS] shared: sweep warps' rounds
   float* slots;      // the block's slots, col_floats apart
-  int n_slots, col_floats, n_opt, n_set, warp, lane;
+  float* lw_slots;   // the split route's LW rows, lw_stride apart, or null
+  int n_slots, col_floats, lw_stride, n_opt, n_set, warp, lane;
   // The layer parameters: layer j's prm_len floats at prm_base + j *
   // prm_stride of a slot, for nlay layers.
   int prm_base, prm_stride, prm_len, nlay;
 
   __device__ RingCheck(unsigned* ledger, float* slots_, int n_slots_,
-                       int col_floats_, int n_opt_, int n_set_,
-                       int prm_base_, int prm_stride_, int prm_len_,
-                       int nlay_)
+                       int col_floats_, float* lw_slots_, int lw_stride_,
+                       int n_opt_, int n_set_, int prm_base_,
+                       int prm_stride_, int prm_len_, int nlay_)
       : staged(ledger), swept(ledger + RING_MAX_SLOTS), slots(slots_),
-        n_slots(n_slots_), col_floats(col_floats_), n_opt(n_opt_),
-        n_set(n_set_), warp(threadIdx.x / 32), lane(threadIdx.x % 32),
+        lw_slots(lw_slots_), n_slots(n_slots_), col_floats(col_floats_),
+        lw_stride(lw_stride_), n_opt(n_opt_), n_set(n_set_),
+        warp(threadIdx.x / 32), lane(threadIdx.x % 32),
         prm_base(prm_base_), prm_stride(prm_stride_), prm_len(prm_len_),
         nlay(nlay_) {
     if (threadIdx.x < 2 * RING_MAX_SLOTS) ledger[threadIdx.x] = 0;
-    for (int q = threadIdx.x; q < n_slots * RING_GUARD; q += blockDim.x)
+    for (int q = threadIdx.x; q < guards() * RING_GUARD; q += blockDim.x)
       guard(q / RING_GUARD)[q % RING_GUARD] =
           __uint_as_float(ring_canary(q / RING_GUARD, q % RING_GUARD));
     __syncthreads();
   }
 
-  __device__ __forceinline__ float* guard(int s) const {
-    return slots + (size_t)s * col_floats + col_floats - RING_GUARD;
+  // The guards: one after each slot, then one after each slot's LW rows
+  // on the split route.
+  __device__ __forceinline__ int guards() const {
+    return lw_slots ? 2 * n_slots : n_slots;
+  }
+  __device__ __forceinline__ float* guard(int k) const {
+    if (k >= n_slots)
+      return lw_slots + (size_t)(k - n_slots) * lw_stride + lw_stride -
+             RING_GUARD;
+    return slots + (size_t)k * col_floats + col_floats - RING_GUARD;
   }
 
   // The seeded delay of hand-over point `point` of this warp's column i.
@@ -163,11 +174,14 @@ struct RingCheck {
   }
 
   // NaN over floats [a, b) of a slot's staging st but the layer
-  // parameters' places, by this warp's lanes.
-  __device__ __forceinline__ void poison(float* st, int a, int b) const {
+  // parameters' places (all of them unless ``params``), by this warp's
+  // lanes.
+  __device__ __forceinline__ void poison(float* st, int a, int b,
+                                         bool params = true) const {
     for (int q = a + lane; q < b; q += 32) {
       const int p = q - prm_base;
-      if (p < 0 || p >= nlay * prm_stride || p % prm_stride >= prm_len)
+      if (!params || p < 0 || p >= nlay * prm_stride ||
+          p % prm_stride >= prm_len)
         st[q] = __int_as_float(0x7FC00000);
     }
   }
@@ -175,10 +189,10 @@ struct RingCheck {
   // At the body's end (every thread): the guards kept their values.
   __device__ void finish() const {
     __syncthreads();
-    for (int q = threadIdx.x; q < n_slots * RING_GUARD; q += blockDim.x)
+    for (int q = threadIdx.x; q < guards() * RING_GUARD; q += blockDim.x)
       if (__float_as_uint(guard(q / RING_GUARD)[q % RING_GUARD]) !=
           ring_canary(q / RING_GUARD, q % RING_GUARD))
-        ring_violation(RING_CANARY, -1, q / RING_GUARD);
+        ring_violation(RING_CANARY, -1, q / RING_GUARD % n_slots);
   }
 };
 

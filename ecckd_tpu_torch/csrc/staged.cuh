@@ -3,9 +3,12 @@
 // instantiate staged_body for the bands they solve.
 //
 // Persistent blocks, each with a ring of C column stagings (common.cuh
-// "Per-column staging") in shared memory, or for columns too deep for it
-// in a device memory slice per block (a run-time instantiation of its
-// own).  Two warp roles:
+// "Per-column staging"), on one of three routes (Staging): whole in shared
+// memory; split, each slot's LW rows in a device memory slice per block and
+// the rest in shared memory, where that holds more columns per block
+// (merged kernel only); or, for columns too deep for shared memory, whole
+// in the device slice (a run-time instantiation of its own).  Two warp
+// roles:
 //   optics warps take a column's layers, a contiguous range each (which
 //   range turns from column to column, so the larger ranges do not always
 //   fall on the same warps): first the layer parameters of their layers
@@ -41,18 +44,21 @@
 
 // The staging plan of one launch (ops/cuda/staged.py stage_plan).
 struct Tile {
-  float* stage;      // device staging, (blocks, slots, col_floats); null
-                     // when staged in shared memory
+  float* stage;      // device staging: (blocks, slots, col_floats) on the
+                     // device route, the LW rows (blocks, slots, lw_floats
+                     // + the checked build's guard) on the split route;
+                     // null when staged in shared memory alone
   int slots;         // C: columns staged per block (a ring)
   int sets;          // S: sets of sweep warps (S divides C)
   int blocks;        // persistent blocks of the launch
   int threads;       // threads per block: the optics warps, then S sets
                      // of sweep warps (one per LW angle, then one SW)
   int shared_bytes;  // dynamic shared memory per block; 0: device staging
-  int col_floats;    // staging floats per column
-  int lw_floats;     // LW rows' floats (the SW rows follow)
+  int col_floats;    // staging floats per slot (shared or device)
+  int lw_floats;     // LW rows' floats (the SW rows follow, but on the
+                     // split route, where they start the slot)
   int sw_floats;     // SW rows' floats (the accumulators follow)
-  int prm_base;      // the layer parameters' offset in a column's staging:
+  int prm_base;      // the layer parameters' offset in a slot:
   int prm_stride;    //   layer j's start at prm_base + j * prm_stride;
   int prm_sw;        //   the SW band's gas weights at + prm_sw (common.cuh)
 };
@@ -74,9 +80,24 @@ bool has_shape(const Band& B) {
   return B.ngpt == S::NG && B.ndense == S::ND && B.nslice == S::ND + S::NL;
 }
 
-// Whether a launch stages its columns in shared memory (else in device
-// memory), and so takes a SHARED instantiation.
-inline bool staged_in_shared(const Tile& P) { return P.shared_bytes > 0; }
+// Where a launch stages its columns: whole in the device slice, whole in
+// shared memory, or split, the LW rows in the device slice and the rest in
+// shared memory.  Each route is an instantiation of its own.
+enum Staging { STAGE_DEVICE, STAGE_SHARED, STAGE_SPLIT };
+
+inline Staging staging_of(const Tile& P) {
+  return P.shared_bytes == 0 ? STAGE_DEVICE
+         : P.stage != nullptr ? STAGE_SPLIT
+                              : STAGE_SHARED;
+}
+
+// Guard words after each slot's LW rows in the split route's slice: the
+// checked build's (ring_check.cuh), none otherwise.
+#ifdef ECCKD_CHECK_RING
+constexpr int SLICE_GUARD = RING_GUARD;
+#else
+constexpr int SLICE_GUARD = 0;
+#endif
 
 // 1024 threads per SM (blocks of 1024, 512 or 256) at 64 registers each.
 constexpr int MAX_THREADS = 1024;
@@ -100,16 +121,28 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Slot s's LW rows on the split route: the block's device slice.
+__device__ __forceinline__ float* lw_slice(const Tile& P, int s) {
+  return P.stage +
+         ((size_t)blockIdx.x * P.slots + s) * (P.lw_floats + SLICE_GUARD);
+}
+
 // One launch's solve.  SL / SS: the LW / SW band's Shape (common.cuh),
 // NoBand for a band the kernel does not solve (BL / BS, W / S are then
-// null); NT: the grid's temperature points, or 0; SHARED: staged in
-// shared memory (its 32-bit addressing), else in the device slice.  A
-// persistent block walks the columns blockIdx.x, + gridDim.x, ...; the
-// i-th goes to slot i % C and is swept
+// null); NT: the grid's temperature points, or 0; STAGING: the route
+// (Staging; shared memory takes its 32-bit addressing).  A persistent
+// block walks the columns blockIdx.x, + gridDim.x, ...; the i-th goes to
+// slot i % C and is swept
 // by set i % S.  The block's last S (n_ang + 1) warps sweep (per set one
 // LW warp per Gauss angle, then the SW warp); the others, the optics
-// warps, stage the next columns meanwhile.
-template <typename T, class SL, class SS, int NT, bool SHARED>
+// warps, stage the next columns meanwhile.  On the split route a slot's
+// LW rows lie in the block's device slice and its SW rows start the slot
+// in shared memory; the barriers order the slice's stores and loads as
+// they order shared memory's (bar.sync / bar.arrive order a thread's
+// earlier accesses to every state space for the threads they join).
+// Where the routes differ, each takes its own statement (if constexpr),
+// so the whole-column routes compile as they did before the split.
+template <typename T, class SL, class SS, int NT, int STAGING>
 __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
                                             const Band* BL, const Band* BS,
                                             const LwSolve* W,
@@ -123,14 +156,17 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
   const int n_opt = blockDim.x / 32 - P.sets * n_set;
   // A slot's barriers join the optics warps and the slot's set.
   const int bar_threads = 32 * (n_opt + n_set);
-  float* slots = SHARED
+  float* slots = STAGING != STAGE_DEVICE
                      ? smem
                      : P.stage + (size_t)blockIdx.x * P.slots * P.col_floats;
+  constexpr bool SPLIT = STAGING == STAGE_SPLIT;
   RING(__shared__ unsigned ring_ledger[2 * RING_MAX_SLOTS];
        const int sw_gases = SW ? 3 * BS->nslice - 2 * BS->ndense : 0;
-       const RingCheck ring(ring_ledger, slots, P.slots, P.col_floats, n_opt,
-                            n_set, P.prm_base, P.prm_stride,
-                            P.prm_sw + sw_gases, nlay);)
+       const RingCheck ring(ring_ledger, slots, P.slots, P.col_floats,
+                            SPLIT ? lw_slice(P, 0) : nullptr,
+                            P.lw_floats + SLICE_GUARD, n_opt, n_set,
+                            P.prm_base, P.prm_stride, P.prm_sw + sw_gases,
+                            nlay);)
   if (warp < n_opt) {
     // 0. The layer parameters of this warp's layers, lanes over them;
     // 1. their optics, one layer at a time.
@@ -160,12 +196,19 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
         layer_params<T>(A, G, BL, BS, W, c, j,
                         st + P.prm_base + j * P.prm_stride);
       __syncwarp();
-      if constexpr (LW)
+      if constexpr (SPLIT) {
         lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
-                              P.prm_stride, st);
-      if constexpr (SW)
+                              P.prm_stride, lw_slice(P, s));
         sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
-                              P.prm_stride, P.prm_sw, st + P.lw_floats);
+                              P.prm_stride, P.prm_sw, st);
+      } else {
+        if constexpr (LW)
+          lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
+                                P.prm_stride, st);
+        if constexpr (SW)
+          sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
+                                P.prm_stride, P.prm_sw, st + P.lw_floats);
+      }
 #ifdef ECCKD_PLANT_SKIP_FREE
       if (late_free) bar_sync(BAR_FREE + s, bar_threads);
 #endif
@@ -181,25 +224,36 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
          c += P.sets * gridDim.x, i += P.sets) {
       const int s = i % P.slots;
       float* st = slots + (size_t)s * P.col_floats;
-      float* acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
+      float* acc;
+      if constexpr (SPLIT) acc = st + P.sw_floats + 2 * nlev * a;
+      else acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
       bar_sync(BAR_FULL + s, bar_threads);
       RING(ring.filled(i, s, c);)
       for (int q = lane; q < 2 * nlev; q += 32) acc[q] = 0.0f;
       __syncwarp();
       if (a == n_lw) {
         if constexpr (SW) {
-          sw_sweeps_staged<SS::NG>(*S, *BS, nlay, c, lane, st + P.lw_floats,
-                                acc, acc + nlev);
+          if constexpr (SPLIT)
+            sw_sweeps_staged<SS::NG>(*S, *BS, nlay, c, lane, st, acc,
+                                     acc + nlev);
+          else
+            sw_sweeps_staged<SS::NG>(*S, *BS, nlay, c, lane,
+                                     st + P.lw_floats, acc, acc + nlev);
           __syncwarp();
           for (int q = lane; q < nlev; q += 32) {
             S->up[(size_t)c * nlev + q] = acc[q];
             S->dn[(size_t)c * nlev + q] = acc[nlev + q];
           }
-          RING(ring.poison(st, P.lw_floats, P.lw_floats + P.sw_floats);)
+          RING(const int o = SPLIT ? 0 : P.lw_floats;
+               ring.poison(st, o, o + P.sw_floats);)
         }
       } else if constexpr (LW) {
-        lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, st, acc,
-                              acc + nlev);
+        if constexpr (SPLIT)
+          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, lw_slice(P, s),
+                                   acc, acc + nlev);
+        else
+          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, st, acc,
+                                   acc + nlev);
         // The angles' sums, in angle order, split over the LW warps.
         bar_sync(BAR_LW_DONE + set, 32 * n_lw);
         const float* acc0 = acc - 2 * nlev * a;
@@ -209,9 +263,10 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
           (q < nlev ? W->up : W->dn)[(size_t)c * nlev + q % nlev] = v;
         }
         // Every LW warp of the set is done with the LW rows: one poisons
-        // them.
+        // them (on the split route they hold no layer parameters).
         RING(if (n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
-             if (a == 0) ring.poison(st, 0, P.lw_floats);)
+             if (a == 0) ring.poison(SPLIT ? lw_slice(P, s) : st, 0,
+                                     P.lw_floats, !SPLIT);)
       }
       __syncwarp();
       RING(ring.sweep_done(i, s);)
@@ -223,15 +278,16 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
 }
 
 // The host side of a launch, for the args struct Args of one kernel (its
-// Tile in .tile) and the kernel instantiation `kernel` that fits it.
+// Tile in .tile) and the kernel instantiation `kernel` that fits it (null:
+// none does, and the launch is refused).
 template <typename Args>
 using KernelFn = void (*)(Args);
 
 template <typename Args>
 cudaError_t configure(KernelFn<Args> kernel, const Args* args) {
   const Tile& P = args->tile;
-  if (P.slots < 1 || P.slots > MAX_SLOTS || P.sets < 1 ||
-      P.slots % P.sets != 0)
+  if (kernel == nullptr || P.slots < 1 || P.slots > MAX_SLOTS ||
+      P.sets < 1 || P.slots % P.sets != 0)
     return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -53,16 +53,19 @@ namespace {
 template <typename T, class S, int NT, bool SHARED>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     sw_kernel(const __grid_constant__ SwArgs args) {
-  staged_body<T, NoBand, S, NT, SHARED>(args.atm, args.grid, nullptr,
-                                        &args.band, nullptr, &args.sw,
-                                        args.tile);
+  staged_body<T, NoBand, S, NT, SHARED ? STAGE_SHARED : STAGE_DEVICE>(
+      args.atm, args.grid, nullptr, &args.band, nullptr, &args.sw,
+      args.tile);
 }
 
 // The shipped model's shape as constants; any other, and device staging,
 // at run time.
 template <typename T>
 KernelFn<SwArgs> pick(const SwArgs* a) {
-  if (!staged_in_shared(a->tile)) return sw_kernel<T, Shape<0>, 0, false>;
+  // One band: no split route (stage_plan plans none).
+  if (staging_of(a->tile) == STAGE_SPLIT) return nullptr;
+  if (staging_of(a->tile) == STAGE_DEVICE)
+    return sw_kernel<T, Shape<0>, 0, false>;
   if (a->grid.n_t == SHIPPED_NT && has_shape<WideShape>(a->band))
     return sw_kernel<T, WideShape, SHIPPED_NT, true>;
   return sw_kernel<T, Shape<0>, 0, true>;

@@ -96,8 +96,8 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
       (ncol, ngpt_sw) albedo; tsi (ncol,) [W m-2]; sza_deg (ncol,).
       column_chunk: columns per launch.  The kernel's staging does not
         grow with it: shared memory, or for a column too deep for that
-        (``stage_plan``: nlay >~ 250 at 32 + 27 g-points) a device slice
-        per persistent block.
+        (``stage_plan``: nlay >~ 250 at 32 + 27 g-points; from nlay 124
+        its LW rows) a device slice per persistent block.
       mxu_mode: table mode (None: config's, read now); the fast mode
         launches the fast entry point.
 
@@ -105,7 +105,9 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
     raises (ValueError), CPU tensors and inputs that require grad
     included: ``lwsw_fluxes_plain`` is the version for those.  Each launch
     adds one to ``lwsw_fluxes_cuda.launches`` (exact) or
-    ``lwsw_fluxes_cuda.fast_launches`` (fast).
+    ``lwsw_fluxes_cuda.fast_launches`` (fast), and one on the split
+    staging route (``staged.stage_plan``: nlay 124-208 at one angle on an
+    H100) to ``.split_launches`` or ``.fast_split_launches`` besides.
     """
     binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
                          emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
@@ -118,3 +120,5 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
 
 lwsw_fluxes_cuda.launches = 0
 lwsw_fluxes_cuda.fast_launches = 0
+lwsw_fluxes_cuda.split_launches = 0
+lwsw_fluxes_cuda.fast_split_launches = 0

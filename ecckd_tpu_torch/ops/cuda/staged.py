@@ -3,8 +3,10 @@ csrc/lwsw.cu, the LW-only lw.cu and the SW-only sw.cu.
 
 ``stage_plan`` sizes one launch's per-column staging (csrc/common.cuh
 "Per-column staging") for the bands it solves, picks the columns per
-block, the sets of sweep warps and the threads per block, and whether a
-column fits in shared memory or goes to a device memory slice;
+block, the sets of sweep warps and the threads per block, and the route
+(csrc/staged.cuh Staging): a column whole in shared memory, split (its LW
+rows in a device memory slice, the rest in shared memory), or whole in
+the device slice;
 ``occupancy`` asks the card how many such blocks an SM holds; and
 ``run_staged`` launches any of the three kernels over column chunks.  The
 wrappers in ops/cuda/{lwsw,lw,sw}.py call ``run_staged`` with the bands
@@ -49,14 +51,24 @@ class StagePlan:
     sets: int          # S: sets of sweep warps per block (S divides C)
     shared: bool       # staged in shared memory (else a device slice)
     threads: int       # threads per block
-    guard_floats: int = 0  # guard words after each slot: the ring
-                           # checker's build only (ops/cuda/ring_check.py)
+    guard_floats: int = 0  # guard words after each slot (and, split,
+                           # after its LW rows): the ring checker's build
+                           # only (ops/cuda/ring_check.py)
+    split: bool = False    # the LW rows in a device slice, the rest of
+                           # the slot in shared memory
+
+    @property
+    def route(self) -> str:
+        """"shared", "split" or "device" (csrc/staged.cuh Staging)."""
+        return ("split" if self.split else "shared" if self.shared
+                else "device")
 
     @property
     def col_floats(self) -> int:
-        """The floats of one slot: what a column stages, then the guard."""
-        return (self.lw_floats + self.sw_floats + self.acc_floats
-                + self.prm_floats + self.guard_floats)
+        """The floats of one slot: what a column stages there (on the
+        split route all but its LW rows), then the guard."""
+        return ((0 if self.split else self.lw_floats) + self.sw_floats
+                + self.acc_floats + self.prm_floats + self.guard_floats)
 
     @property
     def bytes_per_column(self) -> int:
@@ -66,6 +78,14 @@ class StagePlan:
     def shared_bytes(self) -> int:
         """Dynamic shared memory per block (0 on the device route)."""
         return self.slots * self.bytes_per_column if self.shared else 0
+
+    @property
+    def slice_floats(self) -> int:
+        """Device staging floats per slot: the slot on the device route,
+        its LW rows and their guard on the split route, else 0."""
+        if self.split:
+            return self.lw_floats + self.guard_floats
+        return 0 if self.shared else self.col_floats
 
 
 def band_gases(gas_plan: plan_mod.GasPlan) -> Tuple[int, int]:
@@ -94,12 +114,16 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     block (opt-in) and per SM, in bytes.  C, the columns staged per
     block, is the most, up to ``max_slots``, that fit in
     ``block_shared``; columns that do not fit alone are staged in device
-    memory, ``max_slots`` per block.  S, the sets of sweep warps (one per
-    LW angle and one SW each; set k sweeps slots k, k + S, ...), is the
-    most, up to ``sets``, that divides C.  Threads per block: 1024 (64
-    registers each) per SM, in ``blocks_per_sm`` blocks where that many
-    fit in ``sm_shared`` and hold the S sets and one optics warp, else in
-    half as many, down to one."""
+    memory, ``max_slots`` per block.  With both bands, where whole columns
+    fit but fewer than ``max_slots`` of them, and more fit without their
+    LW rows, the plan is split: each slot's LW rows go to a device slice
+    and C is the most of the rest that fit (the layer parameters stay in
+    the SW rows or after the accumulators, which then start the slot).
+    S, the sets of sweep warps (one per LW angle and one SW each; set k
+    sweeps slots k, k + S, ...), is the most, up to ``sets``, that
+    divides C.  Threads per block: 1024 (64 registers each) per SM, in
+    ``blocks_per_sm`` blocks where that many fit in ``sm_shared`` and hold
+    the S sets and one optics warp, else in half as many, down to one."""
     if not 1 <= max_slots <= SLOT_LIMIT:
         raise ValueError(f"max_slots must be in 1..{SLOT_LIMIT}")
     has_lw, has_sw = ngpt_lw > 0, ngpt_sw > 0
@@ -120,6 +144,11 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
         prm_stride=last if in_rows else per_layer, prm_sw=4 + prm_lw,
         slots=max_slots, sets=1, shared=True, threads=1024)
     fit = block_shared // plan.bytes_per_column
+    if has_lw and has_sw and 1 <= fit < max_slots:
+        split = dataclasses.replace(plan, split=True,
+                                    prm_base=plan.prm_base - lw_floats)
+        if block_shared // split.bytes_per_column > fit:
+            plan, fit = split, block_shared // split.bytes_per_column
     slots = min(fit, max_slots) or max_slots
     sets = max(s for s in range(1, min(sets, slots) + 1) if slots % s == 0)
     plan = dataclasses.replace(plan, slots=slots, sets=sets,
@@ -135,6 +164,8 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
 
 def tile_struct(plan: StagePlan, blocks: int = 0,
                 stage: Optional[torch.Tensor] = None) -> binding.Tile:
+    """The kernel's Tile of ``plan``; ``stage``: the device slice
+    (``slice_floats`` per slot) on the device and split routes."""
     return binding.Tile(stage=0 if stage is None else stage.data_ptr(),
                         slots=plan.slots, sets=plan.sets, blocks=blocks,
                         threads=plan.threads,
@@ -170,19 +201,24 @@ def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(name: str, shape: tuple, threads: int, shared_bytes: int,
                   fast: bool, device_index: int,
-                  lib: Optional[ctypes.CDLL] = None) -> int:
+                  lib: Optional[ctypes.CDLL] = None,
+                  split: bool = False) -> int:
     """The CUDA occupancy calculator's blocks per SM for a launch
     configuration of kernel ``name`` (``ecckd_<name>_occupancy``) on one
-    card; ``shape`` (``launch_shape``) picks the instantiation, ``lib`` a
-    bound build other than ``binding.library``'s."""
+    card; ``shape`` (``launch_shape``) and ``split`` (the route) pick the
+    instantiation, ``lib`` a bound build other than
+    ``binding.library``'s."""
     args_type = binding.ARGS[name]
     lib = lib or binding.library(name, args_type)
     fn = getattr(lib, f"ecckd_{name}_occupancy")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     lw_shape, sw_shape, n_t = shape
+    # A stage pointer beside shared memory names the split route; the
+    # query reads no memory through it.
     args = args_type(grid=binding.Grid(n_t=n_t),
-                     tile=binding.Tile(slots=1, sets=1, threads=threads,
+                     tile=binding.Tile(stage=int(split), slots=1, sets=1,
+                                       threads=threads,
                                        shared_bytes=shared_bytes))
     for field, band in (("lw_band", lw_shape), ("sw_band", sw_shape),
                         ("band", lw_shape or sw_shape)):
@@ -218,7 +254,7 @@ def occupancy(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     return plan, blocks_per_sm(kernel_name(lw, sw), launch_shape(lw, sw),
                                plan.threads, plan.shared_bytes,
                                (lw or sw).arrays.fast,
-                               atm.tlay.device.index or 0, lib)
+                               atm.tlay.device.index or 0, lib, plan.split)
 
 
 def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
@@ -230,7 +266,8 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     lw.cu or sw.cu) over column chunks on the current stream, in the
     bands' table mode: persistent blocks, as many as the card holds at
     once, on ``stage_plan``'s staging (a device slice per block where a
-    column does not fit in shared memory; ``max_blocks`` caps them).
+    column, or on the split route its LW rows, does not stay in shared
+    memory; ``max_blocks`` caps them).
     Returns the (ncol, nlay+1) outputs, (up, down) per band, LW first.
     Launches count on ``counted`` (binding.launch_chunks).  ``lib``: a
     bound build of the kernel other than the plain one (the ring
@@ -247,9 +284,9 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     plan, per_sm = occupancy(atm, lw, sw, plan, lib)
     blocks = min(chunk, max_blocks or chunk, per_sm * torch.cuda.
                  get_device_properties(dev).multi_processor_count)
-    stage = None if plan.shared else torch.empty(
-        (blocks, plan.slots, plan.col_floats), dtype=torch.float32,
-        device=dev)
+    stage = torch.empty((blocks, plan.slots, plan.slice_floats),
+                        dtype=torch.float32,
+                        device=dev) if plan.slice_floats else None
     # The merged kernel shares one grid: the LW model's (mergeable pair);
     # a single-band kernel takes its model's own.
     grid = binding.grid_struct(lw or sw)
@@ -272,5 +309,5 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                          tile=tile, **bands, **solves)
 
     binding.launch_chunks(name, args_type, ncol, chunk, make_args, counted,
-                          dev, (lw or sw).arrays.fast, lib)
+                          dev, (lw or sw).arrays.fast, lib, plan.split)
     return outs

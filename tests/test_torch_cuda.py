@@ -108,6 +108,50 @@ def test_kernel_matches_plain_f64(models, n_angles, pair):
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 @pytest.mark.parametrize("n_angles", [1, 3])
+def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
+    """nlay 137: one whole column fits in a block's shared memory, two do
+    not, two without their LW rows do.  The merged kernel keeps two slots
+    per block on the split route (each slot's LW rows in a device slice,
+    ops/cuda/staged.py stage_plan), counts each launch in
+    ``split_launches`` (``fast_split_launches``) and matches the plain
+    version at f64 in its table mode; an nlay-60 call, staged whole in
+    shared memory, leaves the split count as it was."""
+    from ecckd_tpu_torch.ops.cuda import plan, staged
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    ncol, nlay = 1037, 137
+    b32, b64 = batch(ncol, nlay, torch.float32, seed=4), batch(
+        ncol, nlay, torch.float64, seed=4)
+    expand = lambda e: e[:, None].expand(e.shape[0], lw.ngpt).contiguous()
+    prep = plan.prepare(lw, sw, b32["plev"], b32["tlay"], b32["tlev"],
+                        b32["tsfc"], expand(b32["emis"]), b32["concs"],
+                        b32["alb"], b32["tsi"], b32["sza"], n_angles,
+                        fast=mode == "bf16")
+    stage, per_sm = staged.occupancy(*prep)
+    assert (stage.route, stage.slots, stage.sets, stage.threads) == (
+        "split", 2, 2, 1024) and per_sm == 1
+    prefix = "fast_" if mode == "bf16" else ""
+    counts = lambda: (getattr(lwsw_fluxes_cuda, prefix + "launches"),
+                      getattr(lwsw_fluxes_cuda, prefix + "split_launches"))
+    before = counts()
+    got = solve(lwsw_fluxes_cuda, lw, sw, b32, expand(b32["emis"]),
+                n_gauss_angles=n_angles, column_chunk=512, mxu_mode=mode)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 3, before[1] + 3)   # 512 + 512 + 13
+    ref = solve(lwsw_fluxes_plain, models["lw", torch.float64],
+                models["sw", torch.float64], b64, expand(b64["emis"]),
+                n_gauss_angles=n_angles, mxu_mode=mode)
+    for band in (slice(0, 2), slice(2, 4)):
+        assert_close(got[band], ref[band])
+    shallow = batch(301, 60, torch.float32)
+    before = counts()
+    solve(lwsw_fluxes_cuda, lw, sw, shallow, expand(shallow["emis"]),
+          n_gauss_angles=n_angles, mxu_mode=mode)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("n_angles", [1, 3])
 def test_kernel_stages_deep_columns_in_device_memory(models, n_angles, mode):
     """nlay 300 does not fit in shared memory: the merged kernel stages
     it in a device slice per block (ops/cuda/staged.py stage_plan) and

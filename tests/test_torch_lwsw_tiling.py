@@ -6,9 +6,11 @@ The kernel itself (csrc/lwsw.cu) runs only on a card; these tests hold
 what the host decides for it:
 
 * ``stage_plan``: the staging floats per column, C (columns staged per
-  block), shared memory or a device slice, threads per block, and where
-  the layer parameters go, against counts written out here by hand from
-  csrc/common.cuh's row layout;
+  block), the route (whole in shared memory, split with the LW rows in a
+  device slice, or whole in the device slice), threads per block, and
+  where the layer parameters go, against counts written out here by hand
+  from csrc/common.cuh's row layout, and literal plans at an H100's
+  limits;
 * the ctypes mirror of ``LwswArgs`` and of the staging plan ``Tile``
   (csrc/staged.cuh): field order as the C source declares it, offsets and
   size by hand;
@@ -18,6 +20,7 @@ what the host decides for it:
   card holds that case against is itself held.
 """
 import ctypes
+import dataclasses
 import re
 from pathlib import Path
 
@@ -43,8 +46,10 @@ H100 = (232_448, 233_472)
 
 def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
             gases_sw=GASES_SW, limits=H100):
-    """(floats per column, C, shared, shared bytes per block, threads,
-    parameters in the r_dif row) from csrc/common.cuh's layout."""
+    """(floats per slot, C, shared, shared bytes per block, threads,
+    parameters in the r_dif row, split) from csrc/common.cuh's layout.
+    Split: where one whole column fits in a block but two do not, and two
+    fit without their LW rows, which then go to the device slice."""
     lw_rows = 3 * nlay if n_ang == 1 else 3 * nlay + 1  # tr/src or tau/B
     sw_rows = 5 * nlay + 2        # r_dif, t_dif, r_dir+1, t_dir, t+1
     acc = 2 * (nlay + 1) * (n_ang + 1)  # up, dn per LW angle, then SW
@@ -54,28 +59,37 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
     floats = (lw_rows * ng_lw + sw_rows * ng_sw + acc
               + (0 if in_rows else per_layer * nlay))
     fit = limits[0] // (4 * floats)
+    split = fit == 1 and limits[0] // (4 * (floats - lw_rows * ng_lw)) >= 2
+    if split:
+        floats, fit = floats - lw_rows * ng_lw, 2
     if fit == 0:
-        return floats, 2, False, 0, 512, in_rows
+        return floats, 2, False, 0, 512, in_rows, False
     c = min(fit, 2)
     smem = c * 4 * floats
     threads = 512 if 2 * (smem + 1024) <= limits[1] else 1024
-    return floats, c, True, smem, threads, in_rows
+    return floats, c, True, smem, threads, in_rows, split
 
 
 @pytest.mark.parametrize("n_ang", [1, 2, 3, 4])
 @pytest.mark.parametrize("ng_lw", [32, 36])
 @pytest.mark.parametrize("nlay", [1, 2, 8, 60, 137, 300])
 def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
+    """nlay 137 is split at every angle count and both LW bands: one whole
+    column fits in a block, two of their SW rows and accumulators do."""
     p = staged.stage_plan(nlay, ng_lw, 27, n_ang, GASES_LW, GASES_SW, *H100)
-    floats, c, shared, smem, threads, in_rows = by_hand(nlay, ng_lw, 27,
-                                                        n_ang)
+    floats, c, shared, smem, threads, in_rows, split = by_hand(
+        nlay, ng_lw, 27, n_ang)
     assert p.col_floats == floats and p.bytes_per_column == 4 * floats
     assert (p.slots, p.shared, p.shared_bytes, p.threads) == (c, shared,
                                                              smem, threads)
+    assert p.split == split == (nlay == 137)
+    assert p.slice_floats == (p.lw_floats if split else
+                              0 if shared else floats)
     assert (p.prm_floats == 0) == in_rows
     assert p.prm_sw == 8 + GASES_LW[0] + 3 * GASES_LW[1]
-    # Layer j's parameters sit in its r_dif row, after the LW rows.
-    assert (p.prm_base, p.prm_stride) == (p.lw_floats, 27)
+    # Layer j's parameters sit in its r_dif row, after the LW rows (split:
+    # the r_dif row starts the slot).
+    assert (p.prm_base, p.prm_stride) == (0 if split else p.lw_floats, 27)
 
 
 def test_stage_plan_at_the_main_path_and_the_edges():
@@ -93,28 +107,93 @@ def test_stage_plan_at_the_main_path_and_the_edges():
     assert (rrtmgp.bytes_per_column, rrtmgp.slots, rrtmgp.threads) == (
         59512, 2, 1024)
     deep = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
-    assert (deep.bytes_per_column, deep.slots, deep.shared) == (129012, 1,
-                                                                True)
+    # 129,012 B a whole column (LW rows 52,608 B): one fits, two do not;
+    # without its LW rows 76,404 B, two fit.
+    assert (deep.lw_floats, deep.bytes_per_column, deep.slots,
+            deep.shared_bytes, deep.route) == (13152, 76404, 2, 152808,
+                                               "split")
     device = staged.stage_plan(300, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (device.bytes_per_column, device.slots, device.shared,
             device.shared_bytes, device.threads) == (282232, 2, False, 0,
                                                      512)
 
 
-@pytest.mark.parametrize("nlay", [1, 60, 137, 300])
+@pytest.mark.parametrize("nlay", [1, 60, 137, 150, 300])
 def test_stage_plan_follows_the_cards_shared_memory(nlay):
     """The limits are the card's: on one with 163 KB per block and 164 KB
     per SM (an A100's), nlay 60 keeps C = 2 in one block of 1024 threads
-    per SM, and nlay 137 still fits one column."""
+    per SM, nlay 137 fits one whole column and is split to two (152,808 B
+    of 166,912), and nlay 150 fits one whole column and not two split."""
     small = (166_912, 167_936)
     p = staged.stage_plan(nlay, 32, 27, 1, GASES_LW, GASES_SW, *small)
-    _, c, shared, smem, threads, _ = by_hand(nlay, 32, 27, 1, limits=small)
-    assert (p.slots, p.shared, p.shared_bytes, p.threads) == (c, shared,
-                                                             smem, threads)
+    _, c, shared, smem, threads, _, split = by_hand(nlay, 32, 27, 1,
+                                                    limits=small)
+    assert (p.slots, p.shared, p.shared_bytes, p.threads, p.split) == (
+        c, shared, smem, threads, split)
     if nlay == 60:
         assert (p.slots, p.threads) == (2, 1024)
     if nlay == 137:
-        assert (p.slots, p.shared) == (1, True)
+        assert (p.route, p.slots, p.shared_bytes) == ("split", 2, 152808)
+    if nlay == 150:
+        assert (p.route, p.slots) == ("shared", 1)
+
+
+# K1's plans in its block shape (staged.SHAPES["lwsw"]) at an H100's
+# limits: (nlay, angles, route, C, S, threads, shared bytes per block,
+# device slice floats per slot).  Split from nlay 124 to 208 at one angle
+# (122 to 202 at three); then one whole column per block, then the device.
+H100_PLANS = [
+    (60, 1, "shared", 2, 2, 512, 113264, 0),
+    (91, 1, "shared", 2, 2, 1024, 171544, 0),
+    (123, 1, "shared", 2, 2, 1024, 231704, 0),
+    (124, 1, "split", 2, 2, 1024, 138352, 11904),
+    (137, 1, "split", 2, 2, 1024, 152808, 13152),
+    (208, 1, "split", 2, 2, 1024, 231760, 19968),
+    (209, 1, "shared", 1, 1, 1024, 196692, 0),
+    (300, 1, "device", 2, 2, 512, 0, 70558),
+    (60, 3, "shared", 2, 2, 512, 115472, 0),
+    (91, 3, "shared", 2, 2, 1024, 174744, 0),
+    (121, 3, "shared", 2, 2, 1024, 232104, 0),
+    (122, 3, "split", 2, 2, 1024, 140064, 11744),
+    (137, 3, "split", 2, 2, 1024, 157224, 13184),
+    (202, 3, "split", 2, 2, 1024, 231584, 19424),
+    (203, 3, "shared", 1, 1, 1024, 194444, 0),
+    (300, 3, "device", 2, 2, 512, 0, 71794),
+]
+
+
+@pytest.mark.parametrize("nlay,n_ang,route,c,s,threads,smem,lw_slice",
+                         H100_PLANS)
+def test_merged_kernels_routes_at_h100_limits(nlay, n_ang, route, c, s,
+                                              threads, smem, lw_slice):
+    blocks, slots, sets = staged.SHAPES["lwsw"]
+    p = staged.stage_plan(nlay, 32, 27, n_ang, GASES_LW, GASES_SW, *H100,
+                          blocks_per_sm=blocks, max_slots=slots, sets=sets)
+    assert (p.route, p.slots, p.sets, p.threads, p.shared_bytes,
+            p.slice_floats) == (route, c, s, threads, smem, lw_slice)
+    if route == "split":
+        # The slice holds the LW rows alone: 32 g-points x 3 nlay (+1 at
+        # 3 angles); the slot in shared memory the rest.
+        assert lw_slice == p.lw_floats == 32 * (3 * nlay + (n_ang > 1))
+        assert smem == c * 4 * (p.sw_floats + p.acc_floats)
+    # The guarded plan (ring checker) keeps the route.
+    g = dataclasses.replace(p, guard_floats=32)
+    assert g.route == route
+    assert g.slice_floats == lw_slice + (32 if route == "split" else
+                                         0 if route == "shared" else 32)
+
+
+@pytest.mark.parametrize("kernel", ["lw", "sw"])
+@pytest.mark.parametrize("nlay", [124, 137, 208])
+def test_one_band_is_never_split(kernel, nlay):
+    """K3 and K4 solve one band: nothing to split, C = 1 where one column
+    fits (csrc/lw.cu and sw.cu refuse a split Tile)."""
+    ng_lw, ng_sw = (32, 0) if kernel == "lw" else (0, 27)
+    for n_ang in ((1, 3) if kernel == "lw" else (1,)):
+        p = staged.stage_plan(nlay, ng_lw, ng_sw, n_ang,
+                              GASES_LW if ng_lw else (0, 0),
+                              GASES_SW if ng_sw else (0, 0), *H100)
+        assert not p.split and p.route in ("shared", "device")
 
 
 @pytest.mark.parametrize("ng_sw,gases_lw", [(40, GASES_LW), (27, (14, 1))])
@@ -178,6 +257,24 @@ def test_tile_struct_carries_the_plan():
     assert (t.prm_base, t.prm_stride, t.prm_sw) == (p.lw_floats, 27, 18)
 
 
+def test_tile_struct_carries_the_split_plan():
+    """The split route's Tile: shared memory per block and the LW slice's
+    pointer in ``stage`` (csrc/staged.cuh staging_of reads the route from
+    both), a slot's shared floats without the LW rows, the parameters at
+    the slot's start."""
+    p = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100,
+                          max_slots=2, sets=2)
+    stage = torch.empty((132, p.slots, p.slice_floats))
+    t = staged.tile_struct(p, blocks=132, stage=stage)
+    assert t.stage == stage.data_ptr() and t.shared_bytes == 152808 > 0
+    assert (t.slots, t.sets, t.threads) == (2, 2, 1024)
+    assert (t.col_floats, t.lw_floats, t.sw_floats) == (
+        19101, 13152, 18549)
+    assert (t.prm_base, t.prm_stride, t.prm_sw) == (0, 27, 18)
+    # 13.9 MB of LW slices on 132 blocks.
+    assert 4 * stage.numel() == 4 * 132 * 2 * 13152 == 13_888_512
+
+
 @pytest.mark.parametrize("n_angles", [1, 3])
 def test_plain_f64_at_nlay300_matches_jax_xla(ckd_paths, n_angles):
     jl, tl = load_both(ckd_paths["lw"])
@@ -205,3 +302,45 @@ def test_plain_f64_at_nlay300_matches_jax_xla(ckd_paths, n_angles):
     # That depth is the one the kernel stages in device memory.
     assert not staged.stage_plan(300, tl.ngpt, ts.ngpt, n_angles, GASES_LW,
                                GASES_SW, *H100).shared
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("split", [False, True])
+def test_launch_chunks_counts_split_launches(monkeypatch, fast, split):
+    """Each launch adds one to ``launches`` (``fast_launches``), and on
+    the split route one to ``split_launches`` (``fast_split_launches``)
+    besides; the launch itself stubbed."""
+    import contextlib
+    import types
+    calls = []
+    lib = types.SimpleNamespace(
+        ecckd_lwsw_launch=lambda args, stream: calls.append("exact") or 0,
+        ecckd_lwsw_launch_fast=lambda args, stream: calls.append("fast")
+        or 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    counted = types.SimpleNamespace(launches=0, fast_launches=0,
+                                    split_launches=0, fast_split_launches=0)
+    binding.launch_chunks("lwsw", binding.LwswArgs, 1037, 512,
+                          lambda c0, c1: binding.LwswArgs(), counted, None,
+                          fast, lib, split)
+    assert calls == ["fast" if fast else "exact"] * 3     # 512, 512, 13
+    prefix = "fast_" if fast else ""
+    want = {"launches": 0, "fast_launches": 0, "split_launches": 0,
+            "fast_split_launches": 0, prefix + "launches": 3}
+    if split:
+        want[prefix + "split_launches"] = 3
+    assert vars(counted) == want
+
+
+def test_replays_count_the_split_launches():
+    """capture.jit adds a replay's launches back per counter: the merged
+    kernel's split counts among them, and no other wrapper has any."""
+    from ecckd_tpu_torch.utils import capture
+    assert {c for w, c in capture.COUNTERS if w is lwsw.lwsw_fluxes_cuda} \
+        == {"launches", "fast_launches", "split_launches",
+            "fast_split_launches"}
+    assert not any("split" in c for w, c in capture.COUNTERS
+                   if w is not lwsw.lwsw_fluxes_cuda)

@@ -141,7 +141,7 @@ def _plan(gases, kernel, nlay, n_ang):
 
 
 def _regime(p):
-    return p.threads, p.slots, p.sets, p.shared
+    return p.threads, p.slots, p.sets, p.route
 
 
 def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
@@ -154,7 +154,12 @@ def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
                    for k, nlay, a in cuda_sanitize.CHECKED if k == kernel}
         assert covered == every, kernel
         assert any(c == 1 for _, c, _, _ in covered), kernel
-        assert any(not shared for *_, shared in covered), kernel
+        assert any(route == "device" for *_, route in covered), kernel
+    # K1's split route at 1 and 3 angles, at its shallow and deep ends.
+    split = {(nlay, a) for k, nlay, a in cuda_sanitize.CHECKED
+             if k == "lwsw" and _plan(gases, k, nlay, a).split}
+    assert {(124, 1), (137, 1), (208, 1), (122, 3), (137, 3),
+            (202, 3)} <= split
     # Both table modes, every configuration, and the plant in each kernel.
     import inspect
     defaults = inspect.signature(cuda_sanitize.run_checked).parameters
@@ -183,6 +188,11 @@ def test_guarded_plans_fit_the_card(ckd_paths):
             assert g.shared_bytes + static <= H100[0], (kernel, nlay)
         else:
             assert g.shared_bytes == 0
+        # The device slice: the slot, or on the split route its LW rows,
+        # then the guard.
+        if p.route != "shared":
+            assert g.slice_floats == (p.slice_floats
+                                      + ring_check.RING_GUARD_FLOATS)
 
 
 def test_the_python_side_mirrors_the_checker():

@@ -92,42 +92,50 @@ def test_torch_route_f64_matches_jax_xla_at_sweep_depths(ckd_paths, nlay,
 
 
 def _regime_by_hand(nlay: int, n_ang: int):
-    """K1's (C, S, threads) from the bytes per column (csrc/common.cuh's
-    rows: LW 3 nlay (+1 at 2-4 angles) x 32, SW (5 nlay + 2) x 27, 2
-    (nlay + 1) accumulators per sweep, the layer parameters in the SW
-    rows) and an H100's 232,448 / 233,472 B per block / SM with 1,024 B
-    reserved per block: two slots per block where they fit, two blocks of
-    512 threads where both fit in the SM, one slot where only one does."""
-    floats = ((3 * nlay + (n_ang > 1)) * 32 + (5 * nlay + 2) * 27
-              + 2 * (n_ang + 1) * (nlay + 1))
-    col = 4 * floats
+    """K1's (route, C, S, threads) from the bytes per column
+    (csrc/common.cuh's rows: LW 3 nlay (+1 at 2-4 angles) x 32, SW
+    (5 nlay + 2) x 27, 2 (nlay + 1) accumulators per sweep, the layer
+    parameters in the SW rows) and an H100's 232,448 / 233,472 B per
+    block / SM with 1,024 B reserved per block: two slots per block where
+    they fit, two blocks of 512 threads where both fit in the SM; where
+    only one fits, two slots split (the LW rows in a device slice) if two
+    fit without their LW rows, else one slot."""
+    lw = (3 * nlay + (n_ang > 1)) * 32
+    rest = (5 * nlay + 2) * 27 + 2 * (n_ang + 1) * (nlay + 1)
     block, sm = H100
-    if 2 * col > block:
-        return 1, 1, 1024
-    return 2, 2, 512 if 2 * (2 * col + 1024) <= sm else 1024
+    if 2 * 4 * (lw + rest) > block:
+        return ("split", 2, 2, 1024) if 2 * 4 * rest <= block else (
+            "shared", 1, 1, 1024)
+    return ("shared", 2, 2,
+            512 if 2 * (2 * 4 * (lw + rest) + 1024) <= sm else 1024)
 
 
 @pytest.mark.parametrize("nlay,ang", LEGS + [(61, 1), (62, 1), (123, 1),
-                                             (124, 1), (247, 1)])
+                                             (124, 1), (208, 1), (209, 1),
+                                             (247, 1), (121, 3), (122, 3),
+                                             (202, 3), (203, 3)])
 def test_stage_plan_at_sweep_depths_is_the_regime_by_hand(nlay, ang):
     blocks, slots, sets = staged.SHAPES["lwsw"]
     p = staged.stage_plan(nlay, 32, 27, ang, GASES_LW, GASES_SW, *H100,
                           blocks_per_sm=blocks, max_slots=slots, sets=sets)
     assert p.shared
-    assert (p.slots, p.sets, p.threads) == _regime_by_hand(nlay, ang)
+    assert (p.route, p.slots, p.sets, p.threads) == _regime_by_hand(nlay,
+                                                                    ang)
 
 
 def test_the_sweeps_regimes():
-    """The three regimes the sweep's depths span at 1 angle."""
+    """The three regimes the sweep's depths span at 1 angle: nlay 137
+    split, C = 2 in one block of 1024 threads (the nlay-91 regime)."""
     blocks, slots, sets = staged.SHAPES["lwsw"]
     got = {nlay: staged.stage_plan(nlay, 32, 27, 1, GASES_LW, GASES_SW,
                                    *H100, blocks_per_sm=blocks,
                                    max_slots=slots, sets=sets)
            for nlay, _ in shape_sweep_cuda.SHAPES}
-    assert {n: (p.slots, p.threads) for n, p in got.items()} == {
-        30: (2, 512), 47: (2, 512), 60: (2, 512), 91: (2, 1024),
-        137: (1, 1024)}
-    assert got[137].bytes_per_column == 940 * 137 + 232
+    assert {n: (p.route, p.slots, p.threads) for n, p in got.items()} == {
+        30: ("shared", 2, 512), 47: ("shared", 2, 512),
+        60: ("shared", 2, 512), 91: ("shared", 2, 1024),
+        137: ("split", 2, 1024)}
+    assert got[137].bytes_per_column == 556 * 137 + 232
 
 
 def test_the_mode_picks_the_bounds_and_the_artifact():

@@ -3,15 +3,18 @@
 
 Builds ``csrc/{lwsw,lw,sw}.cu`` in both trees (each with its own
 ops/cuda/build.py, in parallel) through ``tools/sass_count.py``, then
-compares, per library:
+compares, per library and per function (kernel instantiation or device
+function):
 * ptxas's report (``<lib>.ptxas.txt``: per kernel instantiation the
-  registers, spills, stack, barriers and static shared memory);
+  registers, spills, stack, barriers, static shared and constant memory);
 * tools/sass_count.py's instruction counts by kind, per function and per
   loop body.
 The anonymous namespaces' hashes, ptxas's compile times and the library
-hashes differ between any two sources and are left out.  A change that
-only adds code under a define that the plain build does not set must
-give equal reports.
+hashes differ between any two sources and are left out.  Every function
+of the other tree must be in this one with equal reports; functions only
+this tree has (new instantiations) are listed, not compared.  A change
+that only adds code under a define that the plain build does not set, or
+only adds instantiations, must pass.
 
 Usage (on a machine with nvcc and cuobjdump):
   python tools/build_compare.py --against _archive/parent [--out f.json]
@@ -61,6 +64,43 @@ def registers(report: str) -> list:
     return re.findall(r"Used \d+ registers[^\n]*", report)
 
 
+def ptxas_functions(report: str) -> dict:
+    """ptxas's report split by function: {name: its lines}, the lines
+    before the first function under ""."""
+    out, key = {"": []}, ""
+    for line in normalize(report).splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m and m.group(1) != key:
+            key = m.group(1)
+            out.setdefault(key, [])
+        out[key].append(line)
+    return out
+
+
+def sass_functions(text: str) -> dict:
+    """tools/sass_count.py's summary split by function: {"library
+    function": its lines}."""
+    out, key = {}, None
+    for line in normalize(text).splitlines():
+        m = re.match(r"== (\S+ \S+): ", line)
+        if m:
+            key = m.group(1)
+            out[key] = []
+        if key is not None:
+            out[key].append(line)
+    return out
+
+
+def compare(this: dict, other: dict) -> dict:
+    """Functions in both with unequal lines, in the other only, in this
+    only."""
+    return {"differ": sorted(k for k in this.keys() & other.keys()
+                             if this[k] != other[k]),
+            "missing": sorted(other.keys() - this.keys()),
+            "added": sorted(this.keys() - other.keys())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tools/build_compare.py")
     ap.add_argument("--against", required=True,
@@ -71,18 +111,24 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(2) as pool:
         this, other = pool.map(tree_report,
                                (REPO, os.path.abspath(args.against)))
-    sass_same = normalize(this["sass"]) == normalize(other["sass"])
+    sass = compare(sass_functions(this["sass"]),
+                   sass_functions(other["sass"]))
+    sass_same = not sass["differ"] and not sass["missing"]
     result = {"against": args.against, "sass_count_equal": sass_same,
-              "libraries": {}}
+              "sass_count": sass, "libraries": {}}
     for name in NAMES:
-        same = normalize(this[name]) == normalize(other[name])
-        result["libraries"][name] = {"ptxas_equal": same,
+        ptxas = compare(ptxas_functions(this[name]),
+                        ptxas_functions(other[name]))
+        same = not ptxas["differ"] and not ptxas["missing"]
+        result["libraries"][name] = {"ptxas_equal": same, **ptxas,
                                      "ptxas": registers(this[name])}
         print(f"build_compare: {name}: ptxas report "
               f"{'equal' if same else 'DIFFERS'} "
-              f"({len(registers(this[name]))} instantiations)", flush=True)
+              f"({len(registers(this[name]))} instantiations, "
+              f"{len(ptxas['added'])} functions added)", flush=True)
     print(f"build_compare: sass_count per loop body "
-          f"{'equal' if sass_same else 'DIFFERS'}", flush=True)
+          f"{'equal' if sass_same else 'DIFFERS'} ({len(sass['added'])} "
+          f"functions added)", flush=True)
     result["pass"] = sass_same and all(
         r["ptxas_equal"] for r in result["libraries"].values())
     line = json.dumps(result)

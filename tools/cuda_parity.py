@@ -73,7 +73,12 @@ CASES = [
     ("lwsw", "nlay8", 1037, 8, 1, "lw", "sw", None, ()),
     ("lwsw", "rfmip_1800x60", 1800, 60, 1, "lw", "sw", None, ()),
     ("lwsw", "rfmip_1800x60_chunk768", 1800, 60, 1, "lw", "sw", 768, ()),
+    # nlay 137: the split route (LW rows in a device slice), each
+    # instantiation of it.
     ("lwsw", "nlay137", 1037, 137, 1, "lw", "sw", None, ()),
+    ("lwsw", "nlay137_angles3", 1037, 137, 3, "lw", "sw", None, ()),
+    ("lwsw", "lw_rrtmgp_nlay137", 1037, 137, 1, "lw_rrtmgp", "sw", None,
+     ()),
     ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None, ()),
     ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None, ()),
     ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None, ()),
@@ -120,6 +125,8 @@ CASES = [
      RUNTIME_SHAPE_DROP),
     ("lwsw", "runtime_shape_lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp",
      "sw", None, RUNTIME_SHAPE_DROP),
+    ("lwsw", "runtime_shape_nlay137", 1037, 137, 1, "lw", "sw", None,
+     RUNTIME_SHAPE_DROP),
     ("lw", "runtime_shape_nlay60", 1037, 60, 1, "lw", None, None,
      RUNTIME_SHAPE_DROP),
     ("lw", "runtime_shape_nlay137_angles3", 1037, 137, 3, "lw", None, None,

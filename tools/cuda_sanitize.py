@@ -25,7 +25,8 @@ poison over a freed slot's rows, guard words after every slot, seeded
 jitter at the hand-over points) and runs it over ``CHECKED``: the
 sanitizer's configurations plus nlay 30, 47 and 91 and the depths that
 reach every other staging regime of each kernel (``stage_plan``: threads
-per block, C, S, shared or device staging), on ``CHECKED_NCOL`` columns,
+per block, C, S, the route: shared, split or device staging), on
+``CHECKED_NCOL`` columns,
 in both table modes, at jitter 0 on the full card and through 16 blocks,
 and at ``JITTER_NS`` with each of ``SEEDS``.  Every run must show 0
 violations (canaries intact), finite outputs and outputs bit for bit
@@ -67,10 +68,14 @@ DEVICE = [("lwsw", 300, 1), ("lw", 600, 1), ("sw", 430, 1)]
 TOOLS = {"racecheck": SHARED, "synccheck": SHARED, "memcheck": DEVICE}
 
 # The checked route: the depths of tools/shape_sweep_cuda.py and those that
-# reach each kernel's other staging regimes on an H100 (K3: 1024 threads
-# at C = 2, C = 1, device staging in 512 threads; K4: C = 2, C = 1).
+# reach each kernel's other staging regimes on an H100 (K1: the split
+# route's ends at 1 and 3 angles, and one whole column per block; K3: 1024
+# threads at C = 2, C = 1, device staging in 512 threads; K4: C = 2,
+# C = 1).
 EXTRA = ([(k, n, a) for k in ("lwsw", "lw") for n in (30, 47, 91)
           for a in (1, 3)]
+         + [("lwsw", n, 1) for n in (124, 208, 230)]
+         + [("lwsw", n, 3) for n in (122, 202)]
          + [("lw", 200, 1), ("lw", 430, 1), ("lw", 600, 4)]
          + [("sw", n, 1) for n in (30, 47, 91, 180, 300)])
 CHECKED = SHARED + DEVICE + EXTRA
@@ -145,18 +150,16 @@ def child(configs) -> int:
             ok = ok and finite
             print(f"sanitize child: {kernel} nlay {nlay} {n_ang} angle(s) "
                   f"{'fast' if fast else 'exact'}: C = {stage.slots}, "
-                  f"{stage.threads} threads, "
-                  + ("shared" if stage.shared else "device")
-                  + f" staging, {BLOCKS} blocks, finite {finite}",
-                  flush=True)
+                  f"{stage.threads} threads, {stage.route} staging, "
+                  f"{BLOCKS} blocks, finite {finite}", flush=True)
     return 0 if ok else 1
 
 
 def regime(plan) -> str:
-    """A staging plan's regime: threads per block, C, S, shared or device
-    staging."""
+    """A staging plan's regime: threads per block, C, S, the route
+    (shared, split or device staging)."""
     return (f"{plan.threads} threads, C = {plan.slots}, S = {plan.sets}, "
-            + ("shared" if plan.shared else "device"))
+            f"{plan.route}")
 
 
 def build_checked(plant_kernels=KERNELS) -> float:

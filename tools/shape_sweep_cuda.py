@@ -160,7 +160,7 @@ def sweep(shapes=SHAPES, angles=(1, 3), ncol_time: int = NCOL_TIME,
                 "share": bound["bound_ms"] / kernel_ms,
                 "plan": {"C": stage.slots, "S": stage.sets,
                          "threads": stage.threads, "blocks_per_sm": per_sm,
-                         "staging": "shared" if stage.shared else "device",
+                         "staging": stage.route,
                          "shared_bytes": stage.shared_bytes,
                          "bytes_per_column": stage.bytes_per_column}}
             cases[ang] = (case, plain)

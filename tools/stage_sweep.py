@@ -115,6 +115,8 @@ def main(argv=None) -> int:
                   f"threads, C = {p.slots}, S = {p.sets}, "
                   + (f"{p.shared_bytes} B shared" if p.shared
                      else "device staging")
+                  + (f" + an LW slice of {p.slice_floats} floats per slot"
+                     if p.split else "")
                   + f", {per_sm} blocks per SM | {ms:.3f} ms | bitwise "
                   f"equal to the default: {same} | {card}", flush=True)
     return 0 if ok else 1
