@@ -107,7 +107,10 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
     adds one to ``lwsw_fluxes_cuda.launches`` (exact) or
     ``lwsw_fluxes_cuda.fast_launches`` (fast), and one on the split
     staging route (``staged.stage_plan``: nlay 124-208 at one angle on an
-    H100) to ``.split_launches`` or ``.fast_split_launches`` besides.
+    H100) to ``.split_launches`` or ``.fast_split_launches`` besides, and
+    one at 2-4 Gauss angles (the LW optics stage tau and the Planck rows,
+    each angle's sweep its own sources) to ``.multi_angle_launches`` or
+    ``.fast_multi_angle_launches``.
     """
     binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
                          emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
@@ -122,3 +125,5 @@ lwsw_fluxes_cuda.launches = 0
 lwsw_fluxes_cuda.fast_launches = 0
 lwsw_fluxes_cuda.split_launches = 0
 lwsw_fluxes_cuda.fast_split_launches = 0
+lwsw_fluxes_cuda.multi_angle_launches = 0
+lwsw_fluxes_cuda.fast_multi_angle_launches = 0

@@ -309,5 +309,6 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                          tile=tile, **bands, **solves)
 
     binding.launch_chunks(name, args_type, ncol, chunk, make_args, counted,
-                          dev, (lw or sw).arrays.fast, lib, plan.split)
+                          dev, (lw or sw).arrays.fast, lib, plan.split,
+                          lw is not None and lw.n_gauss_angles > 1)
     return outs

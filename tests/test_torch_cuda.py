@@ -638,6 +638,58 @@ def test_captured_calls_replay_the_eager_call(models, path, mode):
     assert entry.graph is not None
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_captured_multi_angle_calls_count_every_launch(models, mode):
+    """RFMIP physics index 2 on the main path: capture.jit of lw_sw_fluxes
+    at 3 angles on 65,536 x 60 columns.  The eager call, the capture and
+    each replay count every launch of the merged kernel in
+    ``multi_angle_launches`` (``fast_multi_angle_launches``) beside
+    ``launches``; the replay matches the plain version at f64 in its
+    table mode (computed in blocks).  A 1-angle call counts none."""
+    from ecckd_tpu_torch import config
+    from ecckd_tpu_torch.utils import capture
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    ncol, nlay, chunk = 65_536, 60, 16_384
+    b32 = batch(ncol, nlay, torch.float32, seed=6)
+    prefix = "fast_" if mode == "bf16" else ""
+    counts = lambda: tuple(getattr(lwsw_fluxes_cuda, prefix + c) for c in
+                           ("launches", "multi_angle_launches"))
+    jitted = capture.jit(pipeline.lw_sw_fluxes)
+    call = lambda n: jitted(lw, sw, b32["plev"], b32["tlay"], b32["tlev"],
+                            b32["tsfc"], b32["emis"], b32["concs"],
+                            b32["alb"], b32["tsi"], b32["sza"],
+                            n_gauss_angles=n, column_chunk=chunk)
+    config.set_mxu_precision(mode)
+    try:
+        for _ in range(3):              # eager, capture, replay
+            before = counts()
+            f_lw, f_sw = call(3)
+            torch.cuda.synchronize()
+            assert counts() == (before[0] + 4, before[1] + 4)
+        before = counts()
+        call(1)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 4, before[1])
+    finally:
+        config.set_mxu_precision("bf16x3")
+    got = (f_lw.flux_up, f_lw.flux_dn, f_sw.flux_up, f_sw.flux_dn)
+    b64 = batch(ncol, nlay, torch.float64, seed=6)
+    lw64, sw64 = models["lw", torch.float64], models["sw", torch.float64]
+    parts = []
+    for c0 in range(0, ncol, 8192):
+        sl = slice(c0, c0 + 8192)
+        part = {k: v[sl] for k, v in b64.items() if k != "concs"}
+        part["concs"] = GasConcs.create(
+            [(k, v[sl]) for k, v in zip(b64["concs"].names,
+                                        b64["concs"].values)])
+        emis = part["emis"][:, None].expand(-1, lw64.ngpt).contiguous()
+        parts.append(solve(lwsw_fluxes_plain, lw64, sw64, part, emis,
+                           n_gauss_angles=3, mxu_mode=mode))
+    ref = tuple(torch.cat(p) for p in zip(*parts))
+    for band in (slice(0, 2), slice(2, 4)):
+        assert_close(got[band], ref[band])
+
+
 def test_captured_call_checks_its_outputs_with_nan_debugging(models):
     """With NaN debugging on, a replay's outputs are checked as the stage
     "captured call" (the pipeline's own checks read the card and cannot

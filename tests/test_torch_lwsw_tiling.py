@@ -335,12 +335,73 @@ def test_launch_chunks_counts_split_launches(monkeypatch, fast, split):
     assert vars(counted) == want
 
 
+@pytest.mark.parametrize("kernel", ["lwsw", "lw"])
+@pytest.mark.parametrize("n_angles", [1, 3])
+@pytest.mark.parametrize("fast", [False, True])
+def test_run_staged_counts_multi_angle_launches(monkeypatch, ckd_paths,
+                                                kernel, n_angles, fast):
+    """A launch of the merged kernel or the LW kernel at 3 angles adds one
+    to ``multi_angle_launches`` (``fast_multi_angle_launches``) beside
+    ``launches``; at 1 angle it adds none.  The prepared inputs are real
+    (on the CPU), the card's properties and the launch stubbed."""
+    import contextlib
+    import types
+    from ecckd_tpu_torch.models.loader import load_ckd_model
+    calls = []
+    launch = lambda args, stream: calls.append(args) or 0
+    lib = types.SimpleNamespace(**{f"ecckd_{kernel}_launch": launch,
+                                   f"ecckd_{kernel}_launch_fast": launch})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(staged, "blocks_per_sm", lambda *a: 1)
+    lw_m, sw_m = (load_ckd_model(ckd_paths[k], dtype=torch.float32)
+                  for k in ("lw", "sw"))
+    b = flux_batch(37, 60, 2, torch.float32)
+    T = lambda k: torch.as_tensor(b[k])
+    emis = T("emis")[:, None].expand(37, lw_m.ngpt).contiguous()
+    concs = torch_concs(b["gases"], torch.float32)
+    if kernel == "lwsw":
+        atm, lw_in, sw_in = plan.prepare(
+            lw_m, sw_m, T("plev"), T("tlay"), T("tlev"), T("tsfc"), emis,
+            concs, T("alb"), T("tsi"), T("sza"), n_angles, fast)
+    else:
+        (atm, lw_in), sw_in = plan.prepare_lw(
+            lw_m, T("plev"), T("tlay"), T("tlev"), T("tsfc"), emis, concs,
+            n_angles, fast), None
+    p = staged.stage_plan(60, lw_m.ngpt, sw_m.ngpt if sw_in else 0,
+                          n_angles, GASES_LW, GASES_SW if sw_in else (0, 0),
+                          *H100)
+    names = ("launches", "split_launches", "multi_angle_launches")
+    counted = types.SimpleNamespace(**{pre + n: 0 for pre in ("", "fast_")
+                                       for n in names})
+    staged.run_staged(atm, lw_in, sw_in, 16, counted, plan=p, lib=lib)
+    assert len(calls) == 3                              # 16, 16, 5
+    prefix = "fast_" if fast else ""
+    want = dict.fromkeys(vars(counted), 0)
+    want[prefix + "launches"] = 3
+    if n_angles > 1:
+        want[prefix + "multi_angle_launches"] = 3
+    assert vars(counted) == want
+
+
 def test_replays_count_the_split_launches():
     """capture.jit adds a replay's launches back per counter: the merged
-    kernel's split counts among them, and no other wrapper has any."""
+    kernel's split and multi-angle counts among them, the LW kernel's
+    multi-angle counts, and the SW kernel (one band, no angles) has
+    neither."""
+    from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
+    from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
     from ecckd_tpu_torch.utils import capture
-    assert {c for w, c in capture.COUNTERS if w is lwsw.lwsw_fluxes_cuda} \
-        == {"launches", "fast_launches", "split_launches",
-            "fast_split_launches"}
-    assert not any("split" in c for w, c in capture.COUNTERS
-                   if w is not lwsw.lwsw_fluxes_cuda)
+    held = lambda wrapper: {c for w, c in capture.COUNTERS if w is wrapper}
+    assert held(lwsw.lwsw_fluxes_cuda) == {
+        "launches", "fast_launches", "split_launches", "fast_split_launches",
+        "multi_angle_launches", "fast_multi_angle_launches"}
+    assert held(lw_fluxes_cuda) == {"launches", "fast_launches",
+                                    "multi_angle_launches",
+                                    "fast_multi_angle_launches"}
+    assert held(sw_fluxes_cuda) == {"launches", "fast_launches"}
