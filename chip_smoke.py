@@ -143,7 +143,7 @@ result line is printed:
    phase 2's) over K1, K3 and K4 at nlay 60 and 137 at 1 angle and K1
    and K3 at 3 angles, both table modes, at jitter 0 and one seed: no
    violation, finite outputs bit for bit equal to the plain build's;
-   and the planted fault in K1, which the checker must report.  One
+   and the planted faults in K1, which the checker must report.  One
    line per leg and the phase's seconds.
 
 The last two lines are the kernels' JSON record (exact and fast entries,
@@ -396,7 +396,8 @@ def run(card: str, work: str) -> int:
     from ecckd_tpu_torch.ops.cuda import ring_check
     from tools import cuda_sanitize, shape_sweep_cuda
     checked_builds = ([(k, ring_check.defines()) for k in KERNELS]
-                      + [("lwsw", ring_check.defines(plant=True))])
+                      + [("lwsw", ring_check.defines(plant))
+                         for plant in cuda_sanitize.PLANTS])
     t0 = time.perf_counter()
     pool = ThreadPoolExecutor(len(KERNELS) + len(checked_builds))
     checked_jobs = [pool.submit(build.build, *job) for job in checked_builds]

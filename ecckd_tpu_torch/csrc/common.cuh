@@ -308,7 +308,9 @@ __device__ __forceinline__ int sw_row_alb(int nlay) { return 4 * nlay + 1; }
 
 // Layer parameters.  What the optics of a layer need that does not depend
 // on the g-point is computed once per layer, with lanes over layers,
-// before the optics: per layer, in order,
+// before the optics (staged.cuh: by the parameter stage's warps over all
+// of a column's layers, or by each optics warp over its own): per layer,
+// in order,
 //   the table corner ip * n_t + it (int bits), wp, wt, simple_w;
 //   with an LW band: the Planck points (PlanckAt, off as int bits) of the
 //   layer temperature and of the layer's lower level j + 1;
@@ -316,26 +318,33 @@ __device__ __forceinline__ int sw_row_alb(int nlay) { return 4 * nlay + 1; }
 //   simple_w * (a * vmr + b); a LUT gas's first table row at its lower
 //   mole-fraction point (int bits), its weight w1 and simple_w * vmr.
 // The same float operations as the layer's point and gas weights always
-// took, on the same floats.
+// took, on the same floats.  The band's Shape S gives the dense and LUT
+// gas counts as constants where a kernel instantiates them (the dense
+// gases come first, Band), so the gas loops unroll without a kind branch
+// and their loads issue together.
+template <class S>
 __device__ __forceinline__ int band_params(const Atmos& A, const Grid& G,
                                            const Band& B, const LayerPoint& L,
                                            int c, int j, float* p) {
-  int k = 0;
-  for (int s = 0; s < B.nslice; ++s) {
-    const GasSlice& S = B.s[s];
-    if (S.kind == KIND_DENSE) {
-      p[k++] = S.vmr_kind == VMR_NONE
-                   ? L.simple_w * S.b
-                   : L.simple_w * (S.a * vmr_of(A, S, c, j) + S.b);
-    } else {
-      const float vmr = vmr_of(A, S, c, j);
-      const FracIdx V = frac_index(
-          (logf(fmaxf(vmr, S.mf0)) - S.log_mf0) / S.d_log, S.v_hi);
-      p[k] = __int_as_float(S.row0 + V.i0 * G.n_p * G.n_t);
-      p[k + 1] = V.w1;
-      p[k + 2] = L.simple_w * vmr;
-      k += 3;
-    }
+  const int nd = fixed_or<S::ND>(B.ndense);
+  const int ns = S::ND > 0 ? S::ND + S::NL : B.nslice;
+#pragma unroll
+  for (int s = 0; s < nd; ++s) {
+    const GasSlice& D = B.s[s];
+    p[s] = D.vmr_kind == VMR_NONE
+               ? L.simple_w * D.b
+               : L.simple_w * (D.a * vmr_of(A, D, c, j) + D.b);
+  }
+  int k = nd;
+#pragma unroll
+  for (int s = nd; s < ns; ++s, k += 3) {
+    const GasSlice& U = B.s[s];
+    const float vmr = vmr_of(A, U, c, j);
+    const FracIdx V = frac_index(
+        (logf(fmaxf(vmr, U.mf0)) - U.log_mf0) / U.d_log, U.v_hi);
+    p[k] = __int_as_float(U.row0 + V.i0 * G.n_p * G.n_t);
+    p[k + 1] = V.w1;
+    p[k + 2] = L.simple_w * vmr;
   }
   return k;
 }
@@ -347,9 +356,10 @@ __device__ __forceinline__ void planck_params(const LwSolve& W, int ng,
   p[1] = q.w;
 }
 
-// The parameters of layer j of column c for the bands present (BL: LW,
-// BS: SW; null when absent) into p.
-template <typename T>
+// The parameters of layer j of column c for the bands the kernel solves
+// (SL: the LW band's Shape, SS: the SW band's, NoBand for one it does not
+// solve; BL / BS are then null) into p.
+template <typename T, class SL, class SS>
 __device__ void layer_params(const Atmos& A, const Grid& G, const Band* BL,
                              const Band* BS, const LwSolve* W, int c, int j,
                              float* p) {
@@ -359,13 +369,13 @@ __device__ void layer_params(const Atmos& A, const Grid& G, const Band* BL,
   p[2] = L.wt;
   p[3] = L.simple_w;
   int k = 4;
-  if (BL != nullptr) {
-    planck_params(*W, BL->ngpt, A.tlay[(size_t)c * A.nlay + j], p + 4);
-    planck_params(*W, BL->ngpt, W->tlev[(size_t)c * (A.nlay + 1) + j + 1],
-                  p + 6);
-    k = 8 + band_params(A, G, *BL, L, c, j, p + 8);
+  if constexpr (SL::NG >= 0) {
+    const int ng = fixed_or<SL::NG>(BL->ngpt);
+    planck_params(*W, ng, A.tlay[(size_t)c * A.nlay + j], p + 4);
+    planck_params(*W, ng, W->tlev[(size_t)c * (A.nlay + 1) + j + 1], p + 6);
+    k = 8 + band_params<SL>(A, G, *BL, L, c, j, p + 8);
   }
-  if (BS != nullptr) band_params(A, G, *BS, L, c, j, p + k);
+  if constexpr (SS::NG >= 0) band_params<SS>(A, G, *BS, L, c, j, p + k);
 }
 
 // The layer's bi-linear corner weights: Corners<T>(wp, wt)(tb, d_t, d_p)

@@ -19,16 +19,26 @@
 // per (layer, g-point) a band does ~200 float operations (bilinear
 // gathers over 6-8 gases, Planck, accurate expm1f/sqrtf/divides), ~0.7 ms
 // at the card's f32 peak (chip_smoke.py phase 8 counts both).  What keeps
-// the kernel above that is instruction issue: every instruction that is
-// not one of those operations (addressing, g-independent work repeated
-// per g-point) costs the same issue slot.
+// the kernel above that is latency and issue: each slot turns over in
+// its optics, then its sweeps, and C = 2 slots keep the optics warps busy
+// only while a slot's sweeps take no longer than the other slot's optics;
+// every instruction on the optics warps' path (addressing, g-independent
+// work repeated per g-point) lengthens the turn.
 //
-// Design: staged.cuh's body with both bands, LW and SW (the layer
-// parameters of both bands in the layer's SW r_dif row where they fit,
-// one optics pass per band over the warp's layer range, sets of one sweep
+// Design: staged.cuh's body with both bands, LW and SW (sets of one sweep
 // warp per LW Gauss angle and one SW sweep warp), instantiated with the
 // shipped models' shapes as constants (lw_fsck or lw_rrtmgp with sw_wide:
 // g-points, gas counts, 6 temperatures) and at run time for any other.
+// The layer parameters of both bands sit in the layer's SW r_dif row
+// where they fit and each optics warp computes its own layers' first,
+// one pass per optics warp and column; or, with the parameter stage (one
+// LW angle, lw_fsck's 32 g-points, whole columns in shared memory:
+// staged.py stage_plan), in the layer's first LW row, written by the
+// set's LW sweep warp for the slot's next column once its LW sweep is
+// done, beside the SW sweep: the optics warps' path loses its pass (at
+// nlay 60, 12 passes of ~560 warp instructions a column with 5 of 32
+// lanes busy become 2 with every lane busy, off that path), and the SW
+// optics run before the LW optics, which overwrite the parameters.
 // C = 2 columns per block where two fit in shared memory, each swept by
 // its own set (S = 2; nlay 60: two blocks of 512 threads per SM); where
 // only one whole column fits but two without their LW rows do (nlay

@@ -3,8 +3,10 @@
 // (ops/cuda/ring_check.py builds it; the launch paths never load it).
 //
 // The staged body hands each column slot s from the optics warps to its
-// set of sweep warps (FULL + s) and back (FREE + s).  The block's i-th
-// column takes slot i % C in round i / C.  The checker asserts, per block:
+// set of sweep warps (FULL + s) and back (FREE + s); with the parameter
+// stage the set's LW sweep warps write the layer parameters of the slot's
+// next column before they free it.  The block's i-th column takes slot
+// i % C in round i / C.  The checker asserts, per block:
 //   FULL: a sweep warp past its FULL wait for column i finds that every
 //     optics warp has staged rounds 0 .. i / C of the slot, and no more:
 //     staged[s] == n_opt (i / C + 1);
@@ -14,21 +16,26 @@
 //     join FREE too, that every optics warp has staged rounds
 //     0 .. i / C - 1 (others may have staged round i / C since, this one
 //     not): n_opt (i / C) <= staged[s] < n_opt (i / C + 1);
+//   PRM: with the stage, an optics warp past its FREE wait for column i
+//     finds that the set's n_lw LW warps have written the parameters of
+//     rounds 1 .. i / C of the slot, and no more: params[s] ==
+//     n_lw (i / C);
 //   STALE: every float of a slot's staged rows is written by the optics
 //     of each column before a sweep reads it.  The last reader of the rows
 //     (the set's SW warp its rows, one LW warp the LW rows) sets them to
 //     NaN before it frees the slot, so a read of a stale or unwritten
 //     float comes out as NaN in the outputs (the tool checks them).  The
 //     layer parameters' places in the rows (common.cuh "Layer
-//     parameters") keep their floats: an optics warp reads its table rows
-//     and Planck points from them as integers, so NaN there would send a
-//     fault's reads out of bounds instead of into the outputs;
+//     parameters") it sets to 0 instead: an optics warp reads its table
+//     rows and Planck points from them as integers, which 0 keeps in
+//     bounds where NaN would send a fault's reads out of them, and a read
+//     before they are written still changes the outputs;
 //   CANARY: nothing writes past a slot: RING_GUARD guard words after
 //     every slot (shared memory or the block's device slice; the host
 //     plan's col_floats includes them), and on the split route after
 //     every slot's LW rows in the device slice, keep their values from
 //     the kernel's start to its end.
-// Seeded jitter (__nanosleep, ring_config) at the four hand-over points
+// Seeded jitter (__nanosleep, ring_config) at the five hand-over points
 // changes the warps' orderings from run to run.  Violations go to one
 // device record, read and reset through ecckd_<name>_ring_errors.
 
@@ -41,17 +48,23 @@ constexpr int RING_GUARD = 32;
 // Slots a block's ledgers hold (staged.cuh MAX_SLOTS).
 constexpr int RING_MAX_SLOTS = 4;
 
-enum RingCheckKind { RING_FULL = 0, RING_FREE = 1, RING_CANARY = 2 };
+enum RingCheckKind {
+  RING_FULL = 0,
+  RING_FREE = 1,
+  RING_CANARY = 2,
+  RING_PRM = 3
+};
+constexpr int RING_CHECKS = 4;
 
 // Violations of this launch's checks: the count, the count per check,
 // and the first one's block, column, slot and check (-1 while none).
 struct RingRecord {
   unsigned count;
-  unsigned by_check[3];
+  unsigned by_check[RING_CHECKS];
   int block, column, slot, check;
 };
 
-__device__ RingRecord ring_record = {0, {0, 0, 0}, -1, -1, -1, -1};
+__device__ RingRecord ring_record = {0, {0, 0, 0, 0}, -1, -1, -1, -1};
 __device__ unsigned ring_seed = 0, ring_jitter_ns = 0;
 
 namespace {
@@ -87,24 +100,27 @@ __device__ __forceinline__ unsigned ring_canary(int slot, int q) {
 struct RingCheck {
   unsigned* staged;  // [RING_MAX_SLOTS] shared: optics warps' rounds
   unsigned* swept;   // [RING_MAX_SLOTS] shared: sweep warps' rounds
+  unsigned* params;  // [RING_MAX_SLOTS] shared: the stage's rounds (LW
+                     // warps' writes of the slot's next parameters)
   float* slots;      // the block's slots, col_floats apart
   float* lw_slots;   // the split route's LW rows, lw_stride apart, or null
-  int n_slots, col_floats, lw_stride, n_opt, n_set, warp, lane;
+  int n_slots, col_floats, lw_stride, n_opt, n_set, n_prm, warp, lane;
   // The layer parameters: layer j's prm_len floats at prm_base + j *
   // prm_stride of a slot, for nlay layers.
   int prm_base, prm_stride, prm_len, nlay;
 
   __device__ RingCheck(unsigned* ledger, float* slots_, int n_slots_,
                        int col_floats_, float* lw_slots_, int lw_stride_,
-                       int n_opt_, int n_set_, int prm_base_,
+                       int n_opt_, int n_set_, int n_prm_, int prm_base_,
                        int prm_stride_, int prm_len_, int nlay_)
-      : staged(ledger), swept(ledger + RING_MAX_SLOTS), slots(slots_),
+      : staged(ledger), swept(ledger + RING_MAX_SLOTS),
+        params(ledger + 2 * RING_MAX_SLOTS), slots(slots_),
         lw_slots(lw_slots_), n_slots(n_slots_), col_floats(col_floats_),
-        lw_stride(lw_stride_), n_opt(n_opt_), n_set(n_set_),
+        lw_stride(lw_stride_), n_opt(n_opt_), n_set(n_set_), n_prm(n_prm_),
         warp(threadIdx.x / 32), lane(threadIdx.x % 32),
         prm_base(prm_base_), prm_stride(prm_stride_), prm_len(prm_len_),
         nlay(nlay_) {
-    if (threadIdx.x < 2 * RING_MAX_SLOTS) ledger[threadIdx.x] = 0;
+    if (threadIdx.x < 3 * RING_MAX_SLOTS) ledger[threadIdx.x] = 0;
     for (int q = threadIdx.x; q < guards() * RING_GUARD; q += blockDim.x)
       guard(q / RING_GUARD)[q % RING_GUARD] =
           __uint_as_float(ring_canary(q / RING_GUARD, q % RING_GUARD));
@@ -148,15 +164,26 @@ struct RingCheck {
   }
 
   // Optics warp, column c (the block's i-th, slot s): past the FREE wait,
-  // then before the FULL arrive.
+  // then before the FULL arrive.  n_prm: the LW warps that write the
+  // slot's next parameters (the stage), else 0.
   __device__ __forceinline__ void freed(int i, int s, int c) const {
     const unsigned r = i / n_slots;
     if (r > 0) {
       expect(swept, s, n_set * r, n_set * r + 1, RING_FREE, c);
       expect(staged, s, n_opt * r, n_opt * (r + 1), RING_FREE, c);
+      if (n_prm > 0) expect(params, s, n_prm * r, n_prm * r + 1, RING_PRM, c);
     }
     jitter(0, i);
   }
+
+  // LW sweep warp with the stage: the next column's parameters written,
+  // before the FREE arrive.
+  __device__ __forceinline__ void params_done(int i, int s) const {
+    jitter(4, i);
+    add(params, s);
+  }
+
+  // Optics warp: before the FULL arrive.
   __device__ __forceinline__ void staging_done(int i, int s) const {
     jitter(1, i);
     add(staged, s);
@@ -173,16 +200,16 @@ struct RingCheck {
     add(swept, s);
   }
 
-  // NaN over floats [a, b) of a slot's staging st but the layer
-  // parameters' places (all of them unless ``params``), by this warp's
-  // lanes.
+  // NaN over floats [a, b) of a slot's staging st, 0 over the layer
+  // parameters' places among them (none unless ``with_params``), by this
+  // warp's lanes.
   __device__ __forceinline__ void poison(float* st, int a, int b,
-                                         bool params = true) const {
+                                         bool with_params = true) const {
     for (int q = a + lane; q < b; q += 32) {
       const int p = q - prm_base;
-      if (!params || p < 0 || p >= nlay * prm_stride ||
-          p % prm_stride >= prm_len)
-        st[q] = __int_as_float(0x7FC00000);
+      const bool param = with_params && p >= 0 && p < nlay * prm_stride &&
+                         p % prm_stride < prm_len;
+      st[q] = param ? 0.0f : __int_as_float(0x7FC00000);
     }
   }
 
@@ -201,8 +228,8 @@ struct RingCheck {
 // The checked build's host entry points of kernel NAME:
 //   ecckd_NAME_ring_config(seed, jitter_ns): the jitter of later launches
 //     (jitter_ns 0: none);
-//   ecckd_NAME_ring_errors(out[8], reset): copies the record (count, the
-//     three counts per check, first block, column, slot, check) into out
+//   ecckd_NAME_ring_errors(out[9], reset): copies the record (count, the
+//     four counts per check, first block, column, slot, check) into out
 //     and, if reset, clears it.  Each returns a cudaError_t code.
 #define RING_ENTRY_POINTS(NAME)                                              \
   extern "C" int ecckd_##NAME##_ring_config(unsigned seed,                  \
@@ -216,13 +243,14 @@ struct RingCheck {
     RingRecord r;                                                            \
     cudaError_t e = cudaMemcpyFromSymbol(&r, ring_record, sizeof r);         \
     if (e != cudaSuccess) return (int)e;                                     \
-    const int v[8] = {(int)r.count,       (int)r.by_check[0],                \
+    const int v[9] = {(int)r.count,       (int)r.by_check[0],                \
                       (int)r.by_check[1], (int)r.by_check[2],                \
-                      r.block,            r.column,                          \
-                      r.slot,             r.check};                          \
-    for (int k = 0; k < 8; ++k) out[k] = v[k];                               \
+                      (int)r.by_check[3], r.block,                           \
+                      r.column,           r.slot,                            \
+                      r.check};                                              \
+    for (int k = 0; k < 9; ++k) out[k] = v[k];                               \
     if (reset) {                                                             \
-      const RingRecord zero = {0, {0, 0, 0}, -1, -1, -1, -1};                \
+      const RingRecord zero = {0, {0, 0, 0, 0}, -1, -1, -1, -1};             \
       e = cudaMemcpyToSymbol(ring_record, &zero, sizeof zero);               \
     }                                                                        \
     return (int)e;                                                           \

@@ -8,19 +8,30 @@
 // the rest in shared memory, where that holds more columns per block
 // (merged kernel only); or, for columns too deep for shared memory, whole
 // in the device slice (a run-time instantiation of its own).  Two warp
-// roles:
+// roles, and a stage the second role takes on:
 //   optics warps take a column's layers, a contiguous range each (which
 //   range turns from column to column, so the larger ranges do not always
-//   fall on the same warps): first the layer parameters of their layers
-//   with lanes over the layers (what does not depend on g is computed
-//   once, lanes parallel), then each layer's LW sources (tau and Planck at
-//   2-4 angles) and SW two-stream coefficients for all g-points;
+//   fall on the same warps), and compute each layer's LW sources (tau and
+//   Planck at 2-4 angles) and SW two-stream coefficients for all g-points
+//   from its layer parameters (common.cuh "Layer parameters");
 //   sweep warps, in S sets of one per LW Gauss angle and one for SW, run
 //   the serial recurrences of earlier columns from the staging only, g-sum
 //   four levels at a time with a transposed warp reduction, and write
 //   each output level once.  Set k sweeps the columns of the slots
 //   s = k (mod S): a sweep is one warp's serial chain, and the sets let
-//   S of them run at once under the optics of the next columns.
+//   S of them run at once under the optics of the next columns;
+//   the parameter stage (the merged kernel's, Tile.prm_stage, where the
+//   plan gives it: ops/cuda/staged.py stage_plan): a set's LW sweep
+//   warps, done with a column's LW rows while the set's SW warp still
+//   sweeps, write the layer parameters of the slot's next column there
+//   (the layer's first LW row), a layer per lane over all of its layers,
+//   before they free the slot.  The optics warps then start on them: SW
+//   optics first, the LW optics last, as they overwrite them.  Without
+//   the stage (and for each block's first C columns) every optics warp
+//   computes its own layers' parameters first, lanes over them: at nlay
+//   60, 12 passes of ~700 warp instructions a column with 5 of 32 lanes
+//   busy, each on an optics warp's path, where the stage's 2 passes keep
+//   every lane busy and lie beside the SW sweep, off that path.
 // Named barriers hand each slot from the optics warps to its set of sweep
 // warps (FULL) and back (FREE).  Every warp's body is in one kernel;
 // __launch_bounds__ holds 1024 threads per SM to 64 registers.
@@ -61,6 +72,10 @@ struct Tile {
   int prm_base;      // the layer parameters' offset in a slot:
   int prm_stride;    //   layer j's start at prm_base + j * prm_stride;
   int prm_sw;        //   the SW band's gas weights at + prm_sw (common.cuh)
+  int prm_stage;     // 1: the sets' LW sweep warps write the layer
+                     // parameters of each slot's next column (in its LW
+                     // rows: prm_base 0); 0: each optics warp computes its
+                     // own layers' parameters
 };
 
 namespace {
@@ -101,16 +116,27 @@ constexpr int SLICE_GUARD = 0;
 
 // 1024 threads per SM (blocks of 1024, 512 or 256) at 64 registers each.
 constexpr int MAX_THREADS = 1024;
-// Named barriers (0 is __syncthreads): slot s is FULL once the optics
-// warps have staged its column, FREE once its set of sweep warps is done
-// with it; LW_DONE + k joins set k's LW sweep warps before they sum their
-// angles.
-constexpr int MAX_SLOTS = 4;
+// Named barriers (0 is __syncthreads; a block has 16): slot s is FULL once
+// the optics warps have staged its column, FREE once its set of sweep warps
+// is done with it (and, with the parameter stage, has written the layer
+// parameters of its next column); LW_DONE + k joins set k's LW sweep warps
+// before they sum their angles.
+constexpr int MAX_SLOTS = 4, NAMED_BARRIERS = 16;
 constexpr int BAR_FULL = 1, BAR_FREE = BAR_FULL + MAX_SLOTS,
               BAR_LW_DONE = BAR_FREE + MAX_SLOTS;
+// The planted faults' own barrier (tools/cuda_sanitize.py --checked).
+constexpr int BAR_PLANT = BAR_LW_DONE + MAX_SLOTS;
+static_assert(BAR_PLANT < NAMED_BARRIERS, "more named barriers than 16");
 RING(static_assert(MAX_SLOTS <= RING_MAX_SLOTS, "ring ledgers too small");)
 #ifdef ECCKD_PLANT_SKIP_FREE
-constexpr int BAR_PLANT = BAR_LW_DONE + MAX_SLOTS;  // the planted fault's
+constexpr bool PLANT_SKIP_FREE = true;
+#else
+constexpr bool PLANT_SKIP_FREE = false;
+#endif
+#ifdef ECCKD_PLANT_SKIP_PRM
+constexpr bool PLANT_SKIP_PRM = true;
+#else
+constexpr bool PLANT_SKIP_PRM = false;
 #endif
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -127,15 +153,21 @@ __device__ __forceinline__ float* lw_slice(const Tile& P, int s) {
          ((size_t)blockIdx.x * P.slots + s) * (P.lw_floats + SLICE_GUARD);
 }
 
+// The planted fault ECCKD_PLANT_SKIP_PRM's slow stage: in the planted
+// round the LW sweep warps spin this many clock cycles (~50 us) before they
+// write the parameters, so the optics warps read the slot first in every
+// run.
+constexpr long long PLANT_SPIN_CYCLES = 100000;
+
 // One launch's solve.  SL / SS: the LW / SW band's Shape (common.cuh),
 // NoBand for a band the kernel does not solve (BL / BS, W / S are then
 // null); NT: the grid's temperature points, or 0; STAGING: the route
 // (Staging; shared memory takes its 32-bit addressing).  A persistent
 // block walks the columns blockIdx.x, + gridDim.x, ...; the i-th goes to
-// slot i % C and is swept
-// by set i % S.  The block's last S (n_ang + 1) warps sweep (per set one
-// LW warp per Gauss angle, then the SW warp); the others, the optics
-// warps, stage the next columns meanwhile.  On the split route a slot's
+// slot i % C and is swept by set i % S.  The block's last S (n_ang + 1)
+// warps sweep (per set one LW warp per Gauss angle, then the SW warp); the
+// others, the optics warps, stage the next columns meanwhile.  On the
+// split route a slot's
 // LW rows lie in the block's device slice and its SW rows start the slot
 // in shared memory; the barriers order the slice's stores and loads as
 // they order shared memory's (bar.sync / bar.arrive order a thread's
@@ -156,67 +188,87 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
   const int n_opt = blockDim.x / 32 - P.sets * n_set;
   // A slot's barriers join the optics warps and the slot's set.
   const int bar_threads = 32 * (n_opt + n_set);
+  constexpr bool SPLIT = STAGING == STAGE_SPLIT;
+  // The parameter stage (merged kernel, whole columns): the set's LW
+  // sweep warps, done with a column's LW rows, write the layer parameters
+  // of the slot's next column there before they free the slot.
+  const bool stage = LW && SW && !SPLIT && P.prm_stage != 0;
   float* slots = STAGING != STAGE_DEVICE
                      ? smem
                      : P.stage + (size_t)blockIdx.x * P.slots * P.col_floats;
-  constexpr bool SPLIT = STAGING == STAGE_SPLIT;
-  RING(__shared__ unsigned ring_ledger[2 * RING_MAX_SLOTS];
+  RING(__shared__ unsigned ring_ledger[3 * RING_MAX_SLOTS];
        const int sw_gases = SW ? 3 * BS->nslice - 2 * BS->ndense : 0;
        const RingCheck ring(ring_ledger, slots, P.slots, P.col_floats,
                             SPLIT ? lw_slice(P, 0) : nullptr,
                             P.lw_floats + SLICE_GUARD, n_opt, n_set,
-                            P.prm_base, P.prm_stride, P.prm_sw + sw_gases,
-                            nlay);)
+                            stage ? n_lw : 0, P.prm_base, P.prm_stride,
+                            P.prm_sw + sw_gases, nlay);)
+  // The layer parameters of column c's layers j0, j0 + dj, ... below jb
+  // into its slot st.
+  auto params = [&](int c, float* st, int j0, int dj, int jb) {
+    for (int j = j0; j < jb; j += dj)
+      layer_params<T, SL, SS>(A, G, BL, BS, W, c, j,
+                              st + P.prm_base + j * P.prm_stride);
+  };
   if (warp < n_opt) {
-    // 0. The layer parameters of this warp's layers, lanes over them;
-    // 1. their optics, one layer at a time.
+    // The layer parameters of this warp's layers, lanes over them, unless
+    // the stage wrote them; then their optics, one layer at a time.
     for (int c = blockIdx.x, i = 0; c < ncol; c += gridDim.x, ++i) {
       const int s = i % P.slots;
       float* st = slots + (size_t)s * P.col_floats;
       const float* prm = st + P.prm_base;
       const int r = (warp + i) % n_opt;
       const int ja = r * nlay / n_opt, jb = (r + 1) * nlay / n_opt;
-#ifdef ECCKD_PLANT_SKIP_FREE
-      // The planted fault (tools/cuda_sanitize.py --checked): in round 1
-      // of slot 0 the optics warps wait for each other (BAR_PLANT) but
-      // not for the slot's sweeps, and join FREE only after staging, so
-      // they may overwrite the staging that the sweeps still read.  Every
-      // barrier keeps its count and order, and the optics warps stay in
-      // step: without that, at C = 1 one would stage the slot's next
-      // column over layers another still stages, and read that one's
-      // rows as its layer parameters (integers).
-      const bool late_free = i == P.slots && s == 0;
+      // The planted fault ECCKD_PLANT_SKIP_FREE (tools/cuda_sanitize.py
+      // --checked): in round 1 of slot 0 the optics warps wait for each
+      // other (BAR_PLANT) but not for the slot's sweeps, and join FREE
+      // only after staging, so they may overwrite the staging that the
+      // sweeps still read.  Every barrier keeps its count and order, and
+      // the optics warps stay in step: without that, at C = 1 one would
+      // stage the slot's next column over layers another still stages,
+      // and read that one's rows as its layer parameters (integers).
+      const bool late_free = PLANT_SKIP_FREE && i == P.slots && s == 0;
       if (late_free) bar_sync(BAR_PLANT, 32 * n_opt);
       else if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
-#else
-      if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
-#endif
       RING(ring.freed(i, s, c);)
-      for (int j = ja + lane; j < jb; j += 32)
-        layer_params<T>(A, G, BL, BS, W, c, j,
-                        st + P.prm_base + j * P.prm_stride);
-      __syncwarp();
+      // (The planted fault computes its own, so that it never reads the
+      // slot's rows as parameters before the stage wrote them.)
+      if (!stage || i < P.slots || late_free) {
+        params(c, st, ja + lane, 32, jb);
+        __syncwarp();
+      }
       if constexpr (SPLIT) {
         lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
                               P.prm_stride, lw_slice(P, s));
         sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
                               P.prm_stride, P.prm_sw, st);
       } else {
-        if constexpr (LW)
-          lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
-                                P.prm_stride, st);
-        if constexpr (SW)
-          sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
-                                P.prm_stride, P.prm_sw, st + P.lw_floats);
+        // The band whose first row holds the parameters goes last: its
+        // optics overwrite them (LW with the stage, else SW if present).
+        auto lw_pass = [&] {
+          if constexpr (LW)
+            lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
+                                  P.prm_stride, st);
+        };
+        auto sw_pass = [&] {
+          if constexpr (SW)
+            sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
+                                  P.prm_stride, P.prm_sw, st + P.lw_floats);
+        };
+        if (stage) {
+          sw_pass();
+          lw_pass();
+        } else {
+          lw_pass();
+          sw_pass();
+        }
       }
-#ifdef ECCKD_PLANT_SKIP_FREE
       if (late_free) bar_sync(BAR_FREE + s, bar_threads);
-#endif
       RING(ring.staging_done(i, s);)
       bar_arrive(BAR_FULL + s, bar_threads);
     }
   } else {
-    // 2. Sweeps from the staging, set k: LW at angle a (the set's warp a)
+    // The sweeps from the staging, set k: LW at angle a (the set's warp a)
     // into its own accumulators, or SW; then the level fluxes, written
     // once.
     const int set = (warp - n_opt) / n_set, a = (warp - n_opt) % n_set;
@@ -227,10 +279,17 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
       float* acc;
       if constexpr (SPLIT) acc = st + P.sw_floats + 2 * nlev * a;
       else acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
+      // The slot's next column, and whether it comes (a FREE to arrive).
+      const int c_next = c + P.slots * gridDim.x;
       bar_sync(BAR_FULL + s, bar_threads);
       RING(ring.filled(i, s, c);)
       for (int q = lane; q < 2 * nlev; q += 32) acc[q] = 0.0f;
       __syncwarp();
+      // The planted fault ECCKD_PLANT_SKIP_PRM: in round 0 of slot 0 the
+      // LW warps free the slot before they write the next column's
+      // parameters, and write them late (PLANT_SPIN_CYCLES).
+      const bool late_prm = PLANT_SKIP_PRM && stage && i == 0;
+      bool write_prm = false;
       if (a == n_lw) {
         if constexpr (SW) {
           if constexpr (SPLIT)
@@ -266,12 +325,27 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
         // them (on the split route they hold no layer parameters).
         RING(if (n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
              if (a == 0) ring.poison(SPLIT ? lw_slice(P, s) : st, 0,
-                                     P.lw_floats, !SPLIT);)
+                                     P.lw_floats, !SPLIT);
+             if (stage && n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
+             else __syncwarp();)
+        // The stage: the next column's parameters into the LW rows, lanes
+        // over its layers, split over the set's LW warps.
+        write_prm = stage && c_next < ncol;
+        if (write_prm && !late_prm) {
+          params(c_next, st, 32 * a + lane, 32 * n_lw, nlay);
+          RING(ring.params_done(i, s);)
+        }
       }
       __syncwarp();
       RING(ring.sweep_done(i, s);)
-      if (c + P.slots * gridDim.x < ncol)
-        bar_arrive(BAR_FREE + s, bar_threads);
+      if (c_next < ncol) bar_arrive(BAR_FREE + s, bar_threads);
+      if (write_prm && late_prm) {
+        for (const long long t0 = clock64();
+             clock64() - t0 < PLANT_SPIN_CYCLES;) {
+        }
+        params(c_next, st, 32 * a + lane, 32 * n_lw, nlay);
+        RING(ring.params_done(i, s);)
+      }
     }
   }
   RING(ring.finish();)

@@ -17,9 +17,10 @@ sw.py).
   non-zero ``cudaGetLastError()`` and counts launches per instantiation
   (``launches`` for the exact table, ``fast_launches`` for the fast
   mode's bf16 table; csrc/common.cuh "Table mode"), and those on the
-  split staging route (``split_launches``, ``fast_split_launches``) and
-  at 2-4 LW angles (``multi_angle_launches``,
-  ``fast_multi_angle_launches``) besides.
+  split staging route (``split_launches``, ``fast_split_launches``), at
+  2-4 LW angles (``multi_angle_launches``, ``fast_multi_angle_launches``)
+  and with a parameter stage (``param_stage_launches``,
+  ``fast_param_stage_launches``) besides.
 
 nvcc and the build are reached only from ``library``, at the first launch,
 so the CPU tests import this module without a CUDA toolkit.
@@ -96,7 +97,7 @@ class Tile(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "slots", "sets", "blocks", "threads", "shared_bytes",
                     "col_floats", "lw_floats", "sw_floats", "prm_base",
-                    "prm_stride", "prm_sw")])
+                    "prm_stride", "prm_sw", "prm_stage")])
 
 
 class LwswArgs(ctypes.Structure):
@@ -318,7 +319,8 @@ def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
                   counted, device, fast: bool = False,
                   lib: Optional[ctypes.CDLL] = None,
-                  split: bool = False, multi_angle: bool = False) -> None:
+                  split: bool = False, multi_angle: bool = False,
+                  param_stage: bool = False) -> None:
     """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
     ``device``'s current stream, with the arguments ``make_args(c0, c1)``:
     the exact entry point, or ``..._launch_fast`` if ``fast``.  Each launch
@@ -326,7 +328,9 @@ def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
     ``fast``), and if ``split`` (it stages on the split route) one to
     ``counted.split_launches`` (``.fast_split_launches``), and if
     ``multi_angle`` (the LW band at 2-4 Gauss angles) one to
-    ``counted.multi_angle_launches`` (``.fast_multi_angle_launches``).
+    ``counted.multi_angle_launches`` (``.fast_multi_angle_launches``), and
+    if ``param_stage`` (the plan's parameter stage runs) one to
+    ``counted.param_stage_launches`` (``.fast_param_stage_launches``).
     The launch runs with ``device`` as the host thread's current device:
     the runtime launches on the current device, and another card's stream
     there is an error.  ``lib``: a bound build of the kernel (``bind``) in
@@ -336,7 +340,8 @@ def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
     launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
     prefix = "fast_" if fast else ""
     counters = ([prefix + "launches"] + [prefix + "split_launches"] * split
-                + [prefix + "multi_angle_launches"] * multi_angle)
+                + [prefix + "multi_angle_launches"] * multi_angle
+                + [prefix + "param_stage_launches"] * param_stage)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for c0 in range(0, ncol, column_chunk):

@@ -110,7 +110,9 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
     H100) to ``.split_launches`` or ``.fast_split_launches`` besides, and
     one at 2-4 Gauss angles (the LW optics stage tau and the Planck rows,
     each angle's sweep its own sources) to ``.multi_angle_launches`` or
-    ``.fast_multi_angle_launches``.
+    ``.fast_multi_angle_launches``, and one with the parameter stage
+    (``staged.stage_plan``) to ``.param_stage_launches`` or
+    ``.fast_param_stage_launches``.
     """
     binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
                          emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
@@ -127,3 +129,5 @@ lwsw_fluxes_cuda.split_launches = 0
 lwsw_fluxes_cuda.fast_split_launches = 0
 lwsw_fluxes_cuda.multi_angle_launches = 0
 lwsw_fluxes_cuda.fast_multi_angle_launches = 0
+lwsw_fluxes_cuda.param_stage_launches = 0
+lwsw_fluxes_cuda.fast_param_stage_launches = 0

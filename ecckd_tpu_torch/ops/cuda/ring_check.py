@@ -1,15 +1,20 @@
 """The ring checker's build of the staged kernels (csrc/ring_check.cuh).
 
 The staged body (csrc/staged.cuh) hands each column slot from its optics
-warps to its sweep warps and back through named barriers.  Built with
+warps to its sweep warps and back through named barriers (FULL, FREE);
+with the parameter stage the set's LW sweep warps write the layer
+parameters of the slot's next column before they free it.  Built with
 ``-DECCKD_CHECK_RING`` the same body asserts that hand-over on the card:
-per slot, ledgers of the rounds staged and swept, checked after every
-wait; NaN written over a slot's rows by their last reader, so a read of
-stale staging shows in the outputs; guard words after every slot; and a
-seeded jitter at the hand-over points.  ``-DECCKD_PLANT_SKIP_FREE`` adds
-a planted fault (once, the optics warps stage a slot without waiting for
-its sweeps, and join its FREE only after), which the checker must
-report.
+per slot, ledgers of the rounds staged, swept and (the stage) of
+parameters written, checked after every wait; NaN written over a slot's
+rows by their last reader (0 over the layer parameters' places), so a
+read of stale staging shows in the outputs; guard words after every
+slot; and a seeded jitter at the hand-over points.  Two planted faults,
+which the checker must report: ``-DECCKD_PLANT_SKIP_FREE`` (once, the
+optics warps stage a slot without waiting for its sweeps, and join its
+FREE only after) and ``-DECCKD_PLANT_SKIP_PRM`` (once, the LW sweep
+warps free a slot before they write its next column's parameters, and
+write them late; only launches with the stage).
 
 This module builds and binds those libraries (``library``), sizes their
 staging (``guarded``: the plan with the guard words) and reads their
@@ -29,23 +34,25 @@ from ecckd_tpu_torch.ops.cuda import binding
 from ecckd_tpu_torch.ops.cuda.staged import StagePlan
 
 CHECK_DEFINE = "ECCKD_CHECK_RING"
-PLANT_DEFINE = "ECCKD_PLANT_SKIP_FREE"
+PLANT_DEFINES = {"free": "ECCKD_PLANT_SKIP_FREE",
+                 "prm": "ECCKD_PLANT_SKIP_PRM"}
+"""The planted faults' defines by name."""
 RING_GUARD_FLOATS = 32
 """Guard words after each slot (csrc/ring_check.cuh RING_GUARD)."""
-CHECKS = ("full", "free", "canary")
+CHECKS = ("full", "free", "canary", "prm")
 """The checks of the record, in csrc/ring_check.cuh's RingCheckKind order."""
 
 
-def defines(plant: bool = False) -> Tuple[str, ...]:
-    """The checked build's defines; with ``plant`` also the planted
-    fault's."""
-    return (CHECK_DEFINE, PLANT_DEFINE) if plant else (CHECK_DEFINE,)
+def defines(plant: str = "") -> Tuple[str, ...]:
+    """The checked build's defines; with ``plant`` (a name of
+    ``PLANT_DEFINES``) also that planted fault's."""
+    return (CHECK_DEFINE, PLANT_DEFINES[plant]) if plant else (CHECK_DEFINE,)
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str, plant: bool = False) -> ctypes.CDLL:
+def library(name: str, plant: str = "") -> ctypes.CDLL:
     """Build (first use) and bind the checked ``csrc/<name>.cu`` (with the
-    planted fault if ``plant``): the launch entry points as
+    planted fault ``plant`` if given): the launch entry points as
     ``binding.bind`` binds them, and ``ecckd_<name>_ring_config`` /
     ``_ring_errors``."""
     from ecckd_tpu_torch.ops.cuda import build
@@ -85,11 +92,12 @@ def errors(lib: ctypes.CDLL, name: str, reset: bool = True) -> dict:
     launches have finished): their count, the count per check
     (``CHECKS``) and the first one's block, column, slot and check (None
     while there is none); ``reset`` clears the record."""
-    out = (ctypes.c_int * 8)()
+    n = len(CHECKS)
+    out = (ctypes.c_int * (n + 5))()
     _check(lib, getattr(lib, f"ecckd_{name}_ring_errors")(out, int(reset)),
            f"ecckd_{name}_ring_errors")
-    count, *by_check = out[:4]
-    block, column, slot, check = out[4:]
+    count, *by_check = out[:n + 1]
+    block, column, slot, check = out[n + 1:]
     return {"count": count, **dict(zip(CHECKS, by_check)),
             "first": None if count == 0 else {
                 "block": block, "column": column, "slot": slot,

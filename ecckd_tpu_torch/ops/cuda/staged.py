@@ -6,7 +6,7 @@ csrc/lwsw.cu, the LW-only lw.cu and the SW-only sw.cu.
 block, the sets of sweep warps and the threads per block, and the route
 (csrc/staged.cuh Staging): a column whole in shared memory, split (its LW
 rows in a device memory slice, the rest in shared memory), or whole in
-the device slice;
+the device slice, and whether the merged kernel runs the parameter stage;
 ``occupancy`` asks the card how many such blocks an SM holds; and
 ``run_staged`` launches any of the three kernels over column chunks.  The
 wrappers in ops/cuda/{lwsw,lw,sw}.py call ``run_staged`` with the bands
@@ -56,6 +56,9 @@ class StagePlan:
                            # only (ops/cuda/ring_check.py)
     split: bool = False    # the LW rows in a device slice, the rest of
                            # the slot in shared memory
+    prm_stage: bool = False  # the sets' LW sweep warps write each slot's
+                             # next layer parameters (in its LW rows);
+                             # else each optics warp computes its own
 
     @property
     def route(self) -> str:
@@ -97,7 +100,8 @@ def band_gases(gas_plan: plan_mod.GasPlan) -> Tuple[int, int]:
 def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
                gases_lw: Tuple[int, int], gases_sw: Tuple[int, int],
                block_shared: int, sm_shared: int, blocks_per_sm: int = 2,
-               max_slots: int = MAX_SLOTS, sets: int = 1) -> StagePlan:
+               max_slots: int = MAX_SLOTS, sets: int = 1,
+               param_stage: Optional[bool] = None) -> StagePlan:
     """The staging of one launch of the kernel that solves the bands with
     ``ngpt_* > 0`` (both: lwsw.cu, LW only: lw.cu, SW only: sw.cu).
 
@@ -123,7 +127,31 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     sweeps slots k, k + S, ...), is the most, up to ``sets``, that
     divides C.  Threads per block: 1024 (64 registers each) per SM, in
     ``blocks_per_sm`` blocks where that many fit in ``sm_shared`` and hold
-    the S sets and one optics warp, else in half as many, down to one."""
+    the S sets and one optics warp, else in half as many, down to one.
+
+    The parameter stage (csrc/staged.cuh; the merged kernel's): each set's
+    LW sweep warps, done with a column's LW rows, write the layer
+    parameters of the slot's next column there, lanes over its layers, in
+    place of one pass per optics warp over its own layers; the parameters
+    then sit in the layer's first LW row (``prm_base`` 0, ``prm_stride``
+    the LW g-points).  It needs both bands, an LW band of one g-chunk
+    whose row holds them, and whole columns in shared memory
+    (``param_stage_fits``).  ``param_stage`` None takes it where
+    ``stage_rule`` says: at one LW angle with C = 2.  True or False asks
+    for it or not (tools/stage_sweep.py times both), True where it does
+    not fit raising.
+
+    The rule, timed with tools/stage_sweep.py at 65,536 columns on an
+    H100 80GB HBM3 at 700 W, the same build with and without the stage:
+    with C = 2 a slot turns over in its optics, then its sweeps, and the
+    optics warps' path sets the pace; at one angle the stage takes their
+    pass off it and the LW sweep warp writes it while the SW warp still
+    sweeps (K1 at nlay 30 3.57-3.61 -> 3.11-3.29 ms, 60 5.65-5.83 ->
+    5.45-5.68, 91 11.88-12.07 -> 10.88-10.96).  At 3 angles the set's
+    three LW sweep warps, which compute each angle's sources, leave no
+    room beside the SW sweep (nlay 60 6.84-6.99 -> 7.09-7.25 ms), and with
+    C = 1 no other slot's optics run beside the pass (K3 at nlay 300:
+    32.1-32.4 -> 42.1 ms)."""
     if not 1 <= max_slots <= SLOT_LIMIT:
         raise ValueError(f"max_slots must be in 1..{SLOT_LIMIT}")
     has_lw, has_sw = ngpt_lw > 0, ngpt_sw > 0
@@ -159,7 +187,35 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
             and blocks * (plan.shared_bytes + RESERVED_SHARED_BYTES)
             > sm_shared):
         blocks //= 2
-    return dataclasses.replace(plan, threads=1024 // blocks)
+    plan = dataclasses.replace(plan, threads=1024 // blocks)
+    fits = param_stage_fits(plan, ngpt_lw, ngpt_sw, per_layer)
+    if param_stage is None:
+        param_stage = fits and stage_rule(plan, n_angles)
+    if param_stage and not fits:
+        raise ValueError(f"no parameter stage on the {plan.route} route "
+                         f"with {ngpt_lw} LW g-points and {per_layer} "
+                         "parameters a layer")
+    if not param_stage:
+        return plan
+    return dataclasses.replace(plan, prm_stage=True, prm_base=0,
+                               prm_stride=ngpt_lw)
+
+
+def param_stage_fits(plan: StagePlan, ngpt_lw: int, ngpt_sw: int,
+                     per_layer: int) -> bool:
+    """Whether ``plan`` (one without the stage) can take the parameter
+    stage: both bands (the merged kernel's LW sweep warps run it beside
+    the SW sweep), whole columns in shared memory, an LW band of one
+    g-chunk whose row holds a layer's ``per_layer`` parameters, and the
+    parameters in rows already (so the staging keeps its size)."""
+    return (0 < ngpt_lw <= 32 and ngpt_sw > 0 and per_layer <= ngpt_lw
+            and plan.route == "shared" and plan.prm_floats == 0)
+
+
+def stage_rule(plan: StagePlan, n_angles: int) -> bool:
+    """Where the parameter stage pays, for a plan it fits (``stage_plan``
+    gives the timings): the shape alone decides."""
+    return n_angles == 1 and plan.slots >= 2
 
 
 def tile_struct(plan: StagePlan, blocks: int = 0,
@@ -173,7 +229,7 @@ def tile_struct(plan: StagePlan, blocks: int = 0,
                         col_floats=plan.col_floats,
                         lw_floats=plan.lw_floats, sw_floats=plan.sw_floats,
                         prm_base=plan.prm_base, prm_stride=plan.prm_stride,
-                        prm_sw=plan.prm_sw)
+                        prm_sw=plan.prm_sw, prm_stage=int(plan.prm_stage))
 
 
 def kernel_name(lw: Optional[plan_mod.LwInputs],
@@ -310,5 +366,6 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
 
     binding.launch_chunks(name, args_type, ncol, chunk, make_args, counted,
                           dev, (lw or sw).arrays.fast, lib, plan.split,
-                          lw is not None and lw.n_gauss_angles > 1)
+                          lw is not None and lw.n_gauss_angles > 1,
+                          plan.prm_stage)
     return outs

@@ -85,7 +85,9 @@ COUNTERS = tuple((w, c) for w in (lwsw_fluxes_cuda, lw_fluxes_cuda,
                                   sw_fluxes_cuda)
                  for c in ("launches", "fast_launches", "split_launches",
                            "fast_split_launches", "multi_angle_launches",
-                           "fast_multi_angle_launches") if hasattr(w, c))
+                           "fast_multi_angle_launches",
+                           "param_stage_launches",
+                           "fast_param_stage_launches") if hasattr(w, c))
 """The kernel wrappers' launch counts that a replay adds back."""
 
 

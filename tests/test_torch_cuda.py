@@ -14,6 +14,8 @@ Each kernel (float32) is held against its plain PyTorch version at float64
 on the card: <= 5e-5 of the flux scale per output, the chip-parity metric.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -148,6 +150,52 @@ def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
           n_gauss_angles=n_angles, mxu_mode=mode)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("n_angles", [1, 3])
+def test_parameter_stage_changes_no_bit(models, n_angles, mode):
+    """At nlay 60 the merged kernel at one angle takes the parameter stage
+    (ops/cuda/staged.py stage_plan: the sets' LW sweep warps write each
+    slot's next layer parameters), counts each such launch in
+    ``param_stage_launches`` (``fast_param_stage_launches``), and gives
+    the outputs of the plan without it bit for bit; at 3 angles the plan
+    declines it and the count stays."""
+    from ecckd_tpu_torch.ops.cuda import lwsw, plan, staged
+    lw, sw = models["lw", torch.float32], models["sw", torch.float32]
+    ncol, nlay = 1037, 60
+    b = batch(ncol, nlay, torch.float32, seed=5)
+    expand = lambda e: e[:, None].expand(e.shape[0], lw.ngpt).contiguous()
+    prep = plan.prepare(lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                        expand(b["emis"]), b["concs"], b["alb"], b["tsi"],
+                        b["sza"], n_angles, fast=mode == "bf16")
+    default = staged.plan_for(*prep)
+    assert default.prm_stage == (n_angles == 1)
+    prefix = "fast_" if mode == "bf16" else ""
+    counts = lambda: (getattr(lwsw_fluxes_cuda, prefix + "launches"),
+                      getattr(lwsw_fluxes_cuda,
+                              prefix + "param_stage_launches"))
+    before = counts()
+    got = solve(lwsw_fluxes_cuda, lw, sw, b, expand(b["emis"]),
+                n_gauss_angles=n_angles, column_chunk=512, mxu_mode=mode)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 3,
+                        before[1] + 3 * (n_angles == 1))  # 512, 512, 13
+    if n_angles == 1:
+        props = torch.cuda.get_device_properties(b["tlay"].device)
+        off = staged.stage_plan(
+            nlay, lw.ngpt, sw.ngpt, 1, staged.band_gases(prep[1].plan),
+            staged.band_gases(prep[2].plan),
+            props.shared_memory_per_block_optin,
+            props.shared_memory_per_multiprocessor, *staged.SHAPES["lwsw"],
+            param_stage=False)
+        assert off == dataclasses.replace(
+            default, prm_stage=False, prm_base=off.prm_base,
+            prm_stride=off.prm_stride)
+        plain = lwsw._kernel_core(*prep, 512, plan=off)
+        torch.cuda.synchronize()
+        for g, r in zip(got, lwsw._night_masked(prep[2], tuple(plain))):
+            assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])

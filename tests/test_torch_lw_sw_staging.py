@@ -10,7 +10,7 @@ for them:
   per column, C, shared memory or a device slice, threads per block and
   where the layer parameters go, against counts written out here by hand
   from csrc/common.cuh's row layout, on an H100's and an A100's shared
-  memory;
+  memory; no parameter stage for either;
 * the ctypes mirrors of ``LwArgs`` and ``SwArgs``: field order as
   csrc/lw.cu and csrc/sw.cu declare it, offsets and size by hand;
 * ``lw_fluxes_plain`` and ``sw_fluxes_plain`` at float64 at the depth the
@@ -153,6 +153,26 @@ def test_block_shape_follows_the_sweep_warps_and_shared_memory():
     assert threads(2, n_angles=4, max_slots=4, sets=4) == 1024
     with pytest.raises(ValueError, match="max_slots"):
         staged.stage_plan(max_slots=5, **base)
+
+
+@pytest.mark.parametrize("kernel,n_ang", CASES)
+@pytest.mark.parametrize("nlay", [30, 60, 137, 300])
+def test_single_band_kernels_have_no_parameter_stage(kernel, n_ang, nlay):
+    """The stage is the merged kernel's: its LW sweep warps write the next
+    column's layer parameters beside the SW sweep.  K3's LW sweep warps
+    are its only sweeps, so the passes would lengthen each slot's turn (2
+    to 30 % slower where an H100 timed it, PERF.md §6), and K4 has no LW
+    sweep warps.  ``stage_plan`` gives neither a stage, and asked for one
+    it raises; the plan is the same as without the request."""
+    blocks, slots, sets = staged.SHAPES[kernel]
+    ng_lw, ng_sw = (32, 0) if kernel == "lw" else (0, 27)
+    ask = lambda **kw: staged.stage_plan(
+        nlay, ng_lw, ng_sw, n_ang, GASES_LW if ng_lw else (0, 0),
+        GASES_SW if ng_sw else (0, 0), *H100, blocks_per_sm=blocks,
+        max_slots=slots, sets=sets, **kw)
+    assert not ask().prm_stage and ask() == ask(param_stage=False)
+    with pytest.raises(ValueError, match="parameter stage"):
+        ask(param_stage=True)
 
 
 @pytest.mark.parametrize("name", ["LwArgs", "SwArgs"])

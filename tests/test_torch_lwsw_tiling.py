@@ -11,6 +11,10 @@ what the host decides for it:
   where the layer parameters go, against counts written out here by hand
   from csrc/common.cuh's row layout, and literal plans at an H100's
   limits;
+* the parameter stage (csrc/staged.cuh): where ``stage_plan`` gives it by
+  shape and where the parameters then sit, the named barriers every plan
+  needs (none above id 15), and the launches counted with it, added back
+  on a replay;
 * the ctypes mirror of ``LwswArgs`` and of the staging plan ``Tile``
   (csrc/staged.cuh): field order as the C source declares it, offsets and
   size by hand;
@@ -88,8 +92,13 @@ def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
     assert (p.prm_floats == 0) == in_rows
     assert p.prm_sw == 8 + GASES_LW[0] + 3 * GASES_LW[1]
     # Layer j's parameters sit in its r_dif row, after the LW rows (split:
-    # the r_dif row starts the slot).
-    assert (p.prm_base, p.prm_stride) == (0 if split else p.lw_floats, 27)
+    # the r_dif row starts the slot); with the parameter stage in its
+    # first LW row, at the slot's start.
+    if p.prm_stage:
+        assert (p.prm_base, p.prm_stride) == (0, ng_lw)
+    else:
+        assert (p.prm_base, p.prm_stride) == (0 if split else p.lw_floats,
+                                              27)
 
 
 def test_stage_plan_at_the_main_path_and_the_edges():
@@ -231,14 +240,13 @@ def test_args_mirror_the_c_structs():
     for struct in ("Band", "LwSolve", "SwSolve"):
         assert [f for f, _ in getattr(binding, struct)._fields_] == \
             c_fields(struct, "common.cuh")
-    # By hand: a pointer, then eleven ints (padded to 8 bytes); the
-    # structs before it as in
+    # By hand: a pointer, then twelve ints; the structs before it as in
     # common.cuh (Atmos 48, Grid 40, Band 728 twice (a pointer, three
     # ints, 16 slices of 44 bytes, padded to 8), LwSolve 96, SwSolve 56
     # bytes).
-    assert ctypes.sizeof(tile) == 8 + 11 * 4 + 4
+    assert ctypes.sizeof(tile) == 8 + 12 * 4
     assert [getattr(tile, f).offset for f, _ in tile._fields_] \
-        == [0] + list(range(8, 52, 4))
+        == [0] + list(range(8, 56, 4))
     sizes = [ctypes.sizeof(t) for t in (binding.Atmos, binding.Grid,
                                         binding.Band, binding.LwSolve,
                                         binding.SwSolve)]
@@ -255,6 +263,14 @@ def test_tile_struct_carries_the_plan():
     assert (t.col_floats, t.lw_floats, t.sw_floats) == (
         p.col_floats, p.lw_floats, p.sw_floats)
     assert (t.prm_base, t.prm_stride, t.prm_sw) == (p.lw_floats, 27, 18)
+    assert t.prm_stage == p.prm_stage == 0
+    for stage in (False, True):
+        q = staged.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100,
+                              param_stage=stage)
+        t = staged.tile_struct(q)
+        assert t.prm_stage == int(q.prm_stage) == stage
+        assert (t.prm_base, t.prm_stride) == ((0, 32) if stage
+                                              else (q.lw_floats, 27))
 
 
 def test_tile_struct_carries_the_split_plan():
@@ -376,7 +392,8 @@ def test_run_staged_counts_multi_angle_launches(monkeypatch, ckd_paths,
     p = staged.stage_plan(60, lw_m.ngpt, sw_m.ngpt if sw_in else 0,
                           n_angles, GASES_LW, GASES_SW if sw_in else (0, 0),
                           *H100)
-    names = ("launches", "split_launches", "multi_angle_launches")
+    names = ("launches", "split_launches", "multi_angle_launches",
+             "param_stage_launches")
     counted = types.SimpleNamespace(**{pre + n: 0 for pre in ("", "fast_")
                                        for n in names})
     staged.run_staged(atm, lw_in, sw_in, 16, counted, plan=p, lib=lib)
@@ -386,22 +403,181 @@ def test_run_staged_counts_multi_angle_launches(monkeypatch, ckd_paths,
     want[prefix + "launches"] = 3
     if n_angles > 1:
         want[prefix + "multi_angle_launches"] = 3
+    if p.prm_stage:
+        want[prefix + "param_stage_launches"] = 3
     assert vars(counted) == want
 
 
 def test_replays_count_the_split_launches():
     """capture.jit adds a replay's launches back per counter: the merged
-    kernel's split and multi-angle counts among them, the LW kernel's
-    multi-angle counts, and the SW kernel (one band, no angles) has
-    neither."""
+    kernel's split, multi-angle and parameter-stage counts among them, the
+    LW kernel's multi-angle counts, and the SW kernel (one band, no
+    angles) has none of them."""
     from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
     from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
     from ecckd_tpu_torch.utils import capture
     held = lambda wrapper: {c for w, c in capture.COUNTERS if w is wrapper}
     assert held(lwsw.lwsw_fluxes_cuda) == {
         "launches", "fast_launches", "split_launches", "fast_split_launches",
-        "multi_angle_launches", "fast_multi_angle_launches"}
+        "multi_angle_launches", "fast_multi_angle_launches",
+        "param_stage_launches", "fast_param_stage_launches"}
     assert held(lw_fluxes_cuda) == {"launches", "fast_launches",
                                     "multi_angle_launches",
                                     "fast_multi_angle_launches"}
     assert held(sw_fluxes_cuda) == {"launches", "fast_launches"}
+
+
+# The parameter stage by shape, in each kernel's block shape
+# (staged.SHAPES) at an H100's limits: (kernel, nlay, angles, stage).  It
+# takes an LW band of one g-chunk, whole columns in shared memory and the
+# rule's shapes (stage_rule: one angle, C >= 2); it is the merged
+# kernel's alone (its LW sweep warps run it beside the SW sweep).
+STAGE_PLANS = [
+    ("lwsw", 60, 1, True),
+    ("lwsw", 30, 1, True),
+    ("lwsw", 91, 1, True),
+    ("lwsw", 123, 1, True),
+    ("lwsw", 60, 3, False),
+    ("lwsw", 60, 2, False),
+    ("lwsw", 137, 1, False),      # split: the LW rows in the device slice
+    ("lwsw", 220, 1, False),      # one whole column per block
+    ("lwsw", 300, 1, False),      # device staging
+    ("lw", 60, 1, False),
+    ("lw", 137, 1, False),
+    ("lw", 60, 3, False),
+    ("sw", 60, 1, False),
+    ("sw", 137, 1, False),
+]
+
+
+def _shape_plan(kernel, nlay, n_ang, ng_lw=32, **kw):
+    blocks, slots, sets = staged.SHAPES[kernel]
+    return staged.stage_plan(
+        nlay, ng_lw if kernel != "sw" else 0, 27 if kernel != "lw" else 0,
+        n_ang, GASES_LW if kernel != "sw" else (0, 0),
+        GASES_SW if kernel != "lw" else (0, 0), *H100, blocks_per_sm=blocks,
+        max_slots=slots, sets=sets, **kw)
+
+
+@pytest.mark.parametrize("kernel,nlay,n_ang,stage", STAGE_PLANS)
+def test_stage_plan_gives_the_parameter_stage_by_shape(kernel, nlay, n_ang,
+                                                       stage):
+    p = _shape_plan(kernel, nlay, n_ang)
+    off = _shape_plan(kernel, nlay, n_ang, param_stage=False)
+    assert p.prm_stage == stage and not off.prm_stage
+    # The stage moves the parameters to the layer's first LW row and
+    # changes nothing else: the block keeps its threads, C, S and bytes.
+    assert dataclasses.replace(p, prm_stage=False, prm_base=off.prm_base,
+                               prm_stride=off.prm_stride) == off
+    if stage:
+        assert (p.prm_base, p.prm_stride, p.prm_floats) == (0, 32, 0)
+    else:
+        assert p == off
+    # Asked for where it cannot run, it raises; the rule reads the shape
+    # alone.
+    if kernel != "lwsw" or off.route != "shared":
+        with pytest.raises(ValueError):
+            _shape_plan(kernel, nlay, n_ang, param_stage=True)
+    assert _shape_plan(kernel, nlay, n_ang) == p
+
+
+def test_no_stage_for_lw_rows_of_two_g_chunks():
+    """lw_rrtmgp's 36 g-points: a layer's LW row is written by its first
+    g-chunk before the second reads the parameters, so they stay in the
+    SW row, and the stage is refused."""
+    p = _shape_plan("lwsw", 60, 1, ng_lw=36)
+    assert not p.prm_stage and (p.prm_base, p.prm_stride) == (
+        p.lw_floats, 27)
+    with pytest.raises(ValueError):
+        _shape_plan("lwsw", 60, 1, ng_lw=36, param_stage=True)
+    assert not _shape_plan("lw", 60, 1, ng_lw=36).prm_stage
+
+
+def _constants(source):
+    """The ``constexpr int`` of csrc/<source> that are sums of numbers and
+    earlier ones, as a dict."""
+    src = (Path(lwsw.__file__).parents[2] / "csrc" / source).read_text()
+    out = {}
+    for decl in re.findall(r"constexpr int ([^;]*);", src):
+        for item in decl.split(","):
+            name, expr = (x.strip() for x in item.split("="))
+            terms = [t.strip() for t in expr.split("+")]
+            if all(t.isdigit() or t in out for t in terms):
+                out[name] = sum(int(t) if t.isdigit() else out[t]
+                                for t in terms)
+    return out
+
+
+def test_no_plan_needs_a_barrier_id_above_15():
+    """Hopper's 16 named barriers per block (0: __syncthreads): FULL and
+    FREE per slot, LW_DONE per set and the planted faults' own, over every
+    kernel's plans at nlay 1-600 and 1-4 angles, with and without the
+    parameter stage (which needs no barrier of its own: the LW warps write
+    before they arrive at FREE); the Python limit mirrors
+    csrc/staged.cuh's."""
+    k = _constants("staged.cuh")
+    assert k["NAMED_BARRIERS"] == 16 and k["BAR_FULL"] == 1
+    assert k["MAX_SLOTS"] == staged.SLOT_LIMIT
+    assert k["BAR_PLANT"] <= 15
+    stages = 0
+    for kernel in ("lwsw", "lw", "sw"):
+        for nlay in range(1, 601):
+            for n_ang in ((1, 2, 3, 4) if kernel != "sw" else (1,)):
+                p = _shape_plan(kernel, nlay, n_ang)
+                stages += p.prm_stage
+                ids = ([k["BAR_FULL"] + s for s in range(p.slots)]
+                       + [k["BAR_FREE"] + s for s in range(p.slots)]
+                       + [k["BAR_LW_DONE"] + s for s in range(p.sets)])
+                assert len(set(ids)) == len(ids) and max(ids) <= 15
+                assert k["BAR_PLANT"] not in ids
+    assert stages > 0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("stage", [False, True])
+def test_launch_chunks_counts_param_stage_launches(monkeypatch, fast, stage):
+    """Each launch with a parameter stage adds one to
+    ``param_stage_launches`` (``fast_param_stage_launches``) beside
+    ``launches``; the launch itself stubbed."""
+    import contextlib
+    import types
+    calls = []
+    lib = types.SimpleNamespace(
+        ecckd_lwsw_launch=lambda args, stream: calls.append("exact") or 0,
+        ecckd_lwsw_launch_fast=lambda args, stream: calls.append("fast")
+        or 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    counted = types.SimpleNamespace(launches=0, fast_launches=0,
+                                    param_stage_launches=0,
+                                    fast_param_stage_launches=0)
+    binding.launch_chunks("lwsw", binding.LwswArgs, 1037, 512,
+                          lambda c0, c1: binding.LwswArgs(), counted, None,
+                          fast, lib, param_stage=stage)
+    assert calls == ["fast" if fast else "exact"] * 3     # 512, 512, 13
+    prefix = "fast_" if fast else ""
+    want = {"launches": 0, "fast_launches": 0, "param_stage_launches": 0,
+            "fast_param_stage_launches": 0, prefix + "launches": 3}
+    if stage:
+        want[prefix + "param_stage_launches"] = 3
+    assert vars(counted) == want
+
+
+def test_replays_count_the_param_stage_launches(monkeypatch):
+    """capture.jit adds a replay's launches back per counter
+    (``capture._add_counts`` of the eager call's deltas): a replay of a
+    call that ran 8 launches with the stage counts 8 more of each."""
+    from ecckd_tpu_torch.utils import capture
+    w = lwsw.lwsw_fluxes_cuda
+    for c in ("launches", "param_stage_launches"):
+        monkeypatch.setattr(w, c, getattr(w, c))
+    before = capture._counts()
+    w.launches += 8
+    w.param_stage_launches += 8
+    delta = [a - b for a, b in zip(capture._counts(), before)]
+    capture._add_counts(delta)
+    assert (w.launches, w.param_stage_launches) == (
+        before[capture.COUNTERS.index((w, "launches"))] + 16,
+        before[capture.COUNTERS.index((w, "param_stage_launches"))] + 16)

@@ -13,9 +13,9 @@ tool there); these tests hold what the host decides for them:
   kernel on an H100 (threads per block, C, S, shared or device staging;
   C = 1 and device staging among them), in both table modes, and its
   guarded plans fit the card;
-* the tool's verdict fails on a missed plant and on any run with a
-  violation, a NaN or outputs unequal to the plain build's (results
-  stubbed);
+* the tool's verdict fails on a missed plant (either planted fault, in
+  any kernel it runs in) and on any run with a violation, a NaN or
+  outputs unequal to the plain build's (results stubbed);
 * the Python mirrors of the C side (guard words, the record's checks) and
   the record's parsing.
 """
@@ -43,15 +43,21 @@ CSRC = Path(build.CSRC_DIR)
 def test_defines_change_the_library_key():
     plain = build.library_path("lwsw")
     checked = build.library_path("lwsw", ring_check.defines())
-    planted = build.library_path("lwsw", ring_check.defines(plant=True))
-    assert len({plain, checked, planted}) == 3
+    planted = build.library_path("lwsw", ring_check.defines("free"))
+    planted_prm = build.library_path("lwsw", ring_check.defines("prm"))
+    assert len({plain, checked, planted, planted_prm}) == 4
     assert re.fullmatch(r"liblwsw-[0-9a-f]{16}\.so", plain.name)
     assert checked.name.startswith("liblwsw-ecckd_check_ring-")
     assert planted.name.startswith(
         "liblwsw-ecckd_check_ring-ecckd_plant_skip_free-")
+    assert planted_prm.name.startswith(
+        "liblwsw-ecckd_check_ring-ecckd_plant_skip_prm-")
     assert build.library_path("lwsw", ()) == plain
-    assert build.define_flags(ring_check.defines(plant=True)) == (
+    assert build.define_flags(ring_check.defines("free")) == (
         "-DECCKD_CHECK_RING", "-DECCKD_PLANT_SKIP_FREE")
+    assert build.define_flags(ring_check.defines("prm")) == (
+        "-DECCKD_CHECK_RING", "-DECCKD_PLANT_SKIP_PRM")
+    assert set(ring_check.PLANT_DEFINES) == set(cuda_sanitize.PLANTS)
     with pytest.raises(ValueError):
         build.library_path("lwsw", ("X=1; rm",))
 
@@ -141,7 +147,7 @@ def _plan(gases, kernel, nlay, n_ang):
 
 
 def _regime(p):
-    return p.threads, p.slots, p.sets, p.route
+    return p.threads, p.slots, p.sets, p.route, p.prm_stage
 
 
 def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
@@ -153,8 +159,8 @@ def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
         covered = {_regime(_plan(gases, k, nlay, a))
                    for k, nlay, a in cuda_sanitize.CHECKED if k == kernel}
         assert covered == every, kernel
-        assert any(c == 1 for _, c, _, _ in covered), kernel
-        assert any(route == "device" for *_, route in covered), kernel
+        assert any(c == 1 for _, c, *_ in covered), kernel
+        assert any(route == "device" for *_, route, _ in covered), kernel
     # K1's split route at 1 and 3 angles, at its shallow and deep ends.
     split = {(nlay, a) for k, nlay, a in cuda_sanitize.CHECKED
              if k == "lwsw" and _plan(gases, k, nlay, a).split}
@@ -175,7 +181,7 @@ def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
 
 def test_guarded_plans_fit_the_card(ckd_paths):
     gases = _gases(ckd_paths)
-    static = 2 * 4 * 4      # csrc/ring_check.cuh's two ledgers of 4 slots
+    static = 3 * 4 * 4      # csrc/ring_check.cuh's three ledgers of 4 slots
     for kernel, nlay, n_ang in cuda_sanitize.CHECKED:
         p = _plan(gases, kernel, nlay, n_ang)
         g = ring_check.guarded(p)
@@ -205,6 +211,11 @@ def test_the_python_side_mirrors_the_checker():
     staged_src = (CSRC / "staged.cuh").read_text()
     assert "#ifdef ECCKD_CHECK_RING" in staged_src
     assert "#ifdef ECCKD_PLANT_SKIP_FREE" in staged_src
+    assert "#ifdef ECCKD_PLANT_SKIP_PRM" in staged_src
+    ledgers = re.search(r"ring_ledger\[(\d) \* RING_MAX_SLOTS\]",
+                        staged_src).group(1)
+    zeroed = re.search(r"threadIdx\.x < (\d) \* RING_MAX_SLOTS", src).group(1)
+    assert int(ledgers) == int(zeroed) == 3     # staged, swept, params
     for name in ("lwsw", "lw", "sw"):
         assert f"RING_ENTRY_POINTS({name})" in (CSRC / f"{name}.cu"
                                                ).read_text()
@@ -219,13 +230,17 @@ def test_errors_reads_the_record():
         return read
 
     lib = type("FakeLib", (), {})()
-    lib.ecckd_lw_ring_errors = record([0, 0, 0, 0, -1, -1, -1, -1])
+    lib.ecckd_lw_ring_errors = record([0, 0, 0, 0, 0, -1, -1, -1, -1])
     assert ring_check.errors(lib, "lw") == {
-        "count": 0, "full": 0, "free": 0, "canary": 0, "first": None}
-    lib.ecckd_lw_ring_errors = record([3, 0, 2, 1, 7, 1031, 0, 1])
+        "count": 0, "full": 0, "free": 0, "canary": 0, "prm": 0,
+        "first": None}
+    lib.ecckd_lw_ring_errors = record([3, 0, 2, 1, 0, 7, 1031, 0, 1])
     assert ring_check.errors(lib, "lw") == {
-        "count": 3, "full": 0, "free": 2, "canary": 1,
+        "count": 3, "full": 0, "free": 2, "canary": 1, "prm": 0,
         "first": {"block": 7, "column": 1031, "slot": 0, "check": "free"}}
+    lib.ecckd_lw_ring_errors = record([5, 0, 0, 0, 5, 2, 264, 0, 3])
+    assert ring_check.errors(lib, "lw")["first"] == {
+        "block": 2, "column": 264, "slot": 0, "check": "prm"}
     lib.ecckd_lw_ring_errors = lambda out, reset: 700
     lib.ecckd_cuda_error_string = lambda rc: b"an illegal memory access"
     with pytest.raises(RuntimeError, match="illegal memory access"):
@@ -236,26 +251,34 @@ def _run(count=0, finite=True, equal=True):
     return {"count": count, "finite": finite, "bitwise_equal": equal}
 
 
-def _config(kernel, *runs, plant=False):
+def _config(kernel, *runs, plant=""):
     return {"kernel": kernel, "plant": plant, "runs": list(runs)}
 
 
 def test_the_verdict():
     v = cuda_sanitize.verdict
     checked = [_config(k, _run(), _run()) for k in ("lwsw", "lw", "sw")]
-    planted = [_config(k, _run(), _run(count=2), plant=True)
+    planted = [_config(k, _run(), _run(count=2), plant="free")
                for k in ("lwsw", "lw", "sw")]
+    planted.append(_config("lwsw", _run(count=4), plant="prm"))
     ok = v(checked, planted)
     assert ok["pass"] and ok["clean"]
-    assert ok["plant_caught"] == {"lw": True, "lwsw": True, "sw": True}
+    assert ok["plant_caught"] == {
+        "free": {"lw": True, "lwsw": True, "sw": True},
+        "prm": {"lwsw": True}}
     # A plant that no run of one kernel reports.
-    missed = planted[:2] + [_config("sw", _run(), _run(), plant=True)]
+    missed = planted[:2] + [_config("sw", _run(), _run(), plant="free"),
+                            planted[3]]
     assert not v(checked, missed)["pass"]
-    assert v(checked, missed)["plant_caught"]["sw"] is False
+    assert v(checked, missed)["plant_caught"]["free"]["sw"] is False
+    # The second plant missed where the first is caught.
+    missed = planted[:3] + [_config("lwsw", _run(), plant="prm")]
+    assert not v(checked, missed)["pass"]
+    assert v(checked, missed)["plant_caught"]["prm"] == {"lwsw": False}
     # A plant caught by its outputs alone: NaN, or unequal to the plain.
     for bad in (_run(finite=False), _run(equal=False)):
-        assert v(checked, planted[:2] + [_config("sw", bad, plant=True)]
-                 )["pass"]
+        assert v(checked, planted[:2] + [_config("sw", bad, plant="free"),
+                                         planted[3]])["pass"]
     # Any checked run with a violation, a NaN or other outputs fails.
     for bad in (_run(count=1), _run(finite=False), _run(equal=False)):
         dirty = checked[:2] + [_config("sw", _run(), bad)]

@@ -30,12 +30,16 @@ per block, C, S, the route: shared, split or device staging), on
 in both table modes, at jitter 0 on the full card and through 16 blocks,
 and at ``JITTER_NS`` with each of ``SEEDS``.  Every run must show 0
 violations (canaries intact), finite outputs and outputs bit for bit
-equal to the plain build's.  Then the build with the planted fault
-(``-DECCKD_PLANT_SKIP_FREE``: in slot 0's round 1 the optics warps wait
+equal to the plain build's.  Then the builds with the planted faults
+run over the same configurations (exact mode, jitter 0 and one seed):
+``-DECCKD_PLANT_SKIP_FREE`` (in slot 0's round 1 the optics warps wait
 for each other but not for the slot's sweeps, and join its FREE only
-after staging it) runs over the same configurations (exact mode,
-jitter 0 and one seed), and the checker must report it in each kernel:
-a violation, a NaN or an output that differs.
+after staging it) in each, and ``-DECCKD_PLANT_SKIP_PRM`` (in slot 0's
+round 0 the LW sweep warps free the slot before they write the next
+column's layer parameters, and write them late) in those whose plan has
+the parameter stage.  The
+checker must report each plant in each kernel it runs in: a violation,
+a NaN or an output that differs.
 
 Usage (on a machine with a card and the CUDA toolkit):
   python tools/cuda_sanitize.py [--tools racecheck,synccheck,memcheck]
@@ -87,6 +91,7 @@ RUNS = ([(0, 0, None), (0, 0, BLOCKS)]
         + [(seed, JITTER_NS, BLOCKS) for seed in SEEDS])
 PLANT_RUNS = [(0, 0, BLOCKS), (SEEDS[0], JITTER_NS, BLOCKS)]
 KERNELS = ("lwsw", "lw", "sw")
+PLANTS = ("free", "prm")  # ops/cuda/ring_check.py PLANT_DEFINES
 
 
 def load_models() -> dict:
@@ -157,20 +162,21 @@ def child(configs) -> int:
 
 def regime(plan) -> str:
     """A staging plan's regime: threads per block, C, S, the route
-    (shared, split or device staging)."""
+    (shared, split or device staging), the parameter stage."""
     return (f"{plan.threads} threads, C = {plan.slots}, S = {plan.sets}, "
-            f"{plan.route}")
+            f"{plan.route}, stage {'on' if plan.prm_stage else 'off'}")
 
 
 def build_checked(plant_kernels=KERNELS) -> float:
-    """Build every kernel plain and checked, and ``plant_kernels`` with the
-    planted fault too: one nvcc per library, all started together.
+    """Build every kernel plain and checked, and ``plant_kernels`` with
+    each planted fault too: one nvcc per library, all started together.
     Returns the seconds."""
     from concurrent.futures import ThreadPoolExecutor
     from ecckd_tpu_torch.ops.cuda import build, ring_check
     jobs = ([(k, ()) for k in KERNELS]
             + [(k, ring_check.defines()) for k in KERNELS]
-            + [(k, ring_check.defines(plant=True)) for k in plant_kernels])
+            + [(k, ring_check.defines(plant)) for plant in PLANTS
+               for k in plant_kernels])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: build.build(*job), jobs))
@@ -178,18 +184,22 @@ def build_checked(plant_kernels=KERNELS) -> float:
 
 
 def check_config(models: dict, kernel: str, nlay: int, n_ang: int,
-                 fast: bool, runs, plant: bool = False,
-                 ncol: int = CHECKED_NCOL) -> dict:
+                 fast: bool, runs, plant: str = "",
+                 ncol: int = CHECKED_NCOL):
     """One configuration through the checked build (with the planted
-    fault if ``plant``), once per (seed, jitter, blocks) of ``runs``: per
-    run the error record, whether the outputs are finite and whether they
-    equal the plain build's bit for bit."""
+    fault ``plant`` if given), once per (seed, jitter, blocks) of
+    ``runs``: per run the error record, whether the outputs are finite
+    and whether they equal the plain build's bit for bit.  None for the
+    PRM plant on a plan without the parameter stage (it plants nothing
+    there)."""
     import torch
     from ecckd_tpu_torch.ops.cuda import ring_check, staged
     core, prep, bands = prepare(models, kernel, ncol, nlay, n_ang, fast)
+    plan = ring_check.guarded(staged.plan_for(prep[0], *bands))
+    if plant == "prm" and not plan.prm_stage:
+        return None
     ref = core(*prep, ncol, max_blocks=BLOCKS)
     lib = ring_check.library(kernel, plant)
-    plan = ring_check.guarded(staged.plan_for(prep[0], *bands))
     ring_check.errors(lib, kernel)           # clear the record
     out = {"kernel": kernel, "nlay": nlay, "angles": n_ang,
            "mode": "bf16" if fast else "bf16x3", "plant": plant,
@@ -216,14 +226,18 @@ def run_clean(run: dict) -> bool:
 
 
 def verdict(checked, planted) -> dict:
-    """Pass iff every run of ``checked`` is clean and, in every kernel of
-    ``planted``, some run with the planted fault is not."""
+    """Pass iff every run of ``checked`` is clean and, for every planted
+    fault in every kernel of ``planted``, some run with it is not."""
     clean = all(run_clean(r) for c in checked for r in c["runs"])
-    caught = {k: any(not run_clean(r) for c in planted if c["kernel"] == k
-                     for r in c["runs"])
-              for k in sorted({c["kernel"] for c in planted})}
+    caught = {p: {k: any(not run_clean(r) for c in planted
+                         if (c["plant"], c["kernel"]) == (p, k)
+                         for r in c["runs"])
+                  for k in sorted({c["kernel"] for c in planted
+                                   if c["plant"] == p})}
+              for p in sorted({c["plant"] for c in planted})}
     return {"clean": clean, "plant_caught": caught,
-            "pass": clean and bool(caught) and all(caught.values())}
+            "pass": clean and bool(caught)
+            and all(all(by_kernel.values()) for by_kernel in caught.values())}
 
 
 def describe(c: dict) -> str:
@@ -233,7 +247,8 @@ def describe(c: dict) -> str:
     head = (("caught" if bad else "MISSED") if c["plant"]
             else ("FAIL" if bad else "ok"))
     first = next((r["first"] for r in runs if r["first"]), None)
-    return (f"{'plant' if c['plant'] else 'checked'}: {head} {c['kernel']} "
+    return (f"{'plant ' + c['plant'] if c['plant'] else 'checked'}: {head} "
+            f"{c['kernel']} "
             f"nlay {c['nlay']} {c['angles']} angle(s) {c['mode']} "
             f"({c['regime']}): {len(runs)} runs, violations "
             f"{[r['count'] for r in runs]}, finite "
@@ -245,7 +260,7 @@ def describe(c: dict) -> str:
 def run_checked(configs=CHECKED, plant_configs=CHECKED, modes=(False, True),
                 runs=RUNS, plant_runs=PLANT_RUNS,
                 ncol: int = CHECKED_NCOL) -> dict:
-    """The checked build over ``configs`` in ``modes`` and the planted
+    """The checked build over ``configs`` in ``modes`` and each planted
     fault over ``plant_configs`` (exact mode), each configuration printed
     as it ends; the record with its ``verdict``."""
     models = load_models()
@@ -256,10 +271,13 @@ def run_checked(configs=CHECKED, plant_configs=CHECKED, modes=(False, True),
             checked.append(check_config(models, kernel, nlay, n_ang, fast,
                                         runs, ncol=ncol))
             print(describe(checked[-1]), flush=True)
-    for kernel, nlay, n_ang in plant_configs:
-        planted.append(check_config(models, kernel, nlay, n_ang, False,
-                                    plant_runs, plant=True, ncol=ncol))
-        print(describe(planted[-1]), flush=True)
+    for plant in PLANTS:
+        for kernel, nlay, n_ang in plant_configs:
+            c = check_config(models, kernel, nlay, n_ang, False, plant_runs,
+                             plant=plant, ncol=ncol)
+            if c is not None:
+                planted.append(c)
+                print(describe(c), flush=True)
     return {"seconds": time.perf_counter() - t0, "seeds": list(SEEDS),
             "jitter_ns": JITTER_NS, "ncol": ncol,
             "configurations": len(checked),

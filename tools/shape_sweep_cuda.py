@@ -25,7 +25,8 @@ at 1 and 3 LW Gauss angles.  Per (depth, angles) leg:
 * the kernel alone (CUDA events, chip_smoke.cuda_time_ms) beside its
   bound (chip_smoke.kernel_bound) and its share of it;
 * the staging plan (``staged.occupancy``: C, S, threads, blocks per SM
-  from the card's occupancy calculator, shared bytes or device staging);
+  from the card's occupancy calculator, shared bytes or device staging,
+  the parameter stage);
 * ``first_call_seconds``: the first two calls at the timed shape (the
   eager warm-up and the capture), with the library already built; the
   build's seconds are recorded once, when this run built it.
@@ -161,6 +162,7 @@ def sweep(shapes=SHAPES, angles=(1, 3), ncol_time: int = NCOL_TIME,
                 "plan": {"C": stage.slots, "S": stage.sets,
                          "threads": stage.threads, "blocks_per_sm": per_sm,
                          "staging": stage.route,
+                         "param_stage": stage.prm_stage,
                          "shared_bytes": stage.shared_bytes,
                          "bytes_per_column": stage.bytes_per_column}}
             cases[ang] = (case, plain)

@@ -2,26 +2,32 @@
 """Time the staged kernels (K1 csrc/lwsw.cu, K3 lw.cu, K4 sw.cu) over
 block shapes on one CUDA card.
 
-For each kernel at the protocol batch (65,536 x 60 by default,
+For each kernel at the protocol batch (65,536 x 60 by default; ``--nlay``
+and ``--angles`` take comma-separated lists and sweep each pair,
 ``example_flux_batch`` on the synthetic lw_fsck / sw_wide files, seed 7)
 and each (blocks per SM, C columns per block, S sets of sweep warps) in
 ``--shapes``, builds the staging plan with ops/cuda/staged.py
 ``stage_plan`` (which fits the request to the card), launches the kernel
-on it and times it with CUDA events (median of 10 after 2 warm-ups).  Every
+on it and times it with CUDA events (median of 10 after 2 warm-ups).  A
+shape ``BxCxS+p`` asks for the parameter stage, ``BxCxS-p`` for none,
+``BxCxS`` takes ``stage_plan``'s rule; a shape that cannot have the
+stage it asks for is skipped with a line that says so.  Every
 shape's outputs must equal the default shape's bit for bit (a column's
 arithmetic does not depend on the block it runs in); the script exits 1
 if one does not.  Shapes are timed in turns (default, the others, the
 default again) so the spread of one call shows.
 
 Usage (on a machine with a card):
-  python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1]
-      [--shapes 2x2x1,4x2x2,...] [--ncol 65536] [--nlay 60]
+  python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1,3]
+      [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,...] [--ncol 65536]
+      [--nlay 60,137]
 Prints one line per (kernel, shape) and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -31,14 +37,66 @@ if _REPO_ROOT not in sys.path:
     sys.path.insert(0, _REPO_ROOT)
 
 
+def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
+          cuda_time_ms) -> bool:
+    """Time kernel ``name`` on its prepared inputs ``prep`` at each shape
+    of ``shapes`` (blocks per SM, C, S, the stage asked for, the label)
+    between two runs of the default plan, one line each; True iff every
+    shape's outputs equal the default's bit for bit."""
+    import torch
+    from ecckd_tpu_torch.ops.cuda import staged
+    atm = prep[0]
+    lw_in, sw_in = {"lw": (prep[1], None), "sw": (None, prep[1]),
+                    "lwsw": prep[1:]}[name]
+    default = staged.plan_for(atm, lw_in, sw_in)
+    ref = [o.clone() for o in core(*prep, ncol)]
+    head = f"stage_sweep: {name} {ncol}x{nlay} {n_ang} angle(s) shape"
+    ok = True
+    for shape in [None] + shapes + [None]:
+        if shape is None:
+            p, label = default, f"default {staged.SHAPES[name]}"
+        else:
+            label = shape[4]
+            try:
+                p = staged.stage_plan(
+                    nlay, lw_in.plan.ngpt if lw_in else 0,
+                    sw_in.plan.ngpt if sw_in else 0,
+                    lw_in.n_gauss_angles if lw_in else 1,
+                    staged.band_gases(lw_in.plan) if lw_in else (0, 0),
+                    staged.band_gases(sw_in.plan) if sw_in else (0, 0),
+                    *limits, blocks_per_sm=shape[0], max_slots=shape[1],
+                    sets=shape[2], param_stage=shape[3])
+            except ValueError as e:
+                print(f"{head} {label}: skipped ({e})", flush=True)
+                continue
+        _, per_sm = staged.occupancy(atm, lw_in, sw_in, plan=p)
+        out = core(*prep, ncol, plan=p)
+        same = all(torch.equal(o, r) for o, r in zip(out, ref))
+        ok = ok and same
+        ms = cuda_time_ms(lambda: core(*prep, ncol, plan=p))
+        print(f"{head} {label}: {p.threads} threads, C = {p.slots}, "
+              f"S = {p.sets}, "
+              + (f"{p.shared_bytes} B shared" if p.shared
+                 else "device staging")
+              + (f" + an LW slice of {p.slice_floats} floats per slot"
+                 if p.split else "")
+              + f", stage {'on' if p.prm_stage else 'off'}, {per_sm} "
+              "blocks per SM"
+              f" | {ms:.3f} ms | bitwise equal to the default: {same} | "
+              f"{card}", flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tools/stage_sweep.py")
     ap.add_argument("--kernels", default="lw,sw,lwsw")
-    ap.add_argument("--angles", type=int, default=1)
+    ap.add_argument("--angles", default="1",
+                    help="Gauss angles, comma-separated")
     ap.add_argument("--shapes", default="2x2x1,2x2x2,4x2x1,4x2x2,2x3x3,"
                     "2x4x2,2x4x4,1x4x4,4x1x1")
     ap.add_argument("--ncol", type=int, default=65536)
-    ap.add_argument("--nlay", type=int, default=60)
+    ap.add_argument("--nlay", default="60",
+                    help="layers, comma-separated")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -49,7 +107,7 @@ def main(argv=None) -> int:
     from ecckd_tpu_torch.io.synthetic import (example_flux_batch,
                                               write_synthetic_ckd)
     from ecckd_tpu_torch.models.loader import load_ckd_model
-    from ecckd_tpu_torch.ops.cuda import lw, lwsw, plan, staged, sw
+    from ecckd_tpu_torch.ops.cuda import lw, lwsw, plan, sw
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -61,64 +119,40 @@ def main(argv=None) -> int:
             write_synthetic_ckd(path, kind, seed=7)
             models[key] = load_ckd_model(path, dtype=torch.float32,
                                          device="cuda")
-    b = example_flux_batch(args.ncol, args.nlay, np.float32, device="cuda")
-    t = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()
-         if k != "concs"}
-    emis = t["emis"][:, None].expand(-1, models["lw"].ngpt).contiguous()
-    preps = {
-        "lw": plan.prepare_lw(models["lw"], t["plev"], t["tlay"], t["tlev"],
-                              t["tsfc"], emis, b["concs"],
-                              n_gauss_angles=args.angles),
-        "sw": plan.prepare_sw(models["sw"], t["plev"], t["tlay"],
-                              b["concs"], t["alb"], t["tsi"], t["sza"]),
-        "lwsw": plan.prepare(models["lw"], models["sw"], t["plev"],
-                             t["tlay"], t["tlev"], t["tsfc"], emis,
-                             b["concs"], t["alb"], t["tsi"], t["sza"],
-                             n_gauss_angles=args.angles)}
-    cores = {"lw": lw._kernel_core, "sw": sw._kernel_core,
-             "lwsw": lwsw._kernel_core}
     props = torch.cuda.get_device_properties(0)
     limits = (props.shared_memory_per_block_optin,
               props.shared_memory_per_multiprocessor)
-    shapes = [tuple(int(x) for x in s.split("x"))
-              for s in args.shapes.split(",")]
+    shapes = []
+    for spec in args.shapes.split(","):
+        dims, sign = re.fullmatch(r"(\d+x\d+x\d+)([+-]p)?", spec).groups()
+        stage = None if sign is None else sign == "+p"
+        shapes.append((*(int(x) for x in dims.split("x")), stage, spec))
+    cores = {"lw": lw._kernel_core, "sw": sw._kernel_core,
+             "lwsw": lwsw._kernel_core}
     ok = True
-    for name in args.kernels.split(","):
-        prep = preps[name]
-        atm = prep[0]
-        lw_in, sw_in = {"lw": (prep[1], None), "sw": (None, prep[1]),
-                        "lwsw": prep[1:]}[name]
-        core = cores[name]
-        default = staged.plan_for(atm, lw_in, sw_in)
-        ref = [o.clone() for o in core(*prep, args.ncol)]
-        order = [None] + shapes + [None]
-        for shape in order:
-            if shape is None:
-                p, label = default, f"default {staged.SHAPES[name]}"
-            else:
-                p = staged.stage_plan(
-                    args.nlay, lw_in.plan.ngpt if lw_in else 0,
-                    sw_in.plan.ngpt if sw_in else 0,
-                    lw_in.n_gauss_angles if lw_in else 1,
-                    staged.band_gases(lw_in.plan) if lw_in else (0, 0),
-                    staged.band_gases(sw_in.plan) if sw_in else (0, 0),
-                    *limits, blocks_per_sm=shape[0], max_slots=shape[1],
-                    sets=shape[2])
-                label = "x".join(map(str, shape))
-            _, per_sm = staged.occupancy(atm, lw_in, sw_in, plan=p)
-            out = core(*prep, args.ncol, plan=p)
-            same = all(torch.equal(o, r) for o, r in zip(out, ref))
-            ok = ok and same
-            ms = cuda_time_ms(lambda: core(*prep, args.ncol, plan=p))
-            print(f"stage_sweep: {name} {args.ncol}x{args.nlay} "
-                  f"{args.angles} angle(s) shape {label}: {p.threads} "
-                  f"threads, C = {p.slots}, S = {p.sets}, "
-                  + (f"{p.shared_bytes} B shared" if p.shared
-                     else "device staging")
-                  + (f" + an LW slice of {p.slice_floats} floats per slot"
-                     if p.split else "")
-                  + f", {per_sm} blocks per SM | {ms:.3f} ms | bitwise "
-                  f"equal to the default: {same} | {card}", flush=True)
+    for nlay in (int(n) for n in str(args.nlay).split(",")):
+        b = example_flux_batch(args.ncol, nlay, np.float32, device="cuda")
+        t = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()
+             if k != "concs"}
+        emis = t["emis"][:, None].expand(-1, models["lw"].ngpt).contiguous()
+        for n_ang in (int(a) for a in str(args.angles).split(",")):
+            for name in args.kernels.split(","):
+                if name == "sw" and n_ang != 1:
+                    continue
+                prep = {
+                    "lw": lambda: plan.prepare_lw(
+                        models["lw"], t["plev"], t["tlay"], t["tlev"],
+                        t["tsfc"], emis, b["concs"], n_gauss_angles=n_ang),
+                    "sw": lambda: plan.prepare_sw(
+                        models["sw"], t["plev"], t["tlay"], b["concs"],
+                        t["alb"], t["tsi"], t["sza"]),
+                    "lwsw": lambda: plan.prepare(
+                        models["lw"], models["sw"], t["plev"], t["tlay"],
+                        t["tlev"], t["tsfc"], emis, b["concs"], t["alb"],
+                        t["tsi"], t["sza"], n_gauss_angles=n_ang)}[name]()
+                ok = sweep(name, prep, cores[name], shapes, limits,
+                           args.ncol, nlay, n_ang, card,
+                           cuda_time_ms) and ok
     return 0 if ok else 1
 
 
