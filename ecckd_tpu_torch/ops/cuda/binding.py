@@ -16,11 +16,9 @@ sw.py).
 * ``launch_chunks``: the launch loop over column chunks, which raises on a
   non-zero ``cudaGetLastError()`` and counts launches per instantiation
   (``launches`` for the exact table, ``fast_launches`` for the fast
-  mode's bf16 table; csrc/common.cuh "Table mode"), and those on the
-  split staging route (``split_launches``, ``fast_split_launches``), at
-  2-4 LW angles (``multi_angle_launches``, ``fast_multi_angle_launches``)
-  and with a parameter stage (``param_stage_launches``,
-  ``fast_param_stage_launches``) besides.
+  mode's bf16 table; csrc/common.cuh "Table mode").  The staging route,
+  the parameter stage and the LW angles are not counted: the shape and
+  the card decide them, read in ``staged.plan_for``.
 
 nvcc and the build are reached only from ``library``, at the first launch,
 so the CPU tests import this module without a CUDA toolkit.
@@ -318,19 +316,12 @@ def sw_shapes(sw: plan_mod.SwInputs, ncol: int, prefix: str = ""):
 def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
                   counted, device, fast: bool = False,
-                  lib: Optional[ctypes.CDLL] = None,
-                  split: bool = False, multi_angle: bool = False,
-                  param_stage: bool = False) -> None:
+                  lib: Optional[ctypes.CDLL] = None) -> None:
     """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
     ``device``'s current stream, with the arguments ``make_args(c0, c1)``:
     the exact entry point, or ``..._launch_fast`` if ``fast``.  Each launch
     adds one to ``counted.launches`` (``counted.fast_launches`` if
-    ``fast``), and if ``split`` (it stages on the split route) one to
-    ``counted.split_launches`` (``.fast_split_launches``), and if
-    ``multi_angle`` (the LW band at 2-4 Gauss angles) one to
-    ``counted.multi_angle_launches`` (``.fast_multi_angle_launches``), and
-    if ``param_stage`` (the plan's parameter stage runs) one to
-    ``counted.param_stage_launches`` (``.fast_param_stage_launches``).
+    ``fast``).
     The launch runs with ``device`` as the host thread's current device:
     the runtime launches on the current device, and another card's stream
     there is an error.  ``lib``: a bound build of the kernel (``bind``) in
@@ -338,10 +329,7 @@ def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
     lib = lib or library(name, args_type)
     suffix = "_fast" if fast else ""
     launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
-    prefix = "fast_" if fast else ""
-    counters = ([prefix + "launches"] + [prefix + "split_launches"] * split
-                + [prefix + "multi_angle_launches"] * multi_angle
-                + [prefix + "param_stage_launches"] * param_stage)
+    counter = "fast_launches" if fast else "launches"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for c0 in range(0, ncol, column_chunk):
@@ -351,5 +339,4 @@ def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
                 raise RuntimeError(
                     f"{name}{suffix} kernel launch failed: CUDA error {rc} "
                     f"({lib.ecckd_cuda_error_string(rc).decode()})")
-            for counter in counters:
-                setattr(counted, counter, getattr(counted, counter) + 1)
+            setattr(counted, counter, getattr(counted, counter) + 1)

@@ -71,8 +71,8 @@ def lw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     raises (ValueError), CPU tensors and inputs that require grad
     included: ``lw_fluxes_plain`` is the version for those.  Each launch
     adds one to ``lw_fluxes_cuda.launches`` (exact) or ``.fast_launches``
-    (fast), and one at 2-4 Gauss angles to ``.multi_angle_launches`` or
-    ``.fast_multi_angle_launches`` besides.
+    (fast); ``staged.plan_for(atm, lw, None)`` gives the staging that the
+    shape, the angles and the card decide.
     """
     binding.require_cuda("lw_fluxes_cuda", tlay, plev, tlev, tsfc, emis_gpt,
                          gas_concs)
@@ -84,5 +84,3 @@ def lw_fluxes_cuda(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
 lw_fluxes_cuda.launches = 0
 lw_fluxes_cuda.fast_launches = 0
-lw_fluxes_cuda.multi_angle_launches = 0
-lw_fluxes_cuda.fast_multi_angle_launches = 0

@@ -105,14 +105,11 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
     raises (ValueError), CPU tensors and inputs that require grad
     included: ``lwsw_fluxes_plain`` is the version for those.  Each launch
     adds one to ``lwsw_fluxes_cuda.launches`` (exact) or
-    ``lwsw_fluxes_cuda.fast_launches`` (fast), and one on the split
-    staging route (``staged.stage_plan``: nlay 124-208 at one angle on an
-    H100) to ``.split_launches`` or ``.fast_split_launches`` besides, and
-    one at 2-4 Gauss angles (the LW optics stage tau and the Planck rows,
-    each angle's sweep its own sources) to ``.multi_angle_launches`` or
-    ``.fast_multi_angle_launches``, and one with the parameter stage
-    (``staged.stage_plan``) to ``.param_stage_launches`` or
-    ``.fast_param_stage_launches``.
+    ``lwsw_fluxes_cuda.fast_launches`` (fast).  The shape and the card
+    decide the staging, and no counter records it:
+    ``staged.plan_for(atm, lw, sw)`` gives its ``.route`` (the split
+    route at nlay 124-208 and one angle on an H100) and ``.prm_stage``,
+    and ``LwInputs.n_gauss_angles`` the angles.
     """
     binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
                          emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
@@ -125,9 +122,3 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
 
 lwsw_fluxes_cuda.launches = 0
 lwsw_fluxes_cuda.fast_launches = 0
-lwsw_fluxes_cuda.split_launches = 0
-lwsw_fluxes_cuda.fast_split_launches = 0
-lwsw_fluxes_cuda.multi_angle_launches = 0
-lwsw_fluxes_cuda.fast_multi_angle_launches = 0
-lwsw_fluxes_cuda.param_stage_launches = 0
-lwsw_fluxes_cuda.fast_param_stage_launches = 0

@@ -325,7 +325,8 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     column, or on the split route its LW rows, does not stay in shared
     memory; ``max_blocks`` caps them).
     Returns the (ncol, nlay+1) outputs, (up, down) per band, LW first.
-    Launches count on ``counted`` (binding.launch_chunks).  ``lib``: a
+    Launches count on ``counted`` (binding.launch_chunks); the route and
+    the parameter stage are ``plan_for``'s, not counted.  ``lib``: a
     bound build of the kernel other than the plain one (the ring
     checker's, ops/cuda/ring_check.py); the launch paths pass none."""
     ncol, nlay = atm.tlay.shape
@@ -365,7 +366,5 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                          tile=tile, **bands, **solves)
 
     binding.launch_chunks(name, args_type, ncol, chunk, make_args, counted,
-                          dev, (lw or sw).arrays.fast, lib, plan.split,
-                          lw is not None and lw.n_gauss_angles > 1,
-                          plan.prm_stage)
+                          dev, (lw or sw).arrays.fast, lib)
     return outs

@@ -39,10 +39,11 @@ An entry holds its models and their caches (``CKDModel._cache``: the
 tables the graph reads at their captured addresses), so a model stays
 alive, and its ``id`` unused by another, while the entry lives.
 
-Launch counts stay true: the kernel wrappers count a launch in Python
-(ops/cuda/binding.py ``launch_chunks``), which capture runs once without
-running a kernel and replay does not run at all.  The entry takes back
-what capture counted and adds it on every replay.  With NaN debugging on
+Launch counts stay true: the kernel wrappers count a launch in Python,
+one count per table mode (``COUNTERS``; ops/cuda/binding.py
+``launch_chunks``), which capture runs once without running a kernel and
+replay does not run at all.  The entry takes back what capture counted
+and adds it on every replay.  With NaN debugging on
 (``utils.checks``), whose checks read the device and cannot run inside a
 graph, capture runs without it and the replayed outputs are checked as
 stage "captured call".
@@ -83,12 +84,9 @@ from ecckd_tpu_torch.utils.tree import tree_leaves, tree_map
 
 COUNTERS = tuple((w, c) for w in (lwsw_fluxes_cuda, lw_fluxes_cuda,
                                   sw_fluxes_cuda)
-                 for c in ("launches", "fast_launches", "split_launches",
-                           "fast_split_launches", "multi_angle_launches",
-                           "fast_multi_angle_launches",
-                           "param_stage_launches",
-                           "fast_param_stage_launches") if hasattr(w, c))
-"""The kernel wrappers' launch counts that a replay adds back."""
+                 for c in ("launches", "fast_launches"))
+"""The kernel wrappers' launch counts, one per table mode, that a replay
+adds back."""
 
 
 def _arg_key(x) -> tuple:

@@ -114,10 +114,10 @@ def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
     """nlay 137: one whole column fits in a block's shared memory, two do
     not, two without their LW rows do.  The merged kernel keeps two slots
     per block on the split route (each slot's LW rows in a device slice,
-    ops/cuda/staged.py stage_plan), counts each launch in
-    ``split_launches`` (``fast_split_launches``) and matches the plain
-    version at f64 in its table mode; an nlay-60 call, staged whole in
-    shared memory, leaves the split count as it was."""
+    ops/cuda/staged.py stage_plan) without the parameter stage, counts
+    each launch once in ``launches`` (``fast_launches``) and matches the
+    plain version at f64 in its table mode; at nlay 60 the plan stages
+    whole columns in shared memory."""
     from ecckd_tpu_torch.ops.cuda import plan, staged
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     ncol, nlay = 1037, 137
@@ -129,27 +129,33 @@ def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
                         b32["alb"], b32["tsi"], b32["sza"], n_angles,
                         fast=mode == "bf16")
     stage, per_sm = staged.occupancy(*prep)
-    assert (stage.route, stage.slots, stage.sets, stage.threads) == (
-        "split", 2, 2, 1024) and per_sm == 1
-    prefix = "fast_" if mode == "bf16" else ""
-    counts = lambda: (getattr(lwsw_fluxes_cuda, prefix + "launches"),
-                      getattr(lwsw_fluxes_cuda, prefix + "split_launches"))
-    before = counts()
+    assert (stage.route, stage.prm_stage, stage.slots, stage.sets,
+            stage.threads) == ("split", False, 2, 2, 1024) and per_sm == 1
+    counter = "fast_launches" if mode == "bf16" else "launches"
+    launches = lambda: getattr(lwsw_fluxes_cuda, counter)
+    before = launches()
     got = solve(lwsw_fluxes_cuda, lw, sw, b32, expand(b32["emis"]),
                 n_gauss_angles=n_angles, column_chunk=512, mxu_mode=mode)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 3, before[1] + 3)   # 512 + 512 + 13
+    assert launches() == before + 3                     # 512 + 512 + 13
     ref = solve(lwsw_fluxes_plain, models["lw", torch.float64],
                 models["sw", torch.float64], b64, expand(b64["emis"]),
                 n_gauss_angles=n_angles, mxu_mode=mode)
     for band in (slice(0, 2), slice(2, 4)):
         assert_close(got[band], ref[band])
     shallow = batch(301, 60, torch.float32)
-    before = counts()
+    shallow_plan = staged.plan_for(*plan.prepare(
+        lw, sw, shallow["plev"], shallow["tlay"], shallow["tlev"],
+        shallow["tsfc"], expand(shallow["emis"]), shallow["concs"],
+        shallow["alb"], shallow["tsi"], shallow["sza"], n_angles,
+        fast=mode == "bf16"))
+    assert (shallow_plan.route, shallow_plan.prm_stage) == (
+        "shared", n_angles == 1)
+    before = launches()
     solve(lwsw_fluxes_cuda, lw, sw, shallow, expand(shallow["emis"]),
           n_gauss_angles=n_angles, mxu_mode=mode)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1])
+    assert launches() == before + 1
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
@@ -157,10 +163,9 @@ def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
 def test_parameter_stage_changes_no_bit(models, n_angles, mode):
     """At nlay 60 the merged kernel at one angle takes the parameter stage
     (ops/cuda/staged.py stage_plan: the sets' LW sweep warps write each
-    slot's next layer parameters), counts each such launch in
-    ``param_stage_launches`` (``fast_param_stage_launches``), and gives
-    the outputs of the plan without it bit for bit; at 3 angles the plan
-    declines it and the count stays."""
+    slot's next layer parameters), counts each launch once in
+    ``launches`` (``fast_launches``), and gives the outputs of the plan
+    without it bit for bit; at 3 angles the plan declines it."""
     from ecckd_tpu_torch.ops.cuda import lwsw, plan, staged
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     ncol, nlay = 1037, 60
@@ -170,17 +175,13 @@ def test_parameter_stage_changes_no_bit(models, n_angles, mode):
                         expand(b["emis"]), b["concs"], b["alb"], b["tsi"],
                         b["sza"], n_angles, fast=mode == "bf16")
     default = staged.plan_for(*prep)
-    assert default.prm_stage == (n_angles == 1)
-    prefix = "fast_" if mode == "bf16" else ""
-    counts = lambda: (getattr(lwsw_fluxes_cuda, prefix + "launches"),
-                      getattr(lwsw_fluxes_cuda,
-                              prefix + "param_stage_launches"))
-    before = counts()
+    assert (default.route, default.prm_stage) == ("shared", n_angles == 1)
+    counter = "fast_launches" if mode == "bf16" else "launches"
+    before = getattr(lwsw_fluxes_cuda, counter)
     got = solve(lwsw_fluxes_cuda, lw, sw, b, expand(b["emis"]),
                 n_gauss_angles=n_angles, column_chunk=512, mxu_mode=mode)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 3,
-                        before[1] + 3 * (n_angles == 1))  # 512, 512, 13
+    assert getattr(lwsw_fluxes_cuda, counter) == before + 3  # 512, 512, 13
     if n_angles == 1:
         props = torch.cuda.get_device_properties(b["tlay"].device)
         off = staged.stage_plan(
@@ -689,19 +690,27 @@ def test_captured_calls_replay_the_eager_call(models, path, mode):
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 def test_captured_multi_angle_calls_count_every_launch(models, mode):
     """RFMIP physics index 2 on the main path: capture.jit of lw_sw_fluxes
-    at 3 angles on 65,536 x 60 columns.  The eager call, the capture and
-    each replay count every launch of the merged kernel in
-    ``multi_angle_launches`` (``fast_multi_angle_launches``) beside
-    ``launches``; the replay matches the plain version at f64 in its
-    table mode (computed in blocks).  A 1-angle call counts none."""
+    at 3 angles on 65,536 x 60 columns.  The plan stages whole columns in
+    shared memory without the parameter stage (at 1 angle with it); the
+    eager call, the capture and each replay count every launch of the
+    merged kernel once in ``launches`` (``fast_launches``); the replay
+    matches the plain version at f64 in its table mode (computed in
+    blocks)."""
     from ecckd_tpu_torch import config
+    from ecckd_tpu_torch.ops.cuda import plan, staged
     from ecckd_tpu_torch.utils import capture
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     ncol, nlay, chunk = 65_536, 60, 16_384
     b32 = batch(ncol, nlay, torch.float32, seed=6)
-    prefix = "fast_" if mode == "bf16" else ""
-    counts = lambda: tuple(getattr(lwsw_fluxes_cuda, prefix + c) for c in
-                           ("launches", "multi_angle_launches"))
+    emis = b32["emis"][:, None].expand(ncol, lw.ngpt).contiguous()
+    for n, stage in ((3, False), (1, True)):
+        p = staged.plan_for(*plan.prepare(
+            lw, sw, b32["plev"], b32["tlay"], b32["tlev"], b32["tsfc"],
+            emis, b32["concs"], b32["alb"], b32["tsi"], b32["sza"], n,
+            fast=mode == "bf16"))
+        assert (p.route, p.prm_stage) == ("shared", stage)
+    counter = "fast_launches" if mode == "bf16" else "launches"
+    launches = lambda: getattr(lwsw_fluxes_cuda, counter)
     jitted = capture.jit(pipeline.lw_sw_fluxes)
     call = lambda n: jitted(lw, sw, b32["plev"], b32["tlay"], b32["tlev"],
                             b32["tsfc"], b32["emis"], b32["concs"],
@@ -710,14 +719,14 @@ def test_captured_multi_angle_calls_count_every_launch(models, mode):
     config.set_mxu_precision(mode)
     try:
         for _ in range(3):              # eager, capture, replay
-            before = counts()
+            before = launches()
             f_lw, f_sw = call(3)
             torch.cuda.synchronize()
-            assert counts() == (before[0] + 4, before[1] + 4)
-        before = counts()
+            assert launches() == before + 4
+        before = launches()
         call(1)
         torch.cuda.synchronize()
-        assert counts() == (before[0] + 4, before[1])
+        assert launches() == before + 4
     finally:
         config.set_mxu_precision("bf16x3")
     got = (f_lw.flux_up, f_lw.flux_dn, f_sw.flux_up, f_sw.flux_dn)

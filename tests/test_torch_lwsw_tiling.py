@@ -12,9 +12,10 @@ what the host decides for it:
   from csrc/common.cuh's row layout, and literal plans at an H100's
   limits;
 * the parameter stage (csrc/staged.cuh): where ``stage_plan`` gives it by
-  shape and where the parameters then sit, the named barriers every plan
-  needs (none above id 15), and the launches counted with it, added back
-  on a replay;
+  shape and where the parameters then sit, and the named barriers every
+  plan needs (none above id 15);
+* the launch: one per column chunk, counted once in its table mode's
+  ``launches`` (added back on a replay), with the plan in its ``Tile``;
 * the ctypes mirror of ``LwswArgs`` and of the staging plan ``Tile``
   (csrc/staged.cuh): field order as the C source declares it, offsets and
   size by hand;
@@ -320,57 +321,63 @@ def test_plain_f64_at_nlay300_matches_jax_xla(ckd_paths, n_angles):
                                GASES_SW, *H100).shared
 
 
-@pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("split", [False, True])
-def test_launch_chunks_counts_split_launches(monkeypatch, fast, split):
-    """Each launch adds one to ``launches`` (``fast_launches``), and on
-    the split route one to ``split_launches`` (``fast_split_launches``)
-    besides; the launch itself stubbed."""
+def _stub_launch(monkeypatch, kernel, calls):
+    """A stand-in for ``kernel``'s build whose two entry points append
+    (the mode, the launch's argument struct) to ``calls``, and no card:
+    the current device and stream stubbed."""
     import contextlib
     import types
-    calls = []
-    lib = types.SimpleNamespace(
-        ecckd_lwsw_launch=lambda args, stream: calls.append("exact") or 0,
-        ecckd_lwsw_launch_fast=lambda args, stream: calls.append("fast")
-        or 0)
+
+    def entry(mode):
+        return lambda args, stream: calls.append((mode, args._obj)) or 0
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    counted = types.SimpleNamespace(launches=0, fast_launches=0,
-                                    split_launches=0, fast_split_launches=0)
-    binding.launch_chunks("lwsw", binding.LwswArgs, 1037, 512,
-                          lambda c0, c1: binding.LwswArgs(), counted, None,
-                          fast, lib, split)
-    assert calls == ["fast" if fast else "exact"] * 3     # 512, 512, 13
-    prefix = "fast_" if fast else ""
-    want = {"launches": 0, "fast_launches": 0, "split_launches": 0,
-            "fast_split_launches": 0, prefix + "launches": 3}
-    if split:
-        want[prefix + "split_launches"] = 3
-    assert vars(counted) == want
+    return types.SimpleNamespace(**{f"ecckd_{kernel}_launch": entry("exact"),
+                                    f"ecckd_{kernel}_launch_fast":
+                                    entry("fast")})
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("ncol,chunk", [(1037, 512), (512, 512),
+                                        (1, 65536), (65537, 65536)])
+def test_launch_chunks_counts_each_launch_once(monkeypatch, fast, ncol,
+                                               chunk):
+    """One launch per column chunk, each on the mode's entry point and
+    adding one to the mode's count (``launches`` or ``fast_launches``)
+    and to nothing else; the launch itself stubbed."""
+    import types
+    calls = []
+    lib = _stub_launch(monkeypatch, "lwsw", calls)
+    counted = types.SimpleNamespace(launches=5, fast_launches=7)
+    spans = []
+    binding.launch_chunks("lwsw", binding.LwswArgs, ncol, chunk,
+                          lambda c0, c1: spans.append((c0, c1))
+                          or binding.LwswArgs(), counted, None, fast, lib)
+    n = -(-ncol // chunk)
+    assert spans == [(c0, min(c0 + chunk, ncol))
+                     for c0 in range(0, ncol, chunk)]
+    assert [mode for mode, _ in calls] == ["fast" if fast else "exact"] * n
+    assert vars(counted) == ({"launches": 5, "fast_launches": 7 + n} if fast
+                             else {"launches": 5 + n, "fast_launches": 7})
 
 
 @pytest.mark.parametrize("kernel", ["lwsw", "lw"])
 @pytest.mark.parametrize("n_angles", [1, 3])
 @pytest.mark.parametrize("fast", [False, True])
-def test_run_staged_counts_multi_angle_launches(monkeypatch, ckd_paths,
-                                                kernel, n_angles, fast):
-    """A launch of the merged kernel or the LW kernel at 3 angles adds one
-    to ``multi_angle_launches`` (``fast_multi_angle_launches``) beside
-    ``launches``; at 1 angle it adds none.  The prepared inputs are real
-    (on the CPU), the card's properties and the launch stubbed."""
-    import contextlib
+def test_run_staged_hands_the_plan_to_the_launch(monkeypatch, ckd_paths,
+                                                 kernel, n_angles, fast):
+    """Each launch of the merged kernel or the LW kernel carries the
+    staging plan in its ``Tile`` (C, S, shared bytes, the parameter stage)
+    and the angles in its ``LwSolve``, and counts once in the mode's
+    ``launches``: the route, the stage and the angles are read from the
+    plan, not counted.  The prepared inputs are real (on the CPU), the
+    card's properties and the launch stubbed."""
     import types
     from ecckd_tpu_torch.models.loader import load_ckd_model
     calls = []
-    launch = lambda args, stream: calls.append(args) or 0
-    lib = types.SimpleNamespace(**{f"ecckd_{kernel}_launch": launch,
-                                   f"ecckd_{kernel}_launch_fast": launch})
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    lib = _stub_launch(monkeypatch, kernel, calls)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: types.SimpleNamespace(
                             multi_processor_count=132))
@@ -392,39 +399,34 @@ def test_run_staged_counts_multi_angle_launches(monkeypatch, ckd_paths,
     p = staged.stage_plan(60, lw_m.ngpt, sw_m.ngpt if sw_in else 0,
                           n_angles, GASES_LW, GASES_SW if sw_in else (0, 0),
                           *H100)
-    names = ("launches", "split_launches", "multi_angle_launches",
-             "param_stage_launches")
-    counted = types.SimpleNamespace(**{pre + n: 0 for pre in ("", "fast_")
-                                       for n in names})
+    # The stage is the merged kernel's, at one angle (stage_rule).
+    assert p.route == "shared"
+    assert p.prm_stage == (kernel == "lwsw" and n_angles == 1)
+    counted = types.SimpleNamespace(launches=0, fast_launches=0)
     staged.run_staged(atm, lw_in, sw_in, 16, counted, plan=p, lib=lib)
     assert len(calls) == 3                              # 16, 16, 5
-    prefix = "fast_" if fast else ""
-    want = dict.fromkeys(vars(counted), 0)
-    want[prefix + "launches"] = 3
-    if n_angles > 1:
-        want[prefix + "multi_angle_launches"] = 3
-    if p.prm_stage:
-        want[prefix + "param_stage_launches"] = 3
-    assert vars(counted) == want
+    for mode, args in calls:
+        assert mode == ("fast" if fast else "exact")
+        t = args.tile
+        assert (t.slots, t.sets, t.shared_bytes, t.prm_stage) == (
+            p.slots, p.sets, p.shared_bytes, int(p.prm_stage))
+        assert t.stage is None and args.lw.n_ang == n_angles
+    assert vars(counted) == ({"launches": 0, "fast_launches": 3} if fast
+                             else {"launches": 3, "fast_launches": 0})
 
 
-def test_replays_count_the_split_launches():
-    """capture.jit adds a replay's launches back per counter: the merged
-    kernel's split, multi-angle and parameter-stage counts among them, the
-    LW kernel's multi-angle counts, and the SW kernel (one band, no
-    angles) has none of them."""
+def test_capture_counters_are_the_wrappers_launches():
+    """capture.jit adds a replay's launches back per counter: each of the
+    three kernel wrappers' two counts, one per table mode, and no other."""
     from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
     from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
     from ecckd_tpu_torch.utils import capture
-    held = lambda wrapper: {c for w, c in capture.COUNTERS if w is wrapper}
-    assert held(lwsw.lwsw_fluxes_cuda) == {
-        "launches", "fast_launches", "split_launches", "fast_split_launches",
-        "multi_angle_launches", "fast_multi_angle_launches",
-        "param_stage_launches", "fast_param_stage_launches"}
-    assert held(lw_fluxes_cuda) == {"launches", "fast_launches",
-                                    "multi_angle_launches",
-                                    "fast_multi_angle_launches"}
-    assert held(sw_fluxes_cuda) == {"launches", "fast_launches"}
+    assert capture.COUNTERS == tuple(
+        (w, c) for w in (lwsw.lwsw_fluxes_cuda, lw_fluxes_cuda,
+                         sw_fluxes_cuda)
+        for c in ("launches", "fast_launches"))
+    for w, c in capture.COUNTERS:
+        assert isinstance(getattr(w, c), int)
 
 
 # The parameter stage by shape, in each kernel's block shape
@@ -533,51 +535,20 @@ def test_no_plan_needs_a_barrier_id_above_15():
     assert stages > 0
 
 
-@pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("stage", [False, True])
-def test_launch_chunks_counts_param_stage_launches(monkeypatch, fast, stage):
-    """Each launch with a parameter stage adds one to
-    ``param_stage_launches`` (``fast_param_stage_launches``) beside
-    ``launches``; the launch itself stubbed."""
-    import contextlib
-    import types
-    calls = []
-    lib = types.SimpleNamespace(
-        ecckd_lwsw_launch=lambda args, stream: calls.append("exact") or 0,
-        ecckd_lwsw_launch_fast=lambda args, stream: calls.append("fast")
-        or 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: types.SimpleNamespace(cuda_stream=0))
-    counted = types.SimpleNamespace(launches=0, fast_launches=0,
-                                    param_stage_launches=0,
-                                    fast_param_stage_launches=0)
-    binding.launch_chunks("lwsw", binding.LwswArgs, 1037, 512,
-                          lambda c0, c1: binding.LwswArgs(), counted, None,
-                          fast, lib, param_stage=stage)
-    assert calls == ["fast" if fast else "exact"] * 3     # 512, 512, 13
-    prefix = "fast_" if fast else ""
-    want = {"launches": 0, "fast_launches": 0, "param_stage_launches": 0,
-            "fast_param_stage_launches": 0, prefix + "launches": 3}
-    if stage:
-        want[prefix + "param_stage_launches"] = 3
-    assert vars(counted) == want
-
-
-def test_replays_count_the_param_stage_launches(monkeypatch):
+def test_replays_add_back_the_launches(monkeypatch):
     """capture.jit adds a replay's launches back per counter
     (``capture._add_counts`` of the eager call's deltas): a replay of a
-    call that ran 8 launches with the stage counts 8 more of each."""
+    call that ran 8 exact and 3 fast launches counts 8 and 3 more."""
     from ecckd_tpu_torch.utils import capture
     w = lwsw.lwsw_fluxes_cuda
-    for c in ("launches", "param_stage_launches"):
+    for c in ("launches", "fast_launches"):
         monkeypatch.setattr(w, c, getattr(w, c))
     before = capture._counts()
     w.launches += 8
-    w.param_stage_launches += 8
+    w.fast_launches += 3
     delta = [a - b for a, b in zip(capture._counts(), before)]
     capture._add_counts(delta)
-    assert (w.launches, w.param_stage_launches) == (
-        before[capture.COUNTERS.index((w, "launches"))] + 16,
-        before[capture.COUNTERS.index((w, "param_stage_launches"))] + 16)
+    at = lambda c: before[capture.COUNTERS.index((w, c))]
+    assert (w.launches, w.fast_launches) == (at("launches") + 16,
+                                             at("fast_launches") + 6)
+    assert sum(map(abs, delta)) == 11
