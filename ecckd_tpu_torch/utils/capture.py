@@ -55,8 +55,9 @@ from call to call, each call building its graph again.
 
 While a ``torch.profiler`` records, each call is one ``capture.call``
 span (utils/profiling.py, on the clock of the trace's CUDA activity).
-It holds ``capture.key`` (``_tensors``, ``_card``, ``key`` and the
-entry's lookup) and, on a replayed call, in turn ``capture.copy_in``
+It holds ``capture.key`` (``_walk``, one pass over the arguments that
+gives the tensors, their devices and the key; ``_card``; the entry's
+lookup) and, on a replayed call, in turn ``capture.copy_in``
 (the wait for the previous replay's copies out, and the copy into the
 static buffers), ``capture.replay`` (``graph.replay()``) and
 ``capture.copy_out`` (the ``empty_like``s and the copy out).  A key's
@@ -89,39 +90,90 @@ COUNTERS = tuple((w, c) for w in (lwsw_fluxes_cuda, lw_fluxes_cuda,
 adds back."""
 
 
-def _arg_key(x) -> tuple:
-    if isinstance(x, torch.Tensor):
-        return ("tensor", tuple(x.shape), x.dtype, x.device, x.stride())
-    if isinstance(x, GasConcs):
-        return ("gases", x.names, tuple(_arg_key(v) for v in x.values))
-    if isinstance(x, CKDModel):
-        return ("model", id(x))
-    if any(isinstance(leaf, torch.Tensor) for leaf in tree_leaves(x)):
-        raise TypeError(f"capture.jit: a {type(x).__name__} of tensors is "
-                        "not an argument it takes; pass the tensors alone")
+_TENSOR, _GASES, _MODEL, _VALUE = range(4)
+_KINDS = {torch.Tensor: _TENSOR, GasConcs: _GASES, CKDModel: _MODEL,
+          **dict.fromkeys((int, float, bool, str, type(None)), _VALUE)}
+"""How the pass keys an argument, by its exact type; any other type takes
+``_kind``."""
+
+
+def _walk(fn: Callable, args: tuple, kwargs: Dict[str, Any]):
+    """One pass over the arguments of ``fn(*args, **kwargs)``, positional
+    then keyword by name, each dispatched on its exact type: (the
+    tensors, in the order ``tree_leaves((args, sorted kwargs))`` gives
+    them; the set of their devices; the key; the ``TypeError`` that
+    keying an argument raises, or None).  The key is flat: ``fn``, the
+    counts, each argument's parts after a tag that fixes their number,
+    the table mode and, last, the NaN-debugging switch."""
+    tensors: List[torch.Tensor] = []
+    devices: set = set()
+    faults: List[TypeError] = []
+    names = tuple(sorted(kwargs))
+    parts = [fn, len(args), names]
+    _scan((*args, *map(kwargs.__getitem__, names)), tensors, devices,
+          parts, faults)
+    parts += (config.is_fast(), checks.nan_debugging())
+    return tensors, devices, tuple(parts), (faults[0] if faults else None)
+
+
+def _scan(items, tensors: list, devices: set, parts: list, faults: list
+          ) -> None:
+    """``_walk``'s pass over ``items`` (the arguments, or a ``GasConcs``'s
+    values), adding to its tensors, devices, parts and faults."""
+    for x in items:
+        kind = _KINDS.get(type(x))
+        if kind is None:
+            kind = _kind(x, tensors, devices, faults)
+        if kind is _TENSOR:
+            device = x.device
+            devices.add(device)
+            tensors.append(x)
+            parts += (_TENSOR, x.shape, x.dtype, device, x.stride())
+        elif kind is _GASES:
+            parts += (_GASES, x.names, len(x.values))
+            _scan(x.values, tensors, devices, parts, faults)
+        elif kind is _MODEL:
+            parts += (_MODEL, id(x))
+        elif kind is _VALUE:
+            parts += (_VALUE, type(x), x)
+
+
+def _kind(x, tensors: list, devices: set, faults: list) -> Optional[int]:
+    """The kind of an argument of an uncommon type (a subclass, a
+    container, any other value), or None after recording why it cannot
+    be keyed; a container's tensors still join the call's."""
+    for kind, cls in ((_TENSOR, torch.Tensor), (_GASES, GasConcs),
+                      (_MODEL, CKDModel)):
+        if isinstance(x, cls):
+            return kind
+    inner = [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+    if inner:
+        tensors += inner
+        devices.update(t.device for t in inner)
+        faults.append(TypeError(
+            f"capture.jit: a {type(x).__name__} of tensors is not an "
+            "argument it takes; pass the tensors alone"))
+        return None
     try:
         hash(x)
     except TypeError:
-        raise TypeError(f"capture.jit: an argument of type "
-                        f"{type(x).__name__} is neither a tensor, GasConcs, "
-                        "a model nor hashable") from None
-    return ("value", type(x), x)
+        faults.append(TypeError(
+            f"capture.jit: an argument of type {type(x).__name__} is "
+            "neither a tensor, GasConcs, a model nor hashable"))
+        return None
+    return _VALUE
 
 
 def key(fn: Callable, args: tuple, kwargs: Dict[str, Any]) -> tuple:
     """The cache key of the call ``fn(*args, **kwargs)``: everything that
     decides what the captured graph does, and no tensor value."""
-    return (fn, tuple(_arg_key(a) for a in args),
-            tuple((k, _arg_key(v)) for k, v in sorted(kwargs.items())),
-            config.is_fast(), checks.nan_debugging())
+    _, _, k, fault = _walk(fn, args, kwargs)
+    if fault is not None:
+        raise fault
+    return k
 
 
-def _tensors(args: tuple, kwargs: Dict[str, Any]) -> List[torch.Tensor]:
-    return [t for t in tree_leaves((args, dict(sorted(kwargs.items()))))
-            if isinstance(t, torch.Tensor)]
-
-
-def _card(fn: Callable, tensors: List[torch.Tensor]
+def _card(fn: Callable, tensors: List[torch.Tensor], devices: set
           ) -> Optional[torch.device]:
     """The one CUDA device of the call's tensors, or None if every tensor
     lies on the CPU; raises on inputs that require grad and on tensors
@@ -131,7 +183,6 @@ def _card(fn: Callable, tensors: List[torch.Tensor]
             f"capture.jit({fn.__name__}): an input requires grad and a CUDA "
             f"graph defines no backward; call {fn.__module__}."
             f"{fn.__name__} itself for gradients")
-    devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return None
     if len(devices) > 1:
@@ -139,7 +190,7 @@ def _card(fn: Callable, tensors: List[torch.Tensor]
             f"capture.jit({fn.__name__}): tensors on "
             f"{sorted(map(str, devices))}; a captured call reads all its "
             "tensors on one card (a CUDA graph cannot read host memory)")
-    return devices.pop()
+    return next(iter(devices))
 
 
 def _counts() -> List[int]:
@@ -176,7 +227,7 @@ class _Entry:
         refuses."""
         clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
         s_args, s_kwargs = tree_map(clone, (args, kwargs))
-        self.inputs = _tensors(s_args, s_kwargs)
+        self.inputs = _walk(fn, s_args, s_kwargs)[0]
         # The arrays the models' caches hold, which the graph reads at
         # the addresses it captured.
         self.caches = [dict(m._cache) for m in self.models]
@@ -233,11 +284,12 @@ def jit(fn: Callable) -> Callable:
     entries: Dict[tuple, _Entry] = {}
 
     def lookup(args: tuple, kwargs: Dict[str, Any]):
-        tensors = _tensors(args, kwargs)
-        device = _card(fn, tensors)
+        tensors, devices, k, fault = _walk(fn, args, kwargs)
+        device = _card(fn, tensors, devices)
         if device is None:
             return tensors, None, None, None
-        k = key(fn, args, kwargs)
+        if fault is not None:
+            raise fault
         return tensors, device, k, entries.get(k)
 
     def body(run: Callable, args: tuple, kwargs: Dict[str, Any]):

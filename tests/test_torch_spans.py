@@ -9,7 +9,13 @@ of the benchmark's span metrics.
   outer one.
 * ``capture.jit`` on a stood-in card (the CUDA calls stood in for, as in
   tests/test_torch_capture.py) records its spans in order, and keeps
-  ``captures`` and ``replays`` true across a key change.
+  ``captures`` and ``replays`` true across a key change.  With its graph
+  made to run the captured call again on replay (``graphed``), replayed
+  calls return the eager result whichever tensors change, positional,
+  in a ``GasConcs`` or keywords; the lookup's one pass lists the tensors
+  in ``tree_leaves``' order; and with ``tree_leaves`` and ``tree_map``
+  made to raise inside ``capture.key``, calls with the calls cell's
+  argument types still replay.
 * ``stream_chunks`` over ``map_shards`` on CPU pieces records the
   stream's spans in order, with one ``shards.card<i>`` per piece; on a
   card, a stream's trace holds ``stream.fetch.card0`` (marked ``cuda``).
@@ -19,6 +25,7 @@ of the benchmark's span metrics.
   spans or without tracing.
 """
 import contextlib
+import functools
 import json
 import types
 
@@ -26,9 +33,15 @@ import numpy as np
 import pytest
 import torch
 
+from ecckd_tpu_torch import pipeline
+from ecckd_tpu_torch.gases import GasConcs
+from ecckd_tpu_torch.io.synthetic import (example_flux_batch,
+                                          write_synthetic_ckd)
+from ecckd_tpu_torch.models.loader import load_ckd_model
 from ecckd_tpu_torch.parallel import mesh as tmesh
 from ecckd_tpu_torch.parallel.scale import stream_chunks
 from ecckd_tpu_torch.utils import capture, profiling
+from ecckd_tpu_torch.utils.tree import tree_leaves
 from radbench import run as bench_run
 from radbench import trace as bench_trace
 
@@ -55,6 +68,14 @@ class Ranges:
     def entered(self):
         return [name for what, name in self.log if what == "enter"]
 
+    def open(self, name):
+        """Whether a range named ``name`` is entered and not yet left."""
+        depth = 0
+        for what, n in self.log:
+            if n == name:
+                depth += 1 if what == "enter" else -1
+        return depth > 0
+
 
 @pytest.fixture
 def ranges(monkeypatch):
@@ -71,24 +92,38 @@ def spans_recording(monkeypatch, ranges):
     return ranges
 
 
+class Replays(list):
+    """A stood-in card's replays, one item per ``graph.replay()``;
+    ``capturing`` is the graph being captured, or None."""
+    capturing = None
+
+
 @pytest.fixture
 def card(monkeypatch):
     """A stood-in card: every call with tensors is a card's, and the CUDA
-    calls of a capture and a replay do nothing but count replays."""
-    replayed = []
+    calls of a capture and a replay do nothing but count replays and run
+    again the work ``graphed`` recorded in the graph."""
+    replayed = Replays()
 
     class Graph:
+        def __init__(self):
+            self.work = []
+
         def replay(self):
             replayed.append(1)
+            for work in self.work:
+                work()
 
     class Capturing:
         def __init__(self, graph, stream=None, **kw):
-            pass
+            self.graph = graph
 
         def __enter__(self):
+            replayed.capturing = self.graph
             return self
 
         def __exit__(self, *exc):
+            replayed.capturing = None
             return False
 
     class Marker:
@@ -100,8 +135,8 @@ def card(monkeypatch):
             pass
 
     device = torch.device("cuda", 0)
-    monkeypatch.setattr(capture, "_card",
-                        lambda fn, tensors: device if tensors else None)
+    monkeypatch.setattr(capture, "_card", lambda fn, tensors, devices:
+                        device if tensors else None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
@@ -195,6 +230,137 @@ def test_capture_spans_and_counters_on_a_stood_in_card(spans_recording,
     jitted(x)
     assert (jitted.captures, jitted.replays) == (2, 5)
     assert len(card) == 5
+
+
+def graphed(fn, card):
+    """``fn`` as the stood-in card's graph records it: a call made while a
+    graph is captured is made again by each of its replays, on the same
+    arguments (the static buffers), the outputs written in place, as a
+    CUDA graph replays its kernels."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if card.capturing is not None:
+            def again():
+                for o, n in zip(tree_leaves(out),
+                                tree_leaves(fn(*args, **kwargs))):
+                    o.copy_(n)
+            card.capturing.work.append(again)
+        return out
+    return call
+
+
+@pytest.fixture(scope="module")
+def calls_models(tmp_path_factory):
+    """The calls cell's two models, from synthetic ckd files on the CPU."""
+    d = tmp_path_factory.mktemp("ckd_spans")
+    models = []
+    for kind in ("lw_fsck", "sw_wide"):
+        path = str(d / f"{kind}.nc")
+        write_synthetic_ckd(path, kind, seed=3)
+        models.append(load_ckd_model(path, dtype=torch.float64))
+    return tuple(models)
+
+
+def calls_args(models, seed):
+    """The calls cell's argument types (radbench/solve.py ``Program``): two
+    models, eight tensors, a ``GasConcs`` and two ints, 4 x 5 columns on
+    the CPU, every tensor's values (the gases' too) drawn from ``seed``."""
+    b = example_flux_batch(4, 5, np.float64)
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(x):
+        x = torch.as_tensor(x)
+        return x * (1.0 + 0.02 * torch.rand(x.shape, generator=g,
+                                            dtype=x.dtype))
+    t = {k: torch.as_tensor(b[k]) if k == "plev" else draw(b[k])
+         for k in ("plev", "tlay", "tlev", "tsfc", "emis", "alb", "tsi",
+                   "sza")}
+    concs = GasConcs(values=tuple(draw(v) for v in b["concs"].values),
+                     names=b["concs"].names)
+    return ((*models, t["plev"], t["tlay"], t["tlev"], t["tsfc"], t["emis"],
+             concs, t["alb"], t["tsi"], t["sza"]),
+            dict(n_gauss_angles=1, column_chunk=65536))
+
+
+def mixed(a, concs, b, *, shift, scale):
+    """Each tensor weighed by a factor of its own, so a static buffer
+    filled from another tensor of its shape shows in the outputs."""
+    out = a + 2.0 * b + 3.0 * scale + 5.0 * shift
+    for i, v in enumerate(concs.values):
+        out = out + (7.0 + i) * v
+    return out, a * b
+
+
+def mixed_args(models, seed):
+    """Tensors of one shape passed positionally, in a ``GasConcs`` and as
+    keywords, which come in either order."""
+    g = torch.Generator().manual_seed(seed)
+    draw = lambda: torch.rand(3, 4, generator=g, dtype=torch.float64)
+    concs = GasConcs(values=(draw(), draw(), draw()),
+                     names=("h2o", "o3", "co2"))
+    kwargs = (dict(shift=draw(), scale=draw()) if seed % 2
+              else dict(scale=draw(), shift=draw()))
+    return (draw(), concs, draw()), kwargs
+
+
+CALLS = {"mixed": (mixed, mixed_args),
+         "calls cell": (pipeline.lw_sw_fluxes, calls_args)}
+
+
+@pytest.mark.parametrize("case", sorted(CALLS))
+def test_replays_copy_each_tensor_into_its_own_buffer(card, calls_models,
+                                                      case):
+    """Replayed calls return the eager result when the values change in
+    every tensor, wherever it is passed; and the one pass lists the
+    tensors in the order the static buffers were built in, which is
+    ``tree_leaves``' over the positional and the sorted keyword
+    arguments."""
+    fn, make = CALLS[case]
+    jitted = capture.jit(graphed(fn, card))
+    before = None
+    for seed in range(4):
+        args, kwargs = make(calls_models, seed)
+        got = tree_leaves(jitted(*args, **kwargs))
+        want = tree_leaves(fn(*args, **kwargs))
+        assert len(got) == len(want)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert before is None or not torch.equal(got[0], before[0])
+        before = got
+        leaves = tree_leaves((args, dict(sorted(kwargs.items()))))
+        former = [t for t in leaves if isinstance(t, torch.Tensor)]
+        walked = capture._walk(fn, args, kwargs)[0]
+        assert [id(t) for t in walked] == [id(t) for t in former]
+    assert (len(jitted.entries), jitted.captures, jitted.replays) == (1, 1, 3)
+    assert len(card) == 3
+
+
+def test_lookup_walks_no_tree(spans_recording, card, calls_models,
+                              monkeypatch):
+    """``capture.key``'s lookup takes the calls cell's argument types
+    (models, tensors, a ``GasConcs``, ints) by their type alone:
+    ``tree_leaves`` and ``tree_map``, made to raise while the span is
+    open, are never reached there, and replayed calls still return the
+    eager result."""
+    def refuse(name):
+        real = getattr(capture, name)
+
+        def tree(*args, **kwargs):
+            if spans_recording.open("capture.key"):
+                raise AssertionError(f"{name} in capture.key's lookup")
+            return real(*args, **kwargs)
+        return tree
+
+    for name in ("tree_leaves", "tree_map"):
+        monkeypatch.setattr(capture, name, refuse(name))
+    jitted = capture.jit(graphed(pipeline.lw_sw_fluxes, card))
+    for seed in range(4):
+        args, kwargs = calls_args(calls_models, seed)
+        got = tree_leaves(jitted(*args, **kwargs))
+        want = tree_leaves(pipeline.lw_sw_fluxes(*args, **kwargs))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (jitted.captures, jitted.replays) == (1, 3)
+    assert spans_recording.entered().count("capture.key") == 4
 
 
 def test_stream_and_map_shards_spans_on_cpu_pieces(spans_recording):
