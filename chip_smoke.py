@@ -51,15 +51,20 @@ result line is printed:
    pipeline.lw_sw_fluxes, lw_fluxes and sw_fluxes (backend="auto").  The
    kernel's count must grow from 0, outputs be finite, SW TOA down equal
    mu0 * TSI by day and 0 by night, and the first columns match the
-   float64 plain version.
+   float64 plain version.  Then lw_sw_fluxes(auto) on the same batch in
+   float64: K1's double instantiation, ``lwsw_f64`` launches equal to
+   ceil(ncol / column_chunk) and no other count, float64 outputs, the
+   first columns within 1e-10 of the flux scale of the plain version with
+   float64's constants (compute=float64), which the float32 kernel's
+   outputs must exceed, SW TOA down mu0 * TSI by day and 0 by night.
 7. RFMIP drivers at the reference's size, 100 sites x 18 experiments x 60
    layers (1800 columns): ecckd_rfmip_lw, ecckd_rfmip_sw and ecckd_rfmip
    main([...]) with --device cuda on a synthetic RFMIP file, each with the
    counts set to 0 before and read after; K3, K4 and K1 must have run and
-   no fast entry point, the files (read and written by the native netCDF3
-   engine, as --metrics-json records) be finite and match the float64
-   plain version, SW TOA down equal mu0 * TSI by day and 0 by night, and
-   the combined driver's files match the separate drivers'.
+   no fast or f64 entry point, the files (read and written by the native
+   netCDF3 engine, as --metrics-json records) be finite and match the
+   float64 plain version, SW TOA down equal mu0 * TSI by day and 0 by
+   night, and the combined driver's files match the separate drivers'.
 8. times: each kernel and its plain float32 version at 65,536 x 60 (and
    the kernels at 1800 x 60, K3 + K4 against K1 at both sizes) with CUDA
    events (warm-up, median of 10), with and without host prep, beside the
@@ -68,7 +73,9 @@ result line is printed:
    larger) and its share of it.  Then, each with bound and share, at
    65,536 columns: K3 on lw_rrtmgp and at 3 angles (with its plain f32
    version), K4 on sw_p47, K1 at 3 and 4 angles (K2), on lw_rrtmgp and
-   at nlay 137.
+   at nlay 137.  K1's double instantiation at 65,536 x 60 with its plain
+   float64 version and its bound at the f64 peak (34 TFLOP/s, its
+   bytes at 8 B a value).
 9. stream: cli/scale_bench.main at full width, 1,048,576 x 60 in chunks of
    65,536, full outputs, over every local card: the base chunk placed
    over the cards once, each chunk built on every card from its resident
@@ -114,15 +121,17 @@ result line is printed:
 13. captured calls: utils/capture.jit of lw_sw_fluxes (K1, K2 at 3
    angles, K1 at nlay 300 in device staging), lw_fluxes (K3) and
    sw_fluxes (K4) at 65,536 x 60 and 1800 x 60, exact and then fast mode
-   (K5) on one jitted function: warm-up, capture and replays equal the
-   eager call bit for bit, on the first inputs and on new ones (other
-   tlay, tsfc and sza, night columns among them); each call returns
-   fresh tensors and leaves earlier ones unchanged; each call's launch
-   counts equal the eager call's, in the mode's counter only; a mode
-   switch captures anew.  Times the eager wrapper, the captured call and
-   the kernel alone (CUDA events, median of 10), and scale_bench's step
-   eager against captured.  Inputs that require grad must raise, and so
-   must a capture of a function that reads the card back.
+   (K5) on one jitted function, and lw_sw_fluxes at 65,536 x 60 in float64
+   (K1's double instantiation, counted under ``lwsw_f64``): warm-up,
+   capture and replays equal the eager call bit for bit, on the first
+   inputs and on new ones (other tlay, tsfc and sza, night columns among
+   them); each call returns fresh tensors and leaves earlier ones
+   unchanged; each call's launch counts equal the eager call's, in the
+   mode's counter only; a mode switch captures anew.  Times the eager
+   wrapper, the captured call and the kernel alone (CUDA events, median
+   of 10), and scale_bench's step eager against captured.  Inputs that
+   require grad must raise, and so must a capture of a function that
+   reads the card back.
 14. the bench: bench_cuda.main off its protocol, into a scratch
    directory, each with the counts set to 0 before and read after: the
    headline at 65,536 x 60 and configs at 8192 x 60, each exact and
@@ -141,13 +150,15 @@ result line is printed:
    sweep's bounds, columns/s > 0, each leg's staging plan; then the
    kernels' checked build (tools/cuda_sanitize.py --checked, built with
    phase 2's) over K1, K3 and K4 at nlay 60 and 137 at 1 angle and K1
-   and K3 at 3 angles, both table modes, at jitter 0 and one seed: no
-   violation, finite outputs bit for bit equal to the plain build's;
-   and the planted faults in K1, which the checker must report.  One
+   and K3 at 3 angles, both table modes, and K1's double instantiation
+   over tools/cuda_sanitize.py's CHECKED_F64 (every f64 staging regime),
+   at jitter 0 and one seed: no violation, finite outputs bit for bit
+   equal to the plain build's; and the planted faults in K1, at float32
+   and over CHECKED_F64, which the checker must report.  One
    line per leg and the phase's seconds.
 
-The last two lines are the kernels' JSON record (exact and fast entries,
-each with its bound) and
+The last two lines are the kernels' JSON record (exact and fast entries
+and K1's double instantiation ``lwsw_f64``, each with its bound) and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -160,6 +171,7 @@ import tempfile
 import time
 
 BOUND = 5e-5            # max|d| / flux scale, per output (tools/chip_parity.py)
+F64_BOUND = 1e-10       # the f64 kernel against the plain version at float64
 FAST_BOUND = 5e-4       # the fast mode against the exact plain version
 PROTOCOL = (65536, 60)  # BENCH_CONFIGS protocol batch (columns, layers)
 RFMIP = (100, 18, 60)   # the reference's RFMIP workload (sites, expts, layers)
@@ -178,6 +190,7 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (700 W)
+PEAK_F64_FLOPS = 34e12  # H100 SXM, f64 outside the tensor cores (700 W)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 # Float operations of the kernels' arithmetic, counting an add, multiply,
 # compare or select as 1 (an FMA as 2) and each accurate library call at
@@ -199,11 +212,14 @@ def kernel_bound(prep) -> dict:
     the larger of the bytes it must move (each input read once, each
     output written once, the tables once) over the HBM rate, and the
     float operations the function needs (``OPS``, on this call's gases,
-    g-points, layers and angles) over the f32 peak.  The count is the
+    g-points, layers and angles) over the peak of the inputs' precision
+    (f32, or f64 for the double instantiation; bytes at the inputs'
+    element size, the outputs' too).  The count is the
     function's, the same for every kernel: per (layer, g-point) 2 Planck
     values (nlay layer values and nlay + 1 level values per column, the
     surface's within the rounding) and one set of LW layer sources per
     angle, however often a kernel recomputes them."""
+    import torch
     from ecckd_tpu_torch.ops.cuda import staged
     atm, bands = prep[0], prep[1:]
     ncol, nlay = atm.tlay.shape
@@ -229,9 +245,11 @@ def kernel_bound(prep) -> dict:
                                         + OPS["sw_sweep"])
     n_out = 2 * len(bands)
     nbytes = (sum(t.numel() * t.element_size() for t in tensors)
-              + n_out * ncol * (nlay + 1) * 4)
+              + n_out * ncol * (nlay + 1) * atm.tlay.element_size())
     ops = ncol * nlay * (per_layer + per_lg)
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_F32_FLOPS
+    peak = (PEAK_F64_FLOPS if atm.tlay.dtype == torch.float64
+            else PEAK_F32_FLOPS)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / peak
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "ops": ops, "bytes": nbytes}
@@ -383,12 +401,15 @@ def run(card: str, work: str) -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = w.fast_launches = 0
+        lwsw.lwsw_fluxes_cuda.f64_launches = 0
 
     def counts():
-        # launches per entry point: exact ("lwsw") and fast ("lwsw_fast")
+        # launches per entry point: exact ("lwsw"), fast ("lwsw_fast") and
+        # the merged kernel's double instantiation ("lwsw_f64")
         out = {k: w.launches for k, w in wrappers.items()}
         out.update({f"{k}_fast": w.fast_launches
                     for k, w in wrappers.items()})
+        out["lwsw_f64"] = lwsw.lwsw_fluxes_cuda.f64_launches
         return out
 
     # ---- 2. build: one nvcc per kernel source, all started together -------
@@ -404,7 +425,7 @@ def run(card: str, work: str) -> int:
     lib_paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
     for name in modules:
         # binds both entry points and checks the struct
-        binding.library(name, binding.ARGS[name])
+        binding.library(name)
     build_s = time.perf_counter() - t0
     for name, path in lib_paths.items():
         ptxas = [ln.strip() for ln in open(f"{path}.ptxas.txt")
@@ -472,9 +493,9 @@ def run(card: str, work: str) -> int:
         band = lambda key, ng: key and (ng, gases(key)[0], sum(gases(key)))
         shape = (band(lw_key, ng_lw), band(sw_key, ng_sw), n_t)
         per_sm = [staged.blocks_per_sm(kernel, shape, p.threads,
-                                       p.shared_bytes, fast, 0,
+                                       p.shared_bytes, mode, 0,
                                        split=p.split)
-                  for fast in (False, True)]
+                  for mode in ("exact", "fast")]
         tag = {"lwsw": "K1", "lw": "K3", "sw": "K4"}[kernel]
         print(f"build: {tag} staging, {label} ({lw_key or ''}"
               f"{'+' if lw_key and sw_key else ''}{sw_key or ''}, {nl} "
@@ -521,7 +542,7 @@ def run(card: str, work: str) -> int:
     rel, absolute = flux_errors(got, ref)
     ok = (max(rel) <= BOUND and launched == {"lwsw": 0, "lw": 1, "sw": 1,
                                              "lwsw_fast": 0, "lw_fast": 0,
-                                             "sw_fast": 0})
+                                             "sw_fast": 0, "lwsw_f64": 0})
     if not ok:
         failures.append("parity non-mergeable pair")
     print(f"parity: {'ok' if ok else 'FAIL'} lw_sw_fluxes(cuda) lw_fsck + "
@@ -572,7 +593,7 @@ def run(card: str, work: str) -> int:
     refs = {name: lambda name=name, **kw: solve(
         name, "plain", m64("lw") if name != "sw" else None,
         m64("sw") if name != "lw" else None, b64, **kw) for name in KERNELS}
-    main_launches = {}
+    main_launches, main_outs = {}, {}
     for name, drive in paths_run.items():
         reset_counts()
         fluxes = drive()
@@ -580,6 +601,7 @@ def run(card: str, work: str) -> int:
         launched = counts()
         main_launches[name] = launched[name]
         outs = [o for f in fluxes for o in (f.flux_up, f.flux_dn)]
+        main_outs[name] = outs
         rel, _ = flux_errors([o[:n_check] for o in outs],
                              refs[name](mxu_mode="bf16x3"))
         checks = {
@@ -610,6 +632,55 @@ def run(card: str, work: str) -> int:
               f"{ncol}x{nlay} launches={launched} | " + " | ".join(
                   f"{k}: {v}" for k, v in checks.items())
               + f" | max|d|/scale={max(rel):.3e}", flush=True)
+
+    # The merged main path on float64 tensors: K1's double instantiation,
+    # held against the plain version with float64's constants within
+    # F64_BOUND, which the float32 kernel's outputs above must fail.
+    lw64, sw64 = m64("lw"), m64("sw")
+    t64 = {k: v.double() for k, v in t.items()}
+    concs_p64 = GasConcs(values=tuple(v.double() for v in concs.values),
+                         names=concs.names)
+    reset_counts()
+    fluxes = pipeline.lw_sw_fluxes(
+        lw64, sw64, t64["plev"], t64["tlay"], t64["tlev"], t64["tsfc"],
+        t64["emis"], concs_p64, t64["alb"], t64["tsi"], t64["sza"],
+        backend="auto")
+    torch.cuda.synchronize()
+    launched = counts()
+    main_launches["lwsw_f64"] = launched["lwsw_f64"]
+    outs = [o for f in fluxes for o in (f.flux_up, f.flux_dn)]
+    ref64 = refs["lwsw"](mxu_mode="bf16x3", compute=torch.float64)
+    rel, worst_abs["lwsw_f64"] = flux_errors([o[:n_check] for o in outs],
+                                             ref64)
+    rel32 = max(flux_errors([o[:n_check] for o in main_outs["lwsw"]],
+                            ref64)[0])
+    want = -(-ncol // binding.DEFAULT_COLUMN_CHUNK)
+    day64 = batch["sza"] < 90.0 - 2.0 * float(np.spacing(np.float64(90.0)))
+    toa = fluxes[1].flux_dn[:, 0].cpu().numpy()
+    night = torch.as_tensor(~day64, device="cuda")
+    checks = {
+        f"lwsw_f64 launches == {want}": launched["lwsw_f64"] == want,
+        "no other kernel": all(v == 0 for k, v in launched.items()
+                               if k != "lwsw_f64"),
+        "float64 outputs": all(o.dtype == torch.float64 for o in outs),
+        "shapes": all(tuple(o.shape) == (ncol, nlay + 1) for o in outs),
+        "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+        f"first {n_check} columns vs plain f64 <= {F64_BOUND:.0e}":
+        max(rel) <= F64_BOUND,
+        "float32 kernel above it": rel32 > F64_BOUND,
+        "sw toa dn == mu0*tsi (day)": bool(np.allclose(
+            toa[day64], mu0_tsi[day64], rtol=1e-9, atol=1e-9 * 1361.0)),
+        "night sw == 0": bool((fluxes[1].flux_dn[night] == 0).all()
+                              and (fluxes[1].flux_up[night] == 0).all()),
+    }
+    ok = all(checks.values())
+    if not ok:
+        failures.append("main path lwsw_f64")
+    print(f"main path: {'ok' if ok else 'FAIL'} lw_sw_fluxes(auto) float64 "
+          f"{ncol}x{nlay} launches={launched} | " + " | ".join(
+              f"{k}: {v}" for k, v in checks.items())
+          + f" | max|d|/scale={max(rel):.3e} (float32 kernel {rel32:.3e}) "
+          f"max|d|={worst_abs['lwsw_f64']:.3e} W m-2", flush=True)
 
     # ---- 7. RFMIP drivers at 100 x 18 x 60 ----------------------------------
     nsite, nexp, nlay_r = RFMIP
@@ -659,8 +730,9 @@ def run(card: str, work: str) -> int:
         checks = {
             "rc == 0": rc == 0,
             f"{name} launches > 0": launched[name] > 0,
-            "no fast entry point": not any(v for k, v in launched.items()
-                                           if k.endswith("_fast")),
+            "no fast or f64 entry point": not any(
+                v for k, v in launched.items()
+                if k.endswith(("_fast", "_f64"))),
             "io_engine native": driver_m["io_engine"] == "native",
             "shapes": all(g.shape == (data.ncol, nlay_r + 1) for g in got),
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
@@ -730,6 +802,25 @@ def run(card: str, work: str) -> int:
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['ops']:.4g} "
               f"operations, {bd['bytes']:.4g} bytes), share of the bound "
               f"{bd['bound_ms'] / k_ms:.4f}", flush=True)
+    # K1's double instantiation on the same batch in float64, against its
+    # plain version at float64 (the torch path's cost at this precision).
+    args64 = (lw64, sw64, t64["plev"], t64["tlay"], t64["tlev"], t64["tsfc"],
+              emis_gpt.double(), concs_p64, t64["alb"], t64["tsi"],
+              t64["sza"])
+    prep64 = plan.prepare(*args64)
+    k_ms = cuda_time_ms(lambda: lwsw._kernel_core(*prep64, chunk))
+    p_ms = cuda_time_ms(lambda: lwsw._plain_core(*prep64, torch.float64))
+    k_e2e = cuda_time_ms(lambda: lwsw.lwsw_fluxes_cuda(*args64))
+    times["lwsw_f64"] = (k_ms, p_ms)
+    bounds["lwsw_f64"] = bd = kernel_bound(prep64)
+    print(f"times: lwsw_f64 {ncol}x{nlay} 1 angle on {card}: kernel "
+          f"{k_ms:.3f} ms ({ncol / k_ms * 1e3:.0f} columns/s), plain f64 "
+          f"{p_ms:.3f} ms ({ncol / p_ms * 1e3:.0f} columns/s); with host "
+          f"prep: kernel {k_e2e:.3f} ms (median of 10 after 2 warm-up, CUDA "
+          f"events) | bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+          f"({bd['ops']:.4g} operations at {PEAK_F64_FLOPS:.3g} FLOP/s, "
+          f"{bd['bytes']:.4g} bytes), share of the bound "
+          f"{bd['bound_ms'] / k_ms:.4f}", flush=True)
     # More shapes of each kernel at 65,536 columns, each with its bound:
     # K3 on lw_rrtmgp (36 g-points) and at 3 angles, K4 on sw_p47 (its own
     # 47-point grid), K1/K2 at 3 and 4 angles, on lw_rrtmgp and at nlay 137
@@ -1172,7 +1263,8 @@ def run(card: str, work: str) -> int:
         checks = {
             "rc == 0": rc == 0,
             f"{name}_fast launches > 0": launched[f"{name}_fast"] > 0,
-            "no exact entry point": all(launched[k] == 0 for k in KERNELS),
+            "no exact or f64 entry point": all(
+                launched[k] == 0 for k in (*KERNELS, "lwsw_f64")),
             "metrics": (driver_m["mxu_precision"], driver_m["io_engine"])
             == ("bf16", "native"),
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
@@ -1264,7 +1356,10 @@ def run(card: str, work: str) -> int:
         ("K4", "sw", pipeline.sw_fluxes, sw_args, t_small, small_concs, {},
          both),
         ("K1", "lwsw", pipeline.lw_sw_fluxes, call_args, t_deep,
-         deep["concs"], {}, ("bf16x3",)))
+         deep["concs"], {}, ("bf16x3",)),
+        ("K1 f64", "lwsw", pipeline.lw_sw_fluxes,
+         lambda b, gases: call_args(b, gases, lw64, sw64), t64, concs_p64,
+         {}, ("bf16x3",)))
     for label, kernel, fn, make, b, gases, kw, modes in captured_paths:
         n, nl = b["tlay"].shape
         args_a, args_b = make(b, gases), make(other_inputs(b), gases)
@@ -1272,7 +1367,9 @@ def run(card: str, work: str) -> int:
         for m, mode in enumerate(modes):
             config.set_mxu_precision(mode)
             try:
-                name = f"{kernel}_fast" if config.is_fast() else kernel
+                name = (f"{kernel}_fast" if config.is_fast() else
+                        f"{kernel}_f64" if b["tlay"].dtype == torch.float64
+                        else kernel)
                 reset_counts()
                 ref_a = leaves(fn(*args_a, **kw))
                 torch.cuda.synchronize()
@@ -1311,7 +1408,7 @@ def run(card: str, work: str) -> int:
                   f"{mode}: launches per call {eager_counts[name]} ({name}) "
                   "| " + " | ".join(f"{k}: {v}" for k, v in checks.items()),
                   flush=True)
-        if label in ("K2",) or nl == deep_n:
+        if label in ("K2", "K1 f64") or nl == deep_n:
             continue
         prep = prep_for(kernel, b, gases)
         eager = lambda: fn(*args_a, **kw)
@@ -1404,13 +1501,13 @@ def run(card: str, work: str) -> int:
     n_cfg = 8192
     bench_runs = (  # argv, the kernel entry that must run, the ones that not
         (["--mode", "headline", "--ncol", str(ncol)], ("lwsw",),
-         ("lw", "sw", "lwsw_fast")),
+         ("lw", "sw", "lwsw_fast", "lwsw_f64")),
         (["--mode", "headline", "--ncol", str(ncol), "--fast"],
-         ("lwsw_fast",), ("lwsw", "lw", "sw")),
+         ("lwsw_fast",), ("lwsw", "lw", "sw", "lwsw_f64")),
         (["--mode", "configs", "--ncol", str(n_cfg)], ("lwsw", "lw"),
-         ("sw", "lwsw_fast", "lw_fast")),
+         ("sw", "lwsw_fast", "lw_fast", "lwsw_f64")),
         (["--mode", "configs", "--ncol", str(n_cfg), "--fast"],
-         ("lwsw_fast", "lw_fast"), ("lwsw", "lw", "sw")))
+         ("lwsw_fast", "lw_fast"), ("lwsw", "lw", "sw", "lwsw_f64")))
     for argv, ran, not_ran in bench_runs:
         reset_counts()
         rc, line = bench_line(argv)
@@ -1492,6 +1589,7 @@ def run(card: str, work: str) -> int:
     wait_s = time.perf_counter() - t_wait
     ring = cuda_sanitize.run_checked(
         configs=RING_CHECKED, plant_configs=RING_PLANT,
+        f64_configs=cuda_sanitize.CHECKED_F64,
         runs=[(0, 0, None), (cuda_sanitize.SEEDS[0],
                              cuda_sanitize.JITTER_NS, cuda_sanitize.BLOCKS)])
     if not ring["clean"]:
@@ -1510,19 +1608,23 @@ def run(card: str, work: str) -> int:
         print(f"chip_smoke: FAIL {failures}", file=sys.stderr)
         return 1
     print(card)
-    entries = [(name, main_launches, worst_abs, times, bounds)
+    # (entry name, kernel, key of its records, the records)
+    entries = [(name, name, name, main_launches, worst_abs, times, bounds)
                for name in KERNELS]
-    entries += [(name, fast_launches, fast_abs, fast_times, fast_bounds)
-                for name in KERNELS]
+    entries += [(f"{name}_fast", name, name, fast_launches, fast_abs,
+                 fast_times, fast_bounds) for name in KERNELS]
+    entries.append(("lwsw_f64", "lwsw", "lwsw_f64", main_launches,
+                    worst_abs, times, bounds))
     # library_ms: no one PyTorch call computes gas optics and a solver.
+    # plain_ms: the plain version at the entry's precision (f32, or f64).
     print(json.dumps({"kernels": [{
-        "name": name if tm is times else f"{name}_fast", "route": "cuda",
-        "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-        "launches": launches[name], "max_abs_err": err[name],
-        "ms": tm[name][0], "plain_ms": tm[name][1],
-        "bound_ms": bd[name]["bound_ms"], "bound_by": bd[name]["bound_by"],
+        "name": entry, "route": "cuda",
+        "source": KERNELS[kernel][0], "replaces": KERNELS[kernel][1],
+        "launches": launches[key], "max_abs_err": err[key],
+        "ms": tm[key][0], "plain_ms": tm[key][1],
+        "bound_ms": bd[key]["bound_ms"], "bound_by": bd[key]["bound_by"],
         "library_ms": None}
-        for name, launches, err, tm, bd in entries]}))
+        for entry, kernel, key, launches, err, tm, bd in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

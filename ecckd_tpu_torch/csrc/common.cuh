@@ -23,8 +23,21 @@
 // float interpolates the f32 table exactly (the JAX package's bf16x3
 // mode); __nv_bfloat16 is the fast mode (its bf16 mode): bf16 table
 // entries and bf16-rounded corner weights, f32 sums, as the TPU's one bf16
-// MXU pass of the one-hot contraction computes.  Each kernel library
-// holds both instantiations, with one entry point each.
+// MXU pass of the one-hot contraction computes; double interpolates the
+// f64 table exactly.  Each kernel library holds the float and bf16
+// instantiations, the merged one also the double one, with one entry
+// point each.
+//
+// Compute type.  T also sets the type R = Real<T> that every value is
+// computed, staged, summed and written in: float for the float and bf16
+// tables, double for the double one (rte-rrtmgp's default working
+// precision).  The structs below are templates on R (float under their
+// plain names), and the library calls, floors and guards are R's: expm1,
+// log and sqrt in double, the thin-layer threshold sqrt(eps) and the
+// resonance guard eps * tau^2 at R's epsilon, and the two-stream's tau
+// floor (tau_floor) as far below double's epsilon as 1e-8 lies below
+// float's.  At R = float every expression is the one the kernels computed
+// before R existed.
 //
 // Shapes.  The optics and sweeps take a band's g-points and its dense and
 // LUT gas counts (Shape<NG, ND, NL>) and the grid's temperature points NT
@@ -36,8 +49,9 @@
 // Accuracy.  Built without fast-math: expm1f/expf/logf/sqrtf and the
 // divides are the IEEE-accurate calls (a fast exp cost ~3e-4 in flux on
 // the TPU); only the Planck source's division by pi is a product with
-// 1/pi.  The floors of common.two_stream_g0 (tau >= 1e-8, the eps*tau^2
-// guard on D) and the thin-layer threshold sqrt(eps_f32) are kept.  The
+// 1/pi.  The floors of common.two_stream_g0 (tau >= tau_floor, 1e-8 at
+// float; the eps*tau^2 guard on D) and the thin-layer threshold sqrt(eps)
+// are kept.  The
 // per-gas, per-g-point clamp max(w*k, 0) is the reference's
 // (optical_depth.py), so no table sign precondition applies.
 //
@@ -58,73 +72,148 @@ constexpr int MAX_SLICES = 16;
 constexpr int KIND_DENSE = 0;
 constexpr int VMR_NONE = 0;
 constexpr int VMR_PROFILE = 1;
-constexpr float INV_PI_F = (float)(1.0 / 3.14159265359);
-constexpr float MOLES_PER_PA_F = (float)(1.0 / (9.80665 * 0.001 * 28.970));
+
+// The compute type of table element type T (see "Compute type").
+template <typename T>
+struct ComputeOf {
+  using type = float;
+};
+template <>
+struct ComputeOf<double> {
+  using type = double;
+};
+template <typename T>
+using Real = typename ComputeOf<T>::type;
+
+// The constants and library calls at compute type R: the float ones are
+// the calls the kernels made before R existed.
+template <typename R>
+__device__ __forceinline__ R inv_pi() {
+  return (R)(1.0 / 3.14159265359);
+}
+template <typename R>
+__device__ __forceinline__ R moles_per_pa() {
+  return (R)(1.0 / (9.80665 * 0.001 * 28.970));
+}
+template <typename R>
+__device__ __forceinline__ R epsilon() {
+  return std::is_same<R, float>::value ? (R)FLT_EPSILON : (R)DBL_EPSILON;
+}
+// The floor of two_stream_g0's scattering algebra: 1e-8 at float; at
+// double the same multiple of the type's epsilon, 1e-8 * 2^-29 (at 1e-8 a
+// double solve reads 1.6e-9 of the SW flux scale against the reference
+// from the layers it floors, against 5.5e-14 without).
+template <typename R>
+__device__ __forceinline__ R tau_floor() {
+  return std::is_same<R, float>::value
+             ? (R)1e-8
+             : (R)(1e-8 * (DBL_EPSILON / FLT_EPSILON));
+}
+__device__ __forceinline__ float r_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double r_min(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float r_floor(float x) { return floorf(x); }
+__device__ __forceinline__ double r_floor(double x) { return floor(x); }
+__device__ __forceinline__ float r_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double r_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float r_log(float x) { return logf(x); }
+__device__ __forceinline__ double r_log(double x) { return log(x); }
+__device__ __forceinline__ float r_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double r_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float r_expm1(float x) { return expm1f(x); }
+__device__ __forceinline__ double r_expm1(double x) { return expm1(x); }
+
+// An int kept in a staged word (the layer parameters' table rows and
+// Planck points): its bits in a float, the low word of a double.
+__device__ __forceinline__ float int_word(int i, float) {
+  return __int_as_float(i);
+}
+__device__ __forceinline__ double int_word(int i, double) {
+  return __hiloint2double(0, i);
+}
+__device__ __forceinline__ int word_int(float x) { return __float_as_int(x); }
+__device__ __forceinline__ int word_int(double x) { return __double2loint(x); }
 
 }  // namespace
 
-struct GasSlice {
+// The structs at compute type R; under their plain names (GasSlice, ...)
+// at float.
+template <typename R>
+struct GasSliceT {
   int kind;      // KIND_DENSE or 1 (LUT)
   int row0;      // first (p*n_t + t) row of this gas's table in Band::table
   int vmr_kind;  // VMR_NONE (composite), VMR_PROFILE or 2 (per column)
   int vmr_idx;   // row in vmr_prof / vmr_scal
   int n_mf;      // LUT mole-fraction axis length
-  float a, b;    // dense weight = simple_w * (a*vmr + b)
-  float mf0, log_mf0, d_log, v_hi;  // LUT axis; v_hi = n_mf - 1.001
+  R a, b;        // dense weight = simple_w * (a*vmr + b)
+  R mf0, log_mf0, d_log, v_hi;  // LUT axis; v_hi = n_mf - 1.001
 };
 
 // One model's gas plan and flat table.  The dense gases come first
 // (s[0, ndense)), then the LUT gases.
-struct Band {
-  const void* table;  // (rows, ngpt), g fastest: float, or __nv_bfloat16
+template <typename R>
+struct BandT {
+  const void* table;  // (rows, ngpt), g fastest: R, or __nv_bfloat16
                       // in the fast mode
   int ngpt;
   int nslice;
   int ndense;
-  GasSlice s[MAX_SLICES];
+  GasSliceT<R> s[MAX_SLICES];
 };
 
 // One model's (pressure, temperature) interpolation grid.
-struct Grid {
-  const float* t_first;  // (n_p) first temperature-grid column
+template <typename R>
+struct GridT {
+  const R* t_first;  // (n_p) first temperature-grid column
   int n_p, n_t;
-  float log_p0, d_log_p, p_hi, dt, t_hi;
+  R log_p0, d_log_p, p_hi, dt, t_hi;
 };
 
-// Per-column inputs the bands of one solve share, float32, row-major,
-// column outermost.
-struct Atmos {
-  const float* plev;      // (ncol, nlay+1)
-  const float* tlay;      // (ncol, nlay)
-  const float* vmr_prof;  // (ncol, n_prof, nlay)
-  const float* vmr_scal;  // (ncol, n_scal)
+// Per-column inputs the bands of one solve share, row-major, column
+// outermost.
+template <typename R>
+struct AtmosT {
+  const R* plev;      // (ncol, nlay+1)
+  const R* tlay;      // (ncol, nlay)
+  const R* vmr_prof;  // (ncol, n_prof, nlay)
+  const R* vmr_scal;  // (ncol, n_scal)
   int ncol, nlay, n_prof, n_scal;
 };
 
 // What the LW solve of one band takes beyond its gas optics.
-struct LwSolve {
-  const float* tlev;    // (ncol, nlay+1)
-  const float* tsfc;    // (ncol)
-  const float* emis;    // (ncol, ngpt)
-  const float* planck;  // (n_planck, ngpt)
-  float* up;            // (ncol, nlay+1), each level written once
-  float* dn;
+template <typename R>
+struct LwSolveT {
+  const R* tlev;    // (ncol, nlay+1)
+  const R* tsfc;    // (ncol)
+  const R* emis;    // (ncol, ngpt)
+  const R* planck;  // (n_planck, ngpt)
+  R* up;            // (ncol, nlay+1), each level written once
+  R* dn;
   int n_planck, n_ang;
-  float planck_t0, planck_dt;
-  float sec[4];
-  float w2pi[4];
+  R planck_t0, planck_dt;
+  R sec[4];
+  R w2pi[4];
 };
 
 // What the SW solve of one band takes beyond its gas optics.
-struct SwSolve {
-  const float* alb;        // (ncol, ngpt)
-  const float* mu0;        // (ncol)
-  const float* tsi_scale;  // (ncol)
-  const float* solar;      // (ngpt)
-  const float* ray;        // (ngpt)
-  float* up;               // (ncol, nlay+1), each level written once
-  float* dn;
+template <typename R>
+struct SwSolveT {
+  const R* alb;        // (ncol, ngpt)
+  const R* mu0;        // (ncol)
+  const R* tsi_scale;  // (ncol)
+  const R* solar;      // (ngpt)
+  const R* ray;        // (ngpt)
+  R* up;               // (ncol, nlay+1), each level written once
+  R* dn;
 };
+
+using GasSlice = GasSliceT<float>;
+using Band = BandT<float>;
+using Grid = GridT<float>;
+using Atmos = AtmosT<float>;
+using LwSolve = LwSolveT<float>;
+using SwSolve = SwSolveT<float>;
 
 namespace {
 
@@ -143,23 +232,26 @@ __device__ __forceinline__ int fixed_or(int runtime) {
   return N > 0 ? N : runtime;
 }
 
+template <typename R>
 struct FracIdx {
   int i0;
-  float w1;
+  R w1;
 };
 
 // idx = clip(raw, 0, hi); i0 = floor(idx); w1 = idx - i0 (ops/interp.py).
-__device__ __forceinline__ FracIdx frac_index(float raw, float hi) {
-  const float idx = fminf(fmaxf(raw, 0.0f), hi);
-  const float f = floorf(idx);
+template <typename R>
+__device__ __forceinline__ FracIdx<R> frac_index(R raw, R hi) {
+  const R idx = r_min(r_max(raw, (R)0), hi);
+  const R f = r_floor(idx);
   return {static_cast<int>(f), idx - f};
 }
 
 // Lane-uniform interpolation point of layer j of column c.
+template <typename R>
 struct LayerPoint {
   int ip, it;
-  float wp, wt;
-  float simple_w;  // moles of dry air per m^2
+  R wp, wt;
+  R simple_w;  // moles of dry air per m^2
 };
 
 // Entry: the table's element type.  The fast mode rounds the corner weights
@@ -167,28 +259,30 @@ struct LayerPoint {
 // there t0 is formed without FMA contraction, as the plain version's
 // separate products and sum form it (ops/cuda/common.py interp_points),
 // so both compute the same float32 weights.  The exact mode keeps its
-// code.
-template <typename Entry>
-__device__ __forceinline__ LayerPoint layer_point(const Atmos& A,
-                                                  const Grid& G, int c,
-                                                  int j) {
-  const float* pl = A.plev + (size_t)c * (A.nlay + 1);
-  const float p0 = pl[j], p1 = pl[j + 1];
-  const float log_p = logf(0.5f * (p1 + p0));
-  const FracIdx P = frac_index((log_p - G.log_p0) / G.d_log_p, G.p_hi);
+// code (float and double alike).
+template <typename Entry, typename R = Real<Entry>>
+__device__ __forceinline__ LayerPoint<R> layer_point(const AtmosT<R>& A,
+                                                     const GridT<R>& G, int c,
+                                                     int j) {
+  const R* pl = A.plev + (size_t)c * (A.nlay + 1);
+  const R p0 = pl[j], p1 = pl[j + 1];
+  const R log_p = r_log((R)0.5 * (p1 + p0));
+  const FracIdx<R> P = frac_index((log_p - G.log_p0) / G.d_log_p, G.p_hi);
   // Pressure-dependent temperature origin (gas_optics_ecckd.f90:131-132).
-  const float t0 =
-      std::is_same<Entry, float>::value
-          ? (1.0f - P.w1) * G.t_first[P.i0] + P.w1 * G.t_first[P.i0 + 1]
-          : __fadd_rn(__fmul_rn(1.0f - P.w1, G.t_first[P.i0]),
-                      __fmul_rn(P.w1, G.t_first[P.i0 + 1]));
-  const FracIdx T =
+  R t0;
+  if constexpr (std::is_same<Entry, __nv_bfloat16>::value)
+    t0 = __fadd_rn(__fmul_rn(1.0f - P.w1, G.t_first[P.i0]),
+                   __fmul_rn(P.w1, G.t_first[P.i0 + 1]));
+  else
+    t0 = ((R)1 - P.w1) * G.t_first[P.i0] + P.w1 * G.t_first[P.i0 + 1];
+  const FracIdx<R> T =
       frac_index((A.tlay[(size_t)c * A.nlay + j] - t0) / G.dt, G.t_hi);
-  return {P.i0, T.i0, P.w1, T.w1, MOLES_PER_PA_F * (p1 - p0)};
+  return {P.i0, T.i0, P.w1, T.w1, moles_per_pa<R>() * (p1 - p0)};
 }
 
-__device__ __forceinline__ float vmr_of(const Atmos& A, const GasSlice& S,
-                                        int c, int j) {
+template <typename R>
+__device__ __forceinline__ R vmr_of(const AtmosT<R>& A,
+                                    const GasSliceT<R>& S, int c, int j) {
   if (S.vmr_kind == VMR_PROFILE)
     return A.vmr_prof[((size_t)c * A.n_prof + S.vmr_idx) * A.nlay + j];
   return A.vmr_scal[(size_t)c * A.n_scal + S.vmr_idx];
@@ -202,88 +296,91 @@ __device__ __forceinline__ float bf16_round(float x) {
 // g-independent part, computed once per layer or level (PlanckAt), and its
 // per-g value (planck_value): linear interpolation with top-end
 // extrapolation, below the table B = (T/T0)*row0, times 1/pi.
+template <typename R>
 struct PlanckAt {
   int off;  // i0 * ngpt, or -1 below the table
-  float w;  // w1, or T/T0 below the table
+  R w;      // w1, or T/T0 below the table
 };
 
-__device__ __forceinline__ PlanckAt planck_at(const LwSolve& W, int ng,
-                                              float temp) {
-  const float idx = (temp - W.planck_t0) / W.planck_dt;
+template <typename R>
+__device__ __forceinline__ PlanckAt<R> planck_at(const LwSolveT<R>& W,
+                                                 int ng, R temp) {
+  const R idx = (temp - W.planck_t0) / W.planck_dt;
   const int i0 = static_cast<int>(
-      fminf(fmaxf(floorf(idx), 0.0f), (float)(W.n_planck - 2)));
-  if (idx >= 0.0f) return {i0 * ng, idx - (float)i0};
+      r_min(r_max(r_floor(idx), (R)0), (R)(W.n_planck - 2)));
+  if (idx >= (R)0) return {i0 * ng, idx - (R)i0};
   return {-1, temp / W.planck_t0};
 }
 
 // The value at g-point g of the Planck table planck.
-__device__ __forceinline__ float planck_value(const float* planck, int g,
-                                              int ng, int off, float w) {
-  const float* q = planck + (unsigned)(max(off, 0) + g);
-  const float x = q[0], y = q[ng];
-  const float b = off >= 0 ? (1.0f - w) * x + w * y : w * x;
-  return b * INV_PI_F;
+template <typename R>
+__device__ __forceinline__ R planck_value(const R* planck, int g, int ng,
+                                          int off, R w) {
+  const R* q = planck + (unsigned)(max(off, 0) + g);
+  const R x = q[0], y = q[ng];
+  const R b = off >= 0 ? ((R)1 - w) * x + w * y : w * x;
+  return b * inv_pi<R>();
 }
 
 // common.lw_layer_sources: transmittance and linear-in-tau path sources at
 // slant optical depth ts; thin-layer series below thresh.
-__device__ __forceinline__ void lw_layer_sources(float ts, float lay,
-                                                 float lev_dec, float lev_inc,
-                                                 float thresh, float& tr,
-                                                 float& src_dn,
-                                                 float& src_up) {
-  const float omt = -expm1f(-ts);
-  tr = 1.0f - omt;
-  const float fact = ts > thresh ? omt / fmaxf(ts, thresh) - tr
-                                 : ts * (0.5f - ts * (1.0f / 3.0f));
-  src_dn = omt * lev_inc + 2.0f * fact * (lay - lev_inc);
-  src_up = omt * lev_dec + 2.0f * fact * (lay - lev_dec);
+template <typename R>
+__device__ __forceinline__ void lw_layer_sources(R ts, R lay, R lev_dec,
+                                                 R lev_inc, R thresh, R& tr,
+                                                 R& src_dn, R& src_up) {
+  const R omt = -r_expm1(-ts);
+  tr = (R)1 - omt;
+  const R fact = ts > thresh ? omt / r_max(ts, thresh) - tr
+                             : ts * ((R)0.5 - ts * ((R)1 / (R)3));
+  src_dn = omt * lev_inc + (R)2 * fact * (lay - lev_inc);
+  src_up = omt * lev_dec + (R)2 * fact * (lay - lev_dec);
 }
 
 // common.two_stream_g0: g = 0 two-stream coefficients rescaled by tau
 // (u = Rayleigh optical depth <= tau).
-__device__ __forceinline__ void two_stream_g0(float tau, float u, float mu0,
-                                              float inv_mu0, float& r_dif,
-                                              float& t_dif, float& r_dir,
-                                              float& t_dir, float& t) {
-  const float eps = FLT_EPSILON;
-  const float taus = fmaxf(tau, 1e-8f);
-  const float ktau =
-      sqrtf(fmaxf((taus - u) * (4.0f * taus - u), 1e-12f * (taus * taus)));
-  const float em1 = -expm1f(-ktau);
-  const float m1 = em1 * (2.0f - em1);  // 1 - e^2
-  const float e = 1.0f - em1;           // e^-ktau
-  const float e2 = 1.0f - m1;           // e^-2ktau
-  const float tm1 = -expm1f(-tau * inv_mu0);  // 1 - t, true tau
-  t = 1.0f - tm1;
-  const float km = ktau * mu0;
-  const float tau2 = taus * taus;
-  float d = tau2 - km * km;
-  d = fabsf(d) >= eps * tau2 ? d : eps * tau2;
-  const float g1t = 2.0f * taus - 1.25f * u;
-  const float al = taus - 0.25f * u;
-  const float a = ktau * (1.0f + e2) + g1t * m1;
-  const float p = 1.0f / (a * d);
-  const float inv_a = d * p;
-  r_dif = (0.75f * u) * m1 * inv_a;
-  t_dif = (2.0f * ktau) * e * inv_a;
-  const float q = em1 * em1 + (2.0f * e) * tm1;
-  const float s = em1 * em1 - tm1 * (1.0f + e2);
-  const float u_p = u * p;
-  const float half_kt = 0.5f * ktau;
-  const float t_m1 = t * m1;
+template <typename R>
+__device__ __forceinline__ void two_stream_g0(R tau, R u, R mu0, R inv_mu0,
+                                              R& r_dif, R& t_dif, R& r_dir,
+                                              R& t_dir, R& t) {
+  const R eps = epsilon<R>();
+  const R taus = r_max(tau, tau_floor<R>());
+  const R ktau =
+      r_sqrt(r_max((taus - u) * ((R)4 * taus - u), (R)1e-12 * (taus * taus)));
+  const R em1 = -r_expm1(-ktau);
+  const R m1 = em1 * ((R)2 - em1);  // 1 - e^2
+  const R e = (R)1 - em1;           // e^-ktau
+  const R e2 = (R)1 - m1;           // e^-2ktau
+  const R tm1 = -r_expm1(-tau * inv_mu0);  // 1 - t, true tau
+  t = (R)1 - tm1;
+  const R km = ktau * mu0;
+  const R tau2 = taus * taus;
+  R d = tau2 - km * km;
+  d = r_abs(d) >= eps * tau2 ? d : eps * tau2;
+  const R g1t = (R)2 * taus - (R)1.25 * u;
+  const R al = taus - (R)0.25 * u;
+  const R a = ktau * ((R)1 + e2) + g1t * m1;
+  const R p = (R)1 / (a * d);
+  const R inv_a = d * p;
+  r_dif = ((R)0.75 * u) * m1 * inv_a;
+  t_dif = ((R)2 * ktau) * e * inv_a;
+  const R q = em1 * em1 + ((R)2 * e) * tm1;
+  const R s = em1 * em1 - tm1 * ((R)1 + e2);
+  const R u_p = u * p;
+  const R half_kt = (R)0.5 * ktau;
+  const R t_m1 = t * m1;
   r_dir = u_p * (al * (taus * m1 - km * q) + half_kt * (taus * q - km * m1));
   t_dir = -u_p *
           (al * (taus * t_m1 + km * s) + half_kt * (taus * s + km * t_m1));
-  r_dir = fminf(fmaxf(r_dir, 0.0f), 1.0f - t);
-  t_dir = fminf(fmaxf(t_dir, 0.0f), 1.0f - t - r_dir);
+  r_dir = r_min(r_max(r_dir, (R)0), (R)1 - t);
+  t_dir = r_min(r_max(t_dir, (R)0), (R)1 - t - r_dir);
 }
 
 // ---- Per-column staging ---------------------------------------------------
 //
 // Each kernel splits a column's solve into optics, parallel over the
 // column's layers, and sweeps, serial over them, that meet in one staging
-// area per column (float32; each row holds ngpt floats, g fastest), in
+// area per column (of words of the compute type R, float or double; each
+// row holds ngpt words, g fastest; "floats" below are such words), in
 // shared memory or, for columns too deep for it, in a device memory slice;
 // the merged kernel may split it, the LW rows in the slice and the rest in
 // shared memory, SW rows first (ops/cuda/staged.py stage_plan sizes it):
@@ -322,15 +419,17 @@ __device__ __forceinline__ int sw_row_alb(int nlay) { return 4 * nlay + 1; }
 // gas counts as constants where a kernel instantiates them (the dense
 // gases come first, Band), so the gas loops unroll without a kind branch
 // and their loads issue together.
-template <class S>
-__device__ __forceinline__ int band_params(const Atmos& A, const Grid& G,
-                                           const Band& B, const LayerPoint& L,
-                                           int c, int j, float* p) {
+template <class S, typename R>
+__device__ __forceinline__ int band_params(const AtmosT<R>& A,
+                                           const GridT<R>& G,
+                                           const BandT<R>& B,
+                                           const LayerPoint<R>& L, int c,
+                                           int j, R* p) {
   const int nd = fixed_or<S::ND>(B.ndense);
   const int ns = S::ND > 0 ? S::ND + S::NL : B.nslice;
 #pragma unroll
   for (int s = 0; s < nd; ++s) {
-    const GasSlice& D = B.s[s];
+    const GasSliceT<R>& D = B.s[s];
     p[s] = D.vmr_kind == VMR_NONE
                ? L.simple_w * D.b
                : L.simple_w * (D.a * vmr_of(A, D, c, j) + D.b);
@@ -338,33 +437,34 @@ __device__ __forceinline__ int band_params(const Atmos& A, const Grid& G,
   int k = nd;
 #pragma unroll
   for (int s = nd; s < ns; ++s, k += 3) {
-    const GasSlice& U = B.s[s];
-    const float vmr = vmr_of(A, U, c, j);
-    const FracIdx V = frac_index(
-        (logf(fmaxf(vmr, U.mf0)) - U.log_mf0) / U.d_log, U.v_hi);
-    p[k] = __int_as_float(U.row0 + V.i0 * G.n_p * G.n_t);
+    const GasSliceT<R>& U = B.s[s];
+    const R vmr = vmr_of(A, U, c, j);
+    const FracIdx<R> V = frac_index(
+        (r_log(r_max(vmr, U.mf0)) - U.log_mf0) / U.d_log, U.v_hi);
+    p[k] = int_word(U.row0 + V.i0 * G.n_p * G.n_t, R());
     p[k + 1] = V.w1;
     p[k + 2] = L.simple_w * vmr;
   }
   return k;
 }
 
-__device__ __forceinline__ void planck_params(const LwSolve& W, int ng,
-                                              float temp, float* p) {
-  const PlanckAt q = planck_at(W, ng, temp);
-  p[0] = __int_as_float(q.off);
+template <typename R>
+__device__ __forceinline__ void planck_params(const LwSolveT<R>& W, int ng,
+                                              R temp, R* p) {
+  const PlanckAt<R> q = planck_at(W, ng, temp);
+  p[0] = int_word(q.off, R());
   p[1] = q.w;
 }
 
 // The parameters of layer j of column c for the bands the kernel solves
 // (SL: the LW band's Shape, SS: the SW band's, NoBand for one it does not
 // solve; BL / BS are then null) into p.
-template <typename T, class SL, class SS>
-__device__ void layer_params(const Atmos& A, const Grid& G, const Band* BL,
-                             const Band* BS, const LwSolve* W, int c, int j,
-                             float* p) {
-  const LayerPoint L = layer_point<T>(A, G, c, j);
-  p[0] = __int_as_float(L.ip * G.n_t + L.it);
+template <typename T, class SL, class SS, typename R = Real<T>>
+__device__ void layer_params(const AtmosT<R>& A, const GridT<R>& G,
+                             const BandT<R>* BL, const BandT<R>* BS,
+                             const LwSolveT<R>* W, int c, int j, R* p) {
+  const LayerPoint<R> L = layer_point<T>(A, G, c, j);
+  p[0] = int_word(L.ip * G.n_t + L.it, R());
   p[1] = L.wp;
   p[2] = L.wt;
   p[3] = L.simple_w;
@@ -380,18 +480,16 @@ __device__ void layer_params(const Atmos& A, const Grid& G, const Band* BL,
 
 // The layer's bi-linear corner weights: Corners<T>(wp, wt)(tb, d_t, d_p)
 // interpolates the block at tb (d_t: the next temperature, d_p: the next
-// pressure) on the table of element type T.
+// pressure) on the table of element type T: exactly, in T, for float and
+// double.
 template <typename T>
-struct Corners;
-
-template <>
-struct Corners<float> {
-  float pw0, pw1, tw0, tw1;
-  __device__ __forceinline__ Corners(float wp, float wt)
-      : pw0(1.0f - wp), pw1(wp), tw0(1.0f - wt), tw1(wt) {}
-  __device__ __forceinline__ float operator()(const float* tb, int d_t,
-                                              int d_p) const {
-    const float* tp = tb + d_p;
+struct Corners {
+  T pw0, pw1, tw0, tw1;
+  __device__ __forceinline__ Corners(T wp, T wt)
+      : pw0((T)1 - wp), pw1(wp), tw0((T)1 - wt), tw1(wt) {}
+  __device__ __forceinline__ T operator()(const T* tb, int d_t,
+                                          int d_p) const {
+    const T* tp = tb + d_p;
     return tw0 * (pw0 * tb[0] + pw1 * tp[0]) +
            tw1 * (pw0 * tb[d_t] + pw1 * tp[d_t]);
   }
@@ -423,27 +521,27 @@ struct Corners<__nv_bfloat16> {
 // band B (p at the band's gas weights): idx is the element index of the
 // layer's (p, T) corner row at the g-point.  Dense gases then LUT gases,
 // each clamped at zero before accumulation (gas_optics_ecckd.f90:233-238).
-template <typename T, class S, int NT>
-__device__ __forceinline__ float gas_tau_params(const Band& B, const Grid& G,
-                                                int idx,
-                                                const Corners<T>& w,
-                                                const float* p) {
+template <typename T, class S, int NT, typename R = Real<T>>
+__device__ __forceinline__ R gas_tau_params(const BandT<R>& B,
+                                            const GridT<R>& G, int idx,
+                                            const Corners<T>& w,
+                                            const R* p) {
   const T* table = static_cast<const T*>(B.table);
   const int ng = fixed_or<S::NG>(B.ngpt), d_p = fixed_or<NT>(G.n_t) * ng;
   const int nd = fixed_or<S::ND>(B.ndense);
   const int ns = S::ND > 0 ? S::ND + S::NL : B.nslice;
-  float tau = 0.0f;
+  R tau = (R)0;
   for (int s = 0; s < nd; ++s)
-    tau += fmaxf(
-        p[s] * w(table + (unsigned)(idx + B.s[s].row0 * ng), ng, d_p), 0.0f);
+    tau += r_max(
+        p[s] * w(table + (unsigned)(idx + B.s[s].row0 * ng), ng, d_p), (R)0);
   const int d_v = G.n_p * d_p;
   for (int s = nd, k = nd; s < ns; ++s, k += 3) {
-    const T* tb = table + (unsigned)(idx + __float_as_int(p[k]) * ng);
-    const float w1 = p[k + 1];
-    const float lo = w(tb, ng, d_p);
-    const float hi = w(tb + d_v, ng, d_p);
-    const float coeff = (1.0f - w1) * lo + w1 * hi;
-    tau += fmaxf(p[k + 2] * coeff, 0.0f);
+    const T* tb = table + (unsigned)(idx + word_int(p[k]) * ng);
+    const R w1 = p[k + 1];
+    const R lo = w(tb, ng, d_p);
+    const R hi = w(tb + d_v, ng, d_p);
+    const R coeff = ((R)1 - w1) * lo + w1 * hi;
+    tau += r_max(p[k + 2] * coeff, (R)0);
   }
   return tau;
 }
@@ -455,31 +553,32 @@ __device__ __forceinline__ float gas_tau_params(const Band& B, const Grid& G,
 // parameters, carried as the next layer's upper one.  One warp, lane =
 // g-point.  The parameters may share the rows stored here: every store
 // follows the warp's last read of them.
-template <typename T, class S, int NT>
-__device__ __forceinline__ void lw_optics(const Atmos& A, const Grid& G,
-                                          const Band& B, const LwSolve& W,
-                                          int c, int ja, int jb, int lane,
-                                          const float* prm, int prm_stride,
-                                          float* lw_st) {
+template <typename T, class S, int NT, typename R = Real<T>>
+__device__ __forceinline__ void lw_optics(const AtmosT<R>& A,
+                                          const GridT<R>& G,
+                                          const BandT<R>& B,
+                                          const LwSolveT<R>& W, int c,
+                                          int ja, int jb, int lane,
+                                          const R* prm, int prm_stride,
+                                          R* lw_st) {
   const int nlay = A.nlay, ng = fixed_or<S::NG>(B.ngpt);
-  const float thresh = sqrtf(FLT_EPSILON);
-  const PlanckAt top = planck_at(W, ng, W.tlev[(size_t)c * (nlay + 1) + ja]);
+  const R thresh = r_sqrt(epsilon<R>());
+  const PlanckAt<R> top =
+      planck_at(W, ng, W.tlev[(size_t)c * (nlay + 1) + ja]);
   for (int g0 = 0; g0 < ng; g0 += 32) {
     const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : 0;
-    float b_top = planck_value(W.planck, g, ng, top.off, top.w);
+    R b_top = planck_value(W.planck, g, ng, top.off, top.w);
     for (int j = ja; j < jb; ++j) {
-      const float* p = prm + j * prm_stride;
+      const R* p = prm + j * prm_stride;
       const Corners<T> w(p[1], p[2]);
-      const float tau = gas_tau_params<T, S, NT>(
-          B, G, __float_as_int(p[0]) * ng + g, w, p + 8);
-      const float b_lay =
-          planck_value(W.planck, g, ng, __float_as_int(p[4]), p[5]);
-      const float b_bot =
-          planck_value(W.planck, g, ng, __float_as_int(p[6]), p[7]);
-      float* st = lw_st + j * ng + g;
+      const R tau = gas_tau_params<T, S, NT>(
+          B, G, word_int(p[0]) * ng + g, w, p + 8);
+      const R b_lay = planck_value(W.planck, g, ng, word_int(p[4]), p[5]);
+      const R b_bot = planck_value(W.planck, g, ng, word_int(p[6]), p[7]);
+      R* st = lw_st + j * ng + g;
       if (W.n_ang == 1) {
-        float tr, sdn, sup;
+        R tr, sdn, sup;
         lw_layer_sources(tau * W.sec[0], b_lay, b_top, b_bot, thresh, tr, sdn,
                          sup);
         __syncwarp();
@@ -506,33 +605,34 @@ __device__ __forceinline__ void lw_optics(const Atmos& A, const Grid& G,
 // SW band's gas weights at + prm_sw): the rows r_dif, t_dif, r_dir, t_dir
 // and t of sw_st.  As lw_optics, every store follows the warp's last read
 // of the layer's parameters.
-template <typename T, class Sh, int NT>
-__device__ __forceinline__ void sw_optics(const Atmos& A, const Grid& G,
-                                          const Band& B, const SwSolve& S,
-                                          int c, int ja, int jb, int lane,
-                                          const float* prm, int prm_stride,
-                                          int prm_sw, float* sw_st) {
+template <typename T, class Sh, int NT, typename R = Real<T>>
+__device__ __forceinline__ void sw_optics(const AtmosT<R>& A,
+                                          const GridT<R>& G,
+                                          const BandT<R>& B,
+                                          const SwSolveT<R>& S, int c,
+                                          int ja, int jb, int lane,
+                                          const R* prm, int prm_stride,
+                                          int prm_sw, R* sw_st) {
   const int nlay = A.nlay, ng = fixed_or<Sh::NG>(B.ngpt);
-  const float mu0 = S.mu0[c];
-  const float inv_mu0 = 1.0f / mu0;
+  const R mu0 = S.mu0[c];
+  const R inv_mu0 = (R)1 / mu0;
   for (int j = ja; j < jb; ++j) {
-    const float* p = prm + j * prm_stride;
+    const R* p = prm + j * prm_stride;
     const Corners<T> w(p[1], p[2]);
-    const float simple_w = p[3];
+    const R simple_w = p[3];
     for (int g0 = 0; g0 < ng; g0 += 32) {
       const bool act = g0 + lane < ng;
       const int g = act ? g0 + lane : 0;
-      const float tau_ray = simple_w * S.ray[g];
-      const float tau = gas_tau_params<T, Sh, NT>(
-                            B, G, __float_as_int(p[0]) * ng + g, w,
-                            p + prm_sw) +
-                        tau_ray;
-      float r_dif, t_dif, r_dir, t_dir, t;
+      const R tau_ray = simple_w * S.ray[g];
+      const R tau = gas_tau_params<T, Sh, NT>(B, G, word_int(p[0]) * ng + g,
+                                              w, p + prm_sw) +
+                    tau_ray;
+      R r_dif, t_dif, r_dir, t_dir, t;
       two_stream_g0(tau, tau_ray, mu0, inv_mu0, r_dif, t_dif, r_dir, t_dir,
                     t);
       __syncwarp();
       if (!act) continue;
-      float* st = sw_st + j * ng + g;
+      R* st = sw_st + j * ng + g;
       st[SW_RDIF * ng] = r_dif;
       st[sw_row_tdif(nlay) * ng] = t_dif;
       st[sw_row_src(nlay) * ng] = r_dir;
@@ -547,19 +647,19 @@ __device__ __forceinline__ void sw_optics(const Atmos& A, const Grid& G,
 // lane, so lanes [k * 32 / K, (k + 1) * 32 / K) end with the sum over all
 // 32 lanes of value k, in K - 1 + log2(32 / K) shuffles instead of
 // 5 K.  Returns this lane's sum; it is value lane / (32 / K)'s.
-template <int K>
-__device__ __forceinline__ float warp_sums(float (&v)[K], int lane) {
+template <int K, typename R>
+__device__ __forceinline__ R warp_sums(R (&v)[K], int lane) {
 #pragma unroll
   for (int n = K, off = 16; n > 1; n >>= 1, off >>= 1) {
     const bool hi = lane & off;
 #pragma unroll
     for (int q = 0; q < n / 2; ++q) {
-      const float keep = hi ? v[q + n / 2] : v[q];
-      const float send = hi ? v[q] : v[q + n / 2];
+      const R keep = hi ? v[q + n / 2] : v[q];
+      const R send = hi ? v[q] : v[q + n / 2];
       v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
     }
   }
-  float u = v[0];
+  R u = v[0];
 #pragma unroll
   for (int off = 16 / K; off > 0; off >>= 1)
     u += __shfl_xor_sync(0xffffffffu, u, off);
@@ -576,72 +676,72 @@ constexpr int SWEEP_K = 4;
 // The LW sweeps of column c at Gauss angle a from its staged rows st,
 // g-summed into this angle's level accumulators up / dn (lane 0 adds, over
 // g-chunks in order).
-template <int NG>
-__device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
-                                                 const Band& B, int nlay,
+template <int NG, typename R>
+__device__ __forceinline__ void lw_sweeps_staged(const LwSolveT<R>& W,
+                                                 const BandT<R>& B, int nlay,
                                                  int c, int lane, int a,
-                                                 const float* st,
-                                                 float* __restrict__ up,
-                                                 float* __restrict__ dn) {
+                                                 const R* st,
+                                                 R* __restrict__ up,
+                                                 R* __restrict__ dn) {
   constexpr int K = SWEEP_K;
   const int ng = fixed_or<NG>(B.ngpt);
-  const float thresh = sqrtf(FLT_EPSILON);
-  const float sec = W.sec[a], w2pi = W.w2pi[a];
-  const PlanckAt sfc = planck_at(W, ng, W.tsfc[c]);
+  const R thresh = r_sqrt(epsilon<R>());
+  const R sec = W.sec[a], w2pi = W.w2pi[a];
+  const PlanckAt<R> sfc = planck_at(W, ng, W.tsfc[c]);
   for (int g0 = 0; g0 < ng; g0 += 32) {
     const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : 0;
     // The row blocks at this g-point: tr / tau, src_dn / B(layer),
     // src_up / B(level).
-    const float* const r0 = st + g;
-    const float* const r1 = r0 + nlay * ng;
-    const float* const r2 = r1 + nlay * ng;
-    const float e = W.emis[(size_t)c * ng + g];
-    const float b_sfc = planck_value(W.planck, g, ng, sfc.off, sfc.w);
+    const R* const r0 = st + g;
+    const R* const r1 = r0 + nlay * ng;
+    const R* const r2 = r1 + nlay * ng;
+    const R e = W.emis[(size_t)c * ng + g];
+    const R b_sfc = planck_value(W.planck, g, ng, sfc.off, sfc.w);
     // Transmittance and source of layer j in one direction: staged at 1
     // angle, from the staged tau and Planck terms otherwise.
-    auto layer = [&](int j, bool down, float& tr, float& src) {
+    auto layer = [&](int j, bool down, R& tr, R& src) {
       const int o = j * ng;
       if (W.n_ang == 1) {
         tr = r0[o];
         src = (down ? r1 : r2)[o];
       } else {
-        float sdn, sup;
+        R sdn, sup;
         lw_layer_sources(r0[o] * sec, r1[o], r2[o], r2[o + ng], thresh, tr,
                          sdn, sup);
         src = down ? sdn : sup;
       }
     };
-    float rad = 0.0f;
+    R rad = (R)0;
     for (int j0 = 0; j0 < nlay; j0 += K) {
-      float tr[K] = {}, src[K] = {}, r[K];
+      R tr[K] = {}, src[K] = {}, r[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (j0 + k < nlay) layer(j0 + k, true, tr[k], src[k]);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 + k < nlay) rad = tr[k] * rad + src[k];
-        r[k] = act ? rad : 0.0f;
+        r[k] = act ? rad : (R)0;
       }
-      const float sum = warp_sums(r, lane);
+      const R sum = warp_sums(r, lane);
       const int k = lane / (32 / K);
       if (lane % (32 / K) == 0 && j0 + k < nlay) dn[j0 + k + 1] += w2pi * sum;
     }
-    rad = e * b_sfc + (1.0f - e) * rad;
-    float last[1] = {act ? rad : 0.0f};
-    const float sum = warp_sums(last, lane);
+    rad = e * b_sfc + ((R)1 - e) * rad;
+    R last[1] = {act ? rad : (R)0};
+    const R sum = warp_sums(last, lane);
     if (lane == 0) up[nlay] += w2pi * sum;
     for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
-      float tr[K] = {}, src[K] = {}, r[K];
+      R tr[K] = {}, src[K] = {}, r[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (j0 - k >= 0) layer(j0 - k, false, tr[k], src[k]);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 - k >= 0) rad = tr[k] * rad + src[k];
-        r[k] = act ? rad : 0.0f;
+        r[k] = act ? rad : (R)0;
       }
-      const float sum = warp_sums(r, lane);
+      const R sum = warp_sums(r, lane);
       const int k = lane / (32 / K);
       if (lane % (32 / K) == 0 && j0 - k >= 0) up[j0 - k] += w2pi * sum;
     }
@@ -652,34 +752,34 @@ __device__ __forceinline__ void lw_sweeps_staged(const LwSolve& W,
 // direct beam, adding up, adding down, g-summed into up / dn.  The adding
 // denominator is recomputed in the down pass from the staged albedo, the
 // same float operation on the same floats as in the up pass.
-template <int NG>
-__device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
-                                                 const Band& B, int nlay,
-                                                 int c, int lane, float* st,
-                                                 float* __restrict__ up,
-                                                 float* __restrict__ dn) {
+template <int NG, typename R>
+__device__ __forceinline__ void sw_sweeps_staged(const SwSolveT<R>& W,
+                                                 const BandT<R>& B, int nlay,
+                                                 int c, int lane, R* st,
+                                                 R* __restrict__ up,
+                                                 R* __restrict__ dn) {
   constexpr int K = SWEEP_K;
   const int ng = fixed_or<NG>(B.ngpt);
-  const float mu0 = W.mu0[c];
-  const float scale = W.tsi_scale[c];
+  const R mu0 = W.mu0[c];
+  const R scale = W.tsi_scale[c];
   for (int g0 = 0; g0 < ng; g0 += 32) {
     const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : 0;
     // The row blocks at this g-point (common.cuh "Per-column staging"),
     // row j of each at [j * ng].
-    float* const rdif = st + g;
-    float* const tdif = rdif + sw_row_tdif(nlay) * ng;
-    float* const src_r = rdif + sw_row_src(nlay) * ng;
-    float* const srcdn = rdif + sw_row_srcdn(nlay) * ng;
-    float* const alb_r = rdif + sw_row_alb(nlay) * ng;
+    R* const rdif = st + g;
+    R* const tdif = rdif + sw_row_tdif(nlay) * ng;
+    R* const src_r = rdif + sw_row_src(nlay) * ng;
+    R* const srcdn = rdif + sw_row_srcdn(nlay) * ng;
+    R* const alb_r = rdif + sw_row_alb(nlay) * ng;
     // Direct beam: r_dir and t_dir become the layer sources.
-    float direct = mu0 * scale * W.solar[g];
-    float top[1] = {act ? direct : 0.0f};
-    const float top_sum = warp_sums(top, lane);
+    R direct = mu0 * scale * W.solar[g];
+    R top[1] = {act ? direct : (R)0};
+    const R top_sum = warp_sums(top, lane);
     if (lane == 0) dn[0] += top_sum;
     for (int j0 = 0; j0 < nlay; j0 += K) {
       const int o = j0 * ng;
-      float r_dir[K] = {}, t_dir[K] = {}, t[K] = {}, r[K];
+      R r_dir[K] = {}, t_dir[K] = {}, t[K] = {}, r[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (j0 + k < nlay) {
@@ -694,7 +794,7 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
           t_dir[k] = t_dir[k] * direct;
           direct = t[k] * direct;
         }
-        r[k] = act ? direct : 0.0f;
+        r[k] = act ? direct : (R)0;
       }
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -702,21 +802,21 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
           src_r[o + k * ng] = r_dir[k];
           srcdn[o + k * ng] = t_dir[k];
         }
-      const float sum = warp_sums(r, lane);
+      const R sum = warp_sums(r, lane);
       const int k = lane / (32 / K);
       if (lane % (32 / K) == 0 && j0 + k < nlay) dn[j0 + k + 1] += sum;
     }
     // Upward adding pass (common.sw_adding_up_step): the albedo and the
     // source below each level replace t and the layer's upward source.
-    float albedo = W.alb[(size_t)c * ng + g];
-    float src = albedo * direct;
+    R albedo = W.alb[(size_t)c * ng + g];
+    R src = albedo * direct;
     if (act) {
       alb_r[nlay * ng] = albedo;
       src_r[nlay * ng] = src;
     }
     for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
       const int o = j0 * ng;
-      float r_dif[K] = {}, t_dif[K] = {}, su[K] = {}, sd[K] = {};
+      R r_dif[K] = {}, t_dif[K] = {}, su[K] = {}, sd[K] = {};
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (j0 - k >= 0) {
@@ -728,8 +828,8 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 - k >= 0) {
-          const float denom = 1.0f / (1.0f - r_dif[k] * albedo);
-          const float src_new =
+          const R denom = (R)1 / ((R)1 - r_dif[k] * albedo);
+          const R src_new =
               su[k] + t_dif[k] * denom * (src + albedo * sd[k]);
           albedo = r_dif[k] + t_dif[k] * t_dif[k] * albedo * denom;
           src = src_new;
@@ -744,16 +844,16 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
           alb_r[o - k * ng] = sd[k];
         }
     }
-    float toa[1] = {act ? src : 0.0f};
-    const float toa_sum = warp_sums(toa, lane);
+    R toa[1] = {act ? src : (R)0};
+    const R toa_sum = warp_sums(toa, lane);
     if (lane == 0) up[0] += toa_sum;
     // Downward adding pass (common.sw_adding_dn_step).
-    float dif = 0.0f;
+    R dif = (R)0;
     for (int j0 = 0; j0 < nlay; j0 += K) {
       const int o = j0 * ng;
-      float r_dif[K] = {}, t_dif[K] = {}, sd[K] = {}, alb[K] = {},
-            src_next[K] = {}, denom[K];
-      float v[2 * K];
+      R r_dif[K] = {}, t_dif[K] = {}, sd[K] = {}, alb[K] = {},
+        src_next[K] = {}, denom[K];
+      R v[2 * K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (j0 + k < nlay) {
@@ -763,20 +863,20 @@ __device__ __forceinline__ void sw_sweeps_staged(const SwSolve& W,
           alb[k] = alb_r[o + (k + 1) * ng];
           src_next[k] = src_r[o + (k + 1) * ng];
         }
-        denom[k] = 1.0f / (1.0f - r_dif[k] * alb[k]);
+        denom[k] = (R)1 / ((R)1 - r_dif[k] * alb[k]);
       }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        float upv = 0.0f;
+        R upv = (R)0;
         if (j0 + k < nlay) {
           dif = (t_dif[k] * dif + r_dif[k] * src_next[k] + sd[k]) * denom[k];
           upv = dif * alb[k] + src_next[k];
         }
-        v[k] = act ? dif : 0.0f;
-        v[K + k] = act ? upv : 0.0f;
+        v[k] = act ? dif : (R)0;
+        v[K + k] = act ? upv : (R)0;
       }
       // v[k]: diffuse down at level j0 + k + 1; v[K + k]: up there.
-      const float sum = warp_sums(v, lane);
+      const R sum = warp_sums(v, lane);
       const int k = lane / (16 / K);
       if (lane % (16 / K) == 0 && j0 + k % K < nlay)
         (k < K ? dn : up)[j0 + k % K + 1] += sum;

@@ -45,15 +45,24 @@
 // 124-208 at 1 angle), the split route keeps C = 2 with each slot's LW
 // rows in a device memory slice (L2-resident); a column too deep for
 // shared memory (nlay >~ 250 at these ngpt) is staged whole in the slice.
+//
+// Double precision.  lwsw_f64_kernel is the same body at compute type
+// double (common.cuh "Compute type") on the exact f64 table, for callers
+// that keep rte-rrtmgp's default working precision: every staged row,
+// layer parameter, accumulator and output is a double, so a slot takes
+// twice the bytes and staged.py's plan fits half the columns per block.
+// The same shapes, routes and parameter stage as at float; no fast mode.
 
 // Host interface (ctypes): ecckd_lwsw_launch(const LwswArgs*, stream)
-// (exact f32 table) and ecckd_lwsw_launch_fast (the fast mode's bf16
-// table, common.cuh "Table mode") each return cudaGetLastError() after the
-// launch; ecckd_lwsw_occupancy(const LwswArgs*, fast) returns the blocks
-// per SM of a launch configuration (tile.threads, tile.shared_bytes; the
-// route (staged.cuh staging_of), the bands' shapes and the grid's n_t
-// pick the instantiation), or -1;
-// ecckd_lwsw_args_size() lets the wrapper check its struct mirror
+// (exact f32 table), ecckd_lwsw_launch_fast (the fast mode's bf16 table,
+// common.cuh "Table mode") and ecckd_lwsw_launch_f64(const LwswArgs64*,
+// stream) (double) each return cudaGetLastError() after the launch;
+// ecckd_lwsw_occupancy(const LwswArgs*, fast) and
+// ecckd_lwsw_occupancy_f64(const LwswArgs64*) return the blocks per SM of
+// a launch configuration (tile.threads, tile.shared_bytes; the route
+// (staged.cuh staging_of), the bands' shapes and the grid's n_t pick the
+// instantiation), or -1; ecckd_lwsw_args_size() and
+// ecckd_lwsw_f64_args_size() let the wrapper check its struct mirrors
 // (ops/cuda/binding.py), and ecckd_cuda_error_string() names an error code.
 
 #include "staged.cuh"
@@ -65,6 +74,17 @@ struct LwswArgs {
   Band sw_band;
   LwSolve lw;
   SwSolve sw;
+  Tile tile;
+};
+
+// LwswArgs at compute type double.
+struct LwswArgs64 {
+  AtmosT<double> atm;
+  GridT<double> grid;
+  BandT<double> lw_band;
+  BandT<double> sw_band;
+  LwSolveT<double> lw;
+  SwSolveT<double> sw;
   Tile tile;
 };
 
@@ -88,29 +108,75 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                                           &args.lw, &args.sw, args.tile);
 }
 
+// Threads per SM of the double instantiations in shared memory (whole
+// or split; ops/cuda/staged.py F64_SM_THREADS): 80 registers each, where
+// 1024 threads at 64 spill 36-244 B (K1 at 65,536 x 60 on an H100: 10.35
+// against 11.44 ms; PERF.md §6).  Device staging keeps 1024 at 64
+// registers (two blocks of 512: 45.0 against 46.6 ms at nlay 137).
+constexpr int F64_SHARED_THREADS = 768;
+
+// Every route at compute type double.
+template <class SL, class SS, int NT, int STAGING>
+__global__ void __launch_bounds__(
+    STAGING == STAGE_DEVICE ? MAX_THREADS : F64_SHARED_THREADS, 1)
+    lwsw_f64_kernel(const __grid_constant__ LwswArgs64 args) {
+  staged_body<double, SL, SS, NT, STAGING>(args.atm, args.grid,
+                                           &args.lw_band, &args.sw_band,
+                                           &args.lw, &args.sw, args.tile);
+}
+
+// The kernels of table type T: the argument struct and the instantiation
+// of a route.
+template <typename T>
+struct Kernels {
+  using Args = LwswArgs;
+  template <class SL, class SS, int NT, int STAGING>
+  static KernelFn<Args> of() {
+    if constexpr (STAGING == STAGE_SPLIT)
+      return lwsw_split_kernel<T, SL, SS, NT>;
+    else
+      return lwsw_kernel<T, SL, SS, NT, STAGING == STAGE_SHARED>;
+  }
+};
+
+template <>
+struct Kernels<double> {
+  using Args = LwswArgs64;
+  template <class SL, class SS, int NT, int STAGING>
+  static KernelFn<Args> of() {
+    return lwsw_f64_kernel<SL, SS, NT, STAGING>;
+  }
+};
+
 // The shipped models' shapes as constants, whole in shared memory or
 // split; any other shape, and device staging, at run time.
-template <typename T>
-KernelFn<LwswArgs> pick(const LwswArgs* a) {
+template <typename T, typename Args = typename Kernels<T>::Args>
+KernelFn<Args> pick(const Args* a) {
+  using K = Kernels<T>;
   const Staging route = staging_of(a->tile);
   if (route == STAGE_DEVICE)
-    return lwsw_kernel<T, Shape<0>, Shape<0>, 0, false>;
+    return K::template of<Shape<0>, Shape<0>, 0, STAGE_DEVICE>();
   const bool split = route == STAGE_SPLIT;
   if (a->grid.n_t == SHIPPED_NT && has_shape<WideShape>(a->sw_band)) {
     if (has_shape<FsckShape>(a->lw_band))
-      return split ? lwsw_split_kernel<T, FsckShape, WideShape, SHIPPED_NT>
-                   : lwsw_kernel<T, FsckShape, WideShape, SHIPPED_NT, true>;
+      return split
+                 ? K::template of<FsckShape, WideShape, SHIPPED_NT,
+                                  STAGE_SPLIT>()
+                 : K::template of<FsckShape, WideShape, SHIPPED_NT,
+                                  STAGE_SHARED>();
     if (has_shape<RrtmgpShape>(a->lw_band))
       return split
-                 ? lwsw_split_kernel<T, RrtmgpShape, WideShape, SHIPPED_NT>
-                 : lwsw_kernel<T, RrtmgpShape, WideShape, SHIPPED_NT, true>;
+                 ? K::template of<RrtmgpShape, WideShape, SHIPPED_NT,
+                                  STAGE_SPLIT>()
+                 : K::template of<RrtmgpShape, WideShape, SHIPPED_NT,
+                                  STAGE_SHARED>();
   }
-  return split ? lwsw_split_kernel<T, Shape<0>, Shape<0>, 0>
-               : lwsw_kernel<T, Shape<0>, Shape<0>, 0, true>;
+  return split ? K::template of<Shape<0>, Shape<0>, 0, STAGE_SPLIT>()
+               : K::template of<Shape<0>, Shape<0>, 0, STAGE_SHARED>();
 }
 
-template <typename T>
-int launch(const LwswArgs* args, void* stream) {
+template <typename T, typename Args>
+int launch(const Args* args, void* stream) {
   return launch_staged(pick<T>(args), args, stream);
 }
 
@@ -129,6 +195,16 @@ extern "C" int ecckd_lwsw_launch_fast(const LwswArgs* args, void* stream) {
 extern "C" int ecckd_lwsw_occupancy(const LwswArgs* args, int fast) {
   return fast ? occupancy_staged(pick<__nv_bfloat16>(args), args)
               : occupancy_staged(pick<float>(args), args);
+}
+
+extern "C" int ecckd_lwsw_f64_args_size() { return (int)sizeof(LwswArgs64); }
+
+extern "C" int ecckd_lwsw_launch_f64(const LwswArgs64* args, void* stream) {
+  return launch<double>(args, stream);
+}
+
+extern "C" int ecckd_lwsw_occupancy_f64(const LwswArgs64* args) {
+  return occupancy_staged(pick<double>(args), args);
 }
 
 RING_ENTRY_POINTS(lwsw)

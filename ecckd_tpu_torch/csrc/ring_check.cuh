@@ -30,9 +30,10 @@
 //     rows and Planck points from them as integers, which 0 keeps in
 //     bounds where NaN would send a fault's reads out of them, and a read
 //     before they are written still changes the outputs;
-//   CANARY: nothing writes past a slot: RING_GUARD guard words after
-//     every slot (shared memory or the block's device slice; the host
-//     plan's col_floats includes them), and on the split route after
+//   CANARY: nothing writes past a slot: RING_GUARD guard words (of the
+//     staging's word type, float or double, each 32-bit half a canary)
+//     after every slot (shared memory or the block's device slice; the
+//     host plan's col_floats includes them), and on the split route after
 //     every slot's LW rows in the device slice, keep their values from
 //     the kernel's start to its end.
 // Seeded jitter (__nanosleep, ring_config) at the five hand-over points
@@ -95,22 +96,35 @@ __device__ __forceinline__ unsigned ring_canary(int slot, int q) {
   return ring_hash(0xC0FFEEu, blockIdx.x, slot, q) | 0x7F800001u;  // a NaN
 }
 
-// One block's ledgers and guards.  Built by every thread of the block at
-// the body's start, before any warp touches a slot.
+// A quiet NaN of the staging's word type R.
+__device__ __forceinline__ float ring_nan(float) {
+  return __int_as_float(0x7FC00000);
+}
+__device__ __forceinline__ double ring_nan(double) {
+  return __longlong_as_double(0x7FF8000000000000LL);
+}
+
+// One block's ledgers and guards, over staging of words of type R (float
+// or double).  Built by every thread of the block at the body's start,
+// before any warp touches a slot.
+template <typename R>
 struct RingCheck {
+  // 32-bit canary words in one guard of RING_GUARD words of R.
+  static constexpr int GUARD_WORDS = RING_GUARD * (int)(sizeof(R) / 4);
+
   unsigned* staged;  // [RING_MAX_SLOTS] shared: optics warps' rounds
   unsigned* swept;   // [RING_MAX_SLOTS] shared: sweep warps' rounds
   unsigned* params;  // [RING_MAX_SLOTS] shared: the stage's rounds (LW
                      // warps' writes of the slot's next parameters)
-  float* slots;      // the block's slots, col_floats apart
-  float* lw_slots;   // the split route's LW rows, lw_stride apart, or null
+  R* slots;          // the block's slots, col_floats apart
+  R* lw_slots;       // the split route's LW rows, lw_stride apart, or null
   int n_slots, col_floats, lw_stride, n_opt, n_set, n_prm, warp, lane;
   // The layer parameters: layer j's prm_len floats at prm_base + j *
   // prm_stride of a slot, for nlay layers.
   int prm_base, prm_stride, prm_len, nlay;
 
-  __device__ RingCheck(unsigned* ledger, float* slots_, int n_slots_,
-                       int col_floats_, float* lw_slots_, int lw_stride_,
+  __device__ RingCheck(unsigned* ledger, R* slots_, int n_slots_,
+                       int col_floats_, R* lw_slots_, int lw_stride_,
                        int n_opt_, int n_set_, int n_prm_, int prm_base_,
                        int prm_stride_, int prm_len_, int nlay_)
       : staged(ledger), swept(ledger + RING_MAX_SLOTS),
@@ -121,9 +135,9 @@ struct RingCheck {
         prm_base(prm_base_), prm_stride(prm_stride_), prm_len(prm_len_),
         nlay(nlay_) {
     if (threadIdx.x < 3 * RING_MAX_SLOTS) ledger[threadIdx.x] = 0;
-    for (int q = threadIdx.x; q < guards() * RING_GUARD; q += blockDim.x)
-      guard(q / RING_GUARD)[q % RING_GUARD] =
-          __uint_as_float(ring_canary(q / RING_GUARD, q % RING_GUARD));
+    for (int q = threadIdx.x; q < guards() * GUARD_WORDS; q += blockDim.x)
+      guard(q / GUARD_WORDS)[q % GUARD_WORDS] =
+          ring_canary(q / GUARD_WORDS, q % GUARD_WORDS);
     __syncthreads();
   }
 
@@ -132,11 +146,13 @@ struct RingCheck {
   __device__ __forceinline__ int guards() const {
     return lw_slots ? 2 * n_slots : n_slots;
   }
-  __device__ __forceinline__ float* guard(int k) const {
-    if (k >= n_slots)
-      return lw_slots + (size_t)(k - n_slots) * lw_stride + lw_stride -
-             RING_GUARD;
-    return slots + (size_t)k * col_floats + col_floats - RING_GUARD;
+  // Guard k's 32-bit words.
+  __device__ __forceinline__ unsigned* guard(int k) const {
+    R* g = k >= n_slots ? lw_slots + (size_t)(k - n_slots) * lw_stride +
+                              lw_stride - RING_GUARD
+                        : slots + (size_t)k * col_floats + col_floats -
+                              RING_GUARD;
+    return reinterpret_cast<unsigned*>(g);
   }
 
   // The seeded delay of hand-over point `point` of this warp's column i.
@@ -200,26 +216,26 @@ struct RingCheck {
     add(swept, s);
   }
 
-  // NaN over floats [a, b) of a slot's staging st, 0 over the layer
+  // NaN over words [a, b) of a slot's staging st, 0 over the layer
   // parameters' places among them (none unless ``with_params``), by this
   // warp's lanes.
-  __device__ __forceinline__ void poison(float* st, int a, int b,
+  __device__ __forceinline__ void poison(R* st, int a, int b,
                                          bool with_params = true) const {
     for (int q = a + lane; q < b; q += 32) {
       const int p = q - prm_base;
       const bool param = with_params && p >= 0 && p < nlay * prm_stride &&
                          p % prm_stride < prm_len;
-      st[q] = param ? 0.0f : __int_as_float(0x7FC00000);
+      st[q] = param ? (R)0 : ring_nan(R());
     }
   }
 
   // At the body's end (every thread): the guards kept their values.
   __device__ void finish() const {
     __syncthreads();
-    for (int q = threadIdx.x; q < guards() * RING_GUARD; q += blockDim.x)
-      if (__float_as_uint(guard(q / RING_GUARD)[q % RING_GUARD]) !=
-          ring_canary(q / RING_GUARD, q % RING_GUARD))
-        ring_violation(RING_CANARY, -1, q / RING_GUARD % n_slots);
+    for (int q = threadIdx.x; q < guards() * GUARD_WORDS; q += blockDim.x)
+      if (guard(q / GUARD_WORDS)[q % GUARD_WORDS] !=
+          ring_canary(q / GUARD_WORDS, q % GUARD_WORDS))
+        ring_violation(RING_CANARY, -1, q / GUARD_WORDS % n_slots);
   }
 };
 

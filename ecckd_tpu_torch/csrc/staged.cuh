@@ -36,6 +36,12 @@
 // warps (FULL) and back (FREE).  Every warp's body is in one kernel;
 // __launch_bounds__ holds 1024 threads per SM to 64 registers.
 //
+// The body computes, stages and sums in the compute type R = Real<T> of
+// its table type T (common.cuh "Compute type"): float, or double for the
+// merged kernel's f64 instantiations; the staging's words, the device
+// slice (Tile.stage, typed float* here for the f32 struct's sake) and
+// shared memory then hold R.
+//
 // Built with -DECCKD_CHECK_RING (ops/cuda/ring_check.py), the body also
 // checks that hand-over (csrc/ring_check.cuh: slot ledgers, NaN poison,
 // jitter, guard words); the RING(...) statements are that build's alone,
@@ -55,17 +61,19 @@
 
 // The staging plan of one launch (ops/cuda/staged.py stage_plan).
 struct Tile {
-  float* stage;      // device staging: (blocks, slots, col_floats) on the
-                     // device route, the LW rows (blocks, slots, lw_floats
-                     // + the checked build's guard) on the split route;
-                     // null when staged in shared memory alone
+  float* stage;      // device staging, in words of the compute type
+                     // (the f64 kernel reads it as double*): (blocks,
+                     // slots, col_floats) on the device route, the LW
+                     // rows (blocks, slots, lw_floats + the checked
+                     // build's guard) on the split route; null when
+                     // staged in shared memory alone
   int slots;         // C: columns staged per block (a ring)
   int sets;          // S: sets of sweep warps (S divides C)
   int blocks;        // persistent blocks of the launch
   int threads;       // threads per block: the optics warps, then S sets
                      // of sweep warps (one per LW angle, then one SW)
   int shared_bytes;  // dynamic shared memory per block; 0: device staging
-  int col_floats;    // staging floats per slot (shared or device)
+  int col_floats;    // staging words per slot (shared or device)
   int lw_floats;     // LW rows' floats (the SW rows follow, but on the
                      // split route, where they start the slot)
   int sw_floats;     // SW rows' floats (the accumulators follow)
@@ -90,8 +98,8 @@ using WideShape = Shape<27, 5, 1>;
 constexpr int SHIPPED_NT = 6;
 
 // Whether band B has shape S (g-points and gas counts).
-template <class S>
-bool has_shape(const Band& B) {
+template <class S, typename R>
+bool has_shape(const BandT<R>& B) {
   return B.ngpt == S::NG && B.ndense == S::ND && B.nslice == S::ND + S::NL;
 }
 
@@ -147,9 +155,11 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Slot s's LW rows on the split route: the block's device slice.
-__device__ __forceinline__ float* lw_slice(const Tile& P, int s) {
-  return P.stage +
+// Slot s's LW rows on the split route: the block's device slice, of
+// words of type R.
+template <typename R>
+__device__ __forceinline__ R* lw_slice(const Tile& P, int s) {
+  return reinterpret_cast<R*>(P.stage) +
          ((size_t)blockIdx.x * P.slots + s) * (P.lw_floats + SLICE_GUARD);
 }
 
@@ -175,11 +185,14 @@ constexpr long long PLANT_SPIN_CYCLES = 100000;
 // Where the routes differ, each takes its own statement (if constexpr),
 // so the whole-column routes compile as they did before the split.
 template <typename T, class SL, class SS, int NT, int STAGING>
-__device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
-                                            const Band* BL, const Band* BS,
-                                            const LwSolve* W,
-                                            const SwSolve* S,
+__device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
+                                            const GridT<Real<T>>& G,
+                                            const BandT<Real<T>>* BL,
+                                            const BandT<Real<T>>* BS,
+                                            const LwSolveT<Real<T>>* W,
+                                            const SwSolveT<Real<T>>* S,
                                             const Tile& P) {
+  using R = Real<T>;
   constexpr bool LW = SL::NG >= 0, SW = SS::NG >= 0;
   extern __shared__ __align__(16) float smem[];
   const int nlay = A.nlay, nlev = nlay + 1, ncol = A.ncol;
@@ -193,19 +206,20 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
   // sweep warps, done with a column's LW rows, write the layer parameters
   // of the slot's next column there before they free the slot.
   const bool stage = LW && SW && !SPLIT && P.prm_stage != 0;
-  float* slots = STAGING != STAGE_DEVICE
-                     ? smem
-                     : P.stage + (size_t)blockIdx.x * P.slots * P.col_floats;
+  R* slots = STAGING != STAGE_DEVICE
+                 ? reinterpret_cast<R*>(smem)
+                 : reinterpret_cast<R*>(P.stage) +
+                       (size_t)blockIdx.x * P.slots * P.col_floats;
   RING(__shared__ unsigned ring_ledger[3 * RING_MAX_SLOTS];
        const int sw_gases = SW ? 3 * BS->nslice - 2 * BS->ndense : 0;
-       const RingCheck ring(ring_ledger, slots, P.slots, P.col_floats,
-                            SPLIT ? lw_slice(P, 0) : nullptr,
-                            P.lw_floats + SLICE_GUARD, n_opt, n_set,
-                            stage ? n_lw : 0, P.prm_base, P.prm_stride,
-                            P.prm_sw + sw_gases, nlay);)
+       const RingCheck<R> ring(ring_ledger, slots, P.slots, P.col_floats,
+                               SPLIT ? lw_slice<R>(P, 0) : nullptr,
+                               P.lw_floats + SLICE_GUARD, n_opt, n_set,
+                               stage ? n_lw : 0, P.prm_base, P.prm_stride,
+                               P.prm_sw + sw_gases, nlay);)
   // The layer parameters of column c's layers j0, j0 + dj, ... below jb
   // into its slot st.
-  auto params = [&](int c, float* st, int j0, int dj, int jb) {
+  auto params = [&](int c, R* st, int j0, int dj, int jb) {
     for (int j = j0; j < jb; j += dj)
       layer_params<T, SL, SS>(A, G, BL, BS, W, c, j,
                               st + P.prm_base + j * P.prm_stride);
@@ -215,8 +229,8 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
     // the stage wrote them; then their optics, one layer at a time.
     for (int c = blockIdx.x, i = 0; c < ncol; c += gridDim.x, ++i) {
       const int s = i % P.slots;
-      float* st = slots + (size_t)s * P.col_floats;
-      const float* prm = st + P.prm_base;
+      R* st = slots + (size_t)s * P.col_floats;
+      const R* prm = st + P.prm_base;
       const int r = (warp + i) % n_opt;
       const int ja = r * nlay / n_opt, jb = (r + 1) * nlay / n_opt;
       // The planted fault ECCKD_PLANT_SKIP_FREE (tools/cuda_sanitize.py
@@ -239,7 +253,7 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
       }
       if constexpr (SPLIT) {
         lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
-                              P.prm_stride, lw_slice(P, s));
+                              P.prm_stride, lw_slice<R>(P, s));
         sw_optics<T, SS, NT>(A, G, *BS, *S, c, ja, jb, lane, prm,
                               P.prm_stride, P.prm_sw, st);
       } else {
@@ -275,15 +289,15 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
     for (int c = blockIdx.x + set * gridDim.x, i = set; c < ncol;
          c += P.sets * gridDim.x, i += P.sets) {
       const int s = i % P.slots;
-      float* st = slots + (size_t)s * P.col_floats;
-      float* acc;
+      R* st = slots + (size_t)s * P.col_floats;
+      R* acc;
       if constexpr (SPLIT) acc = st + P.sw_floats + 2 * nlev * a;
       else acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
       // The slot's next column, and whether it comes (a FREE to arrive).
       const int c_next = c + P.slots * gridDim.x;
       bar_sync(BAR_FULL + s, bar_threads);
       RING(ring.filled(i, s, c);)
-      for (int q = lane; q < 2 * nlev; q += 32) acc[q] = 0.0f;
+      for (int q = lane; q < 2 * nlev; q += 32) acc[q] = (R)0;
       __syncwarp();
       // The planted fault ECCKD_PLANT_SKIP_PRM: in round 0 of slot 0 the
       // LW warps free the slot before they write the next column's
@@ -308,23 +322,23 @@ __device__ __forceinline__ void staged_body(const Atmos& A, const Grid& G,
         }
       } else if constexpr (LW) {
         if constexpr (SPLIT)
-          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, lw_slice(P, s),
-                                   acc, acc + nlev);
+          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a,
+                                   lw_slice<R>(P, s), acc, acc + nlev);
         else
           lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, st, acc,
                                    acc + nlev);
         // The angles' sums, in angle order, split over the LW warps.
         bar_sync(BAR_LW_DONE + set, 32 * n_lw);
-        const float* acc0 = acc - 2 * nlev * a;
+        const R* acc0 = acc - 2 * nlev * a;
         for (int q = lane + 32 * a; q < 2 * nlev; q += 32 * n_lw) {
-          float v = 0.0f;
+          R v = (R)0;
           for (int b = 0; b < n_lw; ++b) v += acc0[2 * nlev * b + q];
           (q < nlev ? W->up : W->dn)[(size_t)c * nlev + q % nlev] = v;
         }
         // Every LW warp of the set is done with the LW rows: one poisons
         // them (on the split route they hold no layer parameters).
         RING(if (n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
-             if (a == 0) ring.poison(SPLIT ? lw_slice(P, s) : st, 0,
+             if (a == 0) ring.poison(SPLIT ? lw_slice<R>(P, s) : st, 0,
                                      P.lw_floats, !SPLIT);
              if (stage && n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
              else __syncwarp();)

@@ -2,21 +2,25 @@
 sw.py).
 
 * Mirrors of ``csrc/common.cuh``'s structs (``GasSlice``, ``Band``,
-  ``Grid``, ``Atmos``, ``LwSolve``, ``SwSolve``), of ``csrc/staged.cuh``'s
-  staging plan ``Tile`` and of the three kernels' argument structs composed
-  of them (``LwswArgs``, ``LwArgs``, ``SwArgs``: ``ARGS``); ``library``
-  checks each one's size against the C side's ``ecckd_<name>_args_size()``
-  before the first launch.
+  ``Grid``, ``Atmos``, ``LwSolve``, ``SwSolve``: the templates at float;
+  ``F64``: at double), of ``csrc/staged.cuh``'s staging plan ``Tile`` and
+  of the three kernels' argument structs composed of them (``LwswArgs``,
+  ``LwArgs``, ``SwArgs``, and the merged kernel's ``LwswArgs64``:
+  ``args_type``); ``library`` checks each one's size against the C side's
+  ``ecckd_<name>[_f64]_args_size()`` before the first launch.
 * Functions that fill them from the host preparation (ops/cuda/plan.py)
   for the columns [c0, c1) of one launch.
 * ``require_cuda`` / ``grad_refusal``: a wrapper raises on CPU tensors
   and on inputs that require grad (the kernels define no backward);
-  ``check_inputs``: device, float32, contiguity and shape checks that
-  raise on what a kernel does not take.
+  ``check_inputs``: device, dtype, contiguity and shape checks that raise
+  on what a kernel does not take.
+* The launch modes (``MODES``, ``mode_of``): "exact" (the float32 table),
+  "fast" (the fast mode's bf16 table; csrc/common.cuh "Table mode") and
+  "f64" (every input, the table and the compute type float64: the merged
+  kernel only, ``KERNEL_MODES``).
 * ``launch_chunks``: the launch loop over column chunks, which raises on a
-  non-zero ``cudaGetLastError()`` and counts launches per instantiation
-  (``launches`` for the exact table, ``fast_launches`` for the fast
-  mode's bf16 table; csrc/common.cuh "Table mode").  The staging route,
+  non-zero ``cudaGetLastError()`` and counts launches per mode
+  (``launches``, ``fast_launches``, ``f64_launches``).  The staging route,
   the parameter stage and the LW angles are not counted: the shape and
   the card decide them, read in ``staged.plan_for``.
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -45,48 +50,58 @@ shared memory, or for columns too deep for that (ops/cuda/staged.py
 stage_plan) a device slice per persistent block, whose count it caps."""
 
 
-class GasSlice(ctypes.Structure):
-    _fields_ = [("kind", ctypes.c_int), ("row0", ctypes.c_int),
-                ("vmr_kind", ctypes.c_int), ("vmr_idx", ctypes.c_int),
-                ("n_mf", ctypes.c_int), ("a", ctypes.c_float),
-                ("b", ctypes.c_float), ("mf0", ctypes.c_float),
-                ("log_mf0", ctypes.c_float), ("d_log", ctypes.c_float),
-                ("v_hi", ctypes.c_float)]
+def _structs(real) -> types.SimpleNamespace:
+    """Mirrors of csrc/common.cuh's struct templates at the compute type
+    ``real`` (ctypes.c_float or c_double): GasSlice, Band, Grid, Atmos,
+    LwSolve, SwSolve."""
+
+    class GasSlice(ctypes.Structure):
+        _fields_ = [("kind", ctypes.c_int), ("row0", ctypes.c_int),
+                    ("vmr_kind", ctypes.c_int), ("vmr_idx", ctypes.c_int),
+                    ("n_mf", ctypes.c_int), ("a", real), ("b", real),
+                    ("mf0", real), ("log_mf0", real), ("d_log", real),
+                    ("v_hi", real)]
+
+    class Band(ctypes.Structure):
+        # table: of the compute type, or bfloat16 in the fast mode (a void
+        # pointer in C).
+        _fields_ = [("table", ctypes.c_void_p), ("ngpt", ctypes.c_int),
+                    ("nslice", ctypes.c_int), ("ndense", ctypes.c_int),
+                    ("s", GasSlice * MAX_SLICES)]
+
+    class Grid(ctypes.Structure):
+        _fields_ = ([("t_first", ctypes.c_void_p), ("n_p", ctypes.c_int),
+                     ("n_t", ctypes.c_int)]
+                    + [(n, real) for n in ("log_p0", "d_log_p", "p_hi",
+                                           "dt", "t_hi")])
+
+    class Atmos(ctypes.Structure):
+        _fields_ = ([(n, ctypes.c_void_p) for n in ("plev", "tlay",
+                                                    "vmr_prof", "vmr_scal")]
+                    + [(n, ctypes.c_int) for n in ("ncol", "nlay", "n_prof",
+                                                   "n_scal")])
+
+    class LwSolve(ctypes.Structure):
+        _fields_ = ([(n, ctypes.c_void_p) for n in ("tlev", "tsfc", "emis",
+                                                    "planck", "up", "dn")]
+                    + [("n_planck", ctypes.c_int), ("n_ang", ctypes.c_int),
+                       ("planck_t0", real), ("planck_dt", real),
+                       ("sec", real * 4), ("w2pi", real * 4)])
+
+    class SwSolve(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_void_p) for n in ("alb", "mu0", "tsi_scale",
+                                                   "solar", "ray", "up",
+                                                   "dn")]
+
+    return types.SimpleNamespace(GasSlice=GasSlice, Band=Band, Grid=Grid,
+                                 Atmos=Atmos, LwSolve=LwSolve,
+                                 SwSolve=SwSolve)
 
 
-class Band(ctypes.Structure):
-    # table: float32, or bfloat16 in the fast mode (a void pointer in C).
-    _fields_ = [("table", ctypes.c_void_p), ("ngpt", ctypes.c_int),
-                ("nslice", ctypes.c_int), ("ndense", ctypes.c_int),
-                ("s", GasSlice * MAX_SLICES)]
-
-
-class Grid(ctypes.Structure):
-    _fields_ = ([("t_first", ctypes.c_void_p), ("n_p", ctypes.c_int),
-                 ("n_t", ctypes.c_int)]
-                + [(n, ctypes.c_float) for n in ("log_p0", "d_log_p", "p_hi",
-                                                 "dt", "t_hi")])
-
-
-class Atmos(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("plev", "tlay", "vmr_prof",
-                                                "vmr_scal")]
-                + [(n, ctypes.c_int) for n in ("ncol", "nlay", "n_prof",
-                                               "n_scal")])
-
-
-class LwSolve(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("tlev", "tsfc", "emis",
-                                                "planck", "up", "dn")]
-                + [("n_planck", ctypes.c_int), ("n_ang", ctypes.c_int),
-                   ("planck_t0", ctypes.c_float),
-                   ("planck_dt", ctypes.c_float),
-                   ("sec", ctypes.c_float * 4), ("w2pi", ctypes.c_float * 4)])
-
-
-class SwSolve(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in ("alb", "mu0", "tsi_scale",
-                                               "solar", "ray", "up", "dn")]
+F32 = _structs(ctypes.c_float)
+F64 = _structs(ctypes.c_double)
+GasSlice, Band, Grid = F32.GasSlice, F32.Band, F32.Grid
+Atmos, LwSolve, SwSolve = F32.Atmos, F32.LwSolve, F32.SwSolve
 
 
 class Tile(ctypes.Structure):
@@ -105,6 +120,13 @@ class LwswArgs(ctypes.Structure):
                 ("tile", Tile)]
 
 
+class LwswArgs64(ctypes.Structure):
+    """Mirror of csrc/lwsw.cu's LwswArgs64 (LwswArgs at double)."""
+    _fields_ = [("atm", F64.Atmos), ("grid", F64.Grid),
+                ("lw_band", F64.Band), ("sw_band", F64.Band),
+                ("lw", F64.LwSolve), ("sw", F64.SwSolve), ("tile", Tile)]
+
+
 class LwArgs(ctypes.Structure):
     """Mirror of csrc/lw.cu's LwArgs."""
     _fields_ = [("atm", Atmos), ("grid", Grid), ("band", Band),
@@ -118,39 +140,76 @@ class SwArgs(ctypes.Structure):
 
 
 ARGS = {"lwsw": LwswArgs, "lw": LwArgs, "sw": SwArgs}
+"""The argument struct of each kernel's float32 entry points."""
+
+MODES = {"exact": ("", "launches"), "fast": ("_fast", "fast_launches"),
+         "f64": ("_f64", "f64_launches")}
+"""Launch mode -> (the entry points' suffix, the wrappers' launch count)."""
+KERNEL_MODES = {"lwsw": ("exact", "fast", "f64"), "lw": ("exact", "fast"),
+                "sw": ("exact", "fast")}
+"""The modes each kernel library has entry points for: float64 is the
+merged kernel's alone."""
+FAST_F64_REFUSAL = ("the fast mode (bf16 table) has no float64 entry point: "
+                    "the f64 kernel interpolates the exact table only")
+
+
+def args_type(name: str, mode: str = "exact"):
+    """The argument struct of kernel ``name``'s entry point in ``mode``."""
+    return LwswArgs64 if mode == "f64" else ARGS[name]
+
+
+def mode_of(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs) -> str:
+    """The launch mode of prepared inputs: "fast" for a bf16 table, "f64"
+    for float64 inputs, else "exact".  Raises on the fast mode at float64:
+    the f64 kernel interpolates the exact table only."""
+    f64 = atm.tlay.dtype == torch.float64
+    if band.arrays.fast and f64:
+        raise ValueError(FAST_F64_REFUSAL)
+    return "fast" if band.arrays.fast else "f64" if f64 else "exact"
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str, args_type) -> ctypes.CDLL:
+def library(name: str) -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/<name>.cu`` (``bind``): the plain
     build, with no defines, the only one a launch path loads.  Bound once
     per name, as ``build.load`` loads once: a launch finds the bound
     library in the cache."""
     from ecckd_tpu_torch.ops.cuda import build
-    return bind(build.load(name), name, args_type)
+    return bind(build.load(name), name)
 
 
-def bind(lib: ctypes.CDLL, name: str, args_type) -> ctypes.CDLL:
-    """Bind a build of ``csrc/<name>.cu`` (both entry points,
-    ``ecckd_<name>_launch`` and ``..._launch_fast``), checking that its
-    argument struct has the size of the ctypes mirror ``args_type``."""
-    for entry in (f"ecckd_{name}_launch", f"ecckd_{name}_launch_fast"):
-        launch = getattr(lib, entry)
-        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-    size = getattr(lib, f"ecckd_{name}_args_size")
-    size.argtypes = []
-    size.restype = ctypes.c_int
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Bind a build of ``csrc/<name>.cu`` (an entry point per mode of
+    ``KERNEL_MODES``: ``ecckd_<name>_launch``, ``..._launch_fast``,
+    ``..._launch_f64``), checking that each mode's argument struct has the
+    size of its ctypes mirror (``args_type``)."""
     lib.ecckd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ecckd_cuda_error_string.restype = ctypes.c_char_p
-    if size() != ctypes.sizeof(args_type):
-        raise RuntimeError(
-            f"{name} kernel argument layout mismatch: C {size()} bytes vs "
-            f"ctypes {ctypes.sizeof(args_type)}")
+    for mode in KERNEL_MODES[name]:
+        launch = getattr(lib, f"ecckd_{name}_launch{MODES[mode][0]}")
+        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+    for tag, mode in (("", "exact"), ("_f64", "f64")):
+        if mode not in KERNEL_MODES[name]:
+            continue
+        size = getattr(lib, f"ecckd_{name}{tag}_args_size")
+        size.argtypes = []
+        size.restype = ctypes.c_int
+        mirror = ctypes.sizeof(args_type(name, mode))
+        if size() != mirror:
+            raise RuntimeError(
+                f"{name} kernel argument layout mismatch ({mode}): C "
+                f"{size()} bytes vs ctypes {mirror}")
     return lib
 
 
-def band_struct(band: plan_mod.BandInputs) -> Band:
+def structs(dtype: torch.dtype) -> types.SimpleNamespace:
+    """The struct mirrors whose pointers carry ``dtype``: double at
+    float64, else float."""
+    return F64 if dtype == torch.float64 else F32
+
+
+def band_struct(band: plan_mod.BandInputs):
     slices = band.plan.slices
     if len(slices) > MAX_SLICES:
         raise ValueError(f"{len(slices)} contributing gases; the kernels "
@@ -158,15 +217,17 @@ def band_struct(band: plan_mod.BandInputs) -> Band:
     ndense = sum(sl.kind == plan_mod.KIND_DENSE for sl in slices)
     if any(sl.kind == plan_mod.KIND_DENSE for sl in slices[ndense:]):
         raise ValueError("the kernels take a gas plan's dense gases first")
-    out = Band(table=band.arrays.table.data_ptr(), ngpt=band.plan.ngpt,
-               nslice=len(slices), ndense=ndense)
+    S = structs(band.arrays.t_first.dtype)
+    out = S.Band(table=band.arrays.table.data_ptr(), ngpt=band.plan.ngpt,
+                 nslice=len(slices), ndense=ndense)
     for i, sl in enumerate(slices):
         vkind, vidx = (band.vmr_kinds[sl.vmr_slot] if sl.vmr_slot >= 0
                        else (plan_mod.VMR_NONE, 0))
-        out.s[i] = GasSlice(kind=sl.kind, row0=sl.row0, vmr_kind=vkind,
-                            vmr_idx=vidx, a=sl.a, b=sl.b)
+        out.s[i] = S.GasSlice(kind=sl.kind, row0=sl.row0, vmr_kind=vkind,
+                              vmr_idx=vidx, a=sl.a, b=sl.b)
         if sl.kind == plan_mod.KIND_LUT:
-            # The constants of interp.vmr_index, rounded to float32 once.
+            # The constants of interp.vmr_index, rounded to the compute
+            # type once.
             grid = sl.mf_grid
             out.s[i].n_mf = len(grid)
             out.s[i].mf0 = grid[0]
@@ -176,34 +237,34 @@ def band_struct(band: plan_mod.BandInputs) -> Band:
     return out
 
 
-def grid_struct(band: plan_mod.BandInputs) -> Grid:
+def grid_struct(band: plan_mod.BandInputs):
     """The band's own model's (p, T) grid."""
     arr = band.arrays
-    return Grid(t_first=arr.t_first.data_ptr(), n_p=band.n_p, n_t=band.n_t,
-                log_p0=arr.log_p0, d_log_p=arr.d_log_p,
-                p_hi=band.n_p - 1.0001, dt=arr.dt, t_hi=band.n_t - 1.0001)
+    return structs(arr.t_first.dtype).Grid(
+        t_first=arr.t_first.data_ptr(), n_p=band.n_p, n_t=band.n_t,
+        log_p0=arr.log_p0, d_log_p=arr.d_log_p, p_hi=band.n_p - 1.0001,
+        dt=arr.dt, t_hi=band.n_t - 1.0001)
 
 
-def atmos_struct(atm: plan_mod.Atmosphere, c0: int, c1: int) -> Atmos:
-    return Atmos(plev=atm.plev[c0:c1].data_ptr(),
-                 tlay=atm.tlay[c0:c1].data_ptr(),
-                 vmr_prof=atm.vmr_prof[c0:c1].data_ptr(),
-                 vmr_scal=atm.vmr_col[c0:c1].data_ptr(), ncol=c1 - c0,
-                 nlay=atm.tlay.shape[1], n_prof=atm.vmr_prof.shape[1],
-                 n_scal=atm.vmr_col.shape[1])
+def atmos_struct(atm: plan_mod.Atmosphere, c0: int, c1: int):
+    return structs(atm.tlay.dtype).Atmos(
+        plev=atm.plev[c0:c1].data_ptr(), tlay=atm.tlay[c0:c1].data_ptr(),
+        vmr_prof=atm.vmr_prof[c0:c1].data_ptr(),
+        vmr_scal=atm.vmr_col[c0:c1].data_ptr(), ncol=c1 - c0,
+        nlay=atm.tlay.shape[1], n_prof=atm.vmr_prof.shape[1],
+        n_scal=atm.vmr_col.shape[1])
 
 
 def lw_struct(lw: plan_mod.LwInputs, c0: int, c1: int, up: torch.Tensor,
-              dn: torch.Tensor) -> LwSolve:
+              dn: torch.Tensor):
     arr = lw.arrays
-    out = LwSolve(tlev=lw.tlev[c0:c1].data_ptr(),
-                  tsfc=lw.tsfc[c0:c1].data_ptr(),
-                  emis=lw.emis[c0:c1].data_ptr(),
-                  planck=arr.planck_function.data_ptr(),
-                  up=up[c0:c1].data_ptr(), dn=dn[c0:c1].data_ptr(),
-                  n_planck=arr.planck_function.shape[0],
-                  n_ang=lw.n_gauss_angles, planck_t0=arr.planck_t0,
-                  planck_dt=arr.planck_dt)
+    out = structs(lw.tlev.dtype).LwSolve(
+        tlev=lw.tlev[c0:c1].data_ptr(), tsfc=lw.tsfc[c0:c1].data_ptr(),
+        emis=lw.emis[c0:c1].data_ptr(),
+        planck=arr.planck_function.data_ptr(), up=up[c0:c1].data_ptr(),
+        dn=dn[c0:c1].data_ptr(), n_planck=arr.planck_function.shape[0],
+        n_ang=lw.n_gauss_angles, planck_t0=arr.planck_t0,
+        planck_dt=arr.planck_dt)
     for a, (sec, wgt) in enumerate(zip(*gauss_angles(lw.n_gauss_angles))):
         out.sec[a] = sec
         out.w2pi[a] = 2.0 * constants.PI * wgt
@@ -211,12 +272,12 @@ def lw_struct(lw: plan_mod.LwInputs, c0: int, c1: int, up: torch.Tensor,
 
 
 def sw_struct(sw: plan_mod.SwInputs, c0: int, c1: int, up: torch.Tensor,
-              dn: torch.Tensor) -> SwSolve:
-    return SwSolve(alb=sw.alb[c0:c1].data_ptr(), mu0=sw.mu0[c0:c1].data_ptr(),
-                   tsi_scale=sw.tsi_scale[c0:c1].data_ptr(),
-                   solar=sw.arrays.solar.data_ptr(),
-                   ray=sw.arrays.rayleigh.data_ptr(), up=up[c0:c1].data_ptr(),
-                   dn=dn[c0:c1].data_ptr())
+              dn: torch.Tensor):
+    return structs(sw.alb.dtype).SwSolve(
+        alb=sw.alb[c0:c1].data_ptr(), mu0=sw.mu0[c0:c1].data_ptr(),
+        tsi_scale=sw.tsi_scale[c0:c1].data_ptr(),
+        solar=sw.arrays.solar.data_ptr(), ray=sw.arrays.rayleigh.data_ptr(),
+        up=up[c0:c1].data_ptr(), dn=dn[c0:c1].data_ptr())
 
 
 def grad_refusal(*inputs) -> Optional[str]:
@@ -263,10 +324,14 @@ def band_tensors(prefix: str, band: plan_mod.BandInputs
 def check_inputs(kernel: str, atm: plan_mod.Atmosphere,
                  tensors: Dict[str, torch.Tensor],
                  shapes: Dict[str, Tuple[int, ...]],
-                 fast: bool = False) -> None:
-    """Raise unless every tensor is float32 (the tables bfloat16 if
-    ``fast``), contiguous and on tlay's CUDA device, and ``tensors[name]``
-    has ``shapes[name]``."""
+                 mode: str = "exact") -> None:
+    """Raise unless kernel ``kernel`` has an entry point in ``mode``
+    (``KERNEL_MODES``), every tensor is of the mode's dtype (float32, the
+    tables bfloat16 in "fast", float64 in "f64"), contiguous and on tlay's
+    CUDA device, and ``tensors[name]`` has ``shapes[name]``."""
+    if mode not in KERNEL_MODES[kernel]:
+        raise ValueError(f"{kernel} kernel has no {mode} entry point: "
+                         "float64 runs on the merged kernel alone")
     tensors = dict(plev=atm.plev, tlay=atm.tlay, vmr_prof=atm.vmr_prof,
                    vmr_col=atm.vmr_col, **tensors)
     device = atm.tlay.device
@@ -274,8 +339,8 @@ def check_inputs(kernel: str, atm: plan_mod.Atmosphere,
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{kernel} kernel: {name} is on {t.device}, "
                              f"expected one CUDA device ({device})")
-        want = (torch.bfloat16 if fast and name.endswith("table")
-                 else torch.float32)
+        want = (torch.bfloat16 if mode == "fast" and name.endswith("table")
+                else torch.float64 if mode == "f64" else torch.float32)
         if t.dtype != want:
             raise ValueError(f"{kernel} kernel takes {want} {name}; it is "
                              f"{t.dtype}")
@@ -313,23 +378,23 @@ def sw_shapes(sw: plan_mod.SwInputs, ncol: int, prefix: str = ""):
     return tensors, shapes
 
 
-def launch_chunks(name: str, args_type, ncol: int, column_chunk: int,
+def launch_chunks(name: str, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
-                  counted, device, fast: bool = False,
+                  counted, device, mode: str = "exact",
                   lib: Optional[ctypes.CDLL] = None) -> None:
     """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
-    ``device``'s current stream, with the arguments ``make_args(c0, c1)``:
-    the exact entry point, or ``..._launch_fast`` if ``fast``.  Each launch
-    adds one to ``counted.launches`` (``counted.fast_launches`` if
-    ``fast``).
+    ``device``'s current stream, with the arguments ``make_args(c0, c1)``
+    (of ``args_type(name, mode)``): the entry point of ``mode``
+    (``MODES``: ``..._launch``, ``..._launch_fast``, ``..._launch_f64``).
+    Each launch adds one to the mode's count on ``counted``
+    (``launches``, ``fast_launches``, ``f64_launches``).
     The launch runs with ``device`` as the host thread's current device:
     the runtime launches on the current device, and another card's stream
     there is an error.  ``lib``: a bound build of the kernel (``bind``) in
     place of ``library``'s."""
-    lib = lib or library(name, args_type)
-    suffix = "_fast" if fast else ""
+    lib = lib or library(name)
+    suffix, counter = MODES[mode]
     launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
-    counter = "fast_launches" if fast else "launches"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for c0 in range(0, ncol, column_chunk):

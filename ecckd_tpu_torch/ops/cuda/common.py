@@ -12,10 +12,13 @@
 
 ``lwsw_fluxes_plain``, ``lw_fluxes_plain`` and ``sw_fluxes_plain`` are
 built from these, at any dtype and on any device, as the three kernels are
-built from common.cuh.  The constants are the kernels' float32 ones at
-every dtype (thin-layer threshold sqrt(eps_f32), the 1e-8 tau floor, the
-eps_f32 * tau^2 resonance guard), so the plain path at float64 differs from
-the kernels only by rounding.
+built from common.cuh.  The constants are those of the compute type of the
+kernel the plain path stands for (common.cuh "Compute type"), given as
+``compute`` and not read from the dtype the plain path runs in: float32's
+(thin-layer threshold sqrt(eps), resonance guard eps * tau^2, tau floor
+1e-8) for the kernels' float instantiations, the default, and float64's
+(tau floor 1e-8 * eps64 / eps32) for the merged kernel's double one.  So
+the plain path at float64 differs from either kernel only by rounding.
 """
 from __future__ import annotations
 
@@ -28,15 +31,33 @@ from ecckd_tpu_torch.ops.cuda import plan as plan_mod
 from ecckd_tpu_torch.ops.planck import planck_source
 from ecckd_tpu_torch.solvers.quadrature import gauss_angles
 
-EPS_F32 = float(np.finfo(np.float32).eps)
-THIN_LAYER_TAU = float(np.sqrt(np.finfo(np.float32).eps))
-"""Below this slant optical depth the LW source uses its series form."""
+_COMPUTE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def lw_layer_sources(ts, lay, lev_dec, lev_inc, thresh=THIN_LAYER_TAU):
+def kernel_eps(compute: torch.dtype = torch.float32) -> float:
+    """The epsilon of kernel compute type ``compute``: float32 (the
+    kernels' float instantiations) or float64 (the merged kernel's double
+    one)."""
+    return float(np.finfo(_COMPUTE[compute]).eps)
+
+
+def tau_floor(compute: torch.dtype = torch.float32) -> float:
+    """The floor of ``two_stream_g0``'s scattering algebra: 1e-8 at
+    float32, 1e-8 * eps64 / eps32 = 1e-8 * 2**-29 at float64."""
+    return 1e-8 * kernel_eps(compute) / kernel_eps(torch.float32)
+
+
+def thin_layer_tau(compute: torch.dtype = torch.float32) -> float:
+    """Below this slant optical depth the LW source uses its series form:
+    sqrt(eps), rounded to the compute type as the kernel's is."""
+    return float(np.sqrt(np.finfo(_COMPUTE[compute]).eps))
+
+
+def lw_layer_sources(ts, lay, lev_dec, lev_inc, thresh=thin_layer_tau()):
     """Transmittance and linear-in-tau LW path sources of a layer at slant
     optical depth ``ts``; ``lev_dec``/``lev_inc`` are the Planck sources at
-    the layer's decreasing/increasing-index edge (levels j and j+1).
+    the layer's decreasing/increasing-index edge (levels j and j+1);
+    ``thresh``: the series' threshold (``thin_layer_tau``).
     Returns (tr, src_dn, src_up)."""
     omt = -torch.expm1(-ts)
     tr = 1.0 - omt
@@ -48,13 +69,16 @@ def lw_layer_sources(ts, lay, lev_dec, lev_inc, thresh=THIN_LAYER_TAU):
     return tr, src_dn, src_up
 
 
-def two_stream_g0(tau, u, mu0, inv_mu0):
+def two_stream_g0(tau, u, mu0, inv_mu0, compute=torch.float32):
     """g = 0 two-stream coefficients (Meador-Weaver/PIFM specialised to
     Rayleigh + absorption) in the cancellation-free complement forms,
     rescaled by tau so only one reciprocal remains; ``u`` is the Rayleigh
-    optical depth (u <= tau).  tau is floored at 1e-8 inside the scattering
-    algebra only.  Returns (r_dif, t_dif, r_dir, t_dir, t_noscat)."""
-    taus = torch.clamp(tau, min=1e-8)
+    optical depth (u <= tau).  tau is floored at ``tau_floor`` inside the
+    scattering algebra only, and the resonance guard is at
+    ``kernel_eps``, both of kernel compute type ``compute``.
+    Returns (r_dif, t_dif, r_dir, t_dir, t_noscat)."""
+    eps = kernel_eps(compute)
+    taus = torch.clamp(tau, min=tau_floor(compute))
     ktau = torch.sqrt(torch.maximum((taus - u) * (4.0 * taus - u),
                                     1e-12 * (taus * taus)))
     em1 = -torch.expm1(-ktau)
@@ -66,7 +90,7 @@ def two_stream_g0(tau, u, mu0, inv_mu0):
     km = ktau * mu0
     tau2 = taus * taus
     d = tau2 - km * km
-    d = torch.where(torch.abs(d) >= EPS_F32 * tau2, d, EPS_F32 * tau2)
+    d = torch.where(torch.abs(d) >= eps * tau2, d, eps * tau2)
     g1t = 2.0 * taus - 1.25 * u
     al = taus - 0.25 * u
     a = ktau * (1.0 + e2) + g1t * m1
@@ -200,11 +224,13 @@ def _simple_weight(atm: plan_mod.Atmosphere) -> torch.Tensor:
     return constants.MOLES_PER_PA * (atm.plev[:, 1:] - atm.plev[:, :-1])
 
 
-def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs):
+def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
+             compute: torch.dtype = torch.float32):
     """One LW band (common.cuh's lw_optics and lw_sweeps_staged): gas
     optics, Planck sources and the sweeps per angle
     (common.multi_angle_lw_sweeps; at 1 angle the same per-layer math as
-    the staged sources).  Returns (up, dn)."""
+    the staged sources), with the constants of kernel compute type
+    ``compute``.  Returns (up, dn)."""
     tau = gas_tau_plain(atm, lw, _simple_weight(atm))
     arr = lw.arrays
     planck = lambda t: planck_source(t, arr.planck_temperature,
@@ -218,7 +244,8 @@ def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs):
         # Edge convention of common.level_edges: the decreasing-index edge
         # of layer j is level j, the increasing-index edge level j+1.
         tr, src_dn, src_up = lw_layer_sources(
-            tau * sec, b_lay, b_lev[:, :-1], b_lev[:, 1:])
+            tau * sec, b_lay, b_lev[:, :-1], b_lev[:, 1:],
+            thin_layer_tau(compute))
         rad = torch.zeros_like(b_sfc)
         dn_sums = [torch.zeros_like(up[:, 0])]
         for j in range(nlay):
@@ -234,10 +261,12 @@ def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs):
     return up, dn
 
 
-def sw_plain(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs):
+def sw_plain(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs,
+             compute: torch.dtype = torch.float32):
     """One SW band (common.cuh's sw_optics and sw_sweeps_staged): gas
     optics + Rayleigh, the direct beam, then adding up and down
-    (sw_adding_*_step).  Returns (up, dn) before the night mask."""
+    (sw_adding_*_step), with the constants of kernel compute type
+    ``compute``.  Returns (up, dn) before the night mask."""
     simple_w = _simple_weight(atm)
     tau_gas = gas_tau_plain(atm, sw, simple_w)
     arr = sw.arrays
@@ -245,7 +274,7 @@ def sw_plain(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs):
     tau_ray = simple_w[..., None] * arr.rayleigh
     mu0 = sw.mu0[:, None, None]
     r_dif, t_dif, r_dir, t_dir, t = two_stream_g0(
-        tau_gas + tau_ray, tau_ray, mu0, 1.0 / mu0)
+        tau_gas + tau_ray, tau_ray, mu0, 1.0 / mu0, compute)
     direct = (sw.mu0 * sw.tsi_scale)[:, None] * arr.solar
     dn_sums = [torch.sum(direct, dim=-1)]
     src_up, src_dn = [], []

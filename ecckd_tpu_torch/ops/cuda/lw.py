@@ -34,7 +34,7 @@ def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
     band's table mode."""
     ncol, nlay = atm.tlay.shape
     binding.check_inputs("lw", atm, *binding.lw_shapes(lw, ncol, nlay),
-                         lw.arrays.fast)
+                         binding.mode_of(atm, lw))
     return tuple(staged.run_staged(atm, lw, None, column_chunk,
                                  lw_fluxes_cuda, **launch))
 

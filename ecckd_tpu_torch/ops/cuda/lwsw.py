@@ -4,7 +4,8 @@
 ``ops/pallas/lwsw.py::lwsw_fluxes_fused`` (TPU kernel ``_lwsw_kernel``):
 both bands' broadband fluxes for one atmosphere over one shared
 (p, T) interpolation grid, ``top_at_1``, 1-4 LW Gauss angles.  It takes
-CUDA tensors and launches ``csrc/lwsw.cu`` (float32 only), or raises.
+CUDA tensors and launches ``csrc/lwsw.cu`` (float32, or float64 through
+the kernel's double instantiation), or raises.
 ``lwsw_fluxes_plain`` is the same computation in plain PyTorch, which takes
 any dtype on any device and is what the kernel is tested against.
 
@@ -50,14 +51,16 @@ def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
     lw_t, lw_s = binding.lw_shapes(lw, ncol, nlay, "lw_")
     sw_t, sw_s = binding.sw_shapes(sw, ncol, "sw_")
     binding.check_inputs("lwsw", atm, {**lw_t, **sw_t}, {**lw_s, **sw_s},
-                         lw.arrays.fast)
+                         binding.mode_of(atm, lw))
     return tuple(staged.run_staged(atm, lw, sw, column_chunk,
                                    lwsw_fluxes_cuda, **launch))
 
 
 def _plain_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
-                sw: plan_mod.SwInputs) -> Fluxes4:
-    return (*common.lw_plain(atm, lw), *common.sw_plain(atm, sw))
+                sw: plan_mod.SwInputs,
+                compute: torch.dtype = torch.float32) -> Fluxes4:
+    return (*common.lw_plain(atm, lw, compute),
+            *common.sw_plain(atm, sw, compute))
 
 
 def _night_masked(sw: plan_mod.SwInputs, fluxes: Fluxes4) -> Fluxes4:
@@ -71,14 +74,18 @@ def lwsw_fluxes_plain(model_lw: CKDModel, model_sw: CKDModel,
                       emis_gpt: torch.Tensor, gas_concs: GasConcs,
                       sfc_alb: torch.Tensor, tsi: torch.Tensor,
                       sza_deg: torch.Tensor, n_gauss_angles: int = 1,
-                      mxu_mode: Optional[str] = None) -> Fluxes4:
+                      mxu_mode: Optional[str] = None,
+                      compute: torch.dtype = torch.float32) -> Fluxes4:
     """The kernel's computation in plain PyTorch, in tlay's dtype on
-    tlay's device.  Arguments as ``lwsw_fluxes_cuda``."""
+    tlay's device.  Arguments as ``lwsw_fluxes_cuda``; ``compute`` is the
+    compute type of the instantiation it stands for, whose constants it
+    takes (common.py): float32 for the float one, float64 for the double
+    one."""
     atm, lw, sw = plan_mod.prepare(model_lw, model_sw, plev, tlay, tlev,
                                    tsfc, emis_gpt, gas_concs, sfc_alb, tsi,
                                    sza_deg, n_gauss_angles,
                                    config.is_fast(mxu_mode))
-    return _night_masked(sw, _plain_core(atm, lw, sw))
+    return _night_masked(sw, _plain_core(atm, lw, sw, compute))
 
 
 def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
@@ -101,15 +108,17 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
       mxu_mode: table mode (None: config's, read now); the fast mode
         launches the fast entry point.
 
-    Takes float32 CUDA tensors and launches the kernel; anything else
-    raises (ValueError), CPU tensors and inputs that require grad
-    included: ``lwsw_fluxes_plain`` is the version for those.  Each launch
-    adds one to ``lwsw_fluxes_cuda.launches`` (exact) or
-    ``lwsw_fluxes_cuda.fast_launches`` (fast).  The shape and the card
-    decide the staging, and no counter records it:
+    Takes float32 CUDA tensors, or float64 ones in the exact table mode
+    (the kernel's double instantiation: every value computed, staged and
+    written in double), and launches the kernel; anything else raises
+    (ValueError), CPU tensors, the fast mode at float64 and inputs that
+    require grad included: ``lwsw_fluxes_plain`` is the version for those.
+    Each launch adds one to ``lwsw_fluxes_cuda.launches`` (exact),
+    ``.fast_launches`` (fast) or ``.f64_launches`` (float64).  The shape
+    and the card decide the staging, and no counter records it:
     ``staged.plan_for(atm, lw, sw)`` gives its ``.route`` (the split
-    route at nlay 124-208 and one angle on an H100) and ``.prm_stage``,
-    and ``LwInputs.n_gauss_angles`` the angles.
+    route at nlay 124-208 and one angle on an H100 at float32) and
+    ``.prm_stage``, and ``LwInputs.n_gauss_angles`` the angles.
     """
     binding.require_cuda("lwsw_fluxes_cuda", tlay, plev, tlev, tsfc,
                          emis_gpt, gas_concs, sfc_alb, tsi, sza_deg)
@@ -122,3 +131,4 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
 
 lwsw_fluxes_cuda.launches = 0
 lwsw_fluxes_cuda.fast_launches = 0
+lwsw_fluxes_cuda.f64_launches = 0

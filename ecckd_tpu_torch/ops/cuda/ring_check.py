@@ -56,8 +56,7 @@ def library(name: str, plant: str = "") -> ctypes.CDLL:
     ``binding.bind`` binds them, and ``ecckd_<name>_ring_config`` /
     ``_ring_errors``."""
     from ecckd_tpu_torch.ops.cuda import build
-    lib = binding.bind(build.load(name, defines(plant)), name,
-                       binding.ARGS[name])
+    lib = binding.bind(build.load(name, defines(plant)), name)
     config = getattr(lib, f"ecckd_{name}_ring_config")
     config.argtypes = [ctypes.c_uint, ctypes.c_uint]
     config.restype = ctypes.c_int

@@ -33,12 +33,19 @@ SLOT_LIMIT = 4
 SHAPES = {"lwsw": (2, 2, 2), "lw": (4, 2, 2), "sw": (2, 3, 3)}
 """Per kernel: (blocks per SM, C, S) that ``plan_for`` asks ``stage_plan``
 for (PERF.md §6 has the block shapes timed)."""
+SM_THREADS = 1024
+"""Threads per SM of a launch (64 registers each)."""
+F64_SM_THREADS = 768
+"""Threads per SM of the merged kernel's double instantiations that stage
+in shared memory (whole or split): csrc/lwsw.cu F64_SHARED_THREADS, 80
+registers each; on the device route they keep ``SM_THREADS``."""
 
 
 @dataclasses.dataclass(frozen=True)
 class StagePlan:
     """A staged kernel's staging for one launch (csrc/common.cuh
-    "Per-column staging"), in float32 words per column."""
+    "Per-column staging"), in words of the compute type per column
+    (``*_floats``; ``word_bytes`` each: 4 at float32, 8 at float64)."""
     lw_floats: int     # LW rows x ngpt_lw
     sw_floats: int     # SW rows x ngpt_sw
     acc_floats: int    # level accumulators, 2 (nlay+1) per LW angle and
@@ -59,6 +66,7 @@ class StagePlan:
     prm_stage: bool = False  # the sets' LW sweep warps write each slot's
                              # next layer parameters (in its LW rows);
                              # else each optics warp computes its own
+    word_bytes: int = 4      # bytes of a staged word: the compute type's
 
     @property
     def route(self) -> str:
@@ -75,7 +83,7 @@ class StagePlan:
 
     @property
     def bytes_per_column(self) -> int:
-        return 4 * self.col_floats
+        return self.word_bytes * self.col_floats
 
     @property
     def shared_bytes(self) -> int:
@@ -101,7 +109,8 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
                gases_lw: Tuple[int, int], gases_sw: Tuple[int, int],
                block_shared: int, sm_shared: int, blocks_per_sm: int = 2,
                max_slots: int = MAX_SLOTS, sets: int = 1,
-               param_stage: Optional[bool] = None) -> StagePlan:
+               param_stage: Optional[bool] = None,
+               word_bytes: int = 4) -> StagePlan:
     """The staging of one launch of the kernel that solves the bands with
     ``ngpt_* > 0`` (both: lwsw.cu, LW only: lw.cu, SW only: sw.cu).
 
@@ -113,6 +122,13 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     the layer's first row of the band solved last (SW if present) when
     that band has <= 32 g-points (one g-chunk: the row is written only
     after they are read) and they fit there, else after the accumulators.
+
+    ``word_bytes`` is the size of a staged word, the compute type's: 4 at
+    float32, 8 at float64, where every row, parameter and accumulator is a
+    double and a column takes twice the bytes (nlay 60: 113,264 B, so C =
+    2 in one block per SM where float32 runs two), and where the kernel
+    holds ``F64_SM_THREADS`` per SM in shared memory (``SM_THREADS`` on
+    the device route).
 
     ``block_shared`` and ``sm_shared`` are the card's shared memory per
     block (opt-in) and per SM, in bytes.  C, the columns staged per
@@ -127,7 +143,8 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     sweeps slots k, k + S, ...), is the most, up to ``sets``, that
     divides C.  Threads per block: 1024 (64 registers each) per SM, in
     ``blocks_per_sm`` blocks where that many fit in ``sm_shared`` and hold
-    the S sets and one optics warp, else in half as many, down to one.
+    the S sets and one optics warp, else in half as many, down to one
+    (768 per SM at float64 in shared memory).
 
     The parameter stage (csrc/staged.cuh; the merged kernel's): each set's
     LW sweep warps, done with a column's LW rows, write the layer
@@ -170,7 +187,8 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
         prm_base=((lw_floats if has_sw else 0) if in_rows
                   else lw_floats + sw_floats + acc_floats),
         prm_stride=last if in_rows else per_layer, prm_sw=4 + prm_lw,
-        slots=max_slots, sets=1, shared=True, threads=1024)
+        slots=max_slots, sets=1, shared=True, threads=1024,
+        word_bytes=word_bytes)
     fit = block_shared // plan.bytes_per_column
     if has_lw and has_sw and 1 <= fit < max_slots:
         split = dataclasses.replace(plan, split=True,
@@ -181,13 +199,15 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     sets = max(s for s in range(1, min(sets, slots) + 1) if slots % s == 0)
     plan = dataclasses.replace(plan, slots=slots, sets=sets,
                                shared=fit >= 1)
+    sm_threads = (F64_SM_THREADS if word_bytes == 8 and plan.shared
+                  else SM_THREADS)
     blocks = blocks_per_sm
     while blocks > 1 and (
-            1024 // blocks < 32 * (sets * sweeps + 1) or plan.shared
+            sm_threads // blocks < 32 * (sets * sweeps + 1) or plan.shared
             and blocks * (plan.shared_bytes + RESERVED_SHARED_BYTES)
             > sm_shared):
         blocks //= 2
-    plan = dataclasses.replace(plan, threads=1024 // blocks)
+    plan = dataclasses.replace(plan, threads=sm_threads // blocks)
     fits = param_stage_fits(plan, ngpt_lw, ngpt_sw, per_layer)
     if param_stage is None:
         param_stage = fits and stage_rule(plan, n_angles)
@@ -241,7 +261,7 @@ def kernel_name(lw: Optional[plan_mod.LwInputs],
 def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
              sw: Optional[plan_mod.SwInputs]) -> StagePlan:
     """``stage_plan`` for these inputs, on their card's shared memory, in
-    their kernel's block shape (``SHAPES``)."""
+    their kernel's block shape (``SHAPES``), at their dtype's word size."""
     props = torch.cuda.get_device_properties(atm.tlay.device)
     blocks, slots, sets = SHAPES[kernel_name(lw, sw)]
     return stage_plan(atm.tlay.shape[1], lw.plan.ngpt if lw else 0,
@@ -251,38 +271,46 @@ def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                       band_gases(sw.plan) if sw else (0, 0),
                       props.shared_memory_per_block_optin,
                       props.shared_memory_per_multiprocessor,
-                      blocks_per_sm=blocks, max_slots=slots, sets=sets)
+                      blocks_per_sm=blocks, max_slots=slots, sets=sets,
+                      word_bytes=atm.tlay.element_size())
 
 
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(name: str, shape: tuple, threads: int, shared_bytes: int,
-                  fast: bool, device_index: int,
+                  mode: str, device_index: int,
                   lib: Optional[ctypes.CDLL] = None,
                   split: bool = False) -> int:
     """The CUDA occupancy calculator's blocks per SM for a launch
-    configuration of kernel ``name`` (``ecckd_<name>_occupancy``) on one
-    card; ``shape`` (``launch_shape``) and ``split`` (the route) pick the
-    instantiation, ``lib`` a bound build other than
+    configuration of kernel ``name`` in launch mode ``mode``
+    (binding.MODES: ``ecckd_<name>_occupancy``, or ``..._occupancy_f64``)
+    on one card; ``shape`` (``launch_shape``) and ``split`` (the route)
+    pick the instantiation, ``lib`` a bound build other than
     ``binding.library``'s."""
-    args_type = binding.ARGS[name]
-    lib = lib or binding.library(name, args_type)
-    fn = getattr(lib, f"ecckd_{name}_occupancy")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    args_type = binding.args_type(name, mode)
+    lib = lib or binding.library(name)
+    if mode == "f64":
+        fn = getattr(lib, f"ecckd_{name}_occupancy_f64")
+        fn.argtypes = [ctypes.c_void_p]
+        query = fn
+    else:
+        fn = getattr(lib, f"ecckd_{name}_occupancy")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        query = lambda a: fn(a, int(mode == "fast"))
     fn.restype = ctypes.c_int
     lw_shape, sw_shape, n_t = shape
     # A stage pointer beside shared memory names the split route; the
     # query reads no memory through it.
-    args = args_type(grid=binding.Grid(n_t=n_t),
-                     tile=binding.Tile(stage=int(split), slots=1, sets=1,
+    args = args_type(tile=binding.Tile(stage=int(split), slots=1, sets=1,
                                        threads=threads,
                                        shared_bytes=shared_bytes))
+    args.grid.n_t = n_t
     for field, band in (("lw_band", lw_shape), ("sw_band", sw_shape),
                         ("band", lw_shape or sw_shape)):
         if hasattr(args, field):
             b = getattr(args, field)
             b.ngpt, b.ndense, b.nslice = band
     with torch.cuda.device(device_index):
-        blocks = fn(ctypes.byref(args), int(fast))
+        blocks = query(ctypes.byref(args))
     if blocks <= 0:
         raise RuntimeError(f"ecckd_{name}_occupancy: {threads} threads with "
                            f"{shared_bytes} B of shared memory do not fit")
@@ -309,7 +337,7 @@ def occupancy(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     plan = plan or plan_for(atm, lw, sw)
     return plan, blocks_per_sm(kernel_name(lw, sw), launch_shape(lw, sw),
                                plan.threads, plan.shared_bytes,
-                               (lw or sw).arrays.fast,
+                               binding.mode_of(atm, lw or sw),
                                atm.tlay.device.index or 0, lib, plan.split)
 
 
@@ -324,16 +352,18 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     once, on ``stage_plan``'s staging (a device slice per block where a
     column, or on the split route its LW rows, does not stay in shared
     memory; ``max_blocks`` caps them).
-    Returns the (ncol, nlay+1) outputs, (up, down) per band, LW first.
+    Returns the (ncol, nlay+1) outputs, (up, down) per band, LW first, in
+    the inputs' dtype; the launch mode is theirs (``binding.mode_of``).
     Launches count on ``counted`` (binding.launch_chunks); the route and
     the parameter stage are ``plan_for``'s, not counted.  ``lib``: a
     bound build of the kernel other than the plain one (the ring
     checker's, ops/cuda/ring_check.py); the launch paths pass none."""
     ncol, nlay = atm.tlay.shape
     name = kernel_name(lw, sw)
-    dev = atm.tlay.device
+    dev, dtype = atm.tlay.device, atm.tlay.dtype
+    mode = binding.mode_of(atm, lw or sw)
     # The kernel writes every level of every column: no zero-fill.
-    outs = [torch.empty((ncol, nlay + 1), dtype=torch.float32, device=dev)
+    outs = [torch.empty((ncol, nlay + 1), dtype=dtype, device=dev)
             for _ in range(2 * ((lw is not None) + (sw is not None)))]
     if ncol == 0:
         return outs
@@ -342,13 +372,12 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     blocks = min(chunk, max_blocks or chunk, per_sm * torch.cuda.
                  get_device_properties(dev).multi_processor_count)
     stage = torch.empty((blocks, plan.slots, plan.slice_floats),
-                        dtype=torch.float32,
-                        device=dev) if plan.slice_floats else None
+                        dtype=dtype, device=dev) if plan.slice_floats else None
     # The merged kernel shares one grid: the LW model's (mergeable pair);
     # a single-band kernel takes its model's own.
     grid = binding.grid_struct(lw or sw)
     tile = tile_struct(plan, blocks, stage)
-    args_type = binding.ARGS[name]
+    args_type = binding.args_type(name, mode)
     if lw and sw:
         bands = dict(lw_band=binding.band_struct(lw),
                      sw_band=binding.band_struct(sw))
@@ -365,6 +394,6 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
         return args_type(atm=binding.atmos_struct(atm, c0, c1), grid=grid,
                          tile=tile, **bands, **solves)
 
-    binding.launch_chunks(name, args_type, ncol, chunk, make_args, counted,
-                          dev, (lw or sw).arrays.fast, lib)
+    binding.launch_chunks(name, ncol, chunk, make_args, counted, dev, mode,
+                          lib)
     return outs

@@ -36,7 +36,7 @@ def _kernel_core(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs,
     the input checks, in the band's table mode; before the night mask."""
     ncol = atm.tlay.shape[0]
     binding.check_inputs("sw", atm, *binding.sw_shapes(sw, ncol),
-                         sw.arrays.fast)
+                         binding.mode_of(atm, sw))
     return tuple(staged.run_staged(atm, None, sw, column_chunk,
                                  sw_fluxes_cuda, **launch))
 

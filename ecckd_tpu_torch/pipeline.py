@@ -11,15 +11,17 @@ Driver-level semantics reproduced here:
 
 Backends: ``"torch"`` is the plain tensor path (gas_optics_* + rte_lw /
 rte_sw); ``"cuda"`` is the hand-written kernels, which apply to float32
-CUDA tensors in ``top_at_1`` order (LW: 1-4 Gauss angles):
+CUDA tensors in ``top_at_1`` order (LW: 1-4 Gauss angles), and the merged
+one also to float64 ones in the exact table mode:
 * ``lw_fluxes`` runs the LW kernel (ops/cuda/lw.py, csrc/lw.cu);
 * ``sw_fluxes`` runs the SW kernel (ops/cuda/sw.py, csrc/sw.cu);
 * ``lw_sw_fluxes`` runs the merged kernel (ops/cuda/lwsw.py,
-  csrc/lwsw.cu) when the two models share a (p, T) grid, and otherwise
-  ``lw_fluxes`` + ``sw_fluxes`` (the LW and the SW kernel, each on its own
-  model's grid).
+  csrc/lwsw.cu; at float64 its double instantiation) when the two models
+  share a (p, T) grid, and otherwise ``lw_fluxes`` + ``sw_fluxes`` (the LW
+  and the SW kernel, each on its own model's grid).
 ``"auto"`` takes the kernels where they apply and the torch path
-otherwise (float64, CPU tensors, ``top_at_1=False``,
+otherwise (float64 outside the merged kernel or in the fast mode, CPU
+tensors, ``top_at_1=False``,
 ``logarithmic_interpolation``, and any per-column input that requires
 grad while grad is enabled: the kernels define no backward, so gradients
 run on the torch path).  Asking for ``"cuda"`` where a needed kernel does
@@ -41,13 +43,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ecckd_tpu_torch import config
 from ecckd_tpu_torch.config import numpy_dtype
 from ecckd_tpu_torch.fluxes import FluxesBroadband
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.models.gas_optics import gas_optics_lw, gas_optics_sw
 from ecckd_tpu_torch.ops.cuda.binding import (DEFAULT_COLUMN_CHUNK,
-                                              grad_refusal)
+                                              FAST_F64_REFUSAL, grad_refusal)
 from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
@@ -58,8 +61,9 @@ from ecckd_tpu_torch.utils.checks import check_stage
 
 BACKENDS = ("auto", "torch", "cuda")
 
-_KERNELS = {"lw": "the LW kernel (csrc/lw.cu)",
-            "sw": "the SW kernel (csrc/sw.cu)"}
+_KERNELS = {"lwsw": "the merged kernel K1 (csrc/lwsw.cu)",
+            "lw": "the LW kernel K3 (csrc/lw.cu)",
+            "sw": "the SW kernel K4 (csrc/sw.cu)"}
 
 
 def _check_backend(backend: str, logarithmic_interpolation: bool = False
@@ -130,7 +134,7 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     if backend != "torch" and not logarithmic_interpolation:
         refusal = _kernel_refusal(
             tlay, top_at_1, n_gauss_angles,
-            inputs=(plev, tlev, tsfc, sfc_emis, gas_concs))
+            inputs=(plev, tlev, tsfc, sfc_emis, gas_concs), kernel="lw")
         if refusal is None:
             emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, tlay.dtype,
                                        tlay.device)
@@ -185,7 +189,8 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
     ncol = tlay.shape[0]
     if backend != "torch" and not logarithmic_interpolation:
         refusal = _kernel_refusal(
-            tlay, top_at_1, inputs=(plev, gas_concs, sfc_alb, tsi, sza_deg))
+            tlay, top_at_1, inputs=(plev, gas_concs, sfc_alb, tsi, sza_deg),
+            kernel="sw")
         if refusal is None:
             alb = torch.as_tensor(sfc_alb, device=tlay.device).to(tlay.dtype)
             if alb.ndim == 2:
@@ -233,19 +238,28 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
 
 def _kernel_refusal(tlay: torch.Tensor, top_at_1: bool,
-                    n_gauss_angles: int = 1, inputs: tuple = ()
-                    ) -> Optional[str]:
-    """Why the CUDA kernels do not apply to this call, or None if they do
-    (the same rule for the LW, SW and merged kernels).  ``inputs`` are the
-    call's other per-column inputs: if any of them, or tlay, requires grad
-    the kernels would cut the autograd graph."""
+                    n_gauss_angles: int = 1, inputs: tuple = (),
+                    kernel: str = "lwsw") -> Optional[str]:
+    """Why CUDA kernel ``kernel`` ("lwsw", "lw" or "sw") does not apply to
+    this call, or None if it does: the same rule for the three, but that
+    float64 runs on the merged kernel alone (its double instantiation),
+    in the exact table mode.  ``inputs`` are the call's other per-column
+    inputs: if any of them, or tlay, requires grad the kernels would cut
+    the autograd graph."""
     grad = grad_refusal(tlay, *inputs)
     if grad is not None:
         return grad
     if tlay.device.type != "cuda":
         return f"tensors are on {tlay.device}, not a CUDA device"
-    if tlay.dtype != torch.float32:
-        return f"the kernels take float32, got {tlay.dtype}"
+    if tlay.dtype == torch.float64:
+        if kernel != "lwsw":
+            return (f"{_KERNELS[kernel]} has no float64 instantiation; "
+                    "float64 runs on the merged kernel K1 alone")
+        if config.is_fast(None):
+            return FAST_F64_REFUSAL
+    elif tlay.dtype != torch.float32:
+        return (f"the kernels take float32 (the merged one also float64), "
+                f"got {tlay.dtype}")
     if not top_at_1:
         return "the kernels take top_at_1 layer order"
     if not 1 <= n_gauss_angles <= 4:
@@ -281,7 +295,7 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
     inputs = (plev, tlev, tsfc, sfc_emis, gas_concs, sfc_alb, tsi, sza_deg)
     if (backend != "torch" and models_mergeable(model_lw, model_sw)
             and _kernel_refusal(tlay, top_at_1, n_gauss_angles,
-                                inputs) is None):
+                                inputs, "lwsw") is None):
         ncol, dtype, device = tlay.shape[0], tlay.dtype, tlay.device
         emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype, device)
         alb = torch.as_tensor(sfc_alb, device=device).to(dtype)

@@ -40,8 +40,8 @@ tables the graph reads at their captured addresses), so a model stays
 alive, and its ``id`` unused by another, while the entry lives.
 
 Launch counts stay true: the kernel wrappers count a launch in Python,
-one count per table mode (``COUNTERS``; ops/cuda/binding.py
-``launch_chunks``), which capture runs once without running a kernel and
+one count per launch mode (``COUNTERS``; ops/cuda/binding.py
+``MODES``, ``launch_chunks``), which capture runs once without running a kernel and
 replay does not run at all.  The entry takes back what capture counted
 and adds it on every replay.  With NaN debugging on
 (``utils.checks``), whose checks read the device and cannot run inside a
@@ -77,17 +77,20 @@ import torch
 from ecckd_tpu_torch import config
 from ecckd_tpu_torch.gases import GasConcs
 from ecckd_tpu_torch.models.ckd import CKDModel
+from ecckd_tpu_torch.ops.cuda import binding
 from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
 from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
 from ecckd_tpu_torch.utils import checks, profiling
 from ecckd_tpu_torch.utils.tree import tree_leaves, tree_map
 
-COUNTERS = tuple((w, c) for w in (lwsw_fluxes_cuda, lw_fluxes_cuda,
-                                  sw_fluxes_cuda)
-                 for c in ("launches", "fast_launches"))
-"""The kernel wrappers' launch counts, one per table mode, that a replay
-adds back."""
+COUNTERS = tuple((w, binding.MODES[mode][1])
+                 for name, w in (("lwsw", lwsw_fluxes_cuda),
+                                 ("lw", lw_fluxes_cuda),
+                                 ("sw", sw_fluxes_cuda))
+                 for mode in binding.KERNEL_MODES[name])
+"""The kernel wrappers' launch counts, one per launch mode (the merged
+kernel's f64 one too), that a replay adds back."""
 
 
 _TENSOR, _GASES, _MODEL, _VALUE = range(4)

@@ -12,6 +12,10 @@ no JAX they run with:
 
 Each kernel (float32) is held against its plain PyTorch version at float64
 on the card: <= 5e-5 of the flux scale per output, the chip-parity metric.
+The merged kernel's double instantiation (float64 inputs) is held against
+the same plain version with float64's constants (``compute=float64``)
+within ``F64_BOUND``, which the float32 kernel on the same inputs must
+fail.
 """
 
 import dataclasses
@@ -31,6 +35,10 @@ from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda, sw_fluxes_plain
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 BOUND = 5e-5
+F64_BOUND = 1e-10
+"""The f64 kernel's largest column error / flux scale against the plain
+version at f64: rounding in double (it reads ~1e-14), where the float32
+kernel reads ~1e-7 on every column."""
 
 
 @pytest.fixture(scope="module")
@@ -106,6 +114,91 @@ def test_kernel_matches_plain_f64(models, n_angles, pair):
             assert g.dtype == torch.float32 and torch.isfinite(g).all()
             err = float((g.double() - r).abs().max()) / scale
             assert err <= BOUND, err
+
+
+def column_errors(got, ref):
+    """Each column's largest |got - ref| over levels and outputs, over the
+    band's flux scale (radbench's check)."""
+    out = []
+    for band in (0, 2):
+        scale = max(float(ref[band].abs().max()),
+                    float(ref[band + 1].abs().max()))
+        out += [(got[k].double() - ref[k]).abs().amax(1) / scale
+                for k in (band, band + 1)]
+    return torch.stack(out).amax(0).cpu().numpy()
+
+
+@pytest.mark.parametrize("nlay", [47, 60, 91, 137])
+@pytest.mark.parametrize("n_angles", [1, 3])
+def test_f64_kernel_matches_plain_f64(models, nlay, n_angles):
+    """The merged kernel's double instantiation at every f64 route (nlay
+    47 and 60 in shared memory, 91 split, 137 in the device slice) against
+    its plain version at f64, on 1037 columns in chunks of 512: the 99th
+    percentile and the largest column within F64_BOUND; the float32
+    kernel on the same inputs reads 100 times more and fails it."""
+    from ecckd_tpu_torch.ops.cuda import plan, staged
+    f32, f64 = torch.float32, torch.float64
+    ncol = 1037
+    b32, b64 = batch(ncol, nlay, f32, seed=nlay), batch(ncol, nlay, f64,
+                                                         seed=nlay)
+    expand = lambda b: b["emis"][:, None].expand(ncol, 32).contiguous()
+    kw = dict(n_gauss_angles=n_angles)
+    counts = lambda: (lwsw_fluxes_cuda.launches,
+                      lwsw_fluxes_cuda.fast_launches,
+                      lwsw_fluxes_cuda.f64_launches)
+    before = counts()
+    got = solve(lwsw_fluxes_cuda, models["lw", f64], models["sw", f64], b64,
+                expand(b64), column_chunk=512, **kw)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 3)
+    assert all(g.dtype == f64 and torch.isfinite(g).all() for g in got)
+    ref = solve(lwsw_fluxes_plain, models["lw", f64], models["sw", f64], b64,
+                expand(b64), compute=f64, **kw)
+    got32 = solve(lwsw_fluxes_cuda, models["lw", f32], models["sw", f32],
+                  b32, expand(b32), column_chunk=512, **kw)
+    e64, e32 = column_errors(got, ref), column_errors(got32, ref)
+    p64, p32 = np.percentile(e64, 99), np.percentile(e32, 99)
+    assert e64.max() <= F64_BOUND, (p64, e64.max(), int(e64.argmax()))
+    assert p32 >= 100 * p64 and p32 > F64_BOUND and e32.max() > F64_BOUND
+    # The route the f64 plan takes at 8 B a word.
+    atm, lw_in, sw_in = plan.prepare(
+        models["lw", f64], models["sw", f64], b64["plev"], b64["tlay"],
+        b64["tlev"], b64["tsfc"], expand(b64), b64["concs"], b64["alb"],
+        b64["tsi"], b64["sza"], n_angles)
+    p = staged.plan_for(atm, lw_in, sw_in)
+    assert p.word_bytes == 8
+    assert p.route == {47: "shared", 60: "shared", 91: "split",
+                       137: "device"}[nlay]
+
+
+def test_captured_f64_calls_replay_the_eager_call(models):
+    """capture.jit of lw_sw_fluxes at float64: every call (eager, capture,
+    replays) counts ceil(ncol / chunk) launches in ``f64_launches`` and
+    none elsewhere, and each replay equals the eager call on its inputs
+    bit for bit."""
+    from ecckd_tpu_torch.utils import capture
+    f64 = torch.float64
+    lw, sw = models["lw", f64], models["sw", f64]
+    args = lambda b: (lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                      b["emis"], b["concs"], b["alb"], b["tsi"], b["sza"])
+    leaves = lambda o: [o[0].flux_up, o[0].flux_dn, o[1].flux_up,
+                        o[1].flux_dn]
+    batches = [batch(1037, 60, f64, seed=s) for s in (0, 1, 2, 0)]
+    refs = [leaves(pipeline.lw_sw_fluxes(*args(b), column_chunk=512))
+            for b in batches]
+    jitted = capture.jit(pipeline.lw_sw_fluxes)
+    counts = lambda: (lwsw_fluxes_cuda.launches,
+                      lwsw_fluxes_cuda.fast_launches,
+                      lwsw_fluxes_cuda.f64_launches)
+    for b, ref in zip(batches, refs):
+        before = counts()
+        got = leaves(jitted(*args(b), column_chunk=512))
+        torch.cuda.synchronize()
+        assert counts() == (before[0], before[1], before[2] + 3)
+        assert all(g.dtype == f64 and torch.equal(g, r)
+                   for g, r in zip(got, ref))
+    (entry,) = jitted.entries.values()
+    assert entry.graph is not None
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
@@ -462,18 +555,32 @@ def test_pipeline_routes_to_the_kernel(models):
                        b["alb"][:, None].expand(-1, sw.nband), b["tsi"],
                        b["sza"], backend="cuda")
     assert delta(before) == (0, 1, 1)
-    # float64 runs the torch path under auto and is refused under cuda.
+    # float64 runs the merged kernel's double instantiation under auto and
+    # cuda; K3 and K4 have none: a pair on two grids, or LW alone, takes
+    # the torch path under auto and is refused under cuda.
     b64 = batch(64, 9, torch.float64)
-    before = counts()
-    call(models["lw", torch.float64], models["sw", torch.float64], b64)
+    lw64, sw64 = models["lw", torch.float64], models["sw", torch.float64]
+    for backend in ("auto", "cuda"):
+        before, f64 = counts(), lwsw_fluxes_cuda.f64_launches
+        call(lw64, sw64, b64, backend=backend)
+        assert delta(before) == (0, 0, 0)
+        assert lwsw_fluxes_cuda.f64_launches == f64 + 1
+    before, f64 = counts(), lwsw_fluxes_cuda.f64_launches
+    call(lw64, models["sw_p47", torch.float64], b64)
+    pipeline.lw_fluxes(lw64, b64["plev"], b64["tlay"], b64["tlev"],
+                       b64["tsfc"], b64["emis"], b64["concs"])
     assert delta(before) == (0, 0, 0)
-    with pytest.raises(ValueError, match="float32"):
-        call(lw, sw, b64, backend="cuda")
+    assert lwsw_fluxes_cuda.f64_launches == f64
+    with pytest.raises(ValueError, match="K3.*float64"):
+        call(lw64, models["sw_p47", torch.float64], b64, backend="cuda")
     with pytest.raises(ValueError, match="top_at_1"):
         call(lw, sw47, b, backend="cuda", top_at_1=False)
     with pytest.raises(ValueError, match="float32"):
-        solve(lwsw_fluxes_cuda, lw, sw, b64,
-              b64["emis"][:, None].expand(64, lw.ngpt))
+        call(lw, sw, batch(64, 9, torch.float16), backend="cuda")
+    # The fast mode has no float64 entry point: the wrapper raises.
+    with pytest.raises(ValueError, match="fast mode"):
+        solve(lwsw_fluxes_cuda, lw64, sw64, b64,
+              b64["emis"][:, None].expand(64, lw.ngpt), mxu_mode="bf16")
 
 
 def test_stream_through_the_merged_kernel(models):

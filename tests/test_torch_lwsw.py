@@ -158,6 +158,29 @@ def test_layer_steps_match_pallas_common():
         _close_f32(g, r, "sw_adding_dn_step")
 
 
+def test_plain_constants_follow_the_compute_type_not_the_dtype():
+    """The plain path's floors are those of the kernel it stands for,
+    given as ``compute``: float32's at every dtype by default (the float
+    kernels' reference, also at float64), float64's only when asked for
+    (the merged kernel's double instantiation)."""
+    f64 = torch.float64
+    eps32, eps64 = np.finfo(np.float32).eps, np.finfo(np.float64).eps
+    assert tcommon.kernel_eps() == eps32 and tcommon.kernel_eps(f64) == eps64
+    assert tcommon.thin_layer_tau() == float(np.sqrt(eps32))
+    assert tcommon.thin_layer_tau(f64) == float(np.sqrt(eps64))
+    assert tcommon.tau_floor() == 1e-8
+    assert tcommon.tau_floor(f64) == 1e-8 * 2.0 ** -29
+    # A layer below float32's tau floor, in float64 tensors: floored at
+    # 1e-8 unless the compute type is float64.
+    tau = torch.tensor([1e-10, 1e-3], dtype=f64)
+    u, mu0 = 0.5 * tau, torch.full_like(tau, 0.5)
+    default = tcommon.two_stream_g0(tau, u, mu0, 1.0 / mu0)
+    at64 = tcommon.two_stream_g0(tau, u, mu0, 1.0 / mu0, f64)
+    assert all(g.dtype == f64 for g in default)
+    assert any(not torch.equal(a[0], b[0]) for a, b in zip(default, at64))
+    assert all(torch.equal(a[1], b[1]) for a, b in zip(default, at64))
+
+
 def test_build_plan_resolves_the_request(ckd_paths):
     _, tl = load_both(ckd_paths["lw"])
     names = ("xyz", "o3", "n2", "h2o", "co2", "o2", "ch4")

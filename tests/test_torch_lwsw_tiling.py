@@ -193,6 +193,74 @@ def test_merged_kernels_routes_at_h100_limits(nlay, n_ang, route, c, s,
                                          0 if route == "shared" else 32)
 
 
+# K1's plans at float64 (8 B a word) in its block shape at an H100's
+# limits, beside the float32 plan of the same shape: (nlay, angles, route,
+# C, threads, shared bytes per block, device slice words per slot, the
+# parameter stage).  A column takes twice the bytes, so C = 2 fits one
+# block per SM (768 threads, csrc/lwsw.cu F64_SHARED_THREADS) to nlay 61,
+# the split route holds C = 2 from nlay 62 (where float32 still holds
+# whole columns), and from nlay 124 (122 at 3 angles) no column fits: the
+# device route, two blocks of 512 threads, where float32 splits.
+F64_PLANS = [
+    (47, 1, "shared", 2, 768, 177648, 0, True),
+    (47, 3, "shared", 2, 768, 181232, 0, False),
+    (60, 1, "shared", 2, 768, 226528, 0, True),
+    (60, 3, "shared", 2, 768, 230944, 0, False),
+    (91, 1, "split", 2, 768, 203312, 8736, False),
+    (91, 3, "split", 2, 768, 209200, 8768, False),
+    (137, 1, "device", 2, 512, 0, 32253, False),
+    (137, 3, "device", 2, 512, 0, 32837, False),
+    (250, 1, "device", 2, 512, 0, 58808, False),
+    (250, 3, "device", 2, 512, 0, 59844, False),
+]
+
+
+@pytest.mark.parametrize("nlay,n_ang,route,c,threads,smem,words,stage",
+                         F64_PLANS)
+def test_merged_kernels_f64_plans_at_h100_limits(nlay, n_ang, route, c,
+                                                 threads, smem, words,
+                                                 stage):
+    blocks, slots, sets = staged.SHAPES["lwsw"]
+    plan = lambda wb: staged.stage_plan(
+        nlay, 32, 27, n_ang, GASES_LW, GASES_SW, *H100, blocks_per_sm=blocks,
+        max_slots=slots, sets=sets, word_bytes=wb)
+    p, p32 = plan(8), plan(4)
+    assert (p.route, p.slots, p.sets, p.threads, p.shared_bytes,
+            p.slice_floats, p.prm_stage) == (route, c, 2, threads, smem,
+                                             words, stage)
+    # The same rows, accumulators and parameters as at float32, in words
+    # of twice the size (the route's own: a split slot holds no LW rows).
+    assert p.word_bytes == 8 and p32.word_bytes == 4
+    whole = lambda q: dataclasses.replace(q, split=False)
+    assert whole(p).col_floats == whole(p32).col_floats
+    assert p.bytes_per_column == 8 * p.col_floats
+    assert (p.lw_floats, p.sw_floats, p.acc_floats) == (
+        p32.lw_floats, p32.sw_floats, p32.acc_floats)
+    # Whole columns in shared memory fit fewer times than at float32.
+    fit = lambda q: H100[0] // q.bytes_per_column
+    assert fit(whole(p)) == fit(whole(p32)) // 2 or fit(whole(p)) <= 1
+    # The checked build's guard words keep the route.
+    g = dataclasses.replace(p, guard_floats=32)
+    assert g.route == route
+
+
+def test_the_f64_thread_budget_mirrors_the_kernel():
+    """staged.F64_SM_THREADS is lwsw.cu's F64_SHARED_THREADS, the launch
+    bound of the double instantiations in shared memory; the device route
+    keeps the 1024 threads (64 registers) of every other launch."""
+    k = _constants("lwsw.cu")
+    assert k["F64_SHARED_THREADS"] == staged.F64_SM_THREADS == 768
+    assert staged.SM_THREADS == _constants("staged.cuh")["MAX_THREADS"]
+    for nlay in range(1, 400, 7):
+        for n_ang in (1, 3):
+            p = staged.stage_plan(nlay, 32, 27, n_ang, GASES_LW, GASES_SW,
+                                  *H100, max_slots=2, sets=2, word_bytes=8)
+            per_sm = (staged.F64_SM_THREADS if p.shared
+                      else staged.SM_THREADS)
+            assert per_sm % p.threads == 0 and p.threads >= 32 * (
+                p.sets * (n_ang + 1) + 1)
+
+
 @pytest.mark.parametrize("kernel", ["lw", "sw"])
 @pytest.mark.parametrize("nlay", [124, 137, 208])
 def test_one_band_is_never_split(kernel, nlay):
@@ -226,9 +294,12 @@ def test_band_gases_of_the_synthetic_models(ckd_paths):
 
 
 def c_fields(struct: str, source: str = "lwsw.cu"):
-    """Field names of a struct in csrc/<source>, in declaration order."""
+    """Field names of a struct in csrc/<source>, in declaration order (of
+    the template ``<struct>T`` where common.cuh declares one, whose float
+    instance has the plain name)."""
     src = (Path(lwsw.__file__).parents[2] / "csrc" / source).read_text()
-    body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
+    body = re.search(r"struct %sT? \{(.*?)\n\};" % struct, src,
+                     re.S).group(1)
     body = re.sub(r"//[^\n]*|\[[^\]]*\]", "", body)
     return [n for decl in body.split(";") if decl.strip()
             for n in re.findall(r"(\w+)\s*(?:,|$)", decl.strip())]
@@ -254,6 +325,29 @@ def test_args_mirror_the_c_structs():
     assert sizes == [48, 40, 728, 96, 56]
     assert args.tile.offset == 48 + 40 + 2 * 728 + 96 + 56
     assert ctypes.sizeof(args) == 1696 + 56
+
+
+def test_f64_args_mirror_the_c_structs():
+    """The double instantiation's argument struct: LwswArgs64 as lwsw.cu
+    declares it, the templates' fields at double, sizes by hand (Atmos
+    48, Grid 56 (a pointer, two ints, five doubles), GasSlice 72 (five
+    ints padded to 24, six doubles), Band 1,176 twice, LwSolve 136,
+    SwSolve 56, then the same 56-byte Tile)."""
+    args = binding.LwswArgs64
+    assert [f for f, _ in args._fields_] == c_fields("LwswArgs64")
+    for struct in ("GasSlice", "Band", "Grid", "Atmos", "LwSolve",
+                   "SwSolve"):
+        f64, f32 = getattr(binding.F64, struct), getattr(binding, struct)
+        assert [f for f, _ in f64._fields_] == [f for f, _ in f32._fields_]
+        assert [f for f, _ in f64._fields_] == c_fields(struct, "common.cuh")
+    sizes = [ctypes.sizeof(getattr(binding.F64, s)) for s in (
+        "Atmos", "Grid", "GasSlice", "Band", "LwSolve", "SwSolve")]
+    assert sizes == [48, 56, 72, 1176, 136, 56]
+    assert args.tile.offset == 48 + 56 + 2 * 1176 + 136 + 56
+    assert ctypes.sizeof(args) == 2648 + 56
+    assert binding.args_type("lwsw", "f64") is args
+    assert all(binding.args_type(n, m) is binding.ARGS[n]
+               for n in ("lwsw", "lw", "sw") for m in ("exact", "fast"))
 
 
 def test_tile_struct_carries_the_plan():
@@ -322,9 +416,9 @@ def test_plain_f64_at_nlay300_matches_jax_xla(ckd_paths, n_angles):
 
 
 def _stub_launch(monkeypatch, kernel, calls):
-    """A stand-in for ``kernel``'s build whose two entry points append
-    (the mode, the launch's argument struct) to ``calls``, and no card:
-    the current device and stream stubbed."""
+    """A stand-in for ``kernel``'s build whose entry points (one per
+    launch mode) append (the mode, the launch's argument struct) to
+    ``calls``, and no card: the current device and stream stubbed."""
     import contextlib
     import types
 
@@ -334,33 +428,36 @@ def _stub_launch(monkeypatch, kernel, calls):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    return types.SimpleNamespace(**{f"ecckd_{kernel}_launch": entry("exact"),
-                                    f"ecckd_{kernel}_launch_fast":
-                                    entry("fast")})
+    return types.SimpleNamespace(**{
+        f"ecckd_{kernel}_launch{binding.MODES[mode][0]}": entry(mode)
+        for mode in binding.KERNEL_MODES[kernel]})
 
 
-@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("mode", ["exact", "fast", "f64"])
 @pytest.mark.parametrize("ncol,chunk", [(1037, 512), (512, 512),
                                         (1, 65536), (65537, 65536)])
-def test_launch_chunks_counts_each_launch_once(monkeypatch, fast, ncol,
+def test_launch_chunks_counts_each_launch_once(monkeypatch, mode, ncol,
                                                chunk):
     """One launch per column chunk, each on the mode's entry point and
-    adding one to the mode's count (``launches`` or ``fast_launches``)
-    and to nothing else; the launch itself stubbed."""
+    adding one to the mode's count (``launches``, ``fast_launches`` or
+    ``f64_launches``) and to nothing else; the launch itself stubbed."""
     import types
     calls = []
     lib = _stub_launch(monkeypatch, "lwsw", calls)
-    counted = types.SimpleNamespace(launches=5, fast_launches=7)
+    before = {"launches": 5, "fast_launches": 7, "f64_launches": 9}
+    counted = types.SimpleNamespace(**before)
     spans = []
-    binding.launch_chunks("lwsw", binding.LwswArgs, ncol, chunk,
-                          lambda c0, c1: spans.append((c0, c1))
-                          or binding.LwswArgs(), counted, None, fast, lib)
+    args = binding.args_type("lwsw", mode)
+    binding.launch_chunks("lwsw", ncol, chunk,
+                          lambda c0, c1: spans.append((c0, c1)) or args(),
+                          counted, None, mode, lib)
     n = -(-ncol // chunk)
     assert spans == [(c0, min(c0 + chunk, ncol))
                      for c0 in range(0, ncol, chunk)]
-    assert [mode for mode, _ in calls] == ["fast" if fast else "exact"] * n
-    assert vars(counted) == ({"launches": 5, "fast_launches": 7 + n} if fast
-                             else {"launches": 5 + n, "fast_launches": 7})
+    assert [m for m, _ in calls] == [mode] * n
+    assert all(type(a) is args for _, a in calls)
+    counter = binding.MODES[mode][1]
+    assert vars(counted) == {**before, counter: before[counter] + n}
 
 
 @pytest.mark.parametrize("kernel", ["lwsw", "lw"])
@@ -417,14 +514,18 @@ def test_run_staged_hands_the_plan_to_the_launch(monkeypatch, ckd_paths,
 
 def test_capture_counters_are_the_wrappers_launches():
     """capture.jit adds a replay's launches back per counter: each of the
-    three kernel wrappers' two counts, one per table mode, and no other."""
+    three kernel wrappers' counts, one per launch mode (two each, and the
+    merged kernel's f64 count), and no other."""
     from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
     from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
     from ecckd_tpu_torch.utils import capture
     assert capture.COUNTERS == tuple(
-        (w, c) for w in (lwsw.lwsw_fluxes_cuda, lw_fluxes_cuda,
-                         sw_fluxes_cuda)
-        for c in ("launches", "fast_launches"))
+        (w, c) for w, cs in (
+            (lwsw.lwsw_fluxes_cuda,
+             ("launches", "fast_launches", "f64_launches")),
+            (lw_fluxes_cuda, ("launches", "fast_launches")),
+            (sw_fluxes_cuda, ("launches", "fast_launches")))
+        for c in cs)
     for w, c in capture.COUNTERS:
         assert isinstance(getattr(w, c), int)
 

@@ -16,6 +16,7 @@ from torch_parity import (atmosphere, ckd_paths, jax_concs,  # noqa: F401
                           load_both, torch_concs)
 from ecckd_tpu import fluxes as jfluxes, pipeline as jpipe
 from ecckd_tpu_torch import fluxes as tfluxes, pipeline as tpipe
+from ecckd_tpu_torch.ops.cuda import binding
 
 torch.set_num_threads(2)
 RTOL = 1e-10
@@ -160,7 +161,7 @@ def test_kernel_refusal_reasons(ckd_paths):
     assert "not a CUDA device" in refusal(torch.zeros(2, 3), True, 1)
     # A stand-in for a CUDA tensor: the refusal reads device and dtype only.
     fake = type("T", (), {"device": torch.device("cuda"),
-                          "dtype": torch.float64})()
+                          "dtype": torch.float16})()
     assert "float32" in refusal(fake, True)
     fake.dtype = torch.float32
     assert "top_at_1" in refusal(fake, False)
@@ -173,3 +174,35 @@ def test_kernel_refusal_reasons(ckd_paths):
                                          "SW kernel .*top_at_1"):
         tpipe._refuse_cuda("cuda", "sw", refusal(fake, False))
     tpipe._refuse_cuda("auto", "sw", refusal(fake, False))   # no raise
+
+
+def test_kernel_refusal_f64_rules():
+    """float64 runs on the merged kernel's double instantiation alone, in
+    the exact table mode: the merged solve is accepted; the LW-only (K3)
+    and SW-only (K4) solves and the fast mode are refused, each with its
+    reason, and backend='cuda' raises with it."""
+    from ecckd_tpu_torch import config
+    refusal = tpipe._kernel_refusal
+    fake = type("T", (), {"device": torch.device("cuda"),
+                          "dtype": torch.float64})()
+    previous = config.mxu_precision()
+    try:
+        config.set_mxu_precision("bf16x3")
+        assert refusal(fake, True) is None
+        assert refusal(fake, True, 3, kernel="lwsw") is None
+        for kernel, name in (("lw", "K3"), ("sw", "K4")):
+            why = refusal(fake, True, kernel=kernel)
+            assert name in why and "no float64" in why and "K1" in why
+            with pytest.raises(ValueError, match=f"backend='cuda' requested "
+                                                 f"but .*{name}.*float64"):
+                tpipe._refuse_cuda("cuda", kernel, why)
+        # The other rules hold at float64 too.
+        assert "top_at_1" in refusal(fake, False)
+        assert "1..4" in refusal(fake, True, 5)
+        config.set_mxu_precision("bf16")
+        assert "fast mode" in refusal(fake, True)
+        assert "fast mode" in binding.FAST_F64_REFUSAL
+        fake.dtype = torch.float32
+        assert refusal(fake, True) is None      # the fast mode at float32
+    finally:
+        config.set_mxu_precision(previous)

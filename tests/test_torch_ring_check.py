@@ -74,10 +74,13 @@ class _Fn:
 
 def _fake_lib(name):
     lib = type("FakeLib", (), {})()
-    for entry in (f"ecckd_{name}_launch", f"ecckd_{name}_launch_fast"):
-        setattr(lib, entry, _Fn())
+    for mode in binding.KERNEL_MODES[name]:
+        setattr(lib, f"ecckd_{name}_launch{binding.MODES[mode][0]}", _Fn())
     setattr(lib, f"ecckd_{name}_args_size",
             _Fn(ctypes.sizeof(binding.ARGS[name])))
+    if "f64" in binding.KERNEL_MODES[name]:
+        setattr(lib, f"ecckd_{name}_f64_args_size",
+                _Fn(ctypes.sizeof(binding.LwswArgs64)))
     lib.ecckd_cuda_error_string = _Fn(b"")
     return lib
 
@@ -91,8 +94,8 @@ def test_binding_loads_only_the_plain_build(monkeypatch):
     monkeypatch.setattr(build, "load", load)
     binding.library.cache_clear()
     try:
-        for name, args_type in binding.ARGS.items():
-            binding.library(name, args_type)
+        for name in binding.ARGS:
+            binding.library(name)
     finally:
         binding.library.cache_clear()
     assert loads == [(name, ()) for name in binding.ARGS]
@@ -177,6 +180,28 @@ def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
     import chip_smoke
     assert {k for k, _, _ in chip_smoke.RING_CHECKED} == {"lwsw", "lw", "sw"}
     assert {k for k, _, _ in chip_smoke.RING_PLANT} == {"lwsw"}
+
+
+def test_the_checked_f64_matrix_reaches_every_f64_regime(ckd_paths):
+    """K1's double instantiation (8 B a word) reaches its own staging
+    regimes, every one of which CHECKED_F64 runs; f64 runs on K1 alone."""
+    gases = _gases(ckd_paths)
+    (ng_lw, g_lw), (ng_sw, g_sw) = gases["lw"], gases["sw"]
+    blocks, slots, sets = staged.SHAPES["lwsw"]
+    plan64 = lambda nlay, a: staged.stage_plan(
+        nlay, ng_lw, ng_sw, a, g_lw, g_sw, *H100, blocks_per_sm=blocks,
+        max_slots=slots, sets=sets, word_bytes=8)
+    every = {_regime(plan64(nlay, a)) for nlay in range(1, 1200)
+             for a in (1, 2, 3, 4)}
+    covered = {_regime(plan64(nlay, a))
+               for _, nlay, a in cuda_sanitize.CHECKED_F64}
+    assert covered == every
+    assert {k for k, _, _ in cuda_sanitize.CHECKED_F64} == {"lwsw"}
+    assert {route for *_, route, _ in covered} == {"shared", "split",
+                                                   "device"}
+    import inspect
+    defaults = inspect.signature(cuda_sanitize.run_checked).parameters
+    assert defaults["f64_configs"].default is cuda_sanitize.CHECKED_F64
 
 
 def test_guarded_plans_fit_the_card(ckd_paths):

@@ -27,11 +27,14 @@ sanitizer's configurations plus nlay 30, 47 and 91 and the depths that
 reach every other staging regime of each kernel (``stage_plan``: threads
 per block, C, S, the route: shared, split or device staging), on
 ``CHECKED_NCOL`` columns,
-in both table modes, at jitter 0 on the full card and through 16 blocks,
-and at ``JITTER_NS`` with each of ``SEEDS``.  Every run must show 0
+in both table modes, and K1's double instantiation over ``CHECKED_F64``
+(float64 inputs and models: the f64 plans' routes), at jitter 0 on the
+full card and through 16 blocks, and at ``JITTER_NS`` with each of
+``SEEDS``.  Every run must show 0
 violations (canaries intact), finite outputs and outputs bit for bit
 equal to the plain build's.  Then the builds with the planted faults
-run over the same configurations (exact mode, jitter 0 and one seed):
+run over the same configurations (exact mode and f64, jitter 0 and one
+seed):
 ``-DECCKD_PLANT_SKIP_FREE`` (in slot 0's round 1 the optics warps wait
 for each other but not for the slot's sweeps, and join its FREE only
 after staging it) in each, and ``-DECCKD_PLANT_SKIP_PRM`` (in slot 0's
@@ -83,6 +86,11 @@ EXTRA = ([(k, n, a) for k in ("lwsw", "lw") for n in (30, 47, 91)
          + [("lw", 200, 1), ("lw", 430, 1), ("lw", 600, 4)]
          + [("sw", n, 1) for n in (30, 47, 91, 180, 300)])
 CHECKED = SHARED + DEVICE + EXTRA
+# K1's double instantiation: its f64 plans (8 B a word) in shared memory
+# (nlay 8: two blocks of 384 threads; 47, 60: C = 2 in 768; 110: C = 1),
+# split (91) and in the device slice (137, 300), at 1 and 3 angles.
+CHECKED_F64 = [("lwsw", n, a) for n in (8, 47, 60, 91, 110, 137, 300)
+               for a in (1, 3)]
 CHECKED_NCOL = 2003
 SEEDS = (1, 2, 3)
 JITTER_NS = 2000
@@ -95,8 +103,8 @@ PLANTS = ("free", "prm")  # ops/cuda/ring_check.py PLANT_DEFINES
 
 
 def load_models() -> dict:
-    """The synthetic lw_fsck and sw_wide models (seed 7), float32, on the
-    card."""
+    """The synthetic lw_fsck and sw_wide models (seed 7), float32 under
+    "lw" and "sw", float64 under "lw64" and "sw64", on the card."""
     import torch
     from ecckd_tpu_torch.io.synthetic import write_synthetic_ckd
     from ecckd_tpu_torch.models.loader import load_ckd_model
@@ -105,20 +113,25 @@ def load_models() -> dict:
         for key, kind in (("lw", "lw_fsck"), ("sw", "sw_wide")):
             path = os.path.join(work, f"{key}.nc")
             write_synthetic_ckd(path, kind, seed=7)
-            models[key] = load_ckd_model(path, dtype=torch.float32,
-                                         device="cuda")
+            for suffix, dt in (("", torch.float32), ("64", torch.float64)):
+                models[key + suffix] = load_ckd_model(path, dtype=dt,
+                                                      device="cuda")
     return models
 
 
 def prepare(models: dict, kernel: str, ncol: int, nlay: int, n_ang: int,
-            fast: bool):
+            fast: bool, f64: bool = False):
     """(the kernel's ``_kernel_core``, its prepared inputs, the bands for
-    ``staged``) on ``example_flux_batch(ncol, nlay)``."""
+    ``staged``) on ``example_flux_batch(ncol, nlay)``, in float64 with the
+    float64 models if ``f64``."""
     import numpy as np
     import torch
     from ecckd_tpu_torch.io.synthetic import example_flux_batch
     from ecckd_tpu_torch.ops.cuda import lw, lwsw, plan, sw
-    b = example_flux_batch(ncol, nlay, np.float32, device="cuda")
+    if f64:
+        models = {k: models[k + "64"] for k in ("lw", "sw")}
+    b = example_flux_batch(ncol, nlay, np.float64 if f64 else np.float32,
+                           device="cuda")
     t = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()
          if k != "concs"}
     emis = t["emis"][:, None].expand(-1, models["lw"].ngpt).contiguous()
@@ -185,16 +198,17 @@ def build_checked(plant_kernels=KERNELS) -> float:
 
 def check_config(models: dict, kernel: str, nlay: int, n_ang: int,
                  fast: bool, runs, plant: str = "",
-                 ncol: int = CHECKED_NCOL):
+                 ncol: int = CHECKED_NCOL, f64: bool = False):
     """One configuration through the checked build (with the planted
     fault ``plant`` if given), once per (seed, jitter, blocks) of
-    ``runs``: per run the error record, whether the outputs are finite
-    and whether they equal the plain build's bit for bit.  None for the
-    PRM plant on a plan without the parameter stage (it plants nothing
-    there)."""
+    ``runs``, in float64 (K1's double instantiation) if ``f64``: per run
+    the error record, whether the outputs are finite and whether they
+    equal the plain build's bit for bit.  None for the PRM plant on a
+    plan without the parameter stage (it plants nothing there)."""
     import torch
     from ecckd_tpu_torch.ops.cuda import ring_check, staged
-    core, prep, bands = prepare(models, kernel, ncol, nlay, n_ang, fast)
+    core, prep, bands = prepare(models, kernel, ncol, nlay, n_ang, fast,
+                                f64)
     plan = ring_check.guarded(staged.plan_for(prep[0], *bands))
     if plant == "prm" and not plan.prm_stage:
         return None
@@ -202,7 +216,8 @@ def check_config(models: dict, kernel: str, nlay: int, n_ang: int,
     lib = ring_check.library(kernel, plant)
     ring_check.errors(lib, kernel)           # clear the record
     out = {"kernel": kernel, "nlay": nlay, "angles": n_ang,
-           "mode": "bf16" if fast else "bf16x3", "plant": plant,
+           "mode": "f64" if f64 else "bf16" if fast else "bf16x3",
+           "plant": plant,
            "regime": regime(plan), "ncol": ncol, "runs": []}
     try:
         for seed, jitter, blocks in runs:
@@ -259,22 +274,26 @@ def describe(c: dict) -> str:
 
 def run_checked(configs=CHECKED, plant_configs=CHECKED, modes=(False, True),
                 runs=RUNS, plant_runs=PLANT_RUNS,
-                ncol: int = CHECKED_NCOL) -> dict:
-    """The checked build over ``configs`` in ``modes`` and each planted
-    fault over ``plant_configs`` (exact mode), each configuration printed
-    as it ends; the record with its ``verdict``."""
+                ncol: int = CHECKED_NCOL, f64_configs=CHECKED_F64) -> dict:
+    """The checked build over ``configs`` in ``modes`` and over
+    ``f64_configs`` in float64, and each planted fault over
+    ``plant_configs`` (exact mode) and ``f64_configs``, each
+    configuration printed as it ends; the record with its ``verdict``."""
     models = load_models()
     t0 = time.perf_counter()
     checked, planted = [], []
-    for kernel, nlay, n_ang in configs:
-        for fast in modes:
-            checked.append(check_config(models, kernel, nlay, n_ang, fast,
-                                        runs, ncol=ncol))
-            print(describe(checked[-1]), flush=True)
+    todo = ([(c, fast, False) for c in configs for fast in modes]
+            + [(c, False, True) for c in f64_configs])
+    for (kernel, nlay, n_ang), fast, f64 in todo:
+        checked.append(check_config(models, kernel, nlay, n_ang, fast,
+                                    runs, ncol=ncol, f64=f64))
+        print(describe(checked[-1]), flush=True)
     for plant in PLANTS:
-        for kernel, nlay, n_ang in plant_configs:
+        for (kernel, nlay, n_ang), f64 in (
+                [(c, False) for c in plant_configs]
+                + [(c, True) for c in f64_configs]):
             c = check_config(models, kernel, nlay, n_ang, False, plant_runs,
-                             plant=plant, ncol=ncol)
+                             plant=plant, ncol=ncol, f64=f64)
             if c is not None:
                 planted.append(c)
                 print(describe(c), flush=True)

@@ -11,7 +11,9 @@ and each (blocks per SM, C columns per block, S sets of sweep warps) in
 on it and times it with CUDA events (median of 10 after 2 warm-ups).  A
 shape ``BxCxS+p`` asks for the parameter stage, ``BxCxS-p`` for none,
 ``BxCxS`` takes ``stage_plan``'s rule; a shape that cannot have the
-stage it asks for is skipped with a line that says so.  Every
+stage it asks for is skipped with a line that says so.  ``--dtype
+float64`` runs the models and the batch in float64 (K1's double
+instantiation; the plans at 8 B a word).  Every
 shape's outputs must equal the default shape's bit for bit (a column's
 arithmetic does not depend on the block it runs in); the script exits 1
 if one does not.  Shapes are timed in turns (default, the others, the
@@ -20,7 +22,7 @@ default again) so the spread of one call shows.
 Usage (on a machine with a card):
   python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1,3]
       [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,...] [--ncol 65536]
-      [--nlay 60,137]
+      [--nlay 60,137] [--dtype float32|float64]
 Prints one line per (kernel, shape) and the card's name and power limit.
 """
 from __future__ import annotations
@@ -50,7 +52,8 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                     "lwsw": prep[1:]}[name]
     default = staged.plan_for(atm, lw_in, sw_in)
     ref = [o.clone() for o in core(*prep, ncol)]
-    head = f"stage_sweep: {name} {ncol}x{nlay} {n_ang} angle(s) shape"
+    head = (f"stage_sweep: {name} {ncol}x{nlay} {n_ang} angle(s) "
+            f"{atm.tlay.dtype} shape")
     ok = True
     for shape in [None] + shapes + [None]:
         if shape is None:
@@ -65,7 +68,8 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                     staged.band_gases(lw_in.plan) if lw_in else (0, 0),
                     staged.band_gases(sw_in.plan) if sw_in else (0, 0),
                     *limits, blocks_per_sm=shape[0], max_slots=shape[1],
-                    sets=shape[2], param_stage=shape[3])
+                    sets=shape[2], param_stage=shape[3],
+                    word_bytes=atm.tlay.element_size())
             except ValueError as e:
                 print(f"{head} {label}: skipped ({e})", flush=True)
                 continue
@@ -73,6 +77,10 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
         out = core(*prep, ncol, plan=p)
         same = all(torch.equal(o, r) for o, r in zip(out, ref))
         ok = ok and same
+        if not same:
+            diff = max(float((o - r).abs().max() / r.abs().max())
+                       for o, r in zip(out, ref))
+            same = f"False (largest difference {diff:.3e} of a flux scale)"
         ms = cuda_time_ms(lambda: core(*prep, ncol, plan=p))
         print(f"{head} {label}: {p.threads} threads, C = {p.slots}, "
               f"S = {p.sets}, "
@@ -97,6 +105,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ncol", type=int, default=65536)
     ap.add_argument("--nlay", default="60",
                     help="layers, comma-separated")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -112,13 +122,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    models = {}
+    models, dtype = {}, getattr(torch, args.dtype)
     with tempfile.TemporaryDirectory() as work:
         for key, kind in (("lw", "lw_fsck"), ("sw", "sw_wide")):
             path = os.path.join(work, f"{key}.nc")
             write_synthetic_ckd(path, kind, seed=7)
-            models[key] = load_ckd_model(path, dtype=torch.float32,
-                                         device="cuda")
+            models[key] = load_ckd_model(path, dtype=dtype, device="cuda")
     props = torch.cuda.get_device_properties(0)
     limits = (props.shared_memory_per_block_optin,
               props.shared_memory_per_multiprocessor)
@@ -131,7 +140,8 @@ def main(argv=None) -> int:
              "lwsw": lwsw._kernel_core}
     ok = True
     for nlay in (int(n) for n in str(args.nlay).split(",")):
-        b = example_flux_batch(args.ncol, nlay, np.float32, device="cuda")
+        b = example_flux_batch(args.ncol, nlay, np.dtype(args.dtype),
+                               device="cuda")
         t = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()
              if k != "concs"}
         emis = t["emis"][:, None].expand(-1, models["lw"].ngpt).contiguous()
