@@ -32,13 +32,16 @@
 // The layer parameters of both bands sit in the layer's SW r_dif row
 // where they fit and each optics warp computes its own layers' first,
 // one pass per optics warp and column; or, with the parameter stage (one
-// LW angle, lw_fsck's 32 g-points, whole columns in shared memory:
-// staged.py stage_plan), in the layer's first LW row, written by the
-// set's LW sweep warp for the slot's next column once its LW sweep is
-// done, beside the SW sweep: the optics warps' path loses its pass (at
+// LW angle, lw_fsck's 32 g-points, C = 2: staged.py stage_plan), off the
+// optics warps' path.  With whole columns in shared memory they sit in
+// the layer's first LW row, written by the set's LW sweep warp for the
+// slot's next column once its LW sweep is done, beside the SW sweep (at
 // nlay 60, 12 passes of ~560 warp instructions a column with 5 of 32
-// lanes busy become 2 with every lane busy, off that path), and the SW
-// optics run before the LW optics, which overwrite the parameters.
+// lanes busy become 2 with every lane busy), and the SW optics run before
+// the LW optics, which overwrite them.  On the split route (nlay 124-175),
+// whose sweeps leave no such room, they sit in a place of their own after
+// the accumulators, and each optics warp computes its layers' before it
+// waits for the slot, while the slot's sweeps finish.
 // C = 2 columns per block where two fit in shared memory, each swept by
 // its own set (S = 2; nlay 60: two blocks of 512 threads per SM); where
 // only one whole column fits but two without their LW rows do (nlay

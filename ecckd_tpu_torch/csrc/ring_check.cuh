@@ -5,8 +5,10 @@
 // The staged body hands each column slot s from the optics warps to its
 // set of sweep warps (FULL + s) and back (FREE + s); with the parameter
 // stage the set's LW sweep warps write the layer parameters of the slot's
-// next column before they free it.  The block's i-th column takes slot
-// i % C in round i / C.  The checker asserts, per block:
+// next column before they free it, or on the split route the optics warps
+// compute them into a place of their own before they wait for FREE.  The
+// block's i-th column takes slot i % C in round i / C.  The checker
+// asserts, per block:
 //   FULL: a sweep warp past its FULL wait for column i finds that every
 //     optics warp has staged rounds 0 .. i / C of the slot, and no more:
 //     staged[s] == n_opt (i / C + 1);
@@ -19,7 +21,11 @@
 //   PRM: with the stage, an optics warp past its FREE wait for column i
 //     finds that the set's n_lw LW warps have written the parameters of
 //     rounds 1 .. i / C of the slot, and no more: params[s] ==
-//     n_lw (i / C);
+//     n_lw (i / C); on the split route, an optics warp about to compute
+//     column i's parameters ahead of its FREE wait finds that every
+//     optics warp has staged rounds 0 .. i / C - 1 of the slot (the last
+//     readers of their place), and none round i / C: staged[s] ==
+//     n_opt (i / C);
 //   STALE: every float of a slot's staged rows is written by the optics
 //     of each column before a sweep reads it.  The last reader of the rows
 //     (the set's SW warp its rows, one LW warp the LW rows) sets them to
@@ -36,7 +42,7 @@
 //     host plan's col_floats includes them), and on the split route after
 //     every slot's LW rows in the device slice, keep their values from
 //     the kernel's start to its end.
-// Seeded jitter (__nanosleep, ring_config) at the five hand-over points
+// Seeded jitter (__nanosleep, ring_config) at the six hand-over points
 // changes the warps' orderings from run to run.  Violations go to one
 // device record, read and reset through ecckd_<name>_ring_errors.
 
@@ -190,6 +196,16 @@ struct RingCheck {
       if (n_prm > 0) expect(params, s, n_prm * r, n_prm * r + 1, RING_PRM, c);
     }
     jitter(0, i);
+  }
+
+  // Optics warp computing column c's parameters ahead of its FREE wait
+  // (the split route's stage; the block's i-th column, slot s): every
+  // optics warp has staged rounds 0 .. i / C - 1 of the slot, the last
+  // that read its parameters' place, and none round i / C.
+  __device__ __forceinline__ void params_ahead(int i, int s, int c) const {
+    const unsigned r = i / n_slots;
+    expect(staged, s, n_opt * r, n_opt * r + 1, RING_PRM, c);
+    jitter(5, i);
   }
 
   // LW sweep warp with the stage: the next column's parameters written,

@@ -31,7 +31,11 @@
 //   computes its own layers' parameters first, lanes over them: at nlay
 //   60, 12 passes of ~700 warp instructions a column with 5 of 32 lanes
 //   busy, each on an optics warp's path, where the stage's 2 passes keep
-//   every lane busy and lie beside the SW sweep, off that path.
+//   every lane busy and lie beside the SW sweep, off that path.  On the
+//   split route the sweeps leave no such room; there the stage keeps the
+//   parameters in a place of their own after the accumulators, which no
+//   sweep reads, and each optics warp computes its own layers' before it
+//   waits for the slot (FREE), while the slot's sweeps finish.
 // Named barriers hand each slot from the optics warps to its set of sweep
 // warps (FULL) and back (FREE).  Every warp's body is in one kernel;
 // __launch_bounds__ holds 1024 threads per SM to 64 registers.
@@ -82,8 +86,10 @@ struct Tile {
   int prm_sw;        //   the SW band's gas weights at + prm_sw (common.cuh)
   int prm_stage;     // 1: the sets' LW sweep warps write the layer
                      // parameters of each slot's next column (in its LW
-                     // rows: prm_base 0); 0: each optics warp computes its
-                     // own layers' parameters
+                     // rows: prm_base 0), or on the split route each
+                     // optics warp computes its own before its FREE wait
+                     // (in their own place); 0: each optics warp computes
+                     // its own layers' parameters once it holds the slot
 };
 
 namespace {
@@ -166,8 +172,14 @@ __device__ __forceinline__ R* lw_slice(const Tile& P, int s) {
 // The planted fault ECCKD_PLANT_SKIP_PRM's slow stage: in the planted
 // round the LW sweep warps spin this many clock cycles (~50 us) before they
 // write the parameters, so the optics warps read the slot first in every
-// run.
+// run (on the split route the last optics warp spins four times as long
+// before it stages its first column).
 constexpr long long PLANT_SPIN_CYCLES = 100000;
+
+__device__ __forceinline__ void plant_spin(long long cycles) {
+  for (const long long t0 = clock64(); clock64() - t0 < cycles;) {
+  }
+}
 
 // One launch's solve.  SL / SS: the LW / SW band's Shape (common.cuh),
 // NoBand for a band the kernel does not solve (BL / BS, W / S are then
@@ -233,6 +245,19 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       const R* prm = st + P.prm_base;
       const int r = (warp + i) % n_opt;
       const int ja = r * nlay / n_opt, jb = (r + 1) * nlay / n_opt;
+      // The split route's stage: the parameters lie in a place of their
+      // own, which no sweep reads, and the warp computes its layers'
+      // before it waits for the slot's sweeps (FREE), in the time that
+      // wait would take.  Only from round 2 of a slot (i > C >= 2): the
+      // FREE wait of the block's column before has joined every optics
+      // warp after its staging of the slot's previous column, the last
+      // read of the place.
+      // (The planted fault ECCKD_PLANT_SKIP_PRM takes round 1 too, and its
+      // last optics warp stages round 0 late.)
+      bool ahead = false;
+      if constexpr (SPLIT)
+        ahead = P.prm_stage != 0 && P.slots >= 2 &&
+                (i > P.slots || (PLANT_SKIP_PRM && i == P.slots));
       // The planted fault ECCKD_PLANT_SKIP_FREE (tools/cuda_sanitize.py
       // --checked): in round 1 of slot 0 the optics warps wait for each
       // other (BAR_PLANT) but not for the slot's sweeps, and join FREE
@@ -242,15 +267,25 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       // stage the slot's next column over layers another still stages,
       // and read that one's rows as its layer parameters (integers).
       const bool late_free = PLANT_SKIP_FREE && i == P.slots && s == 0;
-      if (late_free) bar_sync(BAR_PLANT, 32 * n_opt);
-      else if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
-      RING(ring.freed(i, s, c);)
+      if (!ahead) {
+        if (late_free) bar_sync(BAR_PLANT, 32 * n_opt);
+        else if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
+        RING(ring.freed(i, s, c);)
+      }
       // (The planted fault computes its own, so that it never reads the
       // slot's rows as parameters before the stage wrote them.)
-      if (!stage || i < P.slots || late_free) {
+      if (ahead || !stage || i < P.slots || late_free) {
+        RING(if (ahead) ring.params_ahead(i, s, c);)
         params(c, st, ja + lane, 32, jb);
         __syncwarp();
       }
+      if (ahead) {
+        bar_sync(BAR_FREE + s, bar_threads);
+        RING(ring.freed(i, s, c);)
+      }
+      if (PLANT_SKIP_PRM && SPLIT && P.prm_stage != 0 && i == 0 &&
+          warp == n_opt - 1)
+        plant_spin(4 * PLANT_SPIN_CYCLES);
       if constexpr (SPLIT) {
         lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
                               P.prm_stride, lw_slice<R>(P, s));
@@ -354,9 +389,7 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       RING(ring.sweep_done(i, s);)
       if (c_next < ncol) bar_arrive(BAR_FREE + s, bar_threads);
       if (write_prm && late_prm) {
-        for (const long long t0 = clock64();
-             clock64() - t0 < PLANT_SPIN_CYCLES;) {
-        }
+        plant_spin(PLANT_SPIN_CYCLES);
         params(c_next, st, 32 * a + lane, 32 * n_lw, nlay);
         RING(ring.params_done(i, s);)
       }

@@ -3,7 +3,9 @@
 The staged body (csrc/staged.cuh) hands each column slot from its optics
 warps to its sweep warps and back through named barriers (FULL, FREE);
 with the parameter stage the set's LW sweep warps write the layer
-parameters of the slot's next column before they free it.  Built with
+parameters of the slot's next column before they free it, or on the
+split route the optics warps compute them into a place of their own
+before they wait for FREE.  Built with
 ``-DECCKD_CHECK_RING`` the same body asserts that hand-over on the card:
 per slot, ledgers of the rounds staged, swept and (the stage) of
 parameters written, checked after every wait; NaN written over a slot's
@@ -14,7 +16,9 @@ which the checker must report: ``-DECCKD_PLANT_SKIP_FREE`` (once, the
 optics warps stage a slot without waiting for its sweeps, and join its
 FREE only after) and ``-DECCKD_PLANT_SKIP_PRM`` (once, the LW sweep
 warps free a slot before they write its next column's parameters, and
-write them late; only launches with the stage).
+write them late; on the split route the optics warps compute a slot's
+parameters ahead already in its second round, while its last optics
+warp stages the first late; only launches with the stage).
 
 This module builds and binds those libraries (``library``), sizes their
 staging (``guarded``: the plan with the guard words) and reads their

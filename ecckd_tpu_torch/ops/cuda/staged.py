@@ -146,29 +146,41 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     the S sets and one optics warp, else in half as many, down to one
     (768 per SM at float64 in shared memory).
 
-    The parameter stage (csrc/staged.cuh; the merged kernel's): each set's
-    LW sweep warps, done with a column's LW rows, write the layer
-    parameters of the slot's next column there, lanes over its layers, in
-    place of one pass per optics warp over its own layers; the parameters
-    then sit in the layer's first LW row (``prm_base`` 0, ``prm_stride``
-    the LW g-points).  It needs both bands, an LW band of one g-chunk
-    whose row holds them, and whole columns in shared memory
-    (``param_stage_fits``).  ``param_stage`` None takes it where
-    ``stage_rule`` says: at one LW angle with C = 2.  True or False asks
-    for it or not (tools/stage_sweep.py times both), True where it does
-    not fit raising.
+    The parameter stage (csrc/staged.cuh; the merged kernel's) takes the
+    optics warps' own pass over their layers' parameters (lanes over
+    layers, one pass per optics warp and column) off their path.  With
+    whole columns in shared memory each set's LW sweep warps, done with a
+    column's LW rows, write the parameters of the slot's next column
+    there, lanes over its layers (the layer's first LW row: ``prm_base``
+    0, ``prm_stride`` the LW g-points; the staging keeps its size).  On
+    the split route the parameters move to a place of their own after the
+    accumulators (``per_layer`` words a layer, where C still fits), which
+    no sweep reads, and each optics warp computes its layers' there before
+    it waits for the slot.  It needs both bands and an LW band of one
+    g-chunk whose row holds them (``with_param_stage``).  ``param_stage``
+    None takes it where ``stage_rule`` says: at one LW angle with C = 2.
+    True or False asks for it or not (tools/stage_sweep.py times both),
+    True where it does not fit raising.
 
     The rule, timed with tools/stage_sweep.py at 65,536 columns on an
     H100 80GB HBM3 at 700 W, the same build with and without the stage:
-    with C = 2 a slot turns over in its optics, then its sweeps, and the
-    optics warps' path sets the pace; at one angle the stage takes their
-    pass off it and the LW sweep warp writes it while the SW warp still
-    sweeps (K1 at nlay 30 3.57-3.61 -> 3.11-3.29 ms, 60 5.65-5.83 ->
-    5.45-5.68, 91 11.88-12.07 -> 10.88-10.96).  At 3 angles the set's
-    three LW sweep warps, which compute each angle's sources, leave no
-    room beside the SW sweep (nlay 60 6.84-6.99 -> 7.09-7.25 ms), and with
-    C = 1 no other slot's optics run beside the pass (K3 at nlay 300:
-    32.1-32.4 -> 42.1 ms)."""
+    with C = 2 a slot turns over in its optics, then its sweeps.  With
+    whole columns the optics warps' path sets the pace; at one angle the
+    stage takes their pass off it and the LW sweep warp writes it while
+    the SW warp still sweeps (K1 at nlay 30 3.57-3.61 -> 3.11-3.29 ms, 60
+    5.65-5.83 -> 5.45-5.68, 91 11.88-12.07 -> 10.88-10.96).  On the split
+    route, whose sweeps read the LW rows through L2, the sweep warps have
+    no such room: their pass lengthened the slot's turn (nlay 137 16.4-16.8
+    -> 16.9-17.3 ms with the parameters in their own place, 18.6-18.8 in
+    the slice's LW rows), so there the optics warps, which wait for the
+    slot, compute them meanwhile (nlay 124 15.2-15.4 -> 14.4-14.6 ms, 137
+    16.4-16.8 -> 15.8-16.0, 175 20.6-20.7 -> 20.3; the benchmark's
+    inputs).  From nlay 176 (float64: 88) their place leaves one column
+    per block, and the split route runs without the stage.  At 3 angles
+    the set's three LW sweep warps, which compute each angle's sources,
+    leave no room beside the SW sweep (nlay 60 6.84-6.99 -> 7.09-7.25
+    ms), and with C = 1 no other slot's optics run beside the pass (K3 at
+    nlay 300: 32.1-32.4 -> 42.1 ms)."""
     if not 1 <= max_slots <= SLOT_LIMIT:
         raise ValueError(f"max_slots must be in 1..{SLOT_LIMIT}")
     has_lw, has_sw = ngpt_lw > 0, ngpt_sw > 0
@@ -208,28 +220,41 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
             > sm_shared):
         blocks //= 2
     plan = dataclasses.replace(plan, threads=sm_threads // blocks)
-    fits = param_stage_fits(plan, ngpt_lw, ngpt_sw, per_layer)
+    with_stage = with_param_stage(plan, nlay, ngpt_lw, ngpt_sw, per_layer,
+                                  block_shared)
     if param_stage is None:
-        param_stage = fits and stage_rule(plan, n_angles)
-    if param_stage and not fits:
+        param_stage = with_stage is not None and stage_rule(plan, n_angles)
+    if param_stage and with_stage is None:
         raise ValueError(f"no parameter stage on the {plan.route} route "
                          f"with {ngpt_lw} LW g-points and {per_layer} "
                          "parameters a layer")
-    if not param_stage:
-        return plan
-    return dataclasses.replace(plan, prm_stage=True, prm_base=0,
-                               prm_stride=ngpt_lw)
+    return with_stage if param_stage else plan
 
 
-def param_stage_fits(plan: StagePlan, ngpt_lw: int, ngpt_sw: int,
-                     per_layer: int) -> bool:
-    """Whether ``plan`` (one without the stage) can take the parameter
-    stage: both bands (the merged kernel's LW sweep warps run it beside
-    the SW sweep), whole columns in shared memory, an LW band of one
-    g-chunk whose row holds a layer's ``per_layer`` parameters, and the
-    parameters in rows already (so the staging keeps its size)."""
-    return (0 < ngpt_lw <= 32 and ngpt_sw > 0 and per_layer <= ngpt_lw
-            and plan.route == "shared" and plan.prm_floats == 0)
+def with_param_stage(plan: StagePlan, nlay: int, ngpt_lw: int,
+                     ngpt_sw: int, per_layer: int,
+                     block_shared: int) -> Optional[StagePlan]:
+    """``plan`` (one without the stage) with the parameter stage, or None
+    where it cannot take it: it needs both bands (the merged kernel's),
+    an LW band of one g-chunk whose row holds a layer's ``per_layer``
+    parameters (the shapes timed: lw_rrtmgp's 36 g-points never take
+    it), the parameters in rows already, and whole columns in shared
+    memory, where the parameters move to the LW rows, or the split route,
+    where they move after the accumulators (``per_layer`` a layer) if C
+    still fits in ``block_shared``."""
+    if not (0 < ngpt_lw <= 32 and ngpt_sw > 0 and per_layer <= ngpt_lw
+            and plan.prm_floats == 0):
+        return None
+    if plan.route == "shared":
+        return dataclasses.replace(plan, prm_stage=True, prm_base=0,
+                                   prm_stride=ngpt_lw)
+    if plan.route != "split":
+        return None
+    own = dataclasses.replace(plan, prm_stage=True,
+                              prm_floats=per_layer * nlay,
+                              prm_base=plan.sw_floats + plan.acc_floats,
+                              prm_stride=per_layer)
+    return own if block_shared // own.bytes_per_column >= plan.slots else None
 
 
 def stage_rule(plan: StagePlan, n_angles: int) -> bool:

@@ -207,10 +207,10 @@ def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
     """nlay 137: one whole column fits in a block's shared memory, two do
     not, two without their LW rows do.  The merged kernel keeps two slots
     per block on the split route (each slot's LW rows in a device slice,
-    ops/cuda/staged.py stage_plan) without the parameter stage, counts
-    each launch once in ``launches`` (``fast_launches``) and matches the
-    plain version at f64 in its table mode; at nlay 60 the plan stages
-    whole columns in shared memory."""
+    ops/cuda/staged.py stage_plan), with the parameter stage at one angle
+    (in a place of its own), counts each launch once in ``launches``
+    (``fast_launches``) and matches the plain version at f64 in its table
+    mode; at nlay 60 the plan stages whole columns in shared memory."""
     from ecckd_tpu_torch.ops.cuda import plan, staged
     lw, sw = models["lw", torch.float32], models["sw", torch.float32]
     ncol, nlay = 1037, 137
@@ -223,7 +223,8 @@ def test_kernel_splits_the_staging_at_nlay137(models, n_angles, mode):
                         fast=mode == "bf16")
     stage, per_sm = staged.occupancy(*prep)
     assert (stage.route, stage.prm_stage, stage.slots, stage.sets,
-            stage.threads) == ("split", False, 2, 2, 1024) and per_sm == 1
+            stage.threads) == ("split", n_angles == 1, 2, 2, 1024)
+    assert per_sm == 1
     counter = "fast_launches" if mode == "bf16" else "launches"
     launches = lambda: getattr(lwsw_fluxes_cuda, counter)
     before = launches()
@@ -290,6 +291,52 @@ def test_parameter_stage_changes_no_bit(models, n_angles, mode):
         torch.cuda.synchronize()
         for g, r in zip(got, lwsw._night_masked(prep[2], tuple(plain))):
             assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("nlay,dtype,mode", [
+    (124, torch.float32, "bf16x3"), (137, torch.float32, "bf16x3"),
+    (175, torch.float32, "bf16x3"), (137, torch.float32, "bf16"),
+    (80, torch.float64, "bf16x3")])
+def test_split_parameter_stage_changes_no_bit(models, nlay, dtype, mode):
+    """On the split route at one angle the merged kernel takes the
+    parameter stage (the layer parameters in a place of their own after
+    each slot's accumulators, computed by the optics warps before they
+    wait for the slot) and gives the outputs of the same plan without it:
+    bit for bit at float32 in both table modes (nlay 124-175), within
+    1e-14 of the flux scale at float64 (nlay 80), whose outputs may differ
+    in the last bits between plans."""
+    from ecckd_tpu_torch.ops.cuda import lwsw, plan, staged
+    lw, sw = models["lw", dtype], models["sw", dtype]
+    ncol = 2003
+    b = batch(ncol, nlay, dtype, seed=8)
+    expand = lambda e: e[:, None].expand(e.shape[0], lw.ngpt).contiguous()
+    prep = plan.prepare(lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                        expand(b["emis"]), b["concs"], b["alb"], b["tsi"],
+                        b["sza"], 1, fast=mode == "bf16")
+    on = staged.plan_for(*prep)
+    assert (on.route, on.prm_stage, on.slots, on.sets) == ("split", True, 2,
+                                                          2)
+    assert (on.prm_base, on.prm_stride, on.prm_floats) == (
+        on.sw_floats + on.acc_floats, 26, 26 * nlay)
+    props = torch.cuda.get_device_properties(b["tlay"].device)
+    off = staged.stage_plan(
+        nlay, lw.ngpt, sw.ngpt, 1, staged.band_gases(prep[1].plan),
+        staged.band_gases(prep[2].plan), props.shared_memory_per_block_optin,
+        props.shared_memory_per_multiprocessor, *staged.SHAPES["lwsw"],
+        param_stage=False, word_bytes=b["tlay"].element_size())
+    assert off == dataclasses.replace(on, prm_stage=False, prm_floats=0,
+                                      prm_base=off.prm_base,
+                                      prm_stride=off.prm_stride)
+    got = lwsw._kernel_core(*prep, ncol, plan=on)
+    ref = lwsw._kernel_core(*prep, ncol, plan=off)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        if dtype == torch.float32:
+            assert torch.equal(g, r)
+        else:
+            err = float((g - r).abs().max() / r.abs().max())
+            assert err <= 1e-14, err
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])

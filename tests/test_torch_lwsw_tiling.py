@@ -80,22 +80,30 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
 @pytest.mark.parametrize("nlay", [1, 2, 8, 60, 137, 300])
 def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
     """nlay 137 is split at every angle count and both LW bands: one whole
-    column fits in a block, two of their SW rows and accumulators do."""
+    column fits in a block, two of their SW rows and accumulators do (and
+    at one angle with lw_fsck, with the parameter stage, two of those
+    and a place of their own for the layer parameters)."""
     p = staged.stage_plan(nlay, ng_lw, 27, n_ang, GASES_LW, GASES_SW, *H100)
     floats, c, shared, smem, threads, in_rows, split = by_hand(
         nlay, ng_lw, 27, n_ang)
-    assert p.col_floats == floats and p.bytes_per_column == 4 * floats
-    assert (p.slots, p.shared, p.shared_bytes, p.threads) == (c, shared,
-                                                             smem, threads)
+    own = 26 * nlay if split and p.prm_stage else 0
+    assert p.col_floats == floats + own
+    assert p.bytes_per_column == 4 * (floats + own)
+    assert (p.slots, p.shared, p.shared_bytes, p.threads) == (
+        c, shared, smem + 4 * c * own, threads)
     assert p.split == split == (nlay == 137)
     assert p.slice_floats == (p.lw_floats if split else
                               0 if shared else floats)
-    assert (p.prm_floats == 0) == in_rows
+    assert (p.prm_floats == 0) == (in_rows and not own)
     assert p.prm_sw == 8 + GASES_LW[0] + 3 * GASES_LW[1]
     # Layer j's parameters sit in its r_dif row, after the LW rows (split:
     # the r_dif row starts the slot); with the parameter stage in its
-    # first LW row, at the slot's start.
-    if p.prm_stage:
+    # first LW row, at the slot's start, or on the split route after the
+    # accumulators, 26 a layer.
+    if own:
+        assert (p.prm_base, p.prm_stride) == (p.sw_floats + p.acc_floats,
+                                              26)
+    elif p.prm_stage:
         assert (p.prm_base, p.prm_stride) == (0, ng_lw)
     else:
         assert (p.prm_base, p.prm_stride) == (0 if split else p.lw_floats,
@@ -118,10 +126,13 @@ def test_stage_plan_at_the_main_path_and_the_edges():
         59512, 2, 1024)
     deep = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     # 129,012 B a whole column (LW rows 52,608 B): one fits, two do not;
-    # without its LW rows 76,404 B, two fit.
+    # without its LW rows 76,404 B, two fit, and with the parameter
+    # stage's own place (14,248 B) 90,652 B, two still fit.
     assert (deep.lw_floats, deep.bytes_per_column, deep.slots,
-            deep.shared_bytes, deep.route) == (13152, 76404, 2, 152808,
+            deep.shared_bytes, deep.route) == (13152, 90652, 2, 181304,
                                                "split")
+    assert staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100,
+                             param_stage=False).bytes_per_column == 76404
     device = staged.stage_plan(300, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (device.bytes_per_column, device.slots, device.shared,
             device.shared_bytes, device.threads) == (282232, 2, False, 0,
@@ -156,8 +167,10 @@ H100_PLANS = [
     (60, 1, "shared", 2, 2, 512, 113264, 0),
     (91, 1, "shared", 2, 2, 1024, 171544, 0),
     (123, 1, "shared", 2, 2, 1024, 231704, 0),
-    (124, 1, "split", 2, 2, 1024, 138352, 11904),
-    (137, 1, "split", 2, 2, 1024, 152808, 13152),
+    (124, 1, "split", 2, 2, 1024, 164144, 11904),
+    (137, 1, "split", 2, 2, 1024, 181304, 13152),
+    (175, 1, "split", 2, 2, 1024, 231464, 16800),
+    (176, 1, "split", 2, 2, 1024, 196176, 16896),
     (208, 1, "split", 2, 2, 1024, 231760, 19968),
     (209, 1, "shared", 1, 1, 1024, 196692, 0),
     (300, 1, "device", 2, 2, 512, 0, 70558),
@@ -185,7 +198,7 @@ def test_merged_kernels_routes_at_h100_limits(nlay, n_ang, route, c, s,
         # The slice holds the LW rows alone: 32 g-points x 3 nlay (+1 at
         # 3 angles); the slot in shared memory the rest.
         assert lw_slice == p.lw_floats == 32 * (3 * nlay + (n_ang > 1))
-        assert smem == c * 4 * (p.sw_floats + p.acc_floats)
+        assert smem == c * 4 * (p.sw_floats + p.acc_floats + p.prm_floats)
     # The guarded plan (ring checker) keeps the route.
     g = dataclasses.replace(p, guard_floats=32)
     assert g.route == route
@@ -196,8 +209,9 @@ def test_merged_kernels_routes_at_h100_limits(nlay, n_ang, route, c, s,
 # K1's plans at float64 (8 B a word) in its block shape at an H100's
 # limits, beside the float32 plan of the same shape: (nlay, angles, route,
 # C, threads, shared bytes per block, device slice words per slot, the
-# parameter stage).  A column takes twice the bytes, so C = 2 fits one
-# block per SM (768 threads, csrc/lwsw.cu F64_SHARED_THREADS) to nlay 61,
+# parameter stage: at one angle, on the split route where its own place
+# keeps C = 2, to nlay 87).  A column takes twice the bytes, so C = 2 fits
+# one block per SM (768 threads, csrc/lwsw.cu F64_SHARED_THREADS) to nlay 61,
 # the split route holds C = 2 from nlay 62 (where float32 still holds
 # whole columns), and from nlay 124 (122 at 3 angles) no column fits: the
 # device route, two blocks of 512 threads, where float32 splits.
@@ -206,6 +220,7 @@ F64_PLANS = [
     (47, 3, "shared", 2, 768, 181232, 0, False),
     (60, 1, "shared", 2, 768, 226528, 0, True),
     (60, 3, "shared", 2, 768, 230944, 0, False),
+    (80, 1, "split", 2, 768, 212128, 7680, True),
     (91, 1, "split", 2, 768, 203312, 8736, False),
     (91, 3, "split", 2, 768, 209200, 8768, False),
     (137, 1, "device", 2, 512, 0, 32253, False),
@@ -229,9 +244,12 @@ def test_merged_kernels_f64_plans_at_h100_limits(nlay, n_ang, route, c,
             p.slice_floats, p.prm_stage) == (route, c, 2, threads, smem,
                                              words, stage)
     # The same rows, accumulators and parameters as at float32, in words
-    # of twice the size (the route's own: a split slot holds no LW rows).
+    # of twice the size (the route's own: a split slot holds no LW rows,
+    # and with the stage the parameters in a place of their own).
     assert p.word_bytes == 8 and p32.word_bytes == 4
-    whole = lambda q: dataclasses.replace(q, split=False)
+    for q in (p, p32):
+        assert q.prm_floats == (26 * nlay if q.split and q.prm_stage else 0)
+    whole = lambda q: dataclasses.replace(q, split=False, prm_floats=0)
     assert whole(p).col_floats == whole(p32).col_floats
     assert p.bytes_per_column == 8 * p.col_floats
     assert (p.lw_floats, p.sw_floats, p.acc_floats) == (
@@ -372,16 +390,26 @@ def test_tile_struct_carries_the_split_plan():
     """The split route's Tile: shared memory per block and the LW slice's
     pointer in ``stage`` (csrc/staged.cuh staging_of reads the route from
     both), a slot's shared floats without the LW rows, the parameters at
-    the slot's start."""
+    their own place with the parameter stage (the start of its SW rows
+    without)."""
     p = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100,
                           max_slots=2, sets=2)
     stage = torch.empty((132, p.slots, p.slice_floats))
     t = staged.tile_struct(p, blocks=132, stage=stage)
-    assert t.stage == stage.data_ptr() and t.shared_bytes == 152808 > 0
+    assert t.stage == stage.data_ptr() and t.shared_bytes > 0
     assert (t.slots, t.sets, t.threads) == (2, 2, 1024)
     assert (t.col_floats, t.lw_floats, t.sw_floats) == (
-        19101, 13152, 18549)
-    assert (t.prm_base, t.prm_stride, t.prm_sw) == (0, 27, 18)
+        22663, 13152, 18549)
+    # With the parameter stage (one angle, C = 2) the parameters follow
+    # the slot's accumulators, 26 a layer; without it they start its SW
+    # rows, and the slot is 3,562 floats shorter.
+    assert t.prm_stage == 1 and t.shared_bytes == 181304
+    assert (t.prm_base, t.prm_stride, t.prm_sw) == (18549 + 552, 26, 18)
+    off = staged.tile_struct(staged.stage_plan(
+        137, 32, 27, 1, GASES_LW, GASES_SW, *H100, max_slots=2, sets=2,
+        param_stage=False))
+    assert (off.prm_stage, off.prm_base, off.prm_stride) == (0, 0, 27)
+    assert (off.col_floats, off.shared_bytes) == (19101, 152808)
     # 13.9 MB of LW slices on 132 blocks.
     assert 4 * stage.numel() == 4 * 132 * 2 * 13152 == 13_888_512
 
@@ -532,9 +560,10 @@ def test_capture_counters_are_the_wrappers_launches():
 
 # The parameter stage by shape, in each kernel's block shape
 # (staged.SHAPES) at an H100's limits: (kernel, nlay, angles, stage).  It
-# takes an LW band of one g-chunk, whole columns in shared memory and the
-# rule's shapes (stage_rule: one angle, C >= 2); it is the merged
-# kernel's alone (its LW sweep warps run it beside the SW sweep).
+# takes an LW band of one g-chunk, whole columns in shared memory or the
+# split route where the parameters' own place keeps C, and the rule's
+# shapes (stage_rule: one angle, C >= 2); it is the merged kernel's alone
+# (with whole columns its LW sweep warps run it beside the SW sweep).
 STAGE_PLANS = [
     ("lwsw", 60, 1, True),
     ("lwsw", 30, 1, True),
@@ -542,7 +571,9 @@ STAGE_PLANS = [
     ("lwsw", 123, 1, True),
     ("lwsw", 60, 3, False),
     ("lwsw", 60, 2, False),
-    ("lwsw", 137, 1, False),      # split: the LW rows in the device slice
+    ("lwsw", 137, 1, True),       # split: the LW rows in the device slice
+    ("lwsw", 137, 3, False),      # split at 3 angles
+    ("lwsw", 208, 1, False),      # split, no room for the parameters' place
     ("lwsw", 220, 1, False),      # one whole column per block
     ("lwsw", 300, 1, False),      # device staging
     ("lw", 60, 1, False),
@@ -568,20 +599,69 @@ def test_stage_plan_gives_the_parameter_stage_by_shape(kernel, nlay, n_ang,
     p = _shape_plan(kernel, nlay, n_ang)
     off = _shape_plan(kernel, nlay, n_ang, param_stage=False)
     assert p.prm_stage == stage and not off.prm_stage
-    # The stage moves the parameters to the layer's first LW row and
-    # changes nothing else: the block keeps its threads, C, S and bytes.
+    # The stage moves the parameters, to the layer's first LW row (whole
+    # columns) or to their own place (split), and changes nothing else:
+    # the block keeps its threads, C and S, and whole columns their bytes.
+    own = 26 * nlay if stage and p.split else 0
     assert dataclasses.replace(p, prm_stage=False, prm_base=off.prm_base,
-                               prm_stride=off.prm_stride) == off
-    if stage:
-        assert (p.prm_base, p.prm_stride, p.prm_floats) == (0, 32, 0)
+                               prm_stride=off.prm_stride,
+                               prm_floats=0) == off
+    assert p.prm_floats == own
+    if own:
+        assert (p.prm_base, p.prm_stride) == (p.sw_floats + p.acc_floats,
+                                              26)
+    elif stage:
+        assert (p.prm_base, p.prm_stride) == (0, 32)
     else:
         assert p == off
     # Asked for where it cannot run, it raises; the rule reads the shape
     # alone.
-    if kernel != "lwsw" or off.route != "shared":
+    if kernel != "lwsw" or off.route == "device" or (
+            off.route == "split" and n_ang == 1 and not stage):
         with pytest.raises(ValueError):
             _shape_plan(kernel, nlay, n_ang, param_stage=True)
     assert _shape_plan(kernel, nlay, n_ang) == p
+
+
+@pytest.mark.parametrize("nlay", [124, 137, 160, 175])
+def test_split_route_takes_the_parameter_stage(nlay):
+    """f32 nlay 124-175 at one angle, K1's split route: the stage puts
+    the parameters in a place of their own after the slot's accumulators
+    in shared memory (26 a layer), which no sweep reads, so the optics
+    warps can compute them before they wait for the slot; it keeps the
+    block's C, S, threads and slice, and the slot grows by that place."""
+    p = _shape_plan("lwsw", nlay, 1)
+    off = _shape_plan("lwsw", nlay, 1, param_stage=False)
+    assert (p.route, p.prm_stage) == ("split", True)
+    assert (off.route, off.prm_stage) == ("split", False)
+    assert (p.slots, p.sets, p.threads, p.slice_floats) == (
+        off.slots, off.sets, off.threads, off.slice_floats) == (
+            2, 2, 1024, 96 * nlay)
+    assert p.shared_bytes == off.shared_bytes + 2 * 4 * 26 * nlay <= H100[0]
+    assert (p.prm_base, p.prm_stride, p.prm_floats) == (
+        p.sw_floats + p.acc_floats, 26, 26 * nlay)
+    # Without the stage the parameters start the slot's SW rows.
+    assert (off.prm_base, off.prm_stride, off.prm_floats) == (0, 27, 0)
+    # A layer's 26 parameters: 4 + 4 Planck words and the bands' gases.
+    assert p.prm_sw + GASES_SW[0] + 3 * GASES_SW[1] == 26
+
+
+@pytest.mark.parametrize("nlay,n_ang,ng_lw", [(176, 1, 32), (208, 1, 32),
+                                              (137, 3, 32), (137, 1, 36)])
+def test_split_route_still_declines_the_stage(nlay, n_ang, ng_lw):
+    """The split route without the stage: from nlay 176 at one angle the
+    parameters' own place would leave one column per block (asked for,
+    it raises); at 3 angles the rule declines it (the set's LW sweep
+    warps leave no room: stage_plan's timings) though it fits; lw_rrtmgp's
+    36 g-points are two g-chunks, and asked for there it raises."""
+    p = _shape_plan("lwsw", nlay, n_ang, ng_lw=ng_lw)
+    assert (p.route, p.prm_stage, p.slots) == ("split", False, 2)
+    assert (p.prm_base, p.prm_stride, p.prm_floats) == (0, 27, 0)
+    if n_ang == 1:
+        with pytest.raises(ValueError):
+            _shape_plan("lwsw", nlay, n_ang, ng_lw=ng_lw, param_stage=True)
+    else:
+        assert _shape_plan("lwsw", nlay, n_ang, param_stage=True).prm_stage
 
 
 def test_no_stage_for_lw_rows_of_two_g_chunks():

@@ -164,11 +164,15 @@ def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
         assert covered == every, kernel
         assert any(c == 1 for _, c, *_ in covered), kernel
         assert any(route == "device" for *_, route, _ in covered), kernel
-    # K1's split route at 1 and 3 angles, at its shallow and deep ends.
+    # K1's split route at 1 and 3 angles, at its shallow and deep ends,
+    # and at 1 angle the ends of the parameter stage on it.
     split = {(nlay, a) for k, nlay, a in cuda_sanitize.CHECKED
              if k == "lwsw" and _plan(gases, k, nlay, a).split}
-    assert {(124, 1), (137, 1), (208, 1), (122, 3), (137, 3),
+    assert {(124, 1), (137, 1), (175, 1), (208, 1), (122, 3), (137, 3),
             (202, 3)} <= split
+    assert {nlay for k, nlay, a in cuda_sanitize.CHECKED if k == "lwsw"
+            and _plan(gases, k, nlay, a).split
+            and _plan(gases, k, nlay, a).prm_stage} == {124, 137, 175}
     # Both table modes, every configuration, and the plant in each kernel.
     import inspect
     defaults = inspect.signature(cuda_sanitize.run_checked).parameters

@@ -125,7 +125,8 @@ def test_stage_plan_at_sweep_depths_is_the_regime_by_hand(nlay, ang):
 
 def test_the_sweeps_regimes():
     """The three regimes the sweep's depths span at 1 angle: nlay 137
-    split, C = 2 in one block of 1024 threads (the nlay-91 regime)."""
+    split, C = 2 in one block of 1024 threads (the nlay-91 regime), with
+    the parameter stage's own place (26 words a layer)."""
     blocks, slots, sets = staged.SHAPES["lwsw"]
     got = {nlay: staged.stage_plan(nlay, 32, 27, 1, GASES_LW, GASES_SW,
                                    *H100, blocks_per_sm=blocks,
@@ -135,7 +136,7 @@ def test_the_sweeps_regimes():
         30: ("shared", 2, 512), 47: ("shared", 2, 512),
         60: ("shared", 2, 512), 91: ("shared", 2, 1024),
         137: ("split", 2, 1024)}
-    assert got[137].bytes_per_column == 556 * 137 + 232
+    assert got[137].bytes_per_column == (556 + 4 * 26) * 137 + 232
 
 
 def test_the_mode_picks_the_bounds_and_the_artifact():

@@ -39,9 +39,10 @@ seed):
 for each other but not for the slot's sweeps, and join its FREE only
 after staging it) in each, and ``-DECCKD_PLANT_SKIP_PRM`` (in slot 0's
 round 0 the LW sweep warps free the slot before they write the next
-column's layer parameters, and write them late) in those whose plan has
-the parameter stage.  The
-checker must report each plant in each kernel it runs in: a violation,
+column's layer parameters, and write them late; on the split route the
+optics warps compute slot 0's parameters ahead of their FREE wait already
+in round 1, while the last optics warp stages round 0 late) in those
+whose plan has the parameter stage.  The checker must report each plant in each kernel it runs in: a violation,
 a NaN or an output that differs.
 
 Usage (on a machine with a card and the CUDA toolkit):
@@ -76,20 +77,21 @@ TOOLS = {"racecheck": SHARED, "synccheck": SHARED, "memcheck": DEVICE}
 
 # The checked route: the depths of tools/shape_sweep_cuda.py and those that
 # reach each kernel's other staging regimes on an H100 (K1: the split
-# route's ends at 1 and 3 angles, and one whole column per block; K3: 1024
-# threads at C = 2, C = 1, device staging in 512 threads; K4: C = 2,
-# C = 1).
+# route's ends at 1 and 3 angles, at 1 angle those of the parameter stage
+# (124-175), and one whole column per block; K3: 1024 threads at C = 2,
+# C = 1, device staging in 512 threads; K4: C = 2, C = 1).
 EXTRA = ([(k, n, a) for k in ("lwsw", "lw") for n in (30, 47, 91)
           for a in (1, 3)]
-         + [("lwsw", n, 1) for n in (124, 208, 230)]
+         + [("lwsw", n, 1) for n in (124, 175, 208, 230)]
          + [("lwsw", n, 3) for n in (122, 202)]
          + [("lw", 200, 1), ("lw", 430, 1), ("lw", 600, 4)]
          + [("sw", n, 1) for n in (30, 47, 91, 180, 300)])
 CHECKED = SHARED + DEVICE + EXTRA
 # K1's double instantiation: its f64 plans (8 B a word) in shared memory
 # (nlay 8: two blocks of 384 threads; 47, 60: C = 2 in 768; 110: C = 1),
-# split (91) and in the device slice (137, 300), at 1 and 3 angles.
-CHECKED_F64 = [("lwsw", n, a) for n in (8, 47, 60, 91, 110, 137, 300)
+# split (80 with the parameter stage at 1 angle, 91 without) and in the
+# device slice (137, 300), at 1 and 3 angles.
+CHECKED_F64 = [("lwsw", n, a) for n in (8, 47, 60, 80, 91, 110, 137, 300)
                for a in (1, 3)]
 CHECKED_NCOL = 2003
 SEEDS = (1, 2, 3)
