@@ -181,6 +181,7 @@ SWEEP_NCOL = 16384      # phase 15's timed columns per sweep leg
 RING_CHECKED = ([(k, n, 1) for k in ("lwsw", "lw", "sw") for n in (60, 137)]
                 + [(k, n, 3) for k in ("lwsw", "lw") for n in (60, 137)])
 RING_PLANT = [("lwsw", 60, 1), ("lwsw", 137, 1)]
+RING_WIDE = [("lwsw", 60, 1), ("lw", 60, 1)]  # on lw_rrtmgp's 36 g-points
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "lwsw": ("ecckd_tpu_torch/csrc/lwsw.cu",
              "ecckd_tpu/ops/pallas/lwsw.py:61"),
@@ -1589,7 +1590,8 @@ def run(card: str, work: str) -> int:
     wait_s = time.perf_counter() - t_wait
     ring = cuda_sanitize.run_checked(
         configs=RING_CHECKED, plant_configs=RING_PLANT,
-        f64_configs=cuda_sanitize.CHECKED_F64,
+        f64_configs=cuda_sanitize.CHECKED_F64, wide_configs=RING_WIDE,
+        wide_f64_configs=[],
         runs=[(0, 0, None), (cuda_sanitize.SEEDS[0],
                              cuda_sanitize.JITTER_NS, cuda_sanitize.BLOCKS)])
     if not ring["clean"]:

@@ -14,7 +14,17 @@
 //
 // Layout.  Lane = g-point in a warp-uniform loop over chunks of 32
 // g-points, so any ngpt works (padded lanes compute on g-point 0 and
-// contribute 0 to the sums).  Tables are flattened in natural (gas,
+// contribute 0 to the sums).  An LW band whose g-points are a template
+// constant above 32 (lw_rrtmgp's 36; at most 64) takes no second chunk
+// at compute type float (PAIRS): its optics lay a warp's (layer, g-point)
+// pairs over the lanes, 32 pairs a step, and its sweeps give each lane
+// g-points lane and lane + 32 (the second where it exists), whose
+// recurrences run side by side in one walk over the layers and add before
+// the g-sum.  The double instantiations keep the chunked loop: with the
+// pairs their split-route build and its checked build (-DECCKD_CHECK_RING)
+// fused one multiply-add of the SW path differently (the SW fluxes 3e-16
+// apart), which the checked build's bit-for-bit comparison refuses.
+// Tables are flattened in natural (gas,
 // [mole fraction,] p, T, g) order with g fastest, so the warp's gather at
 // one grid corner is one coalesced 128-byte read.  Per-column pointers
 // start at the launch's first column.
@@ -546,13 +556,77 @@ __device__ __forceinline__ R gas_tau_params(const BandT<R>& B,
   return tau;
 }
 
+// lw_optics for an LW band of S::NG g-points in (32, 64] ("Layout"): the
+// warp's (layer, g-point) pairs over the lanes, pair (j, g) at lane
+// ((j - ja) NG + g) mod 32, so a step's stores fill consecutive words.  A
+// lane's layer changes from step to step, so each pair computes its upper
+// level's Planck value itself, from the layer above's parameters (its
+// lower level's points), or for the warp's first layer from tlev: the
+// same float operations on the same floats as a value carried down.  The
+// parameters never share the LW rows here (ops/cuda/staged.py stage_plan
+// keeps them in the SW rows or a place of their own), and the warp reads
+// only its own layers'.
+template <typename T, class S, int NT, typename R = Real<T>>
+__device__ __forceinline__ void lw_optics_pairs(const AtmosT<R>& A,
+                                                const GridT<R>& G,
+                                                const BandT<R>& B,
+                                                const LwSolveT<R>& W, int c,
+                                                int ja, int jb, int lane,
+                                                const R* prm, int prm_stride,
+                                                R* lw_st) {
+  constexpr int NG = S::NG;
+  static_assert(NG > 32 && NG <= 64, "pairs of one or two g-chunks");
+  const int nlay = A.nlay, n = (jb - ja) * NG;
+  const R thresh = r_sqrt(epsilon<R>());
+  const PlanckAt<R> top =
+      planck_at(W, NG, W.tlev[(size_t)c * (nlay + 1) + ja]);
+  for (int q0 = 0; q0 < n; q0 += 32) {
+    const int q = q0 + lane;
+    if (q >= n) break;
+    const int j = ja + q / NG, g = q % NG;
+    const R* p = prm + j * prm_stride;
+    const Corners<T> w(p[1], p[2]);
+    const R tau =
+        gas_tau_params<T, S, NT>(B, G, word_int(p[0]) * NG + g, w, p + 8);
+    const R b_lay = planck_value(W.planck, g, NG, word_int(p[4]), p[5]);
+    const R b_bot = planck_value(W.planck, g, NG, word_int(p[6]), p[7]);
+    PlanckAt<R> upper = top;
+    if (j > ja) {
+      const R* pa = p - prm_stride;
+      upper = {word_int(pa[6]), pa[7]};
+    }
+    const R b_top = planck_value(W.planck, g, NG, upper.off, upper.w);
+    R* st = lw_st + j * NG + g;
+    if (W.n_ang == 1) {
+      R tr, sdn, sup;
+      lw_layer_sources(tau * W.sec[0], b_lay, b_top, b_bot, thresh, tr, sdn,
+                       sup);
+      st[0] = tr;
+      st[nlay * NG] = sdn;
+      st[2 * nlay * NG] = sup;
+    } else {
+      st[0] = tau;
+      st[nlay * NG] = b_lay;
+      st[2 * nlay * NG] = b_top;
+      if (j == nlay - 1) st[(2 * nlay + 1) * NG] = b_bot;  // row 3 nlay
+    }
+  }
+}
+
 // The LW optics of layers [ja, jb) of column c from their parameters
 // (layer j's at prm + j * prm_stride): at 1 angle the rows tr, src_dn,
 // src_up of lw_st, at 2-4 angles tau, B(layer) and B(level).  Each level's
 // Planck value is computed once: the layer's lower level from its
 // parameters, carried as the next layer's upper one.  One warp, lane =
-// g-point.  The parameters may share the rows stored here: every store
-// follows the warp's last read of them.
+// g-point (a band wider than a warp: lw_optics_pairs).  The parameters may
+// share the rows stored here: every store follows the warp's last read of
+// them.
+// Whether an LW band of NG g-points (a template constant, else 0) takes
+// the pairs layout at compute type R ("Layout"); ops/cuda/staged.py pairs
+// mirrors it for the plan.
+template <int NG, typename R>
+constexpr bool PAIRS = NG > 32 && std::is_same<R, float>::value;
+
 template <typename T, class S, int NT, typename R = Real<T>>
 __device__ __forceinline__ void lw_optics(const AtmosT<R>& A,
                                           const GridT<R>& G,
@@ -561,6 +635,11 @@ __device__ __forceinline__ void lw_optics(const AtmosT<R>& A,
                                           int ja, int jb, int lane,
                                           const R* prm, int prm_stride,
                                           R* lw_st) {
+  if constexpr (PAIRS<S::NG, R>) {
+    lw_optics_pairs<T, S, NT>(A, G, B, W, c, ja, jb, lane, prm, prm_stride,
+                              lw_st);
+    return;
+  }
   const int nlay = A.nlay, ng = fixed_or<S::NG>(B.ngpt);
   const R thresh = r_sqrt(epsilon<R>());
   const PlanckAt<R> top =
@@ -673,9 +752,99 @@ __device__ __forceinline__ R warp_sums(R (&v)[K], int lane) {
 // shuffles wait on one layer at a time.
 constexpr int SWEEP_K = 4;
 
+// lw_sweeps_staged for an LW band of NG g-points in (32, 64] ("Layout"):
+// lane l carries g-points l and l + 32 (the second where l + 32 < NG,
+// its loads predicated on it), both recurrences in one walk over the
+// layers, K layers a step as below; the lane adds its two radiances
+// before the step's g-sums.
+template <int NG, typename R>
+__device__ __forceinline__ void lw_sweeps_pairs(const LwSolveT<R>& W,
+                                                int nlay, int c, int lane,
+                                                int a, const R* st,
+                                                R* __restrict__ up,
+                                                R* __restrict__ dn) {
+  constexpr int K = SWEEP_K;
+  static_assert(NG > 32 && NG <= 64, "pairs of one or two g-chunks");
+  const R thresh = r_sqrt(epsilon<R>());
+  const R sec = W.sec[a], w2pi = W.w2pi[a];
+  const PlanckAt<R> sfc = planck_at(W, NG, W.tsfc[c]);
+  const int g1 = lane + 32;
+  const bool act1 = g1 < NG;
+  const int gs[2] = {lane, act1 ? g1 : 0};
+  R e[2], b_sfc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    e[h] = W.emis[(size_t)c * NG + gs[h]];
+    b_sfc[h] = planck_value(W.planck, gs[h], NG, sfc.off, sfc.w);
+  }
+  // Transmittance and source of layer j at g-point gs[h] in one
+  // direction: staged at 1 angle, from the staged tau and Planck terms
+  // otherwise.
+  auto layer = [&](int h, int j, bool down, R& tr, R& src) {
+    const R* r0 = st + j * NG + gs[h];
+    const int o = nlay * NG;
+    if (W.n_ang == 1) {
+      tr = r0[0];
+      src = r0[down ? o : 2 * o];
+    } else {
+      R sdn, sup;
+      lw_layer_sources(r0[0] * sec, r0[o], r0[2 * o], r0[2 * o + NG],
+                       thresh, tr, sdn, sup);
+      src = down ? sdn : sup;
+    }
+  };
+  R rad[2] = {(R)0, (R)0};
+  for (int j0 = 0; j0 < nlay; j0 += K) {
+    R tr[2][K] = {}, src[2][K] = {}, r[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (j0 + k < nlay) {
+        layer(0, j0 + k, true, tr[0][k], src[0][k]);
+        if (act1) layer(1, j0 + k, true, tr[1][k], src[1][k]);
+      }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < nlay) {
+        rad[0] = tr[0][k] * rad[0] + src[0][k];
+        rad[1] = tr[1][k] * rad[1] + src[1][k];
+      }
+      r[k] = rad[0] + (act1 ? rad[1] : (R)0);
+    }
+    const R sum = warp_sums(r, lane);
+    const int k = lane / (32 / K);
+    if (lane % (32 / K) == 0 && j0 + k < nlay) dn[j0 + k + 1] += w2pi * sum;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    rad[h] = e[h] * b_sfc[h] + ((R)1 - e[h]) * rad[h];
+  R last[1] = {rad[0] + (act1 ? rad[1] : (R)0)};
+  const R sum = warp_sums(last, lane);
+  if (lane == 0) up[nlay] += w2pi * sum;
+  for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
+    R tr[2][K] = {}, src[2][K] = {}, r[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (j0 - k >= 0) {
+        layer(0, j0 - k, false, tr[0][k], src[0][k]);
+        if (act1) layer(1, j0 - k, false, tr[1][k], src[1][k]);
+      }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 - k >= 0) {
+        rad[0] = tr[0][k] * rad[0] + src[0][k];
+        rad[1] = tr[1][k] * rad[1] + src[1][k];
+      }
+      r[k] = rad[0] + (act1 ? rad[1] : (R)0);
+    }
+    const R sum = warp_sums(r, lane);
+    const int k = lane / (32 / K);
+    if (lane % (32 / K) == 0 && j0 - k >= 0) up[j0 - k] += w2pi * sum;
+  }
+}
+
 // The LW sweeps of column c at Gauss angle a from its staged rows st,
 // g-summed into this angle's level accumulators up / dn (lane 0 adds, over
-// g-chunks in order).
+// g-chunks in order; a band wider than a warp: lw_sweeps_pairs).
 template <int NG, typename R>
 __device__ __forceinline__ void lw_sweeps_staged(const LwSolveT<R>& W,
                                                  const BandT<R>& B, int nlay,
@@ -683,6 +852,10 @@ __device__ __forceinline__ void lw_sweeps_staged(const LwSolveT<R>& W,
                                                  const R* st,
                                                  R* __restrict__ up,
                                                  R* __restrict__ dn) {
+  if constexpr (PAIRS<NG, R>) {
+    lw_sweeps_pairs<NG>(W, nlay, c, lane, a, st, up, dn);
+    return;
+  }
   constexpr int K = SWEEP_K;
   const int ng = fixed_or<NG>(B.ngpt);
   const R thresh = r_sqrt(epsilon<R>());

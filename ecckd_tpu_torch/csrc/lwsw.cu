@@ -46,7 +46,11 @@
 // its own set (S = 2; nlay 60: two blocks of 512 threads per SM); where
 // only one whole column fits but two without their LW rows do (nlay
 // 124-208 at 1 angle), the split route keeps C = 2 with each slot's LW
-// rows in a device memory slice (L2-resident); a column too deep for
+// rows in a device memory slice (L2-resident); with lw_rrtmgp's 36
+// g-points, whose LW optics and sweeps take one pass over a warp's
+// (layer, g-point) pairs at float (common.cuh "Layout"), also where whole columns
+// would leave one block per SM and split ones keep two (nlay 59-103 at 1
+// angle: 7.2-7.4 against 10.1 ms at nlay 60); a column too deep for
 // shared memory (nlay >~ 250 at these ngpt) is staged whole in the slice.
 //
 // Double precision.  lwsw_f64_kernel is the same body at compute type

@@ -39,6 +39,13 @@ F64_SM_THREADS = 768
 """Threads per SM of the merged kernel's double instantiations that stage
 in shared memory (whole or split): csrc/lwsw.cu F64_SHARED_THREADS, 80
 registers each; on the device route they keep ``SM_THREADS``."""
+SHIPPED_NT = 6
+"""Temperatures of the shipped files' (p, T) grid (csrc/staged.cuh)."""
+CONSTANT_SHAPES = {"lw": ((32, 7, 1), (36, 7, 1)), "sw": ((27, 5, 1),)}
+"""(g-points, dense gases, LUT gases) of the bands whose instantiations
+take them as template constants, on ``SHIPPED_NT`` temperatures
+(csrc/staged.cuh FsckShape, RrtmgpShape, WideShape; the merged kernel
+only with the SW one): csrc/*.cu ``pick``."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +98,24 @@ class StagePlan:
         return self.slots * self.bytes_per_column if self.shared else 0
 
     @property
+    def sm_blocks(self) -> int:
+        """Blocks per SM that the plan's threads ask for: the threads an
+        SM runs (``SM_THREADS``, or ``F64_SM_THREADS`` at float64 in
+        shared memory) over the block's.  ``occupancy`` reads what the
+        card holds."""
+        return ((F64_SM_THREADS if self.word_bytes == 8 and self.shared
+                 else SM_THREADS) // self.threads)
+
+    @property
+    def report(self) -> str:
+        """The plan in one line: route, C, S, threads per block, blocks
+        and columns in flight per SM, the parameter stage."""
+        return (f"{self.route}, C = {self.slots}, S = {self.sets}, "
+                f"{self.threads} threads, {self.sm_blocks} blocks and "
+                f"{self.sm_blocks * self.slots} columns per SM, stage "
+                f"{'on' if self.prm_stage else 'off'}")
+
+    @property
     def slice_floats(self) -> int:
         """Device staging floats per slot: the slot on the device route,
         its LW rows and their guard on the split route, else 0."""
@@ -105,12 +130,28 @@ def band_gases(gas_plan: plan_mod.GasPlan) -> Tuple[int, int]:
     return nd, len(gas_plan.slices) - nd
 
 
+def pairs(ngpt_lw: int, ngpt_sw: int, gases_lw: Tuple[int, int],
+          gases_sw: Tuple[int, int], n_t: int, word_bytes: int) -> bool:
+    """csrc/common.cuh ``PAIRS`` of the instantiation that ``pick`` runs
+    on these bands: whether its LW band is a template constant
+    (``CONSTANT_SHAPES``) above 32 g-points at compute type float, so its
+    LW optics and sweeps take one pass over (layer, g-point) pairs
+    ("Layout") instead of the g-chunk loop."""
+    constant = (n_t == SHIPPED_NT
+                and (ngpt_lw, *gases_lw) in CONSTANT_SHAPES["lw"]
+                and (not ngpt_sw
+                     or (ngpt_sw, *gases_sw) in CONSTANT_SHAPES["sw"]))
+    return constant and ngpt_lw > 32 and word_bytes == 4
+
+
 def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
                gases_lw: Tuple[int, int], gases_sw: Tuple[int, int],
                block_shared: int, sm_shared: int, blocks_per_sm: int = 2,
                max_slots: int = MAX_SLOTS, sets: int = 1,
                param_stage: Optional[bool] = None,
-               word_bytes: int = 4) -> StagePlan:
+               word_bytes: int = 4,
+               split: Optional[bool] = None,
+               n_t: int = SHIPPED_NT) -> StagePlan:
     """The staging of one launch of the kernel that solves the bands with
     ``ngpt_* > 0`` (both: lwsw.cu, LW only: lw.cu, SW only: sw.cu).
 
@@ -139,6 +180,13 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     LW rows, the plan is split: each slot's LW rows go to a device slice
     and C is the most of the rest that fit (the layer parameters stay in
     the SW rows or after the accumulators, which then start the slot).
+    Where the instantiation lays its LW band's (layer, g-point) pairs over
+    the lanes (``pairs``: lw_rrtmgp's 36 g-points at float32 on the
+    grid's ``n_t`` temperatures), at one angle the plan also weighs blocks
+    per SM: it is split where that holds more columns in flight per SM
+    (blocks x C) than whole columns do.  ``split`` True or False asks for
+    the split route or whole columns instead of the rule
+    (tools/stage_sweep.py times both; True without both bands raises).
     S, the sets of sweep warps (one per LW angle and one SW each; set k
     sweeps slots k, k + S, ...), is the most, up to ``sets``, that
     divides C.  Threads per block: 1024 (64 registers each) per SM, in
@@ -180,7 +228,19 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     the set's three LW sweep warps, which compute each angle's sources,
     leave no room beside the SW sweep (nlay 60 6.84-6.99 -> 7.09-7.25
     ms), and with C = 1 no other slot's optics run beside the pass (K3 at
-    nlay 300: 32.1-32.4 -> 42.1 ms)."""
+    nlay 300: 32.1-32.4 -> 42.1 ms).
+
+    The split rule at 36 LW g-points, timed the same way (K1 on a banded
+    emissivity): at nlay 60 a whole column (59,512 B) leaves one block of
+    1024 threads per SM, 2 columns in flight, 10.06 ms; split, two
+    blocks of 512 threads and 4 columns, 7.16-7.42 ms (C = 3 whole in one
+    block 8.51, split C = 3 in two 7.68, split C = 4 in one 8.76); nlay
+    91 13.87 -> 11.33 ms.  At nlay 47, where whole columns keep two
+    blocks, they stay whole (6.25 against 6.38 split).  At float64, whose
+    instantiations keep the chunked loop, more columns in flight lost
+    (nlay 47: whole in one block 12.24 ms, split in two 13.77-13.79), so
+    there, on the run-time shapes (the g-chunk loop too) and at 2-4
+    angles (not timed) the rule is the one above."""
     if not 1 <= max_slots <= SLOT_LIMIT:
         raise ValueError(f"max_slots must be in 1..{SLOT_LIMIT}")
     has_lw, has_sw = ngpt_lw > 0, ngpt_sw > 0
@@ -201,25 +261,38 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
         prm_stride=last if in_rows else per_layer, prm_sw=4 + prm_lw,
         slots=max_slots, sets=1, shared=True, threads=1024,
         word_bytes=word_bytes)
-    fit = block_shared // plan.bytes_per_column
-    if has_lw and has_sw and 1 <= fit < max_slots:
-        split = dataclasses.replace(plan, split=True,
-                                    prm_base=plan.prm_base - lw_floats)
-        if block_shared // split.bytes_per_column > fit:
-            plan, fit = split, block_shared // split.bytes_per_column
-    slots = min(fit, max_slots) or max_slots
-    sets = max(s for s in range(1, min(sets, slots) + 1) if slots % s == 0)
-    plan = dataclasses.replace(plan, slots=slots, sets=sets,
-                               shared=fit >= 1)
-    sm_threads = (F64_SM_THREADS if word_bytes == 8 and plan.shared
-                  else SM_THREADS)
-    blocks = blocks_per_sm
-    while blocks > 1 and (
-            sm_threads // blocks < 32 * (sets * sweeps + 1) or plan.shared
-            and blocks * (plan.shared_bytes + RESERVED_SHARED_BYTES)
-            > sm_shared):
-        blocks //= 2
-    plan = dataclasses.replace(plan, threads=sm_threads // blocks)
+
+    def shaped(p: StagePlan) -> StagePlan:
+        """``p`` with its C, S and the threads of the blocks that fit."""
+        fit = block_shared // p.bytes_per_column
+        slots = min(fit, max_slots) or max_slots
+        s = max(k for k in range(1, min(sets, slots) + 1) if slots % k == 0)
+        p = dataclasses.replace(p, slots=slots, sets=s, shared=fit >= 1)
+        sm_threads = (F64_SM_THREADS if word_bytes == 8 and p.shared
+                      else SM_THREADS)
+        blocks = blocks_per_sm
+        while blocks > 1 and (
+                sm_threads // blocks < 32 * (s * sweeps + 1) or p.shared
+                and blocks * (p.shared_bytes + RESERVED_SHARED_BYTES)
+                > sm_shared):
+            blocks //= 2
+        return dataclasses.replace(p, threads=sm_threads // blocks)
+
+    whole = shaped(plan)
+    cut = (shaped(dataclasses.replace(plan, split=True,
+                                      prm_base=plan.prm_base - lw_floats))
+           if has_lw and has_sw else None)
+    if split is None:
+        in_flight = lambda p: p.sm_blocks * p.slots
+        split = cut is not None and (
+            whole.shared and whole.slots < max_slots
+            and cut.slots > whole.slots
+            or n_angles == 1
+            and pairs(ngpt_lw, ngpt_sw, gases_lw, gases_sw, n_t, word_bytes)
+            and in_flight(cut) > in_flight(whole))
+    elif split and cut is None:
+        raise ValueError("no split route without both bands")
+    plan = cut if split else whole
     with_stage = with_param_stage(plan, nlay, ngpt_lw, ngpt_sw, per_layer,
                                   block_shared)
     if param_stage is None:
@@ -286,7 +359,8 @@ def kernel_name(lw: Optional[plan_mod.LwInputs],
 def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
              sw: Optional[plan_mod.SwInputs]) -> StagePlan:
     """``stage_plan`` for these inputs, on their card's shared memory, in
-    their kernel's block shape (``SHAPES``), at their dtype's word size."""
+    their kernel's block shape (``SHAPES``), at their dtype's word size,
+    on their grid's temperatures."""
     props = torch.cuda.get_device_properties(atm.tlay.device)
     blocks, slots, sets = SHAPES[kernel_name(lw, sw)]
     return stage_plan(atm.tlay.shape[1], lw.plan.ngpt if lw else 0,
@@ -297,7 +371,8 @@ def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                       props.shared_memory_per_block_optin,
                       props.shared_memory_per_multiprocessor,
                       blocks_per_sm=blocks, max_slots=slots, sets=sets,
-                      word_bytes=atm.tlay.element_size())
+                      word_bytes=atm.tlay.element_size(),
+                      n_t=(lw or sw).n_t)
 
 
 @functools.lru_cache(maxsize=None)

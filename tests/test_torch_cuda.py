@@ -901,6 +901,55 @@ def test_captured_multi_angle_calls_count_every_launch(models, mode):
         assert_close(got[band], ref[band])
 
 
+def test_captured_banded_rrtmgp_calls_run_k1(models):
+    """ecCKD's RRTMGP-band LW file (36 g-points in 16 bands) with sw_wide
+    on the main path, the emissivity given per band (ncol, 16): capture.jit
+    of lw_sw_fluxes runs K1 in the eager call, the capture and each
+    replay, on the split route in two blocks of 512 threads per SM (the
+    LW band is wider than a warp: csrc/common.cuh "Layout"), and the
+    replay matches the plain version at f64 on the same banded surface;
+    the same banded values spread over the wrong bands do not."""
+    from ecckd_tpu_torch.ops.cuda import plan, staged
+    from ecckd_tpu_torch.utils import capture
+    lw, sw = models["lw_rrtmgp", torch.float32], models["sw", torch.float32]
+    ncol, nlay, chunk = 4096, 60, 1024
+    b32 = batch(ncol, nlay, torch.float32, seed=8)
+    rng = np.random.default_rng(8)
+    band = torch.as_tensor(rng.uniform(0.9, 1.0, (ncol, lw.nband)),
+                           dtype=torch.float32, device="cuda")
+    emis_gpt = lw.gpt_weights_per_band(band).contiguous()
+    p = staged.plan_for(*plan.prepare(
+        lw, sw, b32["plev"], b32["tlay"], b32["tlev"], b32["tsfc"],
+        emis_gpt, b32["concs"], b32["alb"], b32["tsi"], b32["sza"], 1))
+    assert (p.route, p.slots, p.sets, p.threads, p.sm_blocks,
+            p.prm_stage) == ("split", 2, 2, 512, 2, False)
+    jitted = capture.jit(pipeline.lw_sw_fluxes)
+    for _ in range(3):                   # eager, capture, replay
+        before = lwsw_fluxes_cuda.launches
+        f_lw, f_sw = jitted(lw, sw, b32["plev"], b32["tlay"], b32["tlev"],
+                            b32["tsfc"], band, b32["concs"], b32["alb"],
+                            b32["tsi"], b32["sza"], column_chunk=chunk)
+        torch.cuda.synchronize()
+        assert lwsw_fluxes_cuda.launches == before + ncol // chunk
+    (entry,) = jitted.entries.values()
+    assert entry.graph is not None
+    got = (f_lw.flux_up, f_lw.flux_dn, f_sw.flux_up, f_sw.flux_dn)
+    b64 = batch(ncol, nlay, torch.float64, seed=8)
+    lw64, sw64 = models["lw_rrtmgp", torch.float64], models["sw",
+                                                           torch.float64]
+    ref = solve(lwsw_fluxes_plain, lw64, sw64, b64,
+                lw64.gpt_weights_per_band(band.double()).contiguous())
+    for k in range(2):
+        assert_close(got[2 * k:2 * k + 2], ref[2 * k:2 * k + 2])
+    wrong = solve(lwsw_fluxes_plain, lw64, sw64, b64,
+                  band.double()[:, torch.as_tensor(
+                      [(g + 5) % lw.nband for g in lw.gpt2band],
+                      device="cuda")].contiguous())
+    scale = max(float(r.abs().max()) for r in ref[:2])
+    assert float((got[0].double() - wrong[0]).abs().max()) > 10 * (
+        BOUND * scale)
+
+
 def test_captured_call_checks_its_outputs_with_nan_debugging(models):
     """With NaN debugging on, a replay's outputs are checked as the stage
     "captured call" (the pipeline's own checks read the card and cannot

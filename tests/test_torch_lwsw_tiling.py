@@ -54,7 +54,9 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
     """(floats per slot, C, shared, shared bytes per block, threads,
     parameters in the r_dif row, split) from csrc/common.cuh's layout.
     Split: where one whole column fits in a block but two do not, and two
-    fit without their LW rows, which then go to the device slice."""
+    fit without their LW rows, which then go to the device slice; with an
+    LW band wider than a warp at one angle also where whole columns fit
+    one block of two per SM and, without their LW rows, two blocks do."""
     lw_rows = 3 * nlay if n_ang == 1 else 3 * nlay + 1  # tr/src or tau/B
     sw_rows = 5 * nlay + 2        # r_dif, t_dif, r_dir+1, t_dir, t+1
     acc = 2 * (nlay + 1) * (n_ang + 1)  # up, dn per LW angle, then SW
@@ -65,6 +67,9 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
               + (0 if in_rows else per_layer * nlay))
     fit = limits[0] // (4 * floats)
     split = fit == 1 and limits[0] // (4 * (floats - lw_rows * ng_lw)) >= 2
+    two_blocks = lambda f: 2 * (2 * 4 * f + 1024) <= limits[1]
+    if ng_lw > 32 and n_ang == 1 and fit >= 2 and not two_blocks(floats):
+        split = two_blocks(floats - lw_rows * ng_lw)
     if split:
         floats, fit = floats - lw_rows * ng_lw, 2
     if fit == 0:
@@ -82,7 +87,9 @@ def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
     """nlay 137 is split at every angle count and both LW bands: one whole
     column fits in a block, two of their SW rows and accumulators do (and
     at one angle with lw_fsck, with the parameter stage, two of those
-    and a place of their own for the layer parameters)."""
+    and a place of their own for the layer parameters).  lw_rrtmgp's 36
+    g-points are split at nlay 60 and one angle too: two whole columns fit
+    one block per SM, two without their LW rows fit two."""
     p = staged.stage_plan(nlay, ng_lw, 27, n_ang, GASES_LW, GASES_SW, *H100)
     floats, c, shared, smem, threads, in_rows, split = by_hand(
         nlay, ng_lw, 27, n_ang)
@@ -91,7 +98,8 @@ def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
     assert p.bytes_per_column == 4 * (floats + own)
     assert (p.slots, p.shared, p.shared_bytes, p.threads) == (
         c, shared, smem + 4 * c * own, threads)
-    assert p.split == split == (nlay == 137)
+    assert p.split == split == (nlay == 137
+                                or (ng_lw, nlay, n_ang) == (36, 60, 1))
     assert p.slice_floats == (p.lw_floats if split else
                               0 if shared else floats)
     assert (p.prm_floats == 0) == (in_rows and not own)
@@ -112,7 +120,10 @@ def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
 
 def test_stage_plan_at_the_main_path_and_the_edges():
     """Literal numbers for the cases the card runs (nlay 60: two columns
-    of 56,632 B per block, two blocks of 512 threads per SM)."""
+    of 56,632 B per block, two blocks of 512 threads per SM; lw_rrtmgp:
+    a whole column of 59,512 B would leave one block of 1024 threads, so
+    its LW rows go to the device slice and two blocks of two columns of
+    33,592 B each fit)."""
     main = staged.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (main.lw_floats, main.sw_floats, main.acc_floats) == (5760, 8154,
                                                                  244)
@@ -122,8 +133,11 @@ def test_stage_plan_at_the_main_path_and_the_edges():
     assert (four.bytes_per_column, four.shared_bytes, four.threads) == (
         58224, 116448, 1024)          # two blocks would need 234,944 B
     rrtmgp = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100)
-    assert (rrtmgp.bytes_per_column, rrtmgp.slots, rrtmgp.threads) == (
-        59512, 2, 1024)
+    assert (rrtmgp.bytes_per_column, rrtmgp.slots, rrtmgp.threads,
+            rrtmgp.route, rrtmgp.sm_blocks) == (33592, 2, 512, "split", 2)
+    assert rrtmgp.lw_floats * 4 + rrtmgp.bytes_per_column == 59512
+    assert staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
+                             split=False).threads == 1024
     deep = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     # 129,012 B a whole column (LW rows 52,608 B): one fits, two do not;
     # without its LW rows 76,404 B, two fit, and with the parameter
@@ -665,12 +679,13 @@ def test_split_route_still_declines_the_stage(nlay, n_ang, ng_lw):
 
 
 def test_no_stage_for_lw_rows_of_two_g_chunks():
-    """lw_rrtmgp's 36 g-points: a layer's LW row is written by its first
-    g-chunk before the second reads the parameters, so they stay in the
-    SW row, and the stage is refused."""
+    """lw_rrtmgp's 36 g-points: a step of the LW optics writes a layer's
+    LW row before a later step reads its parameters, so they stay in the
+    SW row (which starts the slot on the split route), and the stage is
+    refused."""
     p = _shape_plan("lwsw", 60, 1, ng_lw=36)
     assert not p.prm_stage and (p.prm_base, p.prm_stride) == (
-        p.lw_floats, 27)
+        0 if p.split else p.lw_floats, 27)
     with pytest.raises(ValueError):
         _shape_plan("lwsw", 60, 1, ng_lw=36, param_stage=True)
     assert not _shape_plan("lw", 60, 1, ng_lw=36).prm_stage

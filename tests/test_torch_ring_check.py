@@ -208,6 +208,39 @@ def test_the_checked_f64_matrix_reaches_every_f64_regime(ckd_paths):
     assert defaults["f64_configs"].default is cuda_sanitize.CHECKED_F64
 
 
+def test_the_checked_wide_matrix_reaches_every_36_gpoint_regime(ckd_paths):
+    """lw_rrtmgp's 36 LW g-points, a band wider than a warp (its own lane
+    layout in csrc/common.cuh): CHECKED_WIDE reaches every staging regime
+    K1 and K3 take with it, CHECKED_WIDE_F64 every one of K1 at float64,
+    and run_checked runs both, with the planted faults, by default."""
+    gases = _gases(ckd_paths)
+    gases["lw"] = (36, gases["lw"][1])
+    for kernel in ("lwsw", "lw"):
+        every = {_regime(_plan(gases, kernel, nlay, a))
+                 for nlay in range(1, 1200) for a in (1, 2, 3, 4)}
+        covered = {_regime(_plan(gases, k, nlay, a))
+                   for k, nlay, a in cuda_sanitize.CHECKED_WIDE
+                   if k == kernel}
+        assert covered == every, kernel
+    (ng_lw, g_lw), (ng_sw, g_sw) = gases["lw"], gases["sw"]
+    blocks, slots, sets = staged.SHAPES["lwsw"]
+    plan64 = lambda nlay, a: staged.stage_plan(
+        nlay, ng_lw, ng_sw, a, g_lw, g_sw, *H100, blocks_per_sm=blocks,
+        max_slots=slots, sets=sets, word_bytes=8)
+    every = {_regime(plan64(nlay, a)) for nlay in range(1, 1200)
+             for a in (1, 2, 3, 4)}
+    assert every == {_regime(plan64(nlay, a))
+                     for _, nlay, a in cuda_sanitize.CHECKED_WIDE_F64}
+    # K1's plan at nlay 60, one angle: split, two blocks of 512 per SM.
+    assert _regime(_plan(gases, "lwsw", 60, 1)) == (512, 2, 2, "split",
+                                                    False)
+    import inspect
+    defaults = inspect.signature(cuda_sanitize.run_checked).parameters
+    assert defaults["wide_configs"].default is cuda_sanitize.CHECKED_WIDE
+    assert (defaults["wide_f64_configs"].default
+            is cuda_sanitize.CHECKED_WIDE_F64)
+
+
 def test_guarded_plans_fit_the_card(ckd_paths):
     gases = _gases(ckd_paths)
     static = 3 * 4 * 4      # csrc/ring_check.cuh's three ledgers of 4 slots

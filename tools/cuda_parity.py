@@ -10,7 +10,8 @@ five decades per cell, ch4 below its reference, an unknown gas, day,
 grazing and night suns) through the merged kernel (K1/K2, lwsw.cu), the
 LW kernel (K3, lw.cu) and the SW kernel (K4, sw.cu): nlay 1/2/8/60/137,
 1-4 Gauss angles, a chunked launch, the negative-entry models, the
-36-g-point lw_rrtmgp (K3 at 1, 3 and 4 angles) and a SW model on a
+36-g-point lw_rrtmgp with its emissivity banded (16 bands; K1 and K3
+at nlay 60 and 137, 1 and 3 angles, K3 at 4) and a SW model on a
 47-point grid, the depths each kernel stages in device memory (K1
 nlay 300, K3 600, K4 430), and a gas set without cfc11, cfc12 and n2o,
 whose band shapes run each kernel's run-time instantiation (``CASES``).
@@ -90,6 +91,8 @@ CASES = [
     ("lwsw", "nlay137_angles3", 1037, 137, 3, "lw", "sw", None, ()),
     ("lwsw", "lw_rrtmgp_nlay137", 1037, 137, 1, "lw_rrtmgp", "sw", None,
      ()),
+    ("lwsw", "lw_rrtmgp_nlay137_angles3", 1037, 137, 3, "lw_rrtmgp", "sw",
+     None, ()),
     ("lwsw", "angles2_nlay60", 1037, 60, 2, "lw", "sw", None, ()),
     ("lwsw", "angles3_nlay60", 1037, 60, 3, "lw", "sw", None, ()),
     ("lwsw", "angles4_nlay60", 1037, 60, 4, "lw", "sw", None, ()),
@@ -99,6 +102,8 @@ CASES = [
      None, ()),
     ("lwsw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", "sw", None, ()),
     ("lwsw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", "sw", None, ()),
+    # lw_rrtmgp whole in shared memory, two blocks per SM (nlay <= 58).
+    ("lwsw", "lw_rrtmgp_nlay47", 1037, 47, 1, "lw_rrtmgp", "sw", None, ()),
     # Columns too deep for shared memory: K1 stages them in device memory.
     ("lwsw", "nlay300_device_staging", 1037, 300, 1, "lw", "sw", None, ()),
     ("lwsw", "nlay300_device_staging_angles3", 1037, 300, 3, "lw", "sw",
@@ -117,6 +122,9 @@ CASES = [
     ("lw", "lw_rrtmgp_nlay60", 1037, 60, 1, "lw_rrtmgp", None, None, ()),
     ("lw", "lw_rrtmgp_angles3", 1037, 60, 3, "lw_rrtmgp", None, 512, ()),
     ("lw", "lw_rrtmgp_angles4", 1037, 60, 4, "lw_rrtmgp", None, None, ()),
+    ("lw", "lw_rrtmgp_nlay137", 1037, 137, 1, "lw_rrtmgp", None, None, ()),
+    ("lw", "lw_rrtmgp_nlay137_angles3", 1037, 137, 3, "lw_rrtmgp", None,
+     None, ()),
     # Columns too deep for shared memory: K3 and K4 stage them in device
     # memory (ops/cuda/staged.py stage_plan).
     ("lw", "nlay600_device_staging", 1037, 600, 1, "lw", None, None, ()),
@@ -199,12 +207,23 @@ def adversarial_batch(ncol: int, nlay: int, seed: int):
     return arrays, gases
 
 
+def banded_emissivity(emis_col: np.ndarray, nband: int) -> np.ndarray:
+    """(ncol, nband) emissivity that differs from band to band: each
+    column's value scaled by 0.9-1.0 in steps that turn with the column."""
+    ncol = emis_col.shape[0]
+    step = (np.arange(ncol)[:, None] * 7 + np.arange(nband)[None, :] * 5
+            ) % nband
+    return emis_col[:, None] * (1.0 - 0.1 * step / nband)
+
+
 def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int,
-            device="cuda"):
+            device="cuda", gpt2band=None):
     """numpy batch -> tensors on ``device`` + GasConcs (float32 values
     rounded once, so the float64 reference sees the kernel's exact
     inputs).  "emis" is per g-point (the kernels' argument), "emis_col"
-    per column (the pipeline's)."""
+    per column (the pipeline's).  With ``gpt2band`` (an LW model's band
+    of each g-point) over more than one band, the emissivity is banded
+    (``banded_emissivity``), each band's value on its g-points."""
     import torch
     from ecckd_tpu_torch.gases import GasConcs
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
@@ -212,6 +231,10 @@ def on_card(arrays: dict, gases: dict, dtype, ngpt_lw: int,
     out = {k: t(v) for k, v in arrays.items()}
     out["emis_col"] = out["emis"]
     out["emis"] = out["emis"][:, None].expand(-1, ngpt_lw).contiguous()
+    if gpt2band is not None and max(gpt2band) > 0:
+        band = t(banded_emissivity(np.asarray(arrays["emis"]),
+                                   max(gpt2band) + 1))
+        out["emis"] = band[:, list(gpt2band)].contiguous()
     out["concs"] = GasConcs.create([(k, t(v)) for k, v in gases.items()])
     return out
 
@@ -261,7 +284,9 @@ def run_case(models: dict, case, seed: int, mode: str) -> dict:
     arrays, gases = adversarial_batch(ncol, nlay, seed)
     gases = {k: v for k, v in gases.items() if k not in drop}
     ng = m(lk, f32).ngpt if lk else 1
-    b32, b64 = (on_card(arrays, gases, dt, ng) for dt in (f32, f64))
+    bands = m(lk, f32).gpt2band if lk else None
+    b32, b64 = (on_card(arrays, gases, dt, ng, gpt2band=bands)
+                for dt in (f32, f64))
     f64_mode = mode == F64_MODE
     table_mode = "bf16x3" if f64_mode else mode
     run = lambda dt, b: solve(kernel, "cuda", m(lk, dt), m(sk, dt), b,

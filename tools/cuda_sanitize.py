@@ -28,7 +28,10 @@ reach every other staging regime of each kernel (``stage_plan``: threads
 per block, C, S, the route: shared, split or device staging), on
 ``CHECKED_NCOL`` columns,
 in both table modes, and K1's double instantiation over ``CHECKED_F64``
-(float64 inputs and models: the f64 plans' routes), at jitter 0 on the
+(float64 inputs and models: the f64 plans' routes), and over
+``CHECKED_WIDE`` and ``CHECKED_WIDE_F64`` on the 36-g-point lw_rrtmgp
+(K1 and K3 with an LW band wider than a warp: every staging regime of
+that band at float32 and, for K1, float64), at jitter 0 on the
 full card and through 16 blocks, and at ``JITTER_NS`` with each of
 ``SEEDS``.  Every run must show 0
 violations (canaries intact), finite outputs and outputs bit for bit
@@ -93,6 +96,17 @@ CHECKED = SHARED + DEVICE + EXTRA
 # device slice (137, 300), at 1 and 3 angles.
 CHECKED_F64 = [("lwsw", n, a) for n in (8, 47, 60, 80, 91, 110, 137, 300)
                for a in (1, 3)]
+# lw_rrtmgp's 36 LW g-points (two g-chunks; csrc/common.cuh "Layout"): every
+# staging regime K1 and K3 reach with them, at float32 (K1: two blocks
+# of 512 threads whole to nlay 58 and split from 59, 1024 threads whole,
+# split, C = 1, the device) and K1's at float64 (384 threads whole, 768
+# whole and split, C = 1, the device).
+CHECKED_WIDE = ([("lwsw", n, a) for n in (8, 60, 110, 137, 220, 300)
+                 for a in (1, 3)]
+                + [("lw", n, a) for n in (8, 60, 137, 300, 600)
+                   for a in (1, 3)] + [("lw", 600, 4)])
+CHECKED_WIDE_F64 = [("lwsw", n, a) for n in (8, 40, 80, 110, 137)
+                    for a in (1, 3)]
 CHECKED_NCOL = 2003
 SEEDS = (1, 2, 3)
 JITTER_NS = 2000
@@ -105,14 +119,16 @@ PLANTS = ("free", "prm")  # ops/cuda/ring_check.py PLANT_DEFINES
 
 
 def load_models() -> dict:
-    """The synthetic lw_fsck and sw_wide models (seed 7), float32 under
-    "lw" and "sw", float64 under "lw64" and "sw64", on the card."""
+    """The synthetic lw_fsck, lw_rrtmgp and sw_wide models (seed 7),
+    float32 under "lw", "lw_rrtmgp" and "sw", float64 under "lw64",
+    "lw_rrtmgp64" and "sw64", on the card."""
     import torch
     from ecckd_tpu_torch.io.synthetic import write_synthetic_ckd
     from ecckd_tpu_torch.models.loader import load_ckd_model
     models = {}
     with tempfile.TemporaryDirectory() as work:
-        for key, kind in (("lw", "lw_fsck"), ("sw", "sw_wide")):
+        for key, kind in (("lw", "lw_fsck"), ("lw_rrtmgp", "lw_rrtmgp"),
+                          ("sw", "sw_wide")):
             path = os.path.join(work, f"{key}.nc")
             write_synthetic_ckd(path, kind, seed=7)
             for suffix, dt in (("", torch.float32), ("64", torch.float64)):
@@ -122,16 +138,16 @@ def load_models() -> dict:
 
 
 def prepare(models: dict, kernel: str, ncol: int, nlay: int, n_ang: int,
-            fast: bool, f64: bool = False):
+            fast: bool, f64: bool = False, lw_key: str = "lw"):
     """(the kernel's ``_kernel_core``, its prepared inputs, the bands for
     ``staged``) on ``example_flux_batch(ncol, nlay)``, in float64 with the
-    float64 models if ``f64``."""
+    float64 models if ``f64``, with the LW model ``lw_key``."""
     import numpy as np
     import torch
     from ecckd_tpu_torch.io.synthetic import example_flux_batch
     from ecckd_tpu_torch.ops.cuda import lw, lwsw, plan, sw
-    if f64:
-        models = {k: models[k + "64"] for k in ("lw", "sw")}
+    suffix = "64" if f64 else ""
+    models = {"lw": models[lw_key + suffix], "sw": models["sw" + suffix]}
     b = example_flux_batch(ncol, nlay, np.float64 if f64 else np.float32,
                            device="cuda")
     t = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()
@@ -200,17 +216,19 @@ def build_checked(plant_kernels=KERNELS) -> float:
 
 def check_config(models: dict, kernel: str, nlay: int, n_ang: int,
                  fast: bool, runs, plant: str = "",
-                 ncol: int = CHECKED_NCOL, f64: bool = False):
+                 ncol: int = CHECKED_NCOL, f64: bool = False,
+                 lw_key: str = "lw"):
     """One configuration through the checked build (with the planted
     fault ``plant`` if given), once per (seed, jitter, blocks) of
     ``runs``, in float64 (K1's double instantiation) if ``f64``: per run
     the error record, whether the outputs are finite and whether they
-    equal the plain build's bit for bit.  None for the PRM plant on a
-    plan without the parameter stage (it plants nothing there)."""
+    equal the plain build's bit for bit; with the LW model ``lw_key``.
+    None for the PRM plant on a plan without the parameter stage (it
+    plants nothing there)."""
     import torch
     from ecckd_tpu_torch.ops.cuda import ring_check, staged
     core, prep, bands = prepare(models, kernel, ncol, nlay, n_ang, fast,
-                                f64)
+                                f64, lw_key)
     plan = ring_check.guarded(staged.plan_for(prep[0], *bands))
     if plant == "prm" and not plan.prm_stage:
         return None
@@ -218,6 +236,7 @@ def check_config(models: dict, kernel: str, nlay: int, n_ang: int,
     lib = ring_check.library(kernel, plant)
     ring_check.errors(lib, kernel)           # clear the record
     out = {"kernel": kernel, "nlay": nlay, "angles": n_ang,
+           "lw_model": lw_key if kernel != "sw" else None,
            "mode": "f64" if f64 else "bf16" if fast else "bf16x3",
            "plant": plant,
            "regime": regime(plan), "ncol": ncol, "runs": []}
@@ -266,7 +285,9 @@ def describe(c: dict) -> str:
     first = next((r["first"] for r in runs if r["first"]), None)
     return (f"{'plant ' + c['plant'] if c['plant'] else 'checked'}: {head} "
             f"{c['kernel']} "
-            f"nlay {c['nlay']} {c['angles']} angle(s) {c['mode']} "
+            + (f"{c['lw_model']} " if c.get("lw_model") not in (None, "lw")
+               else "")
+            + f"nlay {c['nlay']} {c['angles']} angle(s) {c['mode']} "
             f"({c['regime']}): {len(runs)} runs, violations "
             f"{[r['count'] for r in runs]}, finite "
             f"{[r['finite'] for r in runs]}, bitwise equal "
@@ -276,26 +297,36 @@ def describe(c: dict) -> str:
 
 def run_checked(configs=CHECKED, plant_configs=CHECKED, modes=(False, True),
                 runs=RUNS, plant_runs=PLANT_RUNS,
-                ncol: int = CHECKED_NCOL, f64_configs=CHECKED_F64) -> dict:
-    """The checked build over ``configs`` in ``modes`` and over
-    ``f64_configs`` in float64, and each planted fault over
-    ``plant_configs`` (exact mode) and ``f64_configs``, each
-    configuration printed as it ends; the record with its ``verdict``."""
+                ncol: int = CHECKED_NCOL, f64_configs=CHECKED_F64,
+                wide_configs=CHECKED_WIDE,
+                wide_f64_configs=CHECKED_WIDE_F64) -> dict:
+    """The checked build over ``configs`` and ``wide_configs`` (on
+    lw_rrtmgp) in ``modes`` and over ``f64_configs`` and
+    ``wide_f64_configs`` in float64, and each planted fault over
+    ``plant_configs``, ``wide_configs`` (exact mode) and the float64 ones,
+    each configuration printed as it ends; the record with its
+    ``verdict``."""
     models = load_models()
     t0 = time.perf_counter()
     checked, planted = [], []
-    todo = ([(c, fast, False) for c in configs for fast in modes]
-            + [(c, False, True) for c in f64_configs])
-    for (kernel, nlay, n_ang), fast, f64 in todo:
+    wide = "lw_rrtmgp"
+    todo = ([(c, fast, False, "lw") for c in configs for fast in modes]
+            + [(c, False, True, "lw") for c in f64_configs]
+            + [(c, fast, False, wide) for c in wide_configs
+               for fast in modes]
+            + [(c, False, True, wide) for c in wide_f64_configs])
+    for (kernel, nlay, n_ang), fast, f64, lw_key in todo:
         checked.append(check_config(models, kernel, nlay, n_ang, fast,
-                                    runs, ncol=ncol, f64=f64))
+                                    runs, ncol=ncol, f64=f64, lw_key=lw_key))
         print(describe(checked[-1]), flush=True)
     for plant in PLANTS:
-        for (kernel, nlay, n_ang), f64 in (
-                [(c, False) for c in plant_configs]
-                + [(c, True) for c in f64_configs]):
+        for (kernel, nlay, n_ang), f64, lw_key in (
+                [(c, False, "lw") for c in plant_configs]
+                + [(c, True, "lw") for c in f64_configs]
+                + [(c, False, wide) for c in wide_configs]
+                + [(c, True, wide) for c in wide_f64_configs]):
             c = check_config(models, kernel, nlay, n_ang, False, plant_runs,
-                             plant=plant, ncol=ncol, f64=f64)
+                             plant=plant, ncol=ncol, f64=f64, lw_key=lw_key)
             if c is not None:
                 planted.append(c)
                 print(describe(c), flush=True)

@@ -4,14 +4,19 @@ block shapes on one CUDA card.
 
 For each kernel at the protocol batch (65,536 x 60 by default; ``--nlay``
 and ``--angles`` take comma-separated lists and sweep each pair,
-``example_flux_batch`` on the synthetic lw_fsck / sw_wide files, seed 7)
+``example_flux_batch`` on the synthetic ``--lw-kind`` (lw_fsck or
+lw_rrtmgp) / sw_wide files, seed 7; on a model of more than one band the
+emissivity is drawn per column and band, uniform in [0.9, 1.0], seed 7)
 and each (blocks per SM, C columns per block, S sets of sweep warps) in
 ``--shapes``, builds the staging plan with ops/cuda/staged.py
 ``stage_plan`` (which fits the request to the card), launches the kernel
 on it and times it with CUDA events (median of 10 after 2 warm-ups).  A
 shape ``BxCxS+p`` asks for the parameter stage, ``BxCxS-p`` for none,
-``BxCxS`` takes ``stage_plan``'s rule; a shape that cannot have the
-stage it asks for is skipped with a line that says so.  ``--dtype
+``BxCxS`` takes ``stage_plan``'s rule; a last ``s`` asks for the split
+route, ``w`` for whole columns, neither takes the rule.  A shape that
+cannot have the stage or route it asks for is skipped with a line that
+says so.  Each line gives the plan's report (``StagePlan.report``) and
+the blocks per SM the card holds.  ``--dtype
 float64`` runs the models and the batch in float64 (K1's double
 instantiation; the plans at 8 B a word).  Every
 shape's outputs must equal the default shape's bit for bit (a column's
@@ -21,8 +26,9 @@ default again) so the spread of one call shows.
 
 Usage (on a machine with a card):
   python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1,3]
-      [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,...] [--ncol 65536]
+      [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,2x2x2s,...] [--ncol 65536]
       [--nlay 60,137] [--dtype float32|float64]
+      [--lw-kind lw_fsck|lw_rrtmgp]
 Prints one line per (kernel, shape) and the card's name and power limit.
 """
 from __future__ import annotations
@@ -42,7 +48,8 @@ if _REPO_ROOT not in sys.path:
 def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
           cuda_time_ms) -> bool:
     """Time kernel ``name`` on its prepared inputs ``prep`` at each shape
-    of ``shapes`` (blocks per SM, C, S, the stage asked for, the label)
+    of ``shapes`` (blocks per SM, C, S, the stage and the route asked
+    for, the label)
     between two runs of the default plan, one line each; True iff every
     shape's outputs equal the default's bit for bit."""
     import torch
@@ -59,7 +66,7 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
         if shape is None:
             p, label = default, f"default {staged.SHAPES[name]}"
         else:
-            label = shape[4]
+            label = shape[5]
             try:
                 p = staged.stage_plan(
                     nlay, lw_in.plan.ngpt if lw_in else 0,
@@ -69,7 +76,7 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                     staged.band_gases(sw_in.plan) if sw_in else (0, 0),
                     *limits, blocks_per_sm=shape[0], max_slots=shape[1],
                     sets=shape[2], param_stage=shape[3],
-                    word_bytes=atm.tlay.element_size())
+                    word_bytes=atm.tlay.element_size(), split=shape[4])
             except ValueError as e:
                 print(f"{head} {label}: skipped ({e})", flush=True)
                 continue
@@ -82,14 +89,12 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                        for o, r in zip(out, ref))
             same = f"False (largest difference {diff:.3e} of a flux scale)"
         ms = cuda_time_ms(lambda: core(*prep, ncol, plan=p))
-        print(f"{head} {label}: {p.threads} threads, C = {p.slots}, "
-              f"S = {p.sets}, "
+        print(f"{head} {label}: {p.report}; "
               + (f"{p.shared_bytes} B shared" if p.shared
                  else "device staging")
               + (f" + an LW slice of {p.slice_floats} floats per slot"
                  if p.split else "")
-              + f", stage {'on' if p.prm_stage else 'off'}, {per_sm} "
-              "blocks per SM"
+              + f"; the card holds {per_sm} blocks per SM"
               f" | {ms:.3f} ms | bitwise equal to the default: {same} | "
               f"{card}", flush=True)
     return ok
@@ -107,6 +112,8 @@ def main(argv=None) -> int:
                     help="layers, comma-separated")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
+    ap.add_argument("--lw-kind", default="lw_fsck",
+                    choices=("lw_fsck", "lw_rrtmgp"))
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -124,7 +131,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     models, dtype = {}, getattr(torch, args.dtype)
     with tempfile.TemporaryDirectory() as work:
-        for key, kind in (("lw", "lw_fsck"), ("sw", "sw_wide")):
+        for key, kind in (("lw", args.lw_kind), ("sw", "sw_wide")):
             path = os.path.join(work, f"{key}.nc")
             write_synthetic_ckd(path, kind, seed=7)
             models[key] = load_ckd_model(path, dtype=dtype, device="cuda")
@@ -133,9 +140,12 @@ def main(argv=None) -> int:
               props.shared_memory_per_multiprocessor)
     shapes = []
     for spec in args.shapes.split(","):
-        dims, sign = re.fullmatch(r"(\d+x\d+x\d+)([+-]p)?", spec).groups()
+        dims, sign, route = re.fullmatch(r"(\d+x\d+x\d+)([+-]p)?([sw])?",
+                                         spec).groups()
         stage = None if sign is None else sign == "+p"
-        shapes.append((*(int(x) for x in dims.split("x")), stage, spec))
+        split = None if route is None else route == "s"
+        shapes.append((*(int(x) for x in dims.split("x")), stage, split,
+                       spec))
     cores = {"lw": lw._kernel_core, "sw": sw._kernel_core,
              "lwsw": lwsw._kernel_core}
     ok = True
@@ -145,6 +155,12 @@ def main(argv=None) -> int:
         t = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()
              if k != "concs"}
         emis = t["emis"][:, None].expand(-1, models["lw"].ngpt).contiguous()
+        if models["lw"].nband > 1:
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            banded = 0.9 + 0.1 * torch.rand(
+                (args.ncol, models["lw"].nband), generator=gen,
+                device="cuda", dtype=dtype)
+            emis = models["lw"].gpt_weights_per_band(banded).contiguous()
         for n_ang in (int(a) for a in str(args.angles).split(",")):
             for name in args.kernels.split(","):
                 if name == "sw" and n_ang != 1:
