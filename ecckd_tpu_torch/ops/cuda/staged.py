@@ -205,7 +205,8 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     accumulators (``per_layer`` words a layer, where C still fits), which
     no sweep reads, and each optics warp computes its layers' there before
     it waits for the slot.  It needs both bands and an LW band of one
-    g-chunk whose row holds them (``with_param_stage``).  ``param_stage``
+    g-chunk whose row holds them, or on the split route one laid out in
+    pairs (``with_param_stage``).  ``param_stage``
     None takes it where ``stage_rule`` says: at one LW angle with C = 2.
     True or False asks for it or not (tools/stage_sweep.py times both),
     True where it does not fit raising.
@@ -240,7 +241,14 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     instantiations keep the chunked loop, more columns in flight lost
     (nlay 47: whole in one block 12.24 ms, split in two 13.77-13.79), so
     there, on the run-time shapes (the g-chunk loop too) and at 2-4
-    angles (not timed) the rule is the one above."""
+    angles (not timed) the rule is the one above.  The parameter stage on
+    that split route (the parameters' own place, 26 words a layer): nlay
+    60 7.62-7.65 -> 7.25-7.43 ms in two blocks of 512 threads; nlay 137,
+    one block of 1024, 20.57-20.83 -> 20.41-20.63.  From nlay 88 the place
+    leaves one block per SM: at nlay 91 two blocks without it 10.84-11.21
+    ms, one with it 14.37-14.40, so there it is declined.  At nlay 47 whole
+    columns stay (5.84-6.16 ms; split 6.39-6.60, with the stage
+    6.23-6.45)."""
     if not 1 <= max_slots <= SLOT_LIMIT:
         raise ValueError(f"max_slots must be in 1..{SLOT_LIMIT}")
     has_lw, has_sw = ngpt_lw > 0, ngpt_sw > 0
@@ -293,8 +301,9 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     elif split and cut is None:
         raise ValueError("no split route without both bands")
     plan = cut if split else whole
-    with_stage = with_param_stage(plan, nlay, ngpt_lw, ngpt_sw, per_layer,
-                                  block_shared)
+    with_stage = with_param_stage(
+        plan, nlay, ngpt_lw, ngpt_sw, per_layer, block_shared, sm_shared,
+        pairs(ngpt_lw, ngpt_sw, gases_lw, gases_sw, n_t, word_bytes))
     if param_stage is None:
         param_stage = with_stage is not None and stage_rule(plan, n_angles)
     if param_stage and with_stage is None:
@@ -305,17 +314,25 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
 
 
 def with_param_stage(plan: StagePlan, nlay: int, ngpt_lw: int,
-                     ngpt_sw: int, per_layer: int,
-                     block_shared: int) -> Optional[StagePlan]:
+                     ngpt_sw: int, per_layer: int, block_shared: int,
+                     sm_shared: int, lw_pairs: bool) -> Optional[StagePlan]:
     """``plan`` (one without the stage) with the parameter stage, or None
     where it cannot take it: it needs both bands (the merged kernel's),
-    an LW band of one g-chunk whose row holds a layer's ``per_layer``
-    parameters (the shapes timed: lw_rrtmgp's 36 g-points never take
-    it), the parameters in rows already, and whole columns in shared
-    memory, where the parameters move to the LW rows, or the split route,
-    where they move after the accumulators (``per_layer`` a layer) if C
-    still fits in ``block_shared``."""
-    if not (0 < ngpt_lw <= 32 and ngpt_sw > 0 and per_layer <= ngpt_lw
+    the parameters in rows already, and whole columns in shared memory,
+    where the parameters move to the LW rows (an LW band of one g-chunk
+    whose row holds a layer's ``per_layer`` parameters), or the split
+    route, where they move after the accumulators (``per_layer`` a layer)
+    if C still fits in ``block_shared``.  There the LW band may also be
+    one whose optics lay (layer, g-point) pairs over the lanes
+    (``lw_pairs``: ``pairs``), which read only their own warp's layers'
+    parameters and never share a row with them, if the plan's blocks per
+    SM still fit in ``sm_shared`` too (its split plans hold two, which
+    the place leaves room for to nlay 87); with whole columns such a band
+    writes a layer's LW row before a later step reads its parameters, and
+    is refused.  At <= 32 g-points the split plans keep what they were
+    timed with."""
+    chunk = 0 < ngpt_lw <= 32 and per_layer <= ngpt_lw
+    if not ((chunk or lw_pairs and plan.split) and ngpt_sw > 0
             and plan.prm_floats == 0):
         return None
     if plan.route == "shared":
@@ -327,7 +344,11 @@ def with_param_stage(plan: StagePlan, nlay: int, ngpt_lw: int,
                               prm_floats=per_layer * nlay,
                               prm_base=plan.sw_floats + plan.acc_floats,
                               prm_stride=per_layer)
-    return own if block_shared // own.bytes_per_column >= plan.slots else None
+    sm_fits = (own.sm_blocks * (own.shared_bytes + RESERVED_SHARED_BYTES)
+               <= sm_shared)
+    fits = (block_shared // own.bytes_per_column >= plan.slots
+            and (sm_fits or not lw_pairs))
+    return own if fits else None
 
 
 def stage_rule(plan: StagePlan, n_angles: int) -> bool:

@@ -144,7 +144,8 @@ def test_k1s_plan_at_36_gpoints_is_the_cells():
     60, one angle, float32, at an H100's limits: whole columns (59,512 B)
     leave one block of 1024 threads per SM (2 columns); split, two blocks
     of two columns of 33,592 B each and 512 threads (4 columns, 8 sweep
-    warps per SM).  The rule follows the kernel's lane layout
+    warps per SM), and with the parameter stage's own place 39,832 B.
+    The rule follows the kernel's lane layout
     (``staged.pairs``, csrc/common.cuh PAIRS): where the instantiation
     keeps the g-chunk loop, and at 2-4 angles, it is the 32-g-point one."""
     from ecckd_tpu_torch.ops.cuda import staged
@@ -155,9 +156,10 @@ def test_k1s_plan_at_36_gpoints_is_the_cells():
     p = plan(60)
     assert (p.route, p.slots, p.sets, p.threads) == ("split", 2, 2, 512)
     assert (p.sm_blocks, p.prm_stage, p.bytes_per_column,
-            p.slice_floats) == (2, False, 33592, 6480)
+            p.slice_floats) == (2, True, 39832, 6480)
     assert p.report == ("split, C = 2, S = 2, 512 threads, 2 blocks and 4 "
-                        "columns per SM, stage off")
+                        "columns per SM, stage on")
+    assert plan(60, param_stage=False).bytes_per_column == 33592
     whole = plan(60, split=False)
     assert (whole.route, whole.threads, whole.sm_blocks,
             whole.bytes_per_column) == ("shared", 1024, 1, 59512)

@@ -901,12 +901,55 @@ def test_captured_multi_angle_calls_count_every_launch(models, mode):
         assert_close(got[band], ref[band])
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("nlay", [60, 137])
+def test_split_parameter_stage_at_36_gpoints_changes_no_bit(models, nlay,
+                                                            mode):
+    """lw_rrtmgp's 36 LW g-points (pairs over the lanes) on the split
+    route at one angle, the emissivity per band: K1 with the parameter
+    stage (two blocks of 512 threads per SM at nlay 60, one of 1024 at
+    137) gives the four flux outputs of the same plan without it bit for
+    bit, in both table modes."""
+    from ecckd_tpu_torch.ops.cuda import lwsw, plan, staged
+    lw, sw = models["lw_rrtmgp", torch.float32], models["sw", torch.float32]
+    ncol = 4096
+    b = batch(ncol, nlay, torch.float32, seed=8)
+    rng = np.random.default_rng(nlay)
+    band = torch.as_tensor(rng.uniform(0.9, 1.0, (ncol, lw.nband)),
+                           dtype=torch.float32, device="cuda")
+    prep = plan.prepare(lw, sw, b["plev"], b["tlay"], b["tlev"], b["tsfc"],
+                        lw.gpt_weights_per_band(band).contiguous(),
+                        b["concs"], b["alb"], b["tsi"], b["sza"], 1,
+                        fast=mode == "bf16")
+    on = staged.plan_for(*prep)
+    assert (on.route, on.prm_stage, on.slots, on.sets, on.threads) == (
+        "split", True, 2, 2, 512 if nlay == 60 else 1024)
+    assert (on.prm_base, on.prm_stride, on.prm_floats) == (
+        on.sw_floats + on.acc_floats, 26, 26 * nlay)
+    props = torch.cuda.get_device_properties(b["tlay"].device)
+    off = staged.stage_plan(
+        nlay, lw.ngpt, sw.ngpt, 1, staged.band_gases(prep[1].plan),
+        staged.band_gases(prep[2].plan), props.shared_memory_per_block_optin,
+        props.shared_memory_per_multiprocessor, *staged.SHAPES["lwsw"],
+        param_stage=False)
+    assert off == dataclasses.replace(on, prm_stage=False, prm_floats=0,
+                                      prm_base=off.prm_base,
+                                      prm_stride=off.prm_stride)
+    got = lwsw._kernel_core(*prep, ncol, plan=on)
+    ref = lwsw._kernel_core(*prep, ncol, plan=off)
+    torch.cuda.synchronize()
+    assert len(got) == 4
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all() and torch.equal(g, r)
+
+
 def test_captured_banded_rrtmgp_calls_run_k1(models):
     """ecCKD's RRTMGP-band LW file (36 g-points in 16 bands) with sw_wide
     on the main path, the emissivity given per band (ncol, 16): capture.jit
     of lw_sw_fluxes runs K1 in the eager call, the capture and each
     replay, on the split route in two blocks of 512 threads per SM (the
-    LW band is wider than a warp: csrc/common.cuh "Layout"), and the
+    LW band is wider than a warp: csrc/common.cuh "Layout") with the
+    parameter stage in the layer parameters' own place, and the
     replay matches the plain version at f64 on the same banded surface;
     the same banded values spread over the wrong bands do not."""
     from ecckd_tpu_torch.ops.cuda import plan, staged
@@ -922,7 +965,7 @@ def test_captured_banded_rrtmgp_calls_run_k1(models):
         lw, sw, b32["plev"], b32["tlay"], b32["tlev"], b32["tsfc"],
         emis_gpt, b32["concs"], b32["alb"], b32["tsi"], b32["sza"], 1))
     assert (p.route, p.slots, p.sets, p.threads, p.sm_blocks,
-            p.prm_stage) == ("split", 2, 2, 512, 2, False)
+            p.prm_stage) == ("split", 2, 2, 512, 2, True)
     jitted = capture.jit(pipeline.lw_sw_fluxes)
     for _ in range(3):                   # eager, capture, replay
         before = lwsw_fluxes_cuda.launches

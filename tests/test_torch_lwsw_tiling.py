@@ -86,10 +86,11 @@ def by_hand(nlay, ng_lw, ng_sw, n_ang, gases_lw=GASES_LW,
 def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
     """nlay 137 is split at every angle count and both LW bands: one whole
     column fits in a block, two of their SW rows and accumulators do (and
-    at one angle with lw_fsck, with the parameter stage, two of those
-    and a place of their own for the layer parameters).  lw_rrtmgp's 36
-    g-points are split at nlay 60 and one angle too: two whole columns fit
-    one block per SM, two without their LW rows fit two."""
+    at one angle, with the parameter stage, two of those and a place of
+    their own for the layer parameters).  lw_rrtmgp's 36 g-points are
+    split at nlay 60 and one angle too: two whole columns fit one block
+    per SM, two without their LW rows (and with the parameters' place)
+    fit two."""
     p = staged.stage_plan(nlay, ng_lw, 27, n_ang, GASES_LW, GASES_SW, *H100)
     floats, c, shared, smem, threads, in_rows, split = by_hand(
         nlay, ng_lw, 27, n_ang)
@@ -123,7 +124,8 @@ def test_stage_plan_at_the_main_path_and_the_edges():
     of 56,632 B per block, two blocks of 512 threads per SM; lw_rrtmgp:
     a whole column of 59,512 B would leave one block of 1024 threads, so
     its LW rows go to the device slice and two blocks of two columns of
-    33,592 B each fit)."""
+    33,592 B each fit, and with the parameter stage's own place (6,240
+    B) 39,832 B each still do)."""
     main = staged.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (main.lw_floats, main.sw_floats, main.acc_floats) == (5760, 8154,
                                                                  244)
@@ -134,8 +136,14 @@ def test_stage_plan_at_the_main_path_and_the_edges():
         58224, 116448, 1024)          # two blocks would need 234,944 B
     rrtmgp = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (rrtmgp.bytes_per_column, rrtmgp.slots, rrtmgp.threads,
-            rrtmgp.route, rrtmgp.sm_blocks) == (33592, 2, 512, "split", 2)
-    assert rrtmgp.lw_floats * 4 + rrtmgp.bytes_per_column == 59512
+            rrtmgp.route, rrtmgp.sm_blocks, rrtmgp.prm_stage) == (
+                39832, 2, 512, "split", 2, True)
+    assert 2 * (rrtmgp.shared_bytes + 1024) == 161376 <= H100[1]
+    off = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
+                            param_stage=False)
+    assert (off.bytes_per_column, off.route, off.sm_blocks) == (33592,
+                                                               "split", 2)
+    assert rrtmgp.lw_floats * 4 + off.bytes_per_column == 59512
     assert staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
                              split=False).threads == 1024
     deep = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
@@ -637,21 +645,27 @@ def test_stage_plan_gives_the_parameter_stage_by_shape(kernel, nlay, n_ang,
     assert _shape_plan(kernel, nlay, n_ang) == p
 
 
-@pytest.mark.parametrize("nlay", [124, 137, 160, 175])
-def test_split_route_takes_the_parameter_stage(nlay):
+@pytest.mark.parametrize("nlay,ng_lw,threads", [
+    (124, 32, 1024), (137, 32, 1024), (160, 32, 1024), (175, 32, 1024),
+    (137, 36, 1024), (60, 36, 512)])
+def test_split_route_takes_the_parameter_stage(nlay, ng_lw, threads):
     """f32 nlay 124-175 at one angle, K1's split route: the stage puts
     the parameters in a place of their own after the slot's accumulators
     in shared memory (26 a layer), which no sweep reads, so the optics
     warps can compute them before they wait for the slot; it keeps the
-    block's C, S, threads and slice, and the slot grows by that place."""
-    p = _shape_plan("lwsw", nlay, 1)
-    off = _shape_plan("lwsw", nlay, 1, param_stage=False)
+    block's C, S, threads and slice, and the slot grows by that place.
+    lw_rrtmgp's 36 g-points (pairs over the lanes, which read only their
+    own warp's layers' parameters) take it there too, and at nlay 60,
+    where its two blocks of 512 threads per SM still fit."""
+    p = _shape_plan("lwsw", nlay, 1, ng_lw=ng_lw)
+    off = _shape_plan("lwsw", nlay, 1, ng_lw=ng_lw, param_stage=False)
     assert (p.route, p.prm_stage) == ("split", True)
     assert (off.route, off.prm_stage) == ("split", False)
     assert (p.slots, p.sets, p.threads, p.slice_floats) == (
         off.slots, off.sets, off.threads, off.slice_floats) == (
-            2, 2, 1024, 96 * nlay)
+            2, 2, threads, 3 * ng_lw * nlay)
     assert p.shared_bytes == off.shared_bytes + 2 * 4 * 26 * nlay <= H100[0]
+    assert p.sm_blocks * (p.shared_bytes + 1024) <= H100[1]
     assert (p.prm_base, p.prm_stride, p.prm_floats) == (
         p.sw_floats + p.acc_floats, 26, 26 * nlay)
     # Without the stage the parameters start the slot's SW rows.
@@ -661,15 +675,20 @@ def test_split_route_takes_the_parameter_stage(nlay):
 
 
 @pytest.mark.parametrize("nlay,n_ang,ng_lw", [(176, 1, 32), (208, 1, 32),
-                                              (137, 3, 32), (137, 1, 36)])
+                                              (137, 3, 32), (91, 1, 36),
+                                              (103, 1, 36)])
 def test_split_route_still_declines_the_stage(nlay, n_ang, ng_lw):
     """The split route without the stage: from nlay 176 at one angle the
     parameters' own place would leave one column per block (asked for,
     it raises); at 3 angles the rule declines it (the set's LW sweep
-    warps leave no room: stage_plan's timings) though it fits; lw_rrtmgp's
-    36 g-points are two g-chunks, and asked for there it raises."""
+    warps leave no room: stage_plan's timings) though it fits; with
+    lw_rrtmgp's 36 g-points at nlay 88-103 two blocks of 512 threads per
+    SM would no longer fit with it, and asked for there it raises."""
     p = _shape_plan("lwsw", nlay, n_ang, ng_lw=ng_lw)
     assert (p.route, p.prm_stage, p.slots) == ("split", False, 2)
+    if ng_lw == 36:
+        own = 2 * (p.shared_bytes + 2 * 4 * 26 * nlay + 1024)
+        assert (p.sm_blocks, p.threads) == (2, 512) and own > H100[1]
     assert (p.prm_base, p.prm_stride, p.prm_floats) == (0, 27, 0)
     if n_ang == 1:
         with pytest.raises(ValueError):
@@ -679,15 +698,20 @@ def test_split_route_still_declines_the_stage(nlay, n_ang, ng_lw):
 
 
 def test_no_stage_for_lw_rows_of_two_g_chunks():
-    """lw_rrtmgp's 36 g-points: a step of the LW optics writes a layer's
-    LW row before a later step reads its parameters, so they stay in the
-    SW row (which starts the slot on the split route), and the stage is
-    refused."""
-    p = _shape_plan("lwsw", 60, 1, ng_lw=36)
-    assert not p.prm_stage and (p.prm_base, p.prm_stride) == (
-        0 if p.split else p.lw_floats, 27)
+    """lw_rrtmgp's 36 g-points: with whole columns a step of the LW
+    optics writes a layer's LW row before a later step reads its
+    parameters, so they stay in the SW row and the stage is refused
+    (asked for, it raises); on the split route at nlay 60 the stage takes
+    its own place after the accumulators, which no LW row shares."""
+    whole = _shape_plan("lwsw", 60, 1, ng_lw=36, split=False)
+    assert whole.route == "shared" and not whole.prm_stage
+    assert (whole.prm_base, whole.prm_stride) == (whole.lw_floats, 27)
     with pytest.raises(ValueError):
-        _shape_plan("lwsw", 60, 1, ng_lw=36, param_stage=True)
+        _shape_plan("lwsw", 60, 1, ng_lw=36, split=False, param_stage=True)
+    p = _shape_plan("lwsw", 60, 1, ng_lw=36)
+    assert (p.route, p.prm_stage) == ("split", True)
+    assert (p.prm_base, p.prm_stride, p.prm_floats) == (
+        p.sw_floats + p.acc_floats, 26, 26 * 60)
     assert not _shape_plan("lw", 60, 1, ng_lw=36).prm_stage
 
 

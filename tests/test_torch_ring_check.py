@@ -231,8 +231,11 @@ def test_the_checked_wide_matrix_reaches_every_36_gpoint_regime(ckd_paths):
              for a in (1, 2, 3, 4)}
     assert every == {_regime(plan64(nlay, a))
                      for _, nlay, a in cuda_sanitize.CHECKED_WIDE_F64}
-    # K1's plan at nlay 60, one angle: split, two blocks of 512 per SM.
+    # K1's plan at nlay 60, one angle: split, two blocks of 512 per SM,
+    # with the parameter stage; at nlay 91 two blocks leave it no room.
     assert _regime(_plan(gases, "lwsw", 60, 1)) == (512, 2, 2, "split",
+                                                    True)
+    assert _regime(_plan(gases, "lwsw", 91, 1)) == (512, 2, 2, "split",
                                                     False)
     import inspect
     defaults = inspect.signature(cuda_sanitize.run_checked).parameters

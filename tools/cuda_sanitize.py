@@ -98,10 +98,11 @@ CHECKED_F64 = [("lwsw", n, a) for n in (8, 47, 60, 80, 91, 110, 137, 300)
                for a in (1, 3)]
 # lw_rrtmgp's 36 LW g-points (two g-chunks; csrc/common.cuh "Layout"): every
 # staging regime K1 and K3 reach with them, at float32 (K1: two blocks
-# of 512 threads whole to nlay 58 and split from 59, 1024 threads whole,
+# of 512 threads whole to nlay 58 and split from 59, at 1 angle with the
+# parameter stage to 87 and without it from 88, 1024 threads whole,
 # split, C = 1, the device) and K1's at float64 (384 threads whole, 768
 # whole and split, C = 1, the device).
-CHECKED_WIDE = ([("lwsw", n, a) for n in (8, 60, 110, 137, 220, 300)
+CHECKED_WIDE = ([("lwsw", n, a) for n in (8, 60, 91, 110, 137, 220, 300)
                  for a in (1, 3)]
                 + [("lw", n, a) for n in (8, 60, 137, 300, 600)
                    for a in (1, 3)] + [("lw", 600, 4)])
