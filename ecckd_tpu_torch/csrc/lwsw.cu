@@ -71,6 +71,8 @@
 // instantiation), or -1; ecckd_lwsw_args_size() and
 // ecckd_lwsw_f64_args_size() let the wrapper check its struct mirrors
 // (ops/cuda/binding.py), and ecckd_cuda_error_string() names an error code.
+// The checked build (-DECCKD_CHECK_RING) adds ring_check.cuh's entry points,
+// the timed build (-DECCKD_TIME_ROLES) role_clock.cuh's.
 
 #include "staged.cuh"
 
@@ -215,3 +217,4 @@ extern "C" int ecckd_lwsw_occupancy_f64(const LwswArgs64* args) {
 }
 
 RING_ENTRY_POINTS(lwsw)
+ROLE_CLOCK_ENTRY_POINTS(lwsw)

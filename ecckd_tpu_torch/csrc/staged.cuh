@@ -50,6 +50,9 @@
 // checks that hand-over (csrc/ring_check.cuh: slot ledgers, NaN poison,
 // jitter, guard words); the RING(...) statements are that build's alone,
 // and without the define the body compiles as if they were not there.
+// Built with -DECCKD_TIME_ROLES (ops/cuda/role_clock.py), each warp counts
+// the cycles of its waits and phases (csrc/role_clock.cuh); the
+// ROLE_CLOCK(...) statements are that build's alone, as RING's are.
 
 #pragma once
 
@@ -61,6 +64,14 @@
 #else
 #define RING(...)
 #define RING_ENTRY_POINTS(NAME)
+#endif
+
+#ifdef ECCKD_TIME_ROLES
+#include "role_clock.cuh"
+#define ROLE_CLOCK(...) __VA_ARGS__
+#else
+#define ROLE_CLOCK(...)
+#define ROLE_CLOCK_ENTRY_POINTS(NAME)
 #endif
 
 // The staging plan of one launch (ops/cuda/staged.py stage_plan).
@@ -204,6 +215,7 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
                                             const LwSolveT<Real<T>>* W,
                                             const SwSolveT<Real<T>>* S,
                                             const Tile& P) {
+  ROLE_CLOCK(RoleClock rc;)
   using R = Real<T>;
   constexpr bool LW = SL::NG >= 0, SW = SS::NG >= 0;
   extern __shared__ __align__(16) float smem[];
@@ -268,24 +280,31 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       // and read that one's rows as its layer parameters (integers).
       const bool late_free = PLANT_SKIP_FREE && i == P.slots && s == 0;
       if (!ahead) {
+        ROLE_CLOCK(rc.start();)
         if (late_free) bar_sync(BAR_PLANT, 32 * n_opt);
         else if (i >= P.slots) bar_sync(BAR_FREE + s, bar_threads);
+        ROLE_CLOCK(rc.stop(RC_FREE);)
         RING(ring.freed(i, s, c);)
       }
       // (The planted fault computes its own, so that it never reads the
       // slot's rows as parameters before the stage wrote them.)
       if (ahead || !stage || i < P.slots || late_free) {
         RING(if (ahead) ring.params_ahead(i, s, c);)
+        ROLE_CLOCK(rc.start();)
         params(c, st, ja + lane, 32, jb);
         __syncwarp();
+        ROLE_CLOCK(rc.stop(RC_PARAMS);)
       }
       if (ahead) {
+        ROLE_CLOCK(rc.start();)
         bar_sync(BAR_FREE + s, bar_threads);
+        ROLE_CLOCK(rc.stop(RC_FREE);)
         RING(ring.freed(i, s, c);)
       }
       if (PLANT_SKIP_PRM && SPLIT && P.prm_stage != 0 && i == 0 &&
           warp == n_opt - 1)
         plant_spin(4 * PLANT_SPIN_CYCLES);
+      ROLE_CLOCK(rc.start();)
       if constexpr (SPLIT) {
         lw_optics<T, SL, NT>(A, G, *BL, *W, c, ja, jb, lane, prm,
                               P.prm_stride, lw_slice<R>(P, s));
@@ -312,10 +331,13 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
           sw_pass();
         }
       }
+      ROLE_CLOCK(if (PLANT_SLOW_OPTICS) plant_spin(PLANT_SPIN_CYCLES);
+                 rc.stop(RC_OPTICS);)
       if (late_free) bar_sync(BAR_FREE + s, bar_threads);
       RING(ring.staging_done(i, s);)
       bar_arrive(BAR_FULL + s, bar_threads);
     }
+    ROLE_CLOCK(rc.flush(ROLE_OPTICS);)
   } else {
     // The sweeps from the staging, set k: LW at angle a (the set's warp a)
     // into its own accumulators, or SW; then the level fluxes, written
@@ -330,8 +352,11 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       else acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
       // The slot's next column, and whether it comes (a FREE to arrive).
       const int c_next = c + P.slots * gridDim.x;
+      ROLE_CLOCK(rc.start();)
       bar_sync(BAR_FULL + s, bar_threads);
+      ROLE_CLOCK(rc.stop(RC_FULL);)
       RING(ring.filled(i, s, c);)
+      ROLE_CLOCK(rc.start();)
       for (int q = lane; q < 2 * nlev; q += 32) acc[q] = (R)0;
       __syncwarp();
       // The planted fault ECCKD_PLANT_SKIP_PRM: in round 0 of slot 0 the
@@ -352,6 +377,8 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
             S->up[(size_t)c * nlev + q] = acc[q];
             S->dn[(size_t)c * nlev + q] = acc[nlev + q];
           }
+          ROLE_CLOCK(if (PLANT_SLOW_SW) plant_spin(PLANT_SPIN_CYCLES);
+                     rc.stop(RC_SWEEP);)
           RING(const int o = SPLIT ? 0 : P.lw_floats;
                ring.poison(st, o, o + P.sw_floats);)
         }
@@ -363,13 +390,16 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
           lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, st, acc,
                                    acc + nlev);
         // The angles' sums, in angle order, split over the LW warps.
+        ROLE_CLOCK(rc.stop(RC_SWEEP); rc.start();)
         bar_sync(BAR_LW_DONE + set, 32 * n_lw);
+        ROLE_CLOCK(rc.stop(RC_LW_DONE); rc.start();)
         const R* acc0 = acc - 2 * nlev * a;
         for (int q = lane + 32 * a; q < 2 * nlev; q += 32 * n_lw) {
           R v = (R)0;
           for (int b = 0; b < n_lw; ++b) v += acc0[2 * nlev * b + q];
           (q < nlev ? W->up : W->dn)[(size_t)c * nlev + q % nlev] = v;
         }
+        ROLE_CLOCK(rc.stop(RC_SWEEP);)
         // Every LW warp of the set is done with the LW rows: one poisons
         // them (on the split route they hold no layer parameters).
         RING(if (n_lw > 1) bar_sync(BAR_LW_DONE + set, 32 * n_lw);
@@ -381,7 +411,9 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
         // over its layers, split over the set's LW warps.
         write_prm = stage && c_next < ncol;
         if (write_prm && !late_prm) {
+          ROLE_CLOCK(rc.start();)
           params(c_next, st, 32 * a + lane, 32 * n_lw, nlay);
+          ROLE_CLOCK(rc.stop(RC_PARAMS);)
           RING(ring.params_done(i, s);)
         }
       }
@@ -394,6 +426,7 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
         RING(ring.params_done(i, s);)
       }
     }
+    ROLE_CLOCK(rc.flush(a == n_lw ? ROLE_SW_SWEEP : ROLE_LW_SWEEP);)
   }
   RING(ring.finish();)
 }

@@ -212,7 +212,8 @@ def test_the_manifest_adds_one_configuration_and_one_cell():
     lists = {m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]
              if CELL in m.get("workloads", [])}
     assert lists == {"columns_per_s", "lwsw_roofline", "step_mfu",
-                     "device_idle_share.batch"}
+                     "device_idle_share.batch", "lwsw_optics_wait_share",
+                     "lwsw_lw_sweep_wait_share", "lwsw_sw_sweep_wait_share"}
     _, config = run.load_cell(CELL)
     assert (config["ckd"]["lw"]["kind"], config["ckd"]["sw"]["kind"],
             config["nlay"], config["n_gauss_angles"],

@@ -13,7 +13,8 @@ and each (blocks per SM, C columns per block, S sets of sweep warps) in
 on it and times it with CUDA events (median of 10 after 2 warm-ups).  A
 shape ``BxCxS+p`` asks for the parameter stage, ``BxCxS-p`` for none,
 ``BxCxS`` takes ``stage_plan``'s rule; a last ``s`` asks for the split
-route, ``w`` for whole columns, neither takes the rule.  A shape that
+route, ``w`` for whole columns, neither takes the rule; ``--shapes ""``
+times the default plan alone.  A shape that
 cannot have the stage or route it asks for is skipped with a line that
 says so.  Each line gives the plan's report (``StagePlan.report``) and
 the blocks per SM the card holds.  ``--dtype
@@ -22,13 +23,19 @@ instantiation; the plans at 8 B a word).  Every
 shape's outputs must equal the default shape's bit for bit (a column's
 arithmetic does not depend on the block it runs in); the script exits 1
 if one does not.  Shapes are timed in turns (default, the others, the
-default again) so the spread of one call shows.
+default again) so the spread of one call shows.  With ``--roles`` each
+line of the merged kernel also gives its timed build's time
+(ops/cuda/role_clock.py, the same plan; the two builds timed in turns),
+whether its outputs equal the plain build's bit for bit (the script
+exits 1 if not), and its warp
+roles' wait shares: the optics warps' at FREE, the LW sweep warps' at
+FULL and LW_DONE, the SW sweep warps' at FULL.
 
 Usage (on a machine with a card):
   python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1,3]
       [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,2x2x2s,...] [--ncol 65536]
       [--nlay 60,137] [--dtype float32|float64]
-      [--lw-kind lw_fsck|lw_rrtmgp]
+      [--lw-kind lw_fsck|lw_rrtmgp] [--roles]
 Prints one line per (kernel, shape) and the card's name and power limit.
 """
 from __future__ import annotations
@@ -45,13 +52,44 @@ if _REPO_ROOT not in sys.path:
     sys.path.insert(0, _REPO_ROOT)
 
 
+def roles_report(role_clock, core, prep, ncol, plan, out,
+                 cuda_time_ms, rounds: int = 8) -> tuple:
+    """(the merged kernel's timed build at ``plan`` against the plain
+    build, whose outputs are ``out``, in words; whether its outputs equal
+    ``out`` bit for bit).  The two builds are timed in turns (plain,
+    timed, timed, plain, ...; ``rounds`` of 5 launches each), and each
+    build's time is the median of its rounds."""
+    import statistics
+    import torch
+    with role_clock.timed() as timing:
+        got = core(*prep, ncol, plan=plan)
+    lib = role_clock.library()
+    runs = {None: [], lib: []}
+    for r in range(rounds):
+        for build in ((None, lib) if r % 2 == 0 else (lib, None)):
+            runs[build].append(cuda_time_ms(
+                lambda: core(*prep, ncol, plan=plan, lib=build),
+                warmup=1, runs=5))
+    role_clock.read(lib)
+    ms, ms_t = (statistics.median(runs[b]) for b in (None, lib))
+    same = all(torch.equal(g, o) for g, o in zip(got, out))
+    s = timing.shares
+    return (f" | in turns plain {ms:.3f} ms, timed build {ms_t:.3f} ms "
+            f"({100 * (ms_t / ms - 1):+.2f} %), bitwise equal to the plain "
+            f"build: {same}, wait shares: optics {s['optics']:.2f} %, "
+            f"LW sweep {s['lw_sweep']:.2f} %, SW sweep "
+            f"{s['sw_sweep']:.2f} %"), same
+
+
 def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
-          cuda_time_ms) -> bool:
+          cuda_time_ms, role_clock=None) -> bool:
     """Time kernel ``name`` on its prepared inputs ``prep`` at each shape
     of ``shapes`` (blocks per SM, C, S, the stage and the route asked
     for, the label)
     between two runs of the default plan, one line each; True iff every
-    shape's outputs equal the default's bit for bit."""
+    shape's outputs equal the default's bit for bit.  With ``role_clock``
+    (ops/cuda/role_clock.py) each merged-kernel line adds its timed
+    build's report (``roles_report``), which must equal it too."""
     import torch
     from ecckd_tpu_torch.ops.cuda import staged
     atm = prep[0]
@@ -89,6 +127,11 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                        for o, r in zip(out, ref))
             same = f"False (largest difference {diff:.3e} of a flux scale)"
         ms = cuda_time_ms(lambda: core(*prep, ncol, plan=p))
+        roles = ""
+        if role_clock is not None and name == "lwsw":
+            roles, timed_same = roles_report(role_clock, core, prep, ncol,
+                                             p, out, cuda_time_ms)
+            ok = ok and timed_same
         print(f"{head} {label}: {p.report}; "
               + (f"{p.shared_bytes} B shared" if p.shared
                  else "device staging")
@@ -96,7 +139,7 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                  if p.split else "")
               + f"; the card holds {per_sm} blocks per SM"
               f" | {ms:.3f} ms | bitwise equal to the default: {same} | "
-              f"{card}", flush=True)
+              f"{card}{roles}", flush=True)
     return ok
 
 
@@ -114,6 +157,9 @@ def main(argv=None) -> int:
                     choices=("float32", "float64"))
     ap.add_argument("--lw-kind", default="lw_fsck",
                     choices=("lw_fsck", "lw_rrtmgp"))
+    ap.add_argument("--roles", action="store_true",
+                    help="also time the merged kernel's timed build and "
+                    "print its warp roles' wait shares")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -125,6 +171,9 @@ def main(argv=None) -> int:
                                               write_synthetic_ckd)
     from ecckd_tpu_torch.models.loader import load_ckd_model
     from ecckd_tpu_torch.ops.cuda import lw, lwsw, plan, sw
+    role_clock = None
+    if args.roles:
+        from ecckd_tpu_torch.ops.cuda import role_clock
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -139,7 +188,7 @@ def main(argv=None) -> int:
     limits = (props.shared_memory_per_block_optin,
               props.shared_memory_per_multiprocessor)
     shapes = []
-    for spec in args.shapes.split(","):
+    for spec in filter(None, args.shapes.split(",")):
         dims, sign, route = re.fullmatch(r"(\d+x\d+x\d+)([+-]p)?([sw])?",
                                          spec).groups()
         stage = None if sign is None else sign == "+p"
@@ -178,7 +227,7 @@ def main(argv=None) -> int:
                         t["tsi"], t["sza"], n_gauss_angles=n_ang)}[name]()
                 ok = sweep(name, prep, cores[name], shapes, limits,
                            args.ncol, nlay, n_ang, card,
-                           cuda_time_ms) and ok
+                           cuda_time_ms, role_clock) and ok
     return 0 if ok else 1
 
 
