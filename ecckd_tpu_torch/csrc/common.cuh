@@ -20,8 +20,12 @@
 // pairs over the lanes, 32 pairs a step, and its sweeps give each lane
 // g-points lane and lane + 32 (the second where it exists), whose
 // recurrences run side by side in one walk over the layers and add before
-// the g-sum.  The double instantiations keep the chunked loop: with the
-// pairs their split-route build and its checked build (-DECCKD_CHECK_RING)
+// the g-sum; or, where the plan gives a set one LW sweep warp per g-chunk
+// (Tile.lw_warps: the merged kernel at one angle on the split route), each
+// warp walks its own chunk (lw_sweeps_chunk) into accumulators of its own,
+// and the set adds the two chunks' level sums in chunk order.  The double
+// instantiations keep the chunked loop: with the pairs their split-route
+// build and its checked build (-DECCKD_CHECK_RING)
 // fused one multiply-add of the SW path differently (the SW fluxes 3e-16
 // apart), which the checked build's bit-for-bit comparison refuses.
 // Tables are flattened in natural (gas,
@@ -842,28 +846,26 @@ __device__ __forceinline__ void lw_sweeps_pairs(const LwSolveT<R>& W,
   }
 }
 
-// The LW sweeps of column c at Gauss angle a from its staged rows st,
-// g-summed into this angle's level accumulators up / dn (lane 0 adds, over
-// g-chunks in order; a band wider than a warp: lw_sweeps_pairs).
-template <int NG, typename R>
-__device__ __forceinline__ void lw_sweeps_staged(const LwSolveT<R>& W,
-                                                 const BandT<R>& B, int nlay,
-                                                 int c, int lane, int a,
+// The LW sweeps of column c at Gauss angle a from its staged rows st (ng
+// g-points a row) over the g-chunks that start at g_lo, g_lo + 32, ...
+// below g_hi, g-summed into this angle's level accumulators up / dn (lane
+// 0 adds, over the chunks in order).  Padded lanes compute on g-point
+// g_pad and contribute 0.
+template <typename R>
+__device__ __forceinline__ void lw_sweeps_chunks(const LwSolveT<R>& W,
+                                                 int ng, int nlay, int c,
+                                                 int lane, int a, int g_lo,
+                                                 int g_hi, int g_pad,
                                                  const R* st,
                                                  R* __restrict__ up,
                                                  R* __restrict__ dn) {
-  if constexpr (PAIRS<NG, R>) {
-    lw_sweeps_pairs<NG>(W, nlay, c, lane, a, st, up, dn);
-    return;
-  }
   constexpr int K = SWEEP_K;
-  const int ng = fixed_or<NG>(B.ngpt);
   const R thresh = r_sqrt(epsilon<R>());
   const R sec = W.sec[a], w2pi = W.w2pi[a];
   const PlanckAt<R> sfc = planck_at(W, ng, W.tsfc[c]);
-  for (int g0 = 0; g0 < ng; g0 += 32) {
+  for (int g0 = g_lo; g0 < g_hi; g0 += 32) {
     const bool act = g0 + lane < ng;
-    const int g = act ? g0 + lane : 0;
+    const int g = act ? g0 + lane : g_pad;
     // The row blocks at this g-point: tr / tau, src_dn / B(layer),
     // src_up / B(level).
     const R* const r0 = st + g;
@@ -919,6 +921,41 @@ __device__ __forceinline__ void lw_sweeps_staged(const LwSolveT<R>& W,
       if (lane % (32 / K) == 0 && j0 - k >= 0) up[j0 - k] += w2pi * sum;
     }
   }
+}
+
+// The LW sweeps of column c at Gauss angle a from its staged rows st,
+// g-summed into this angle's level accumulators up / dn (lane 0 adds, over
+// g-chunks in order; a band wider than a warp: lw_sweeps_pairs).
+template <int NG, typename R>
+__device__ __forceinline__ void lw_sweeps_staged(const LwSolveT<R>& W,
+                                                 const BandT<R>& B, int nlay,
+                                                 int c, int lane, int a,
+                                                 const R* st,
+                                                 R* __restrict__ up,
+                                                 R* __restrict__ dn) {
+  if constexpr (PAIRS<NG, R>) {
+    lw_sweeps_pairs<NG>(W, nlay, c, lane, a, st, up, dn);
+    return;
+  }
+  const int ng = fixed_or<NG>(B.ngpt);
+  lw_sweeps_chunks(W, ng, nlay, c, lane, a, 0, ng, 0, st, up, dn);
+}
+
+// lw_sweeps_staged's g-chunk h alone, for an LW band of NG g-points in
+// (32, 64] whose chunks a set sweeps on warps of their own (one warp per
+// chunk: csrc/staged.cuh): a lane per g-point, as the chunked loop walks
+// chunk h; its padded lanes compute on the chunk's first g-point, in the
+// row segment its own lanes read.
+template <int NG, typename R>
+__device__ __forceinline__ void lw_sweeps_chunk(const LwSolveT<R>& W,
+                                                int nlay, int c, int lane,
+                                                int a, int h, const R* st,
+                                                R* __restrict__ up,
+                                                R* __restrict__ dn) {
+  static_assert(NG > 32 && NG <= 64, "one or two g-chunks");
+  const int g_lo = 32 * h;
+  lw_sweeps_chunks(W, NG, nlay, c, lane, a, g_lo, g_lo + 32, g_lo, st, up,
+                   dn);
 }
 
 // The SW sweeps of column c from its staged rows st (rewritten in place):

@@ -50,8 +50,11 @@
 // g-points, whose LW optics and sweeps take one pass over a warp's
 // (layer, g-point) pairs at float (common.cuh "Layout"), also where whole columns
 // would leave one block per SM and split ones keep two (nlay 59-103 at 1
-// angle: 7.2-7.4 against 10.1 ms at nlay 60); a column too deep for
-// shared memory (nlay >~ 250 at these ngpt) is staged whole in the slice.
+// angle: 7.2-7.4 against 10.1 ms at nlay 60), and on the split route at
+// one angle each set sweeps that band's two g-chunks on an LW warp each
+// where their accumulators fit beside the plan (Tile.lw_warps); a column
+// too deep for shared memory (nlay >~ 250 at these ngpt) is staged whole
+// in the slice.
 //
 // Double precision.  lwsw_f64_kernel is the same body at compute type
 // double (common.cuh "Compute type") on the exact f64 table, for callers

@@ -18,7 +18,10 @@
 // At the body's end lane 0 of each warp adds its counters, its count and
 // whether its counted spans exceed its total into one device record, by
 // role, read and reset through ecckd_<name>_role_clock.  The record sums
-// every launch since the last reset.
+// every launch since the last reset.  Where a set gives an angle one LW
+// sweep warp per g-chunk (Tile.lw_warps 2), the warps of the second chunk
+// add theirs a second time to a row of their own (ROLE_LW_CHUNK1), so the
+// two chunks' walks read apart; the LW sweep role counts both.
 //
 // Two planted faults, for the instrument's own test, each in this build
 // alone: -DECCKD_PLANT_SLOW_SW makes the SW sweep warp spin
@@ -32,8 +35,14 @@
 
 // The roles and the counters of each (ops/cuda/role_clock.py ROLES and
 // COUNTERS, in this order).
-enum RoleKind { ROLE_OPTICS = 0, ROLE_LW_SWEEP = 1, ROLE_SW_SWEEP = 2 };
-constexpr int ROLES = 3;
+// ROLE_LW_CHUNK1: the LW sweep warps of g-chunk 1 once more.
+enum RoleKind {
+  ROLE_OPTICS = 0,
+  ROLE_LW_SWEEP = 1,
+  ROLE_SW_SWEEP = 2,
+  ROLE_LW_CHUNK1 = 3
+};
+constexpr int ROLES = 4;
 enum RoleCounter {
   RC_TOTAL = 0,    // cycles from the warp's first statement to its last
   RC_FREE = 1,     // in bar.sync FREE (optics warps)

@@ -14,11 +14,13 @@
 //   fall on the same warps), and compute each layer's LW sources (tau and
 //   Planck at 2-4 angles) and SW two-stream coefficients for all g-points
 //   from its layer parameters (common.cuh "Layer parameters");
-//   sweep warps, in S sets of one per LW Gauss angle and one for SW, run
-//   the serial recurrences of earlier columns from the staging only, g-sum
-//   four levels at a time with a transposed warp reduction, and write
-//   each output level once.  Set k sweeps the columns of the slots
-//   s = k (mod S): a sweep is one warp's serial chain, and the sets let
+//   sweep warps, in S sets of one per LW Gauss angle (two, one per
+//   g-chunk, where the plan splits a band of two chunks: Tile.lw_warps)
+//   and one for SW, run the serial recurrences of earlier columns from the
+//   staging only, g-sum four levels at a time with a transposed warp
+//   reduction, and write each output level once.  Set k sweeps the
+//   columns of the slots s = k (mod S): a sweep is one warp's serial
+//   chain, and the sets let
 //   S of them run at once under the optics of the next columns;
 //   the parameter stage (the merged kernel's, Tile.prm_stage, where the
 //   plan gives it: ops/cuda/staged.py stage_plan): a set's LW sweep
@@ -101,6 +103,11 @@ struct Tile {
                      // optics warp computes its own before its FREE wait
                      // (in their own place); 0: each optics warp computes
                      // its own layers' parameters once it holds the slot
+  int lw_warps;      // LW sweep warps a set has per Gauss angle: 1, or 2
+                     // where an LW band of two g-chunks in the pairs
+                     // layout (common.cuh "Layout") gives each chunk its
+                     // own warp; read by the merged kernel's pairs
+                     // instantiations alone
 };
 
 namespace {
@@ -197,8 +204,9 @@ __device__ __forceinline__ void plant_spin(long long cycles) {
 // null); NT: the grid's temperature points, or 0; STAGING: the route
 // (Staging; shared memory takes its 32-bit addressing).  A persistent
 // block walks the columns blockIdx.x, + gridDim.x, ...; the i-th goes to
-// slot i % C and is swept by set i % S.  The block's last S (n_ang + 1)
-// warps sweep (per set one LW warp per Gauss angle, then the SW warp); the
+// slot i % C and is swept by set i % S.  The block's last S (n_lw + 1)
+// warps sweep (per set n_lw LW warps, one per Gauss angle or, with
+// Tile.lw_warps 2, one per angle and g-chunk, then the SW warp); the
 // others, the optics warps, stage the next columns meanwhile.  On the
 // split route a slot's
 // LW rows lie in the block's device slice and its SW rows start the slot
@@ -220,7 +228,12 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
   constexpr bool LW = SL::NG >= 0, SW = SS::NG >= 0;
   extern __shared__ __align__(16) float smem[];
   const int nlay = A.nlay, nlev = nlay + 1, ncol = A.ncol;
-  const int n_lw = LW ? W->n_ang : 0, n_set = n_lw + (SW ? 1 : 0);
+  // LW sweep warps per angle: the plan's where the band takes the pairs
+  // layout (common.cuh "Layout"), else 1, so that every other
+  // instantiation compiles as if the field were not there.
+  int lw_warps = 1;
+  if constexpr (PAIRS<SL::NG, R> && SW) lw_warps = P.lw_warps;
+  const int n_lw = LW ? W->n_ang * lw_warps : 0, n_set = n_lw + (SW ? 1 : 0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_opt = blockDim.x / 32 - P.sets * n_set;
   // A slot's barriers join the optics warps and the slot's set.
@@ -339,9 +352,9 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
     }
     ROLE_CLOCK(rc.flush(ROLE_OPTICS);)
   } else {
-    // The sweeps from the staging, set k: LW at angle a (the set's warp a)
-    // into its own accumulators, or SW; then the level fluxes, written
-    // once.
+    // The sweeps from the staging, set k: LW (the set's warp a: angle a,
+    // or with lw_warps 2 angle a / 2 at g-chunk a % 2) into its own
+    // accumulators, or SW; then the level fluxes, written once.
     const int set = (warp - n_opt) / n_set, a = (warp - n_opt) % n_set;
     for (int c = blockIdx.x + set * gridDim.x, i = set; c < ncol;
          c += P.sets * gridDim.x, i += P.sets) {
@@ -383,13 +396,22 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
                ring.poison(st, o, o + P.sw_floats);)
         }
       } else if constexpr (LW) {
-        if constexpr (SPLIT)
-          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a,
-                                   lw_slice<R>(P, s), acc, acc + nlev);
-        else
-          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, st, acc,
+        const R* rows;
+        if constexpr (SPLIT) rows = lw_slice<R>(P, s);
+        else rows = st;
+        if constexpr (PAIRS<SL::NG, R> && SW) {
+          if (lw_warps > 1)
+            lw_sweeps_chunk<SL::NG>(*W, nlay, c, lane, a / lw_warps,
+                                    a % lw_warps, rows, acc, acc + nlev);
+          else
+            lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, rows, acc,
+                                     acc + nlev);
+        } else {
+          lw_sweeps_staged<SL::NG>(*W, *BL, nlay, c, lane, a, rows, acc,
                                    acc + nlev);
-        // The angles' sums, in angle order, split over the LW warps.
+        }
+        // The sums of the angles (and g-chunks), in the warps' order, split
+        // over the LW warps.
         ROLE_CLOCK(rc.stop(RC_SWEEP); rc.start();)
         bar_sync(BAR_LW_DONE + set, 32 * n_lw);
         ROLE_CLOCK(rc.stop(RC_LW_DONE); rc.start();)
@@ -426,7 +448,8 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
         RING(ring.params_done(i, s);)
       }
     }
-    ROLE_CLOCK(rc.flush(a == n_lw ? ROLE_SW_SWEEP : ROLE_LW_SWEEP);)
+    ROLE_CLOCK(rc.flush(a == n_lw ? ROLE_SW_SWEEP : ROLE_LW_SWEEP);
+               if (a < n_lw && a % lw_warps != 0) rc.flush(ROLE_LW_CHUNK1);)
   }
   RING(ring.finish();)
 }

@@ -110,7 +110,7 @@ class Tile(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "slots", "sets", "blocks", "threads", "shared_bytes",
                     "col_floats", "lw_floats", "sw_floats", "prm_base",
-                    "prm_stride", "prm_sw", "prm_stage")])
+                    "prm_stride", "prm_sw", "prm_stage", "lw_warps")])
 
 
 class LwswArgs(ctypes.Structure):

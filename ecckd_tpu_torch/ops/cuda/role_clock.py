@@ -43,8 +43,11 @@ TIME_DEFINE = "ECCKD_TIME_ROLES"
 PLANT_DEFINES = {"slow_sw": "ECCKD_PLANT_SLOW_SW",
                  "slow_optics": "ECCKD_PLANT_SLOW_OPTICS"}
 """The planted faults' defines by name."""
-ROLES = ("optics", "lw_sweep", "sw_sweep")
-"""The record's roles, in csrc/role_clock.cuh's RoleKind order."""
+ROLES = ("optics", "lw_sweep", "sw_sweep", "lw_chunk1")
+"""The record's roles, in csrc/role_clock.cuh's RoleKind order: the last
+counts the LW sweep warps of g-chunk 1 a second time, where a set gives
+an angle one LW warp per g-chunk (``StagePlan.lw_warps`` 2), so each
+chunk's walk reads apart (``sweep_cycles``); ``lw_sweep`` counts both."""
 COUNTERS = ("total", "free", "full", "lw_done", "params", "optics", "sweep",
             "warps", "over")
 """Each role's counters, in csrc/role_clock.cuh's RoleCounter order:
@@ -115,6 +118,24 @@ def shares(record: Record) -> Dict[str, Optional[float]]:
         out[role] = (100.0 * sum(c[w] for w in waits) / c["total"]
                      if c["total"] else None)
     return out
+
+
+def sweep_cycles(record: Record, ncol: int) -> Dict[str, Optional[float]]:
+    """Each sweep warp's ``sweep`` cycles a column, from a record of
+    launches over ``ncol`` columns: the SW sweep warp's (``sw_sweep``),
+    the LW sweep warps' of g-chunk 0 (``lw_chunk0``: each angle's warp
+    where a set has one an angle) and of g-chunk 1 (``lw_chunk1``, None
+    where no set splits its chunks).  A set has one SW warp, so the SW
+    warps count the sets; each warp of a role walks ``ncol`` over that
+    many columns."""
+    sets = record["sw_sweep"]["warps"]
+    lw, hi = record["lw_sweep"], record["lw_chunk1"]
+    per = lambda cycles, warps: (cycles * sets / (warps * ncol) if warps
+                                 else None)
+    return {"sw_sweep": per(record["sw_sweep"]["sweep"], sets),
+            "lw_chunk0": per(lw["sweep"] - hi["sweep"],
+                             lw["warps"] - hi["warps"]),
+            "lw_chunk1": per(hi["sweep"], hi["warps"])}
 
 
 def capturing() -> bool:

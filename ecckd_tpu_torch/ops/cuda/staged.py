@@ -6,7 +6,8 @@ csrc/lwsw.cu, the LW-only lw.cu and the SW-only sw.cu.
 block, the sets of sweep warps and the threads per block, and the route
 (csrc/staged.cuh Staging): a column whole in shared memory, split (its LW
 rows in a device memory slice, the rest in shared memory), or whole in
-the device slice, and whether the merged kernel runs the parameter stage;
+the device slice, whether the merged kernel runs the parameter stage, and
+how many LW sweep warps a set has per angle;
 ``occupancy`` asks the card how many such blocks an SM holds; and
 ``run_staged`` launches any of the three kernels over column chunks.  The
 wrappers in ops/cuda/{lwsw,lw,sw}.py call ``run_staged`` with the bands
@@ -55,8 +56,8 @@ class StagePlan:
     (``*_floats``; ``word_bytes`` each: 4 at float32, 8 at float64)."""
     lw_floats: int     # LW rows x ngpt_lw
     sw_floats: int     # SW rows x ngpt_sw
-    acc_floats: int    # level accumulators, 2 (nlay+1) per LW angle and
-                       # 2 (nlay+1) for SW
+    acc_floats: int    # level accumulators, 2 (nlay+1) per LW sweep
+                       # warp and 2 (nlay+1) for SW
     prm_floats: int    # layer parameters in a place of their own, or 0
     prm_base: int      # layer j's parameters start at prm_base +
     prm_stride: int    #   j * prm_stride,
@@ -74,6 +75,9 @@ class StagePlan:
                              # next layer parameters (in its LW rows);
                              # else each optics warp computes its own
     word_bytes: int = 4      # bytes of a staged word: the compute type's
+    lw_warps: int = 1        # LW sweep warps a set has per angle: 2 where
+                             # each g-chunk of a band of two in the pairs
+                             # layout has its own (csrc/staged.cuh)
 
     @property
     def route(self) -> str:
@@ -109,11 +113,14 @@ class StagePlan:
     @property
     def report(self) -> str:
         """The plan in one line: route, C, S, threads per block, blocks
-        and columns in flight per SM, the parameter stage."""
+        and columns in flight per SM, the parameter stage, and the LW
+        sweep warps an angle where a set has more than one."""
         return (f"{self.route}, C = {self.slots}, S = {self.sets}, "
                 f"{self.threads} threads, {self.sm_blocks} blocks and "
                 f"{self.sm_blocks * self.slots} columns per SM, stage "
-                f"{'on' if self.prm_stage else 'off'}")
+                f"{'on' if self.prm_stage else 'off'}"
+                + (f", {self.lw_warps} LW sweep warps an angle (one per "
+                   "g-chunk)" if self.lw_warps > 1 else ""))
 
     @property
     def slice_floats(self) -> int:
@@ -151,7 +158,8 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
                param_stage: Optional[bool] = None,
                word_bytes: int = 4,
                split: Optional[bool] = None,
-               n_t: int = SHIPPED_NT) -> StagePlan:
+               n_t: int = SHIPPED_NT,
+               lw_warps: Optional[int] = None) -> StagePlan:
     """The staging of one launch of the kernel that solves the bands with
     ``ngpt_* > 0`` (both: lwsw.cu, LW only: lw.cu, SW only: sw.cu).
 
@@ -211,6 +219,19 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     True or False asks for it or not (tools/stage_sweep.py times both),
     True where it does not fit raising.
 
+    LW sweep warps per angle (``lw_warps``; csrc/staged.cuh): one walks
+    an angle's g-points, over both g-chunks at once where the band lays
+    them out in pairs (lane l carries g-points l and l + 32); or, with
+    ``with_chunk_warps``, each of the two g-chunks has a warp of its own
+    (g-points 0-31 one recurrence a lane, 32-35 on the second warp) with
+    accumulators of its own, and the set adds the two chunks' level sums
+    in chunk order.  ``lw_warps`` None takes two where they fit: the
+    pairs layout at one angle on the split route, the second warp's
+    accumulators (2 (nlay + 1) words a slot) keeping the plan's C, blocks
+    per SM and parameter stage; 1 or 2 asks for one or the other
+    (tools/stage_sweep.py ``g1`` / ``g2`` times both), 2 where it does
+    not fit raising.
+
     The rule, timed with tools/stage_sweep.py at 65,536 columns on an
     H100 80GB HBM3 at 700 W, the same build with and without the stage:
     with C = 2 a slot turns over in its optics, then its sweeps.  With
@@ -248,7 +269,16 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     leaves one block per SM: at nlay 91 two blocks without it 10.84-11.21
     ms, one with it 14.37-14.40, so there it is declined.  At nlay 47 whole
     columns stay (5.84-6.16 ms; split 6.39-6.60, with the stage
-    6.23-6.45)."""
+    6.23-6.45).  One LW sweep warp per g-chunk on those split plans, timed
+    the same way against one warp over the pairs in the same call: nlay
+    60 (stage, two blocks of 512) 6.60-6.65 against 7.22-7.87 ms, 91 (no
+    stage, two blocks) 10.24-10.54 against 11.13-11.21, 137 (stage, one
+    block of 1024) 18.25-18.49 against 20.92-21.01: the chunk-0 warp's
+    walk takes 36.1 k cycles a column at nlay 60 where the pairs took
+    67.7 k (the role clock), and the slot's turn is the optics and the SW
+    sweep again.  Where the second warp's accumulators would cost the
+    stage (nlay 87, 174-175) or a block (103, 206-208) the pairs stay (not
+    timed)."""
     if not 1 <= max_slots <= SLOT_LIMIT:
         raise ValueError(f"max_slots must be in 1..{SLOT_LIMIT}")
     has_lw, has_sw = ngpt_lw > 0, ngpt_sw > 0
@@ -310,7 +340,17 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
         raise ValueError(f"no parameter stage on the {plan.route} route "
                          f"with {ngpt_lw} LW g-points and {per_layer} "
                          "parameters a layer")
-    return with_stage if param_stage else plan
+    plan = with_stage if param_stage else plan
+    chunked = with_chunk_warps(
+        plan, nlay, n_angles, block_shared, sm_shared,
+        pairs(ngpt_lw, ngpt_sw, gases_lw, gases_sw, n_t, word_bytes))
+    if lw_warps is None:
+        lw_warps = 2 if chunked is not None else 1
+    if lw_warps not in (1, 2) or lw_warps == 2 and chunked is None:
+        raise ValueError(f"no {lw_warps} LW sweep warps an angle on this "
+                         f"{plan.route} plan with {ngpt_lw} LW g-points at "
+                         f"{n_angles} angle(s)")
+    return chunked if lw_warps == 2 else plan
 
 
 def with_param_stage(plan: StagePlan, nlay: int, ngpt_lw: int,
@@ -351,6 +391,29 @@ def with_param_stage(plan: StagePlan, nlay: int, ngpt_lw: int,
     return own if fits else None
 
 
+def with_chunk_warps(plan: StagePlan, nlay: int, n_angles: int,
+                     block_shared: int, sm_shared: int,
+                     lw_pairs: bool) -> Optional[StagePlan]:
+    """``plan`` with one LW sweep warp per g-chunk (``lw_warps`` 2), or
+    None where it cannot take them: an LW band of two g-chunks in the
+    pairs layout (``lw_pairs``: ``pairs``), one angle, the split route,
+    and room for the second warp's accumulators (2 (nlay + 1) words a
+    slot, the parameters' own place after them) that keeps the plan's C,
+    blocks per SM and parameter stage, with an optics warp left beside
+    the sets' sweep warps.  ``stage_plan`` gives it where it fits."""
+    if not (lw_pairs and n_angles == 1 and plan.split):
+        return None
+    extra = 2 * (nlay + 1)
+    two = dataclasses.replace(
+        plan, lw_warps=2, acc_floats=plan.acc_floats + extra,
+        prm_base=plan.prm_base + (extra if plan.prm_floats else 0))
+    fits = (block_shared // two.bytes_per_column >= plan.slots
+            and two.sm_blocks * (two.shared_bytes + RESERVED_SHARED_BYTES)
+            <= sm_shared
+            and two.threads >= 32 * (two.sets * 3 + 1))
+    return two if fits else None
+
+
 def stage_rule(plan: StagePlan, n_angles: int) -> bool:
     """Where the parameter stage pays, for a plan it fits (``stage_plan``
     gives the timings): the shape alone decides."""
@@ -368,7 +431,8 @@ def tile_struct(plan: StagePlan, blocks: int = 0,
                         col_floats=plan.col_floats,
                         lw_floats=plan.lw_floats, sw_floats=plan.sw_floats,
                         prm_base=plan.prm_base, prm_stride=plan.prm_stride,
-                        prm_sw=plan.prm_sw, prm_stage=int(plan.prm_stage))
+                        prm_sw=plan.prm_sw, prm_stage=int(plan.prm_stage),
+                        lw_warps=plan.lw_warps)
 
 
 def kernel_name(lw: Optional[plan_mod.LwInputs],

@@ -144,10 +144,14 @@ def test_k1s_plan_at_36_gpoints_is_the_cells():
     60, one angle, float32, at an H100's limits: whole columns (59,512 B)
     leave one block of 1024 threads per SM (2 columns); split, two blocks
     of two columns of 33,592 B each and 512 threads (4 columns, 8 sweep
-    warps per SM), and with the parameter stage's own place 39,832 B.
+    warps per SM), with the parameter stage's own place 39,832 B, and
+    with one LW sweep warp per g-chunk in each set (the second warp's
+    accumulators) 40,320 B: 12 sweep warps and 20 optics warps per SM.
     The rule follows the kernel's lane layout
     (``staged.pairs``, csrc/common.cuh PAIRS): where the instantiation
-    keeps the g-chunk loop, and at 2-4 angles, it is the 32-g-point one."""
+    keeps the g-chunk loop, and at 2-4 angles, it is the 32-g-point one;
+    the chunk warps only where the second warp's accumulators leave the
+    plan's C, blocks per SM and parameter stage as they were."""
     from ecckd_tpu_torch.ops.cuda import staged
     blocks, slots, sets = staged.SHAPES["lwsw"]
     plan = lambda nlay, n_ang=1, gases=(7, 1), **kw: staged.stage_plan(
@@ -156,10 +160,47 @@ def test_k1s_plan_at_36_gpoints_is_the_cells():
     p = plan(60)
     assert (p.route, p.slots, p.sets, p.threads) == ("split", 2, 2, 512)
     assert (p.sm_blocks, p.prm_stage, p.bytes_per_column,
-            p.slice_floats) == (2, True, 39832, 6480)
+            p.slice_floats, p.lw_warps) == (2, True, 40320, 6480, 2)
     assert p.report == ("split, C = 2, S = 2, 512 threads, 2 blocks and 4 "
-                        "columns per SM, stage on")
-    assert plan(60, param_stage=False).bytes_per_column == 33592
+                        "columns per SM, stage on, 2 LW sweep warps an "
+                        "angle (one per g-chunk)")
+    assert plan(60, lw_warps=1).bytes_per_column == 39832
+    assert plan(60, lw_warps=1).report == (
+        "split, C = 2, S = 2, 512 threads, 2 blocks and 4 columns per SM, "
+        "stage on")
+    assert plan(60, param_stage=False, lw_warps=1).bytes_per_column == 33592
+    assert plan(60, param_stage=False).lw_warps == 2
+    # Where the second warp's accumulators would cost the stage (nlay 87,
+    # 174-175) or the block's two columns (103, 206-208), the pairs stay;
+    # where the stage is declined anyway (88-102, 176-205) they do not.
+    for nlay, warps, stage, threads in ((59, 2, True, 512),
+                                        (86, 2, True, 512),
+                                        (87, 1, True, 512),
+                                        (91, 2, False, 512),
+                                        (103, 1, False, 512),
+                                        (118, 2, True, 1024),
+                                        (137, 2, True, 1024),
+                                        (173, 2, True, 1024),
+                                        (175, 1, True, 1024),
+                                        (190, 2, False, 1024),
+                                        (206, 1, False, 1024)):
+        q = plan(nlay)
+        assert (q.route, q.lw_warps, q.prm_stage, q.threads, q.slots) == (
+            "split", warps, stage, threads, 2), nlay
+        assert q.sm_blocks * (q.shared_bytes + 1024) <= H100[1]
+        one = plan(nlay, lw_warps=1)
+        assert one.prm_stage == q.prm_stage and one.threads == q.threads
+        if warps == 1:
+            assert one == q
+            with pytest.raises(ValueError):
+                plan(nlay, lw_warps=2)
+    # Never at 2-4 angles, whole columns, float64 or a run-time shape;
+    # asked for there, it raises.
+    for args, kw in (((60, 3), {}), ((60,), dict(split=False)),
+                     ((80,), dict(word_bytes=8)), ((60,), dict(gases=(4, 1)))):
+        assert plan(*args, **kw).lw_warps == 1
+        with pytest.raises(ValueError):
+            plan(*args, **kw, lw_warps=2)
     whole = plan(60, split=False)
     assert (whole.route, whole.threads, whole.sm_blocks,
             whole.bytes_per_column) == ("shared", 1024, 1, 59512)

@@ -943,13 +943,68 @@ def test_split_parameter_stage_at_36_gpoints_changes_no_bit(models, nlay,
         assert torch.isfinite(g).all() and torch.equal(g, r)
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("nlay", [60, 91, 137])
+def test_chunk_warps_at_36_gpoints_match_the_pairs(models, nlay, mode):
+    """lw_rrtmgp's 36 LW g-points on the split route at one angle, the
+    emissivity per band: the plan gives each set one LW sweep warp per
+    g-chunk (``lw_warps`` 2: at nlay 60 and 137 with the parameter stage,
+    at 91 without), and K1 on it matches the plain version at f64 in its
+    table mode within BOUND, as does the same plan with one LW warp over
+    the pairs (``lw_warps`` 1), asked of ``stage_plan``; the SW outputs of
+    the two are equal bit for bit, the LW ones within BOUND of each other
+    (the chunks' level sums add after the g-sum, the pairs per lane before
+    it)."""
+    from ecckd_tpu_torch.ops.cuda import lwsw, plan, staged
+    lw, sw = models["lw_rrtmgp", torch.float32], models["sw", torch.float32]
+    ncol = 2003
+    b32, b64 = (batch(ncol, nlay, dt, seed=9)
+                for dt in (torch.float32, torch.float64))
+    rng = np.random.default_rng(nlay)
+    band = torch.as_tensor(rng.uniform(0.9, 1.0, (ncol, lw.nband)),
+                           dtype=torch.float64, device="cuda")
+    prep = plan.prepare(lw, sw, b32["plev"], b32["tlay"], b32["tlev"],
+                        b32["tsfc"],
+                        lw.gpt_weights_per_band(band.float()).contiguous(),
+                        b32["concs"], b32["alb"], b32["tsi"], b32["sza"], 1,
+                        fast=mode == "bf16")
+    two = staged.plan_for(*prep)
+    assert (two.route, two.lw_warps, two.prm_stage, two.slots,
+            two.sets) == ("split", 2, nlay != 91, 2, 2)
+    props = torch.cuda.get_device_properties(b32["tlay"].device)
+    one = staged.stage_plan(
+        nlay, lw.ngpt, sw.ngpt, 1, staged.band_gases(prep[1].plan),
+        staged.band_gases(prep[2].plan), props.shared_memory_per_block_optin,
+        props.shared_memory_per_multiprocessor, *staged.SHAPES["lwsw"],
+        lw_warps=1)
+    assert (one.route, one.lw_warps, one.prm_stage, one.threads) == (
+        "split", 1, two.prm_stage, two.threads)
+    assert one.acc_floats == two.acc_floats - 2 * (nlay + 1)
+    got = lwsw._night_masked(prep[2], lwsw._kernel_core(*prep, ncol,
+                                                        plan=two))
+    pairs = lwsw._night_masked(prep[2], lwsw._kernel_core(*prep, ncol,
+                                                          plan=one))
+    torch.cuda.synchronize()
+    lw64, sw64 = models["lw_rrtmgp", torch.float64], models["sw",
+                                                           torch.float64]
+    ref = solve(lwsw_fluxes_plain, lw64, sw64, b64,
+                lw64.gpt_weights_per_band(band).contiguous(), mxu_mode=mode)
+    for out in (got, pairs):
+        for k in range(2):
+            assert_close(out[2 * k:2 * k + 2], ref[2 * k:2 * k + 2])
+    assert_close(got[:2], [p.double() for p in pairs[:2]])
+    for g, q in zip(got[2:], pairs[2:]):
+        assert torch.equal(g, q)
+
+
 def test_captured_banded_rrtmgp_calls_run_k1(models):
     """ecCKD's RRTMGP-band LW file (36 g-points in 16 bands) with sw_wide
     on the main path, the emissivity given per band (ncol, 16): capture.jit
     of lw_sw_fluxes runs K1 in the eager call, the capture and each
     replay, on the split route in two blocks of 512 threads per SM (the
     LW band is wider than a warp: csrc/common.cuh "Layout") with the
-    parameter stage in the layer parameters' own place, and the
+    parameter stage in the layer parameters' own place and one LW sweep
+    warp per g-chunk in each set, and the
     replay matches the plain version at f64 on the same banded surface;
     the same banded values spread over the wrong bands do not."""
     from ecckd_tpu_torch.ops.cuda import plan, staged
@@ -965,7 +1020,8 @@ def test_captured_banded_rrtmgp_calls_run_k1(models):
         lw, sw, b32["plev"], b32["tlay"], b32["tlev"], b32["tsfc"],
         emis_gpt, b32["concs"], b32["alb"], b32["tsi"], b32["sza"], 1))
     assert (p.route, p.slots, p.sets, p.threads, p.sm_blocks,
-            p.prm_stage) == ("split", 2, 2, 512, 2, True)
+            p.prm_stage, p.lw_warps) == ("split", 2, 2, 512, 2, True, 2)
+    assert p.bytes_per_column == 40320
     jitted = capture.jit(pipeline.lw_sw_fluxes)
     for _ in range(3):                   # eager, capture, replay
         before = lwsw_fluxes_cuda.launches

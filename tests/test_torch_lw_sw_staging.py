@@ -181,10 +181,10 @@ def test_single_band_args_mirror_the_c_structs(name):
     source = {"LwArgs": "lw.cu", "SwArgs": "sw.cu"}[name]
     assert [f for f, _ in args._fields_] == c_fields(name, source)
     # Atmos 48, Grid 40, Band 728, then LwSolve 96 or SwSolve 56 bytes,
-    # then the 56-byte Tile.
+    # then the 64-byte Tile.
     solve = 96 if name == "LwArgs" else 56
     assert args.tile.offset == 48 + 40 + 728 + solve
-    assert ctypes.sizeof(args) == 48 + 40 + 728 + solve + 56
+    assert ctypes.sizeof(args) == 48 + 40 + 728 + solve + 64
     assert binding.ARGS[source[:-3]] is args
 
 

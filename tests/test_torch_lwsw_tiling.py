@@ -95,10 +95,14 @@ def test_stage_plan_matches_the_count_by_hand(nlay, ng_lw, n_ang):
     floats, c, shared, smem, threads, in_rows, split = by_hand(
         nlay, ng_lw, 27, n_ang)
     own = 26 * nlay if split and p.prm_stage else 0
-    assert p.col_floats == floats + own
-    assert p.bytes_per_column == 4 * (floats + own)
+    # Split at 36 g-points and one angle, each set sweeps the LW band's two
+    # g-chunks on a warp each, with accumulators of its own.
+    assert p.lw_warps == (2 if split and (ng_lw, n_ang) == (36, 1) else 1)
+    more = own + 2 * (nlay + 1) * (p.lw_warps - 1)
+    assert p.col_floats == floats + more
+    assert p.bytes_per_column == 4 * (floats + more)
     assert (p.slots, p.shared, p.shared_bytes, p.threads) == (
-        c, shared, smem + 4 * c * own, threads)
+        c, shared, smem + 4 * c * more, threads)
     assert p.split == split == (nlay == 137
                                 or (ng_lw, nlay, n_ang) == (36, 60, 1))
     assert p.slice_floats == (p.lw_floats if split else
@@ -124,8 +128,9 @@ def test_stage_plan_at_the_main_path_and_the_edges():
     of 56,632 B per block, two blocks of 512 threads per SM; lw_rrtmgp:
     a whole column of 59,512 B would leave one block of 1024 threads, so
     its LW rows go to the device slice and two blocks of two columns of
-    33,592 B each fit, and with the parameter stage's own place (6,240
-    B) 39,832 B each still do)."""
+    33,592 B each fit, with the parameter stage's own place (6,240 B)
+    39,832 B each still do, and with a second LW sweep warp's
+    accumulators (488 B) 40,320 B)."""
     main = staged.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (main.lw_floats, main.sw_floats, main.acc_floats) == (5760, 8154,
                                                                  244)
@@ -136,14 +141,18 @@ def test_stage_plan_at_the_main_path_and_the_edges():
         58224, 116448, 1024)          # two blocks would need 234,944 B
     rrtmgp = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100)
     assert (rrtmgp.bytes_per_column, rrtmgp.slots, rrtmgp.threads,
-            rrtmgp.route, rrtmgp.sm_blocks, rrtmgp.prm_stage) == (
-                39832, 2, 512, "split", 2, True)
-    assert 2 * (rrtmgp.shared_bytes + 1024) == 161376 <= H100[1]
+            rrtmgp.route, rrtmgp.sm_blocks, rrtmgp.prm_stage,
+            rrtmgp.lw_warps) == (40320, 2, 512, "split", 2, True, 2)
+    assert 2 * (rrtmgp.shared_bytes + 1024) == 163328 <= H100[1]
+    assert staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
+                             lw_warps=1).bytes_per_column == 39832
     off = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
-                            param_stage=False)
+                            param_stage=False, lw_warps=1)
     assert (off.bytes_per_column, off.route, off.sm_blocks) == (33592,
                                                                "split", 2)
     assert rrtmgp.lw_floats * 4 + off.bytes_per_column == 59512
+    assert staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
+                             param_stage=False).bytes_per_column == 34080
     assert staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100,
                              split=False).threads == 1024
     deep = staged.stage_plan(137, 32, 27, 1, GASES_LW, GASES_SW, *H100)
@@ -352,19 +361,19 @@ def test_args_mirror_the_c_structs():
     for struct in ("Band", "LwSolve", "SwSolve"):
         assert [f for f, _ in getattr(binding, struct)._fields_] == \
             c_fields(struct, "common.cuh")
-    # By hand: a pointer, then twelve ints; the structs before it as in
-    # common.cuh (Atmos 48, Grid 40, Band 728 twice (a pointer, three
-    # ints, 16 slices of 44 bytes, padded to 8), LwSolve 96, SwSolve 56
-    # bytes).
-    assert ctypes.sizeof(tile) == 8 + 12 * 4
+    # By hand: a pointer, then thirteen ints, padded to 8; the structs
+    # before it as in common.cuh (Atmos 48, Grid 40, Band 728 twice (a
+    # pointer, three ints, 16 slices of 44 bytes, padded to 8), LwSolve
+    # 96, SwSolve 56 bytes).
+    assert ctypes.sizeof(tile) == 8 + 13 * 4 + 4
     assert [getattr(tile, f).offset for f, _ in tile._fields_] \
-        == [0] + list(range(8, 56, 4))
+        == [0] + list(range(8, 60, 4))
     sizes = [ctypes.sizeof(t) for t in (binding.Atmos, binding.Grid,
                                         binding.Band, binding.LwSolve,
                                         binding.SwSolve)]
     assert sizes == [48, 40, 728, 96, 56]
     assert args.tile.offset == 48 + 40 + 2 * 728 + 96 + 56
-    assert ctypes.sizeof(args) == 1696 + 56
+    assert ctypes.sizeof(args) == 1696 + 64
 
 
 def test_f64_args_mirror_the_c_structs():
@@ -372,7 +381,7 @@ def test_f64_args_mirror_the_c_structs():
     declares it, the templates' fields at double, sizes by hand (Atmos
     48, Grid 56 (a pointer, two ints, five doubles), GasSlice 72 (five
     ints padded to 24, six doubles), Band 1,176 twice, LwSolve 136,
-    SwSolve 56, then the same 56-byte Tile)."""
+    SwSolve 56, then the same 64-byte Tile)."""
     args = binding.LwswArgs64
     assert [f for f, _ in args._fields_] == c_fields("LwswArgs64")
     for struct in ("GasSlice", "Band", "Grid", "Atmos", "LwSolve",
@@ -384,7 +393,7 @@ def test_f64_args_mirror_the_c_structs():
         "Atmos", "Grid", "GasSlice", "Band", "LwSolve", "SwSolve")]
     assert sizes == [48, 56, 72, 1176, 136, 56]
     assert args.tile.offset == 48 + 56 + 2 * 1176 + 136 + 56
-    assert ctypes.sizeof(args) == 2648 + 56
+    assert ctypes.sizeof(args) == 2648 + 64
     assert binding.args_type("lwsw", "f64") is args
     assert all(binding.args_type(n, m) is binding.ARGS[n]
                for n in ("lwsw", "lw", "sw") for m in ("exact", "fast"))
@@ -399,6 +408,9 @@ def test_tile_struct_carries_the_plan():
         p.col_floats, p.lw_floats, p.sw_floats)
     assert (t.prm_base, t.prm_stride, t.prm_sw) == (p.lw_floats, 27, 18)
     assert t.prm_stage == p.prm_stage == 0
+    assert t.lw_warps == p.lw_warps == 1
+    rrtmgp = staged.stage_plan(60, 36, 27, 1, GASES_LW, GASES_SW, *H100)
+    assert staged.tile_struct(rrtmgp).lw_warps == rrtmgp.lw_warps == 2
     for stage in (False, True):
         q = staged.stage_plan(60, 32, 27, 1, GASES_LW, GASES_SW, *H100,
                               param_stage=stage)
@@ -695,6 +707,48 @@ def test_split_route_still_declines_the_stage(nlay, n_ang, ng_lw):
             _shape_plan("lwsw", nlay, n_ang, ng_lw=ng_lw, param_stage=True)
     else:
         assert _shape_plan("lwsw", nlay, n_ang, param_stage=True).prm_stage
+
+
+@pytest.mark.parametrize("kernel", ["lwsw", "lw", "sw"])
+@pytest.mark.parametrize("word_bytes", [4, 8])
+def test_only_split_pairs_plans_take_chunk_warps(kernel, word_bytes):
+    """One LW sweep warp per g-chunk (``lw_warps`` 2) is the one field
+    ``stage_plan`` gained; asked for one warp an angle (``lw_warps=1``) it
+    plans as it did without the field.  Over nlay 1-400, band widths,
+    gas sets, temperature grids and 1-4 angles, every plan at <= 32 LW
+    g-points, at float64, at 2-4 angles, of a run-time shape, of K3 and
+    K4, and on whole columns is that plan; the others (36 g-points in
+    the pairs layout, float32, one angle, split) add the second warp's
+    accumulators where they fit, 2 (nlay + 1) words after the first's
+    (the parameters' own place moves by as much), and nothing else."""
+    blocks, slots, sets = staged.SHAPES[kernel]
+    engaged = 0
+    for ng, gases, n_t in ((16, GASES_LW, 6), (32, GASES_LW, 6),
+                           (36, GASES_LW, 6), (36, (4, 1), 6),
+                           (36, GASES_LW, 5), (48, GASES_LW, 6)):
+        for n_ang in ((1, 2, 3, 4) if kernel != "sw" else (1,)):
+            for nlay in range(1, 401):
+                kw = dict(blocks_per_sm=blocks, max_slots=slots, sets=sets,
+                          word_bytes=word_bytes, n_t=n_t)
+                args = (nlay, ng if kernel != "sw" else 0,
+                        27 if kernel != "lw" else 0, n_ang,
+                        gases if kernel != "sw" else (0, 0),
+                        GASES_SW if kernel != "lw" else (0, 0), *H100)
+                p = staged.stage_plan(*args, **kw)
+                one = staged.stage_plan(*args, **kw, lw_warps=1)
+                assert one.lw_warps == 1
+                if p.lw_warps == 1:
+                    assert p == one
+                    continue
+                engaged += 1
+                assert (kernel, word_bytes, ng, gases, n_t, n_ang) == (
+                    "lwsw", 4, 36, GASES_LW, 6, 1) and p.split
+                extra = 2 * (nlay + 1)
+                assert p == dataclasses.replace(
+                    one, lw_warps=2, acc_floats=one.acc_floats + extra,
+                    prm_base=one.prm_base + (extra if one.prm_floats
+                                             else 0))
+    assert (engaged > 0) == ((kernel, word_bytes) == ("lwsw", 4))
 
 
 def test_no_stage_for_lw_rows_of_two_g_chunks():

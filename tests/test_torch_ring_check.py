@@ -150,7 +150,7 @@ def _plan(gases, kernel, nlay, n_ang):
 
 
 def _regime(p):
-    return p.threads, p.slots, p.sets, p.route, p.prm_stage
+    return p.threads, p.slots, p.sets, p.route, p.prm_stage, p.lw_warps
 
 
 def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
@@ -163,7 +163,7 @@ def test_the_checked_matrix_reaches_every_staging_regime(ckd_paths):
                    for k, nlay, a in cuda_sanitize.CHECKED if k == kernel}
         assert covered == every, kernel
         assert any(c == 1 for _, c, *_ in covered), kernel
-        assert any(route == "device" for *_, route, _ in covered), kernel
+        assert any(route == "device" for *_, route, _, _ in covered), kernel
     # K1's split route at 1 and 3 angles, at its shallow and deep ends,
     # and at 1 angle the ends of the parameter stage on it.
     split = {(nlay, a) for k, nlay, a in cuda_sanitize.CHECKED
@@ -201,8 +201,8 @@ def test_the_checked_f64_matrix_reaches_every_f64_regime(ckd_paths):
                for _, nlay, a in cuda_sanitize.CHECKED_F64}
     assert covered == every
     assert {k for k, _, _ in cuda_sanitize.CHECKED_F64} == {"lwsw"}
-    assert {route for *_, route, _ in covered} == {"shared", "split",
-                                                   "device"}
+    assert {route for *_, route, _, _ in covered} == {"shared", "split",
+                                                      "device"}
     import inspect
     defaults = inspect.signature(cuda_sanitize.run_checked).parameters
     assert defaults["f64_configs"].default is cuda_sanitize.CHECKED_F64
@@ -232,11 +232,17 @@ def test_the_checked_wide_matrix_reaches_every_36_gpoint_regime(ckd_paths):
     assert every == {_regime(plan64(nlay, a))
                      for _, nlay, a in cuda_sanitize.CHECKED_WIDE_F64}
     # K1's plan at nlay 60, one angle: split, two blocks of 512 per SM,
-    # with the parameter stage; at nlay 91 two blocks leave it no room.
+    # with the parameter stage and one LW sweep warp per g-chunk; at nlay
+    # 91 two blocks leave the stage no room; at 87 the chunk warps'
+    # accumulators would cost the stage, and the pairs stay.
     assert _regime(_plan(gases, "lwsw", 60, 1)) == (512, 2, 2, "split",
-                                                    True)
+                                                    True, 2)
     assert _regime(_plan(gases, "lwsw", 91, 1)) == (512, 2, 2, "split",
-                                                    False)
+                                                    False, 2)
+    assert _regime(_plan(gases, "lwsw", 87, 1)) == (512, 2, 2, "split",
+                                                    True, 1)
+    assert {n for k, n, a in cuda_sanitize.CHECKED_WIDE if k == "lwsw"
+            and _plan(gases, k, n, a).lw_warps == 2} == {60, 91, 137, 190}
     import inspect
     defaults = inspect.signature(cuda_sanitize.run_checked).parameters
     assert defaults["wide_configs"].default is cuda_sanitize.CHECKED_WIDE

@@ -14,8 +14,9 @@ for it:
   launches, and only those, take the timed build, and after it the
   launch path is the plain one again;
 * ``timed`` refuses under graph capture, at entry and at a launch;
-* the record's parsing, its reset and the shares on stubbed words, and
-  the Python mirrors of the C side's roles, counters and defines;
+* the record's parsing, its reset, the shares and each sweep warp's
+  cycles a column on stubbed words, and the Python mirrors of the C
+  side's roles, counters and defines;
 * the helper sets up a cell's own traffic kind at one launch chunk with
   its calls eager and makes one call through ``timed`` (a stand-in for it
   on the CPU); it and the readers give None without a card or without a
@@ -248,6 +249,22 @@ def test_shares_of_a_stubbed_record():
                                          "sw_sweep": 25.0}
     record["sw_sweep"] = dict(zero)
     assert role_clock.shares(record)["sw_sweep"] is None
+
+
+def test_sweep_cycles_of_a_stubbed_record():
+    """Each sweep warp's cycles a column: 4 sets (one SW warp each) over
+    1000 columns walk 250 columns a warp; the LW sweep row counts both
+    g-chunks' warps, the lw_chunk1 row the second chunk's again."""
+    zero = dict.fromkeys(role_clock.COUNTERS, 0)
+    record = {"optics": dict(zero, warps=40),
+              "sw_sweep": dict(zero, sweep=4_000_000, warps=4),
+              "lw_sweep": dict(zero, sweep=4_400_000, warps=8),
+              "lw_chunk1": dict(zero, sweep=1_400_000, warps=4)}
+    assert role_clock.sweep_cycles(record, 1000) == {
+        "sw_sweep": 4000.0, "lw_chunk0": 3000.0, "lw_chunk1": 1400.0}
+    record["lw_chunk1"] = dict(zero)
+    assert role_clock.sweep_cycles(record, 1000) == {
+        "sw_sweep": 4000.0, "lw_chunk0": 2200.0, "lw_chunk1": None}
 
 
 def test_the_python_side_mirrors_the_c_side():

@@ -8,8 +8,11 @@ columns; nlay 60 and 137, 1 and 3 LW angles, float32 and float64, 32 and
 
 * the timed build's fluxes equal the plain build's bit for bit, on the
   same plan and the same blocks per SM;
-* every role has the warps the plan gives it, every share lies in
-  [0, 100] %, and no warp's counted waits and phases exceed its total;
+* every role has the warps the plan gives it (at 36 LW g-points one LW
+  sweep warp per g-chunk: per block 10 optics, 4 LW sweep and 2 SW sweep
+  warps, the g-chunk 1 warps counted once more on their own row), every
+  share lies in [0, 100] %, and no warp's counted waits and phases
+  exceed its total;
 * the two planted faults, each in the timed build alone, move the shares
   their way at nlay 60 by at least 10 percentage points: a slower SW
   sweep (``slow_sw``) raises the optics warps' wait and lowers the SW
@@ -105,15 +108,29 @@ def test_timed_build_counts_every_role_and_changes_no_bit(models, cell):
                                                                  per_sm)
     blocks = min(NCOL, per_sm * torch.cuda.get_device_properties(
         0).multi_processor_count)
-    n_lw = CELLS[cell][2]
+    n_lw = CELLS[cell][2] * plan.lw_warps
     n_sweep = plan.sets * (n_lw + 1)
+    assert plan.lw_warps == (2 if CELLS[cell][0] == "lw_rrtmgp" else 1)
     assert record["optics"]["warps"] == blocks * (plan.threads // 32
                                                   - n_sweep)
     assert record["lw_sweep"]["warps"] == blocks * plan.sets * n_lw
     assert record["sw_sweep"]["warps"] == blocks * plan.sets
+    assert record["lw_chunk1"]["warps"] == blocks * plan.sets * (
+        plan.lw_warps - 1)
+    if cell == "l60_rrtmgp_batch":
+        per_block = {r: record[r]["warps"] // blocks
+                     for r in ("optics", "lw_sweep", "sw_sweep")}
+        assert per_block == {"optics": 10, "lw_sweep": 4, "sw_sweep": 2}
+    if CELLS[cell][0] == "lw_fsck":
+        assert record["lw_chunk1"] == dict.fromkeys(role_clock.COUNTERS, 0)
+    cycles = role_clock.sweep_cycles(record, NCOL)
+    print(f"{cell}: sweep cycles a column and warp {cycles}")
+    assert cycles["sw_sweep"] > 0 and cycles["lw_chunk0"] > 0
+    assert (cycles["lw_chunk1"] is None) == (plan.lw_warps == 1)
     for role, c in record.items():
         assert c["over"] == 0, role
         assert sum(c[k] for k in role_clock.SPANS) <= c["total"], role
+    for role in role_clock.WAITS:
         assert 0.0 <= shares[role] <= 100.0, role
     assert record["optics"]["optics"] > 0
     assert record["lw_sweep"]["sweep"] > 0 and record["sw_sweep"]["sweep"] > 0

@@ -100,10 +100,13 @@ CHECKED_F64 = [("lwsw", n, a) for n in (8, 47, 60, 80, 91, 110, 137, 300)
 # staging regime K1 and K3 reach with them, at float32 (K1: two blocks
 # of 512 threads whole to nlay 58 and split from 59, at 1 angle with the
 # parameter stage to 87 and without it from 88, 1024 threads whole,
-# split, C = 1, the device) and K1's at float64 (384 threads whole, 768
-# whole and split, C = 1, the device).
+# split, C = 1, the device; on the split route at 1 angle one LW sweep
+# warp per g-chunk (nlay 60, 91, 137, 190) or one over the pairs where
+# the second warp's accumulators do not fit (87, 103, 175, 206)) and K1's
+# at float64 (384 threads whole, 768 whole and split, C = 1, the device).
 CHECKED_WIDE = ([("lwsw", n, a) for n in (8, 60, 91, 110, 137, 220, 300)
                  for a in (1, 3)]
+                + [("lwsw", n, 1) for n in (87, 103, 175, 190, 206)]
                 + [("lw", n, a) for n in (8, 60, 137, 300, 600)
                    for a in (1, 3)] + [("lw", 600, 4)])
 CHECKED_WIDE_F64 = [("lwsw", n, a) for n in (8, 40, 80, 110, 137)
@@ -194,9 +197,12 @@ def child(configs) -> int:
 
 def regime(plan) -> str:
     """A staging plan's regime: threads per block, C, S, the route
-    (shared, split or device staging), the parameter stage."""
+    (shared, split or device staging), the parameter stage, the LW sweep
+    warps an angle where a set has two."""
     return (f"{plan.threads} threads, C = {plan.slots}, S = {plan.sets}, "
-            f"{plan.route}, stage {'on' if plan.prm_stage else 'off'}")
+            f"{plan.route}, stage {'on' if plan.prm_stage else 'off'}"
+            + (f", {plan.lw_warps} LW sweep warps an angle"
+               if plan.lw_warps > 1 else ""))
 
 
 def build_checked(plant_kernels=KERNELS) -> float:

@@ -12,28 +12,36 @@ and each (blocks per SM, C columns per block, S sets of sweep warps) in
 ``stage_plan`` (which fits the request to the card), launches the kernel
 on it and times it with CUDA events (median of 10 after 2 warm-ups).  A
 shape ``BxCxS+p`` asks for the parameter stage, ``BxCxS-p`` for none,
-``BxCxS`` takes ``stage_plan``'s rule; a last ``s`` asks for the split
-route, ``w`` for whole columns, neither takes the rule; ``--shapes ""``
+``BxCxS`` takes ``stage_plan``'s rule; then ``s`` asks for the split
+route, ``w`` for whole columns, neither takes the rule; a last ``g2``
+asks for one LW sweep warp per g-chunk of a band of two (``lw_warps``),
+``g1`` for one warp an angle, neither takes the rule; ``--shapes ""``
 times the default plan alone.  A shape that
-cannot have the stage or route it asks for is skipped with a line that
-says so.  Each line gives the plan's report (``StagePlan.report``) and
+cannot have the stage, route or LW warps it asks for is skipped with a
+line that says so.  Each line gives the plan's report (``StagePlan.report``) and
 the blocks per SM the card holds.  ``--dtype
 float64`` runs the models and the batch in float64 (K1's double
 instantiation; the plans at 8 B a word).  Every
-shape's outputs must equal the default shape's bit for bit (a column's
-arithmetic does not depend on the block it runs in); the script exits 1
-if one does not.  Shapes are timed in turns (default, the others, the
+shape's outputs must equal bit for bit those of the first shape timed
+with its LW sweep warps an angle, the default's where they agree (a
+column's arithmetic does not depend on the block it runs in; one LW warp
+per g-chunk adds the chunks' level sums after the g-sum, where one warp
+over both adds per lane before it); the script exits 1 if one does
+not.  Shapes are timed in turns (default, the others, the
 default again) so the spread of one call shows.  With ``--roles`` each
 line of the merged kernel also gives its timed build's time
 (ops/cuda/role_clock.py, the same plan; the two builds timed in turns),
 whether its outputs equal the plain build's bit for bit (the script
 exits 1 if not), and its warp
 roles' wait shares: the optics warps' at FREE, the LW sweep warps' at
-FULL and LW_DONE, the SW sweep warps' at FULL.
+FULL and LW_DONE, the SW sweep warps' at FULL; and each sweep warp's
+cycles a column (``role_clock.sweep_cycles``: the SW warp's, the LW
+warps' by g-chunk).
 
 Usage (on a machine with a card):
   python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1,3]
-      [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,2x2x2s,...] [--ncol 65536]
+      [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,2x2x2s,2x2x2+psg1,...]
+      [--ncol 65536]
       [--nlay 60,137] [--dtype float32|float64]
       [--lw-kind lw_fsck|lw_rrtmgp] [--roles]
 Prints one line per (kernel, shape) and the card's name and power limit.
@@ -74,20 +82,25 @@ def roles_report(role_clock, core, prep, ncol, plan, out,
     ms, ms_t = (statistics.median(runs[b]) for b in (None, lib))
     same = all(torch.equal(g, o) for g, o in zip(got, out))
     s = timing.shares
+    k = {r: "-" if c is None else f"{c / 1e3:.1f}" for r, c in
+         role_clock.sweep_cycles(timing.record, ncol).items()}
     return (f" | in turns plain {ms:.3f} ms, timed build {ms_t:.3f} ms "
             f"({100 * (ms_t / ms - 1):+.2f} %), bitwise equal to the plain "
             f"build: {same}, wait shares: optics {s['optics']:.2f} %, "
             f"LW sweep {s['lw_sweep']:.2f} %, SW sweep "
-            f"{s['sw_sweep']:.2f} %"), same
+            f"{s['sw_sweep']:.2f} %, sweep k cycles a column and warp: SW "
+            f"{k['sw_sweep']}, LW g-chunk 0 {k['lw_chunk0']}, LW g-chunk 1 "
+            f"{k['lw_chunk1']}"), same
 
 
 def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
           cuda_time_ms, role_clock=None) -> bool:
     """Time kernel ``name`` on its prepared inputs ``prep`` at each shape
-    of ``shapes`` (blocks per SM, C, S, the stage and the route asked
-    for, the label)
+    of ``shapes`` (blocks per SM, C, S, the stage, the route and the LW
+    sweep warps an angle asked for, the label)
     between two runs of the default plan, one line each; True iff every
-    shape's outputs equal the default's bit for bit.  With ``role_clock``
+    shape's outputs equal bit for bit those of the first plan run with
+    the same LW sweep warps an angle.  With ``role_clock``
     (ops/cuda/role_clock.py) each merged-kernel line adds its timed
     build's report (``roles_report``), which must equal it too."""
     import torch
@@ -96,7 +109,7 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
     lw_in, sw_in = {"lw": (prep[1], None), "sw": (None, prep[1]),
                     "lwsw": prep[1:]}[name]
     default = staged.plan_for(atm, lw_in, sw_in)
-    ref = [o.clone() for o in core(*prep, ncol)]
+    refs = {default.lw_warps: [o.clone() for o in core(*prep, ncol)]}
     head = (f"stage_sweep: {name} {ncol}x{nlay} {n_ang} angle(s) "
             f"{atm.tlay.dtype} shape")
     ok = True
@@ -104,7 +117,7 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
         if shape is None:
             p, label = default, f"default {staged.SHAPES[name]}"
         else:
-            label = shape[5]
+            label = shape[6]
             try:
                 p = staged.stage_plan(
                     nlay, lw_in.plan.ngpt if lw_in else 0,
@@ -114,12 +127,14 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                     staged.band_gases(sw_in.plan) if sw_in else (0, 0),
                     *limits, blocks_per_sm=shape[0], max_slots=shape[1],
                     sets=shape[2], param_stage=shape[3],
-                    word_bytes=atm.tlay.element_size(), split=shape[4])
+                    word_bytes=atm.tlay.element_size(), split=shape[4],
+                    lw_warps=shape[5])
             except ValueError as e:
                 print(f"{head} {label}: skipped ({e})", flush=True)
                 continue
         _, per_sm = staged.occupancy(atm, lw_in, sw_in, plan=p)
         out = core(*prep, ncol, plan=p)
+        ref = refs.setdefault(p.lw_warps, [o.clone() for o in out])
         same = all(torch.equal(o, r) for o, r in zip(out, ref))
         ok = ok and same
         if not same:
@@ -189,12 +204,12 @@ def main(argv=None) -> int:
               props.shared_memory_per_multiprocessor)
     shapes = []
     for spec in filter(None, args.shapes.split(",")):
-        dims, sign, route = re.fullmatch(r"(\d+x\d+x\d+)([+-]p)?([sw])?",
-                                         spec).groups()
+        dims, sign, route, warps = re.fullmatch(
+            r"(\d+x\d+x\d+)([+-]p)?([sw])?(?:g([12]))?", spec).groups()
         stage = None if sign is None else sign == "+p"
         split = None if route is None else route == "s"
         shapes.append((*(int(x) for x in dims.split("x")), stage, split,
-                       spec))
+                       None if warps is None else int(warps), spec))
     cores = {"lw": lw._kernel_core, "sw": sw._kernel_core,
              "lwsw": lwsw._kernel_core}
     ok = True
