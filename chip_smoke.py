@@ -57,6 +57,13 @@ result line is printed:
    first columns within 1e-10 of the flux scale of the plain version with
    float64's constants (compute=float64), which the float32 kernel's
    outputs must exceed, SW TOA down mu0 * TSI by day and 0 by night.
+   Then lw_sw_fluxes(auto, flux_up_jac=True) at l91_jac_batch's launch,
+   65,536 x 91: K1's Jacobian instantiation, ``lwsw_jac`` launches equal
+   to ceil(ncol / column_chunk) and no other count, J > 0 everywhere, the
+   first columns' J within 1e-5 of the largest |J| of the plain version's
+   at float64 (``lwsw_fluxes_plain(..., flux_up_jac=True)``) and its
+   fluxes within the flux bound, and bit for bit those of K1's plain
+   instantiation on the same batch.
 7. RFMIP drivers at the reference's size, 100 sites x 18 experiments x 60
    layers (1800 columns): ecckd_rfmip_lw, ecckd_rfmip_sw and ecckd_rfmip
    main([...]) with --device cuda on a synthetic RFMIP file, each with the
@@ -75,7 +82,10 @@ result line is printed:
    version), K4 on sw_p47, K1 at 3 and 4 angles (K2), on lw_rrtmgp and
    at nlay 137.  K1's double instantiation at 65,536 x 60 with its plain
    float64 version and its bound at the f64 peak (34 TFLOP/s, its
-   bytes at 8 B a value).
+   bytes at 8 B a value).  K1's Jacobian instantiation at 65,536 x 91,
+   beside K1 without it on the same batch, with its plain float32 version
+   and its bound (the Jacobian's work added, as ``lwsw_jac_roofline``
+   counts it).
 9. stream: cli/scale_bench.main at full width, 1,048,576 x 60 in chunks of
    65,536, full outputs, over every local card: the base chunk placed
    over the cards once, each chunk built on every card from its resident
@@ -152,13 +162,15 @@ result line is printed:
    phase 2's) over K1, K3 and K4 at nlay 60 and 137 at 1 angle and K1
    and K3 at 3 angles, both table modes, and K1's double instantiation
    over tools/cuda_sanitize.py's CHECKED_F64 (every f64 staging regime),
+   and K1's Jacobian instantiation at nlay 91 and 137 (``RING_JAC``),
    at jitter 0 and one seed: no violation, finite outputs bit for bit
    equal to the plain build's; and the planted faults in K1, at float32
    and over CHECKED_F64, which the checker must report.  One
    line per leg and the phase's seconds.
 
-The last two lines are the kernels' JSON record (exact and fast entries
-and K1's double instantiation ``lwsw_f64``, each with its bound) and
+The last two lines are the kernels' JSON record (exact and fast entries,
+K1's double instantiation ``lwsw_f64`` and its Jacobian instantiation
+``lwsw_jac``, each with its launches, time and bound) and
 {"ok": true, "device": {...}}.  This script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -182,6 +194,14 @@ RING_CHECKED = ([(k, n, 1) for k in ("lwsw", "lw", "sw") for n in (60, 137)]
                 + [(k, n, 3) for k in ("lwsw", "lw") for n in (60, 137)])
 RING_PLANT = [("lwsw", 60, 1), ("lwsw", 137, 1)]
 RING_WIDE = [("lwsw", 60, 1), ("lw", 60, 1)]  # on lw_rrtmgp's 36 g-points
+RING_JAC = [("lwsw", 91, 1), ("lwsw", 137, 1)]  # K1's Jacobian instantiation
+JAC_SHAPE = (65536, 91)  # l91_jac_batch's launch (columns, layers)
+JAC_BOUND = 1e-5        # K1's J against the plain f64 J, of its largest |J|
+# The Jacobian's operations (radbench/metrics/lwsw_jac_roofline.py): per
+# (column, LW g-point) the surface's Planck difference and emissivity
+# product, per (column, level, LW g-point, angle) the recurrence and its
+# g-sum.
+JAC_OPS = dict(surface=12 + 2, level=1 + 1)
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "lwsw": ("ecckd_tpu_torch/csrc/lwsw.cu",
              "ecckd_tpu/ops/pallas/lwsw.py:61"),
@@ -207,7 +227,7 @@ OPS = dict(dense=12, lut=25, planck=12, lw_sources=42, lw_sweep=6,
            planck_point=12)
 
 
-def kernel_bound(prep) -> dict:
+def kernel_bound(prep, jac: bool = False) -> dict:
     """The least time the card could take for one kernel call on the
     prepared inputs ``prep`` (plan.prepare / prepare_lw / prepare_sw):
     the larger of the bytes it must move (each input read once, each
@@ -219,7 +239,9 @@ def kernel_bound(prep) -> dict:
     function's, the same for every kernel: per (layer, g-point) 2 Planck
     values (nlay layer values and nlay + 1 level values per column, the
     surface's within the rounding) and one set of LW layer sources per
-    angle, however often a kernel recomputes them."""
+    angle, however often a kernel recomputes them.  ``jac``: the merged
+    kernel's Jacobian instantiation, with the Jacobian's operations
+    (``JAC_OPS``) and one more output."""
     import torch
     from ecckd_tpu_torch.ops.cuda import staged
     atm, bands = prep[0], prep[1:]
@@ -244,10 +266,15 @@ def kernel_bound(prep) -> dict:
                         arr.rayleigh]
             per_lg += band.plan.ngpt * (gas + OPS["sw_optics"]
                                         + OPS["sw_sweep"])
-    n_out = 2 * len(bands)
+    n_out = 2 * len(bands) + int(jac)
     nbytes = (sum(t.numel() * t.element_size() for t in tensors)
               + n_out * ncol * (nlay + 1) * atm.tlay.element_size())
     ops = ncol * nlay * (per_layer + per_lg)
+    if jac:
+        lw_band = bands[0]
+        ops += ncol * lw_band.plan.ngpt * (
+            JAC_OPS["surface"]
+            + (nlay + 1) * lw_band.n_gauss_angles * JAC_OPS["level"])
     peak = (PEAK_F64_FLOPS if atm.tlay.dtype == torch.float64
             else PEAK_F32_FLOPS)
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / peak
@@ -403,14 +430,17 @@ def run(card: str, work: str) -> int:
         for w in wrappers.values():
             w.launches = w.fast_launches = 0
         lwsw.lwsw_fluxes_cuda.f64_launches = 0
+        lwsw.lwsw_fluxes_cuda.jac_launches = 0
 
     def counts():
-        # launches per entry point: exact ("lwsw"), fast ("lwsw_fast") and
-        # the merged kernel's double instantiation ("lwsw_f64")
+        # launches per entry point: exact ("lwsw"), fast ("lwsw_fast"),
+        # the merged kernel's double instantiation ("lwsw_f64") and its
+        # Jacobian instantiation in either table mode ("lwsw_jac")
         out = {k: w.launches for k, w in wrappers.items()}
         out.update({f"{k}_fast": w.fast_launches
                     for k, w in wrappers.items()})
         out["lwsw_f64"] = lwsw.lwsw_fluxes_cuda.f64_launches
+        out["lwsw_jac"] = lwsw.lwsw_fluxes_cuda.jac_launches
         return out
 
     # ---- 2. build: one nvcc per kernel source, all started together -------
@@ -543,7 +573,8 @@ def run(card: str, work: str) -> int:
     rel, absolute = flux_errors(got, ref)
     ok = (max(rel) <= BOUND and launched == {"lwsw": 0, "lw": 1, "sw": 1,
                                              "lwsw_fast": 0, "lw_fast": 0,
-                                             "sw_fast": 0, "lwsw_f64": 0})
+                                             "sw_fast": 0, "lwsw_f64": 0,
+                                             "lwsw_jac": 0})
     if not ok:
         failures.append("parity non-mergeable pair")
     print(f"parity: {'ok' if ok else 'FAIL'} lw_sw_fluxes(cuda) lw_fsck + "
@@ -683,6 +714,65 @@ def run(card: str, work: str) -> int:
           + f" | max|d|/scale={max(rel):.3e} (float32 kernel {rel32:.3e}) "
           f"max|d|={worst_abs['lwsw_f64']:.3e} W m-2", flush=True)
 
+    # The merged main path with RTE's LW surface-temperature Jacobian at
+    # l91_jac_batch's launch: K1's Jacobian instantiation, its J held
+    # against the plain version's at float64 within JAC_BOUND of the
+    # largest |J|, its fluxes against the plain f64 ones within BOUND and
+    # against K1's plain instantiation on the same batch bit for bit.
+    ncol_j, nlay_j = JAC_SHAPE
+    batch_j = example_flux_batch(ncol_j, nlay_j, np.float32, device="cuda")
+    t_j = {k: torch.as_tensor(v, device="cuda") for k, v in batch_j.items()
+           if k != "concs"}
+    concs_j = batch_j["concs"]
+    b64_j = on_card({k: v[:n_check] for k, v in batch_j.items()
+                     if k != "concs"},
+                    {n: v[:n_check].cpu().numpy() for n, v in zip(
+                        concs_j.names, concs_j.values)}, torch.float64,
+                    lw32.ngpt)
+
+    def drive_j(**kw):
+        lw_f, sw_f = pipeline.lw_sw_fluxes(
+            lw32, sw32, t_j["plev"], t_j["tlay"], t_j["tlev"], t_j["tsfc"],
+            t_j["emis"], concs_j, t_j["alb"], t_j["tsi"], t_j["sza"],
+            backend="auto", **kw)
+        return [lw_f.flux_up, lw_f.flux_dn, sw_f.flux_up, sw_f.flux_dn,
+                lw_f.flux_up_jac]
+
+    reset_counts()
+    outs = drive_j(flux_up_jac=True)
+    torch.cuda.synchronize()
+    launched = counts()
+    main_launches["lwsw_jac"] = launched["lwsw_jac"]
+    plain_inst = drive_j()[:4]
+    ref_j = solve("lwsw", "plain", m64("lw"), m64("sw"), b64_j,
+                  mxu_mode="bf16x3", flux_up_jac=True)
+    rel, worst_abs["lwsw_jac"] = flux_errors([o[:n_check] for o in outs[:4]],
+                                             ref_j[:4])
+    d_jac = float((outs[4][:n_check].double() - ref_j[4]).abs().max())
+    rel_jac = d_jac / float(ref_j[4].abs().max())
+    want = -(-ncol_j // binding.DEFAULT_COLUMN_CHUNK)
+    checks = {
+        f"lwsw_jac launches == {want}": launched["lwsw_jac"] == want,
+        "no other kernel": all(v == 0 for k, v in launched.items()
+                               if k != "lwsw_jac"),
+        "shapes": all(tuple(o.shape) == (ncol_j, nlay_j + 1) for o in outs),
+        "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+        "J > 0": bool((outs[4] > 0).all()),
+        f"first {n_check} columns' fluxes vs plain f64": max(rel) <= BOUND,
+        f"J vs plain f64 <= {JAC_BOUND:.0e} of max|J|": rel_jac <= JAC_BOUND,
+        "fluxes bitwise K1's plain instantiation's": all(
+            torch.equal(a, b) for a, b in zip(outs[:4], plain_inst)),
+    }
+    ok = all(checks.values())
+    if not ok:
+        failures.append("main path lwsw_jac")
+    print(f"main path: {'ok' if ok else 'FAIL'} lw_sw_fluxes(auto, "
+          f"flux_up_jac=True) {ncol_j}x{nlay_j} launches={launched} | "
+          + " | ".join(f"{k}: {v}" for k, v in checks.items())
+          + f" | fluxes max|d|/scale={max(rel):.3e} max|d|="
+          f"{worst_abs['lwsw_jac']:.3e} W m-2, J max|d|/max|J|="
+          f"{rel_jac:.3e} max|d|={d_jac:.3e} W m-2 K-1", flush=True)
+
     # ---- 7. RFMIP drivers at 100 x 18 x 60 ----------------------------------
     nsite, nexp, nlay_r = RFMIP
     rfmip = os.path.join(work, "rfmip.nc")
@@ -731,9 +821,9 @@ def run(card: str, work: str) -> int:
         checks = {
             "rc == 0": rc == 0,
             f"{name} launches > 0": launched[name] > 0,
-            "no fast or f64 entry point": not any(
+            "no fast, f64 or Jacobian entry point": not any(
                 v for k, v in launched.items()
-                if k.endswith(("_fast", "_f64"))),
+                if k.endswith(("_fast", "_f64", "_jac"))),
             "io_engine native": driver_m["io_engine"] == "native",
             "shapes": all(g.shape == (data.ncol, nlay_r + 1) for g in got),
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
@@ -822,6 +912,28 @@ def run(card: str, work: str) -> int:
           f"({bd['ops']:.4g} operations at {PEAK_F64_FLOPS:.3g} FLOP/s, "
           f"{bd['bytes']:.4g} bytes), share of the bound "
           f"{bd['bound_ms'] / k_ms:.4f}", flush=True)
+    # K1's Jacobian instantiation at l91_jac_batch's launch, beside K1's
+    # plain instantiation on the same batch and the plain float32 version
+    # with the Jacobian; its bound counts the Jacobian's work too.
+    args_j = (lw32, sw32, t_j["plev"], t_j["tlay"], t_j["tlev"],
+              t_j["tsfc"], t_j["emis"][:, None].expand(-1, lw32.ngpt)
+              .contiguous(), concs_j, t_j["alb"], t_j["tsi"], t_j["sza"])
+    prep_j = plan.prepare(*args_j)
+    k_ms = cuda_time_ms(lambda: lwsw._kernel_core(*prep_j, chunk, jac=True))
+    k0_ms = cuda_time_ms(lambda: lwsw._kernel_core(*prep_j, chunk))
+    p_ms = cuda_time_ms(lambda: lwsw._plain_core(*prep_j, jac=True))
+    k_e2e = cuda_time_ms(lambda: lwsw.lwsw_fluxes_cuda(*args_j,
+                                                       flux_up_jac=True))
+    times["lwsw_jac"] = (k_ms, p_ms)
+    bounds["lwsw_jac"] = bd = kernel_bound(prep_j, jac=True)
+    print(f"times: lwsw_jac {ncol_j}x{nlay_j} 1 angle on {card}: kernel "
+          f"{k_ms:.3f} ms ({ncol_j / k_ms * 1e3:.0f} columns/s; K1 without "
+          f"the Jacobian {k0_ms:.3f} ms), plain f32 {p_ms:.3f} ms "
+          f"({ncol_j / p_ms * 1e3:.0f} columns/s); with host prep: kernel "
+          f"{k_e2e:.3f} ms (median of 10 after 2 warm-up, CUDA events) | "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+          f"({bd['ops']:.4g} operations, {bd['bytes']:.4g} bytes), share of "
+          f"the bound {bd['bound_ms'] / k_ms:.4f}", flush=True)
     # More shapes of each kernel at 65,536 columns, each with its bound:
     # K3 on lw_rrtmgp (36 g-points) and at 3 angles, K4 on sw_p47 (its own
     # 47-point grid), K1/K2 at 3 and 4 angles, on lw_rrtmgp and at nlay 137
@@ -1264,8 +1376,9 @@ def run(card: str, work: str) -> int:
         checks = {
             "rc == 0": rc == 0,
             f"{name}_fast launches > 0": launched[f"{name}_fast"] > 0,
-            "no exact or f64 entry point": all(
-                launched[k] == 0 for k in (*KERNELS, "lwsw_f64")),
+            "no exact, f64 or Jacobian entry point": all(
+                launched[k] == 0 for k in (*KERNELS, "lwsw_f64",
+                                           "lwsw_jac")),
             "metrics": (driver_m["mxu_precision"], driver_m["io_engine"])
             == ("bf16", "native"),
             "finite": all(bool(torch.isfinite(g).all()) for g in got),
@@ -1502,13 +1615,14 @@ def run(card: str, work: str) -> int:
     n_cfg = 8192
     bench_runs = (  # argv, the kernel entry that must run, the ones that not
         (["--mode", "headline", "--ncol", str(ncol)], ("lwsw",),
-         ("lw", "sw", "lwsw_fast", "lwsw_f64")),
+         ("lw", "sw", "lwsw_fast", "lwsw_f64", "lwsw_jac")),
         (["--mode", "headline", "--ncol", str(ncol), "--fast"],
-         ("lwsw_fast",), ("lwsw", "lw", "sw", "lwsw_f64")),
+         ("lwsw_fast",), ("lwsw", "lw", "sw", "lwsw_f64", "lwsw_jac")),
         (["--mode", "configs", "--ncol", str(n_cfg)], ("lwsw", "lw"),
-         ("sw", "lwsw_fast", "lw_fast", "lwsw_f64")),
+         ("sw", "lwsw_fast", "lw_fast", "lwsw_f64", "lwsw_jac")),
         (["--mode", "configs", "--ncol", str(n_cfg), "--fast"],
-         ("lwsw_fast", "lw_fast"), ("lwsw", "lw", "sw", "lwsw_f64")))
+         ("lwsw_fast", "lw_fast"),
+         ("lwsw", "lw", "sw", "lwsw_f64", "lwsw_jac")))
     for argv, ran, not_ran in bench_runs:
         reset_counts()
         rc, line = bench_line(argv)
@@ -1591,7 +1705,7 @@ def run(card: str, work: str) -> int:
     ring = cuda_sanitize.run_checked(
         configs=RING_CHECKED, plant_configs=RING_PLANT,
         f64_configs=cuda_sanitize.CHECKED_F64, wide_configs=RING_WIDE,
-        wide_f64_configs=[],
+        wide_f64_configs=[], jac_configs=RING_JAC,
         runs=[(0, 0, None), (cuda_sanitize.SEEDS[0],
                              cuda_sanitize.JITTER_NS, cuda_sanitize.BLOCKS)])
     if not ring["clean"]:
@@ -1616,6 +1730,8 @@ def run(card: str, work: str) -> int:
     entries += [(f"{name}_fast", name, name, fast_launches, fast_abs,
                  fast_times, fast_bounds) for name in KERNELS]
     entries.append(("lwsw_f64", "lwsw", "lwsw_f64", main_launches,
+                    worst_abs, times, bounds))
+    entries.append(("lwsw_jac", "lwsw", "lwsw_jac", main_launches,
                     worst_abs, times, bounds))
     # library_ms: no one PyTorch call computes gas optics and a solver.
     # plain_ms: the plain version at the entry's precision (f32, or f64).

@@ -336,6 +336,38 @@ __device__ __forceinline__ R planck_value(const R* planck, int g, int ng,
   return b * inv_pi<R>();
 }
 
+// The Planck source's change over 1 K at temperature temp, per kelvin
+// (ops/planck.py planck_source_jac), split as the source is: its
+// g-independent part (PlanckDiffAt) and its per-g value
+// (planck_diff_value).  The table's first difference over one step,
+// E_k = B_k - B_(k-1) with E_0 = B_0 dt / T0, interpolated at
+// (temp - T0) / dt + 1 and held at E_0 and E_(n-1) beyond the ends, over
+// dt, times 1/pi: on a 1 K table the source at temp + 1 K less that at
+// temp, from adjacent entries, without the cancellation of the two.
+template <typename R>
+struct PlanckDiffAt {
+  int off;  // m * ngpt: E_m and E_(m+1) are interpolated
+  R w;      // the weight of E_(m+1)
+};
+
+template <typename R>
+__device__ __forceinline__ PlanckDiffAt<R> planck_diff_at(
+    const LwSolveT<R>& W, int ng, R temp) {
+  const R pos = (temp - W.planck_t0) / W.planck_dt + (R)1;
+  const R m = r_min(r_max(r_floor(pos), (R)0), (R)(W.n_planck - 2));
+  return {static_cast<int>(m) * ng, r_min(r_max(pos - m, (R)0), (R)1)};
+}
+
+template <typename R>
+__device__ __forceinline__ R planck_diff_value(const LwSolveT<R>& W, int g,
+                                               int ng, PlanckDiffAt<R> d) {
+  const R* q = W.planck + (unsigned)(d.off + g);
+  const R b0 = q[0], b1 = q[ng];
+  const R before = q[d.off > 0 ? -ng : 0];
+  const R e0 = d.off > 0 ? b0 - before : b0 * (W.planck_dt / W.planck_t0);
+  return (((R)1 - d.w) * e0 + d.w * (b1 - b0)) / W.planck_dt * inv_pi<R>();
+}
+
 // common.lw_layer_sources: transmittance and linear-in-tau path sources at
 // slant optical depth ts; thin-layer series below thresh.
 template <typename R>
@@ -850,19 +882,27 @@ __device__ __forceinline__ void lw_sweeps_pairs(const LwSolveT<R>& W,
 // g-points a row) over the g-chunks that start at g_lo, g_lo + 32, ...
 // below g_hi, g-summed into this angle's level accumulators up / dn (lane
 // 0 adds, over the chunks in order).  Padded lanes compute on g-point
-// g_pad and contribute 0.
-template <typename R>
+// g_pad and contribute 0.  With JAC (the merged kernel's Jacobian
+// instantiation: one angle, one g-chunk) the up pass also carries RTE's
+// surface-temperature Jacobian, J = emis * dB_sfc at the surface (the
+// source's change over 1 K, computed beside it) and J(j) = tr(j) J(j + 1)
+// above, g-summed with the radiances in the same steps, into jac.
+template <typename R, bool JAC = false>
 __device__ __forceinline__ void lw_sweeps_chunks(const LwSolveT<R>& W,
                                                  int ng, int nlay, int c,
                                                  int lane, int a, int g_lo,
                                                  int g_hi, int g_pad,
                                                  const R* st,
                                                  R* __restrict__ up,
-                                                 R* __restrict__ dn) {
+                                                 R* __restrict__ dn,
+                                                 R* __restrict__ jac =
+                                                     nullptr) {
   constexpr int K = SWEEP_K;
   const R thresh = r_sqrt(epsilon<R>());
   const R sec = W.sec[a], w2pi = W.w2pi[a];
   const PlanckAt<R> sfc = planck_at(W, ng, W.tsfc[c]);
+  PlanckDiffAt<R> dsfc;
+  if constexpr (JAC) dsfc = planck_diff_at(W, ng, W.tsfc[c]);
   for (int g0 = g_lo; g0 < g_hi; g0 += 32) {
     const bool act = g0 + lane < ng;
     const int g = act ? g0 + lane : g_pad;
@@ -903,22 +943,41 @@ __device__ __forceinline__ void lw_sweeps_chunks(const LwSolveT<R>& W,
       if (lane % (32 / K) == 0 && j0 + k < nlay) dn[j0 + k + 1] += w2pi * sum;
     }
     rad = e * b_sfc + ((R)1 - e) * rad;
-    R last[1] = {act ? rad : (R)0};
+    // The up pass g-sums NV values a level: the radiance and, with JAC, J
+    // (value k < K of a step: the radiance at level j0 - k; K + k: J there).
+    constexpr int NV = 1 + JAC;
+    R jv = (R)0;
+    if constexpr (JAC) jv = e * planck_diff_value(W, g, ng, dsfc);
+    R last[NV] = {act ? rad : (R)0};
+    if constexpr (JAC) last[1] = act ? jv : (R)0;
     const R sum = warp_sums(last, lane);
-    if (lane == 0) up[nlay] += w2pi * sum;
+    if constexpr (JAC) {
+      if (lane % 16 == 0) (lane == 0 ? up : jac)[nlay] += w2pi * sum;
+    } else {
+      if (lane == 0) up[nlay] += w2pi * sum;
+    }
     for (int j0 = nlay - 1; j0 >= 0; j0 -= K) {
-      R tr[K] = {}, src[K] = {}, r[K];
+      R tr[K] = {}, src[K] = {}, r[NV * K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (j0 - k >= 0) layer(j0 - k, false, tr[k], src[k]);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (j0 - k >= 0) rad = tr[k] * rad + src[k];
+        if (j0 - k >= 0) {
+          rad = tr[k] * rad + src[k];
+          if constexpr (JAC) jv = tr[k] * jv;
+        }
         r[k] = act ? rad : (R)0;
+        if constexpr (JAC) r[K + k] = act ? jv : (R)0;
       }
       const R sum = warp_sums(r, lane);
-      const int k = lane / (32 / K);
-      if (lane % (32 / K) == 0 && j0 - k >= 0) up[j0 - k] += w2pi * sum;
+      const int k = lane / (32 / (NV * K));
+      if constexpr (JAC) {
+        if (lane % (16 / K) == 0 && j0 - k % K >= 0)
+          (k < K ? up : jac)[j0 - k % K] += w2pi * sum;
+      } else {
+        if (lane % (32 / K) == 0 && j0 - k >= 0) up[j0 - k] += w2pi * sum;
+      }
     }
   }
 }

@@ -62,6 +62,14 @@
 // layer parameter, accumulator and output is a double, so a slot takes
 // twice the bytes and staged.py's plan fits half the columns per block.
 // The same shapes, routes and parameter stage as at float; no fast mode.
+//
+// The LW surface-temperature Jacobian.  lwsw_jac_kernel is the float body
+// (exact and bf16 tables) with RTE's flux_up_Jac as a fifth output: the
+// LW sweep warp carries d rad / d T_sfc up beside the radiance (staged.cuh
+// JAC, common.cuh lw_sweeps_chunks) into one more accumulator row.  It is
+// instantiated for the shipped lw_fsck + sw_wide shapes at one angle,
+// whole in shared memory or split (pick_jac); the launch side
+// (ops/cuda/staged.py jac_refusal) keeps every other call off it.
 
 // Host interface (ctypes): ecckd_lwsw_launch(const LwswArgs*, stream)
 // (exact f32 table), ecckd_lwsw_launch_fast (the fast mode's bf16 table,
@@ -74,6 +82,11 @@
 // instantiation), or -1; ecckd_lwsw_args_size() and
 // ecckd_lwsw_f64_args_size() let the wrapper check its struct mirrors
 // (ops/cuda/binding.py), and ecckd_cuda_error_string() names an error code.
+// The Jacobian instantiation: ecckd_lwsw_launch_jac(const LwswJacArgs*,
+// stream) and ..._launch_jac_fast, ecckd_lwsw_occupancy_jac(const
+// LwswJacArgs*, fast) and ecckd_lwsw_jac_args_size(); a launch of a shape,
+// route or angle count it has no instantiation for returns
+// cudaErrorInvalidValue.
 // The checked build (-DECCKD_CHECK_RING) adds ring_check.cuh's entry points,
 // the timed build (-DECCKD_TIME_ROLES) role_clock.cuh's.
 
@@ -98,6 +111,19 @@ struct LwswArgs64 {
   LwSolveT<double> lw;
   SwSolveT<double> sw;
   Tile tile;
+};
+
+// LwswArgs and the Jacobian's output, d flux_up / d T_sfc (ncol, nlay+1)
+// [W m-2 K-1].
+struct LwswJacArgs {
+  Atmos atm;
+  Grid grid;
+  Band lw_band;
+  Band sw_band;
+  LwSolve lw;
+  SwSolve sw;
+  Tile tile;
+  float* jac;
 };
 
 namespace {
@@ -192,6 +218,36 @@ int launch(const Args* args, void* stream) {
   return launch_staged(pick<T>(args), args, stream);
 }
 
+// The Jacobian instantiation, whole in shared memory or split.
+template <typename T, class SL, class SS, int NT, int STAGING>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    lwsw_jac_kernel(const __grid_constant__ LwswJacArgs args) {
+  staged_body<T, SL, SS, NT, STAGING, true>(args.atm, args.grid,
+                                            &args.lw_band, &args.sw_band,
+                                            &args.lw, &args.sw, args.tile,
+                                            args.jac);
+}
+
+// The shipped lw_fsck + sw_wide shapes as constants; null for any other
+// shape and for device staging.
+template <typename T>
+KernelFn<LwswJacArgs> pick_jac(const LwswJacArgs* a) {
+  const Staging route = staging_of(a->tile);
+  if (route == STAGE_DEVICE || a->grid.n_t != SHIPPED_NT ||
+      !has_shape<FsckShape>(a->lw_band) || !has_shape<WideShape>(a->sw_band))
+    return nullptr;
+  if (route == STAGE_SPLIT)
+    return lwsw_jac_kernel<T, FsckShape, WideShape, SHIPPED_NT, STAGE_SPLIT>;
+  return lwsw_jac_kernel<T, FsckShape, WideShape, SHIPPED_NT, STAGE_SHARED>;
+}
+
+// One angle only: the angles' warps would add into one Jacobian row.
+template <typename T>
+int launch_jac(const LwswJacArgs* args, void* stream) {
+  if (args->lw.n_ang != 1) return (int)cudaErrorInvalidValue;
+  return launch_staged(pick_jac<T>(args), args, stream);
+}
+
 }  // namespace
 
 extern "C" int ecckd_lwsw_args_size() { return (int)sizeof(LwswArgs); }
@@ -217,6 +273,22 @@ extern "C" int ecckd_lwsw_launch_f64(const LwswArgs64* args, void* stream) {
 
 extern "C" int ecckd_lwsw_occupancy_f64(const LwswArgs64* args) {
   return occupancy_staged(pick<double>(args), args);
+}
+
+extern "C" int ecckd_lwsw_jac_args_size() { return (int)sizeof(LwswJacArgs); }
+
+extern "C" int ecckd_lwsw_launch_jac(const LwswJacArgs* args, void* stream) {
+  return launch_jac<float>(args, stream);
+}
+
+extern "C" int ecckd_lwsw_launch_jac_fast(const LwswJacArgs* args,
+                                          void* stream) {
+  return launch_jac<__nv_bfloat16>(args, stream);
+}
+
+extern "C" int ecckd_lwsw_occupancy_jac(const LwswJacArgs* args, int fast) {
+  return fast ? occupancy_staged(pick_jac<__nv_bfloat16>(args), args)
+              : occupancy_staged(pick_jac<float>(args), args);
 }
 
 RING_ENTRY_POINTS(lwsw)

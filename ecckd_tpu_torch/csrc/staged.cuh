@@ -215,14 +215,21 @@ __device__ __forceinline__ void plant_spin(long long cycles) {
 // earlier accesses to every state space for the threads they join).
 // Where the routes differ, each takes its own statement (if constexpr),
 // so the whole-column routes compile as they did before the split.
-template <typename T, class SL, class SS, int NT, int STAGING>
+// JAC (the merged kernel's Jacobian instantiation: one LW angle, an LW
+// band of one g-chunk) adds RTE's LW surface-temperature Jacobian: the LW
+// sweep warp carries it up beside the radiance (common.cuh
+// lw_sweeps_chunks) into a row of (nlay + 1) after the slot's
+// accumulators and writes it to jac (ncol, nlay + 1) with its fluxes.
+template <typename T, class SL, class SS, int NT, int STAGING,
+          bool JAC = false>
 __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
                                             const GridT<Real<T>>& G,
                                             const BandT<Real<T>>* BL,
                                             const BandT<Real<T>>* BS,
                                             const LwSolveT<Real<T>>* W,
                                             const SwSolveT<Real<T>>* S,
-                                            const Tile& P) {
+                                            const Tile& P,
+                                            Real<T>* jac = nullptr) {
   ROLE_CLOCK(RoleClock rc;)
   using R = Real<T>;
   constexpr bool LW = SL::NG >= 0, SW = SS::NG >= 0;
@@ -363,6 +370,9 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       R* acc;
       if constexpr (SPLIT) acc = st + P.sw_floats + 2 * nlev * a;
       else acc = st + P.lw_floats + P.sw_floats + 2 * nlev * a;
+      // The Jacobian's row, after every warp's accumulators.
+      R* jac_acc = nullptr;
+      if constexpr (JAC) jac_acc = acc + 2 * nlev * (n_set - a);
       // The slot's next column, and whether it comes (a FREE to arrive).
       const int c_next = c + P.slots * gridDim.x;
       ROLE_CLOCK(rc.start();)
@@ -371,6 +381,9 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
       RING(ring.filled(i, s, c);)
       ROLE_CLOCK(rc.start();)
       for (int q = lane; q < 2 * nlev; q += 32) acc[q] = (R)0;
+      if constexpr (JAC)
+        if (a < n_lw)
+          for (int q = lane; q < nlev; q += 32) jac_acc[q] = (R)0;
       __syncwarp();
       // The planted fault ECCKD_PLANT_SKIP_PRM: in round 0 of slot 0 the
       // LW warps free the slot before they write the next column's
@@ -399,7 +412,11 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
         const R* rows;
         if constexpr (SPLIT) rows = lw_slice<R>(P, s);
         else rows = st;
-        if constexpr (PAIRS<SL::NG, R> && SW) {
+        if constexpr (JAC) {
+          const int ng = fixed_or<SL::NG>(BL->ngpt);
+          lw_sweeps_chunks<R, true>(*W, ng, nlay, c, lane, a, 0, ng, 0, rows,
+                                    acc, acc + nlev, jac_acc);
+        } else if constexpr (PAIRS<SL::NG, R> && SW) {
           if (lw_warps > 1)
             lw_sweeps_chunk<SL::NG>(*W, nlay, c, lane, a / lw_warps,
                                     a % lw_warps, rows, acc, acc + nlev);
@@ -421,6 +438,9 @@ __device__ __forceinline__ void staged_body(const AtmosT<Real<T>>& A,
           for (int b = 0; b < n_lw; ++b) v += acc0[2 * nlev * b + q];
           (q < nlev ? W->up : W->dn)[(size_t)c * nlev + q % nlev] = v;
         }
+        if constexpr (JAC)
+          for (int q = lane + 32 * a; q < nlev; q += 32 * n_lw)
+            jac[(size_t)c * nlev + q] = jac_acc[q];
         ROLE_CLOCK(rc.stop(RC_SWEEP);)
         // Every LW warp of the set is done with the LW rows: one poisons
         // them (on the split route they hold no layer parameters).

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -13,6 +14,10 @@ from ecckd_tpu_torch import constants
 class FluxesBroadband:
     flux_up: torch.Tensor  # (ncol, nlev) [W m-2]
     flux_dn: torch.Tensor  # (ncol, nlev) [W m-2]
+    # LW only, where asked for (pipeline ``flux_up_jac``): RTE's
+    # flux_up_Jac, d flux_up / d T_sfc at every level [W m-2 K-1], as the
+    # change of flux_up over a 1 K warmer surface, everything else fixed.
+    flux_up_jac: Optional[torch.Tensor] = None  # (ncol, nlev)
 
     @property
     def flux_net(self) -> torch.Tensor:

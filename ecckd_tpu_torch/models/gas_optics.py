@@ -19,7 +19,7 @@ from ecckd_tpu_torch.models.ckd import CKDModel
 from ecckd_tpu_torch.optics import (OpticalProps1scl, OpticalProps2str,
                                     SourceFuncLW)
 from ecckd_tpu_torch.ops.optical_depth import gas_optical_depth
-from ecckd_tpu_torch.ops.planck import planck_source
+from ecckd_tpu_torch.ops.planck import planck_source, planck_source_jac
 from ecckd_tpu_torch.ops.rayleigh import rayleigh_optical_depth
 
 
@@ -29,7 +29,9 @@ def gas_optics_lw(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                   col_dry: torch.Tensor = None,
                   logarithmic_interpolation: bool = False
                   ) -> Tuple[OpticalProps1scl, SourceFuncLW]:
-    """Longwave optical depth and Planck sources.
+    """Longwave optical depth and Planck sources, with the surface
+    source's change over 1 K (``sfc_source_jac``, the surface term of the
+    surface-temperature Jacobian).
 
     Args:
       plev: level pressures [Pa], (ncol, nlay+1).
@@ -50,6 +52,7 @@ def gas_optics_lw(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
         lev_source_inc=lev[:, 1:, :],
         lev_source_dec=lev[:, :-1, :],
         sfc_source=planck_source(tsfc, pt, pf),
+        sfc_source_jac=planck_source_jac(tsfc, pt, pf),
     )
     return OpticalProps1scl(tau=tau), sources
 

@@ -7,7 +7,7 @@ sw.py).
   of the three kernels' argument structs composed of them (``LwswArgs``,
   ``LwArgs``, ``SwArgs``, and the merged kernel's ``LwswArgs64``:
   ``args_type``); ``library`` checks each one's size against the C side's
-  ``ecckd_<name>[_f64]_args_size()`` before the first launch.
+  ``ecckd_<name>[_f64|_jac]_args_size()`` before the first launch.
 * Functions that fill them from the host preparation (ops/cuda/plan.py)
   for the columns [c0, c1) of one launch.
 * ``require_cuda`` / ``grad_refusal``: a wrapper raises on CPU tensors
@@ -17,12 +17,17 @@ sw.py).
 * The launch modes (``MODES``, ``mode_of``): "exact" (the float32 table),
   "fast" (the fast mode's bf16 table; csrc/common.cuh "Table mode") and
   "f64" (every input, the table and the compute type float64: the merged
-  kernel only, ``KERNEL_MODES``).
+  kernel only, ``KERNEL_MODES``).  Beside them, a launch flag ``jac``
+  (``JAC``): the merged kernel's Jacobian instantiation in the exact or
+  fast table mode, the LW surface-temperature Jacobian as a fifth output,
+  its argument struct ``LwswJacArgs``.
 * ``launch_chunks``: the launch loop over column chunks, which raises on a
   non-zero ``cudaGetLastError()`` and counts launches per mode
-  (``launches``, ``fast_launches``, ``f64_launches``).  The staging route,
-  the parameter stage and the LW angles are not counted: the shape and
-  the card decide them, read in ``staged.plan_for``.
+  (``launches``, ``fast_launches``, ``f64_launches``, and
+  ``jac_launches`` for the Jacobian instantiation in either table mode).
+  The staging route, the parameter stage and the LW angles are not
+  counted: the shape and the card decide them, read in
+  ``staged.plan_for``.
 
 nvcc and the build are reached only from ``library``, at the first launch,
 so the CPU tests import this module without a CUDA toolkit.
@@ -127,6 +132,12 @@ class LwswArgs64(ctypes.Structure):
                 ("lw", F64.LwSolve), ("sw", F64.SwSolve), ("tile", Tile)]
 
 
+class LwswJacArgs(ctypes.Structure):
+    """Mirror of csrc/lwsw.cu's LwswJacArgs: LwswArgs and the Jacobian's
+    output."""
+    _fields_ = LwswArgs._fields_ + [("jac", ctypes.c_void_p)]
+
+
 class LwArgs(ctypes.Structure):
     """Mirror of csrc/lw.cu's LwArgs."""
     _fields_ = [("atm", Atmos), ("grid", Grid), ("band", Band),
@@ -149,13 +160,53 @@ KERNEL_MODES = {"lwsw": ("exact", "fast", "f64"), "lw": ("exact", "fast"),
                 "sw": ("exact", "fast")}
 """The modes each kernel library has entry points for: float64 is the
 merged kernel's alone."""
+JAC = ("_jac", "jac_launches")
+"""The launch flag ``jac``, the merged kernel's Jacobian instantiation in
+the exact or fast table mode: the tag of its entry points
+(``ecckd_lwsw_launch_jac``, ``..._launch_jac_fast``,
+``ecckd_lwsw_occupancy_jac``, ``ecckd_lwsw_jac_args_size``) and its launch
+count, which both table modes share."""
+JAC_REFUSAL = ("the Jacobian instantiation is the merged kernel's, in the "
+               "exact or fast table mode at float32")
 FAST_F64_REFUSAL = ("the fast mode (bf16 table) has no float64 entry point: "
                     "the f64 kernel interpolates the exact table only")
 
 
-def args_type(name: str, mode: str = "exact"):
-    """The argument struct of kernel ``name``'s entry point in ``mode``."""
+def args_type(name: str, mode: str = "exact", jac: bool = False):
+    """The argument struct of kernel ``name``'s entry point in ``mode``
+    (with ``jac``, the Jacobian instantiation's)."""
+    if jac:
+        return LwswJacArgs
     return LwswArgs64 if mode == "f64" else ARGS[name]
+
+
+def launch_suffix(name: str, mode: str, jac: bool = False) -> str:
+    """The suffix of kernel ``name``'s launch entry point in ``mode``, with
+    ``jac`` the Jacobian instantiation's, which raises where there is
+    none."""
+    if jac and (name != "lwsw" or mode == "f64"):
+        raise ValueError(JAC_REFUSAL)
+    return (JAC[0] if jac else "") + MODES[mode][0]
+
+
+def launch_suffixes(name: str) -> Tuple[str, ...]:
+    """The suffixes of every launch entry point of ``csrc/<name>.cu``: one
+    per mode of ``KERNEL_MODES``, and the merged kernel's Jacobian in the
+    exact and fast table modes."""
+    jac = (JAC[0] + MODES["exact"][0], JAC[0] + MODES["fast"][0])
+    return tuple(MODES[m][0] for m in KERNEL_MODES[name]) + (
+        jac if name == "lwsw" else ())
+
+
+def args_structs(name: str) -> Dict[str, type]:
+    """The tag of each ``ecckd_<name><tag>_args_size`` of ``csrc/<name>.cu``
+    and the argument struct it sizes."""
+    out = {"": ARGS[name]}
+    if "f64" in KERNEL_MODES[name]:
+        out["_f64"] = LwswArgs64
+    if name == "lwsw":
+        out[JAC[0]] = LwswJacArgs
+    return out
 
 
 def mode_of(atm: plan_mod.Atmosphere, band: plan_mod.BandInputs) -> str:
@@ -181,25 +232,25 @@ def library(name: str) -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Bind a build of ``csrc/<name>.cu`` (an entry point per mode of
     ``KERNEL_MODES``: ``ecckd_<name>_launch``, ``..._launch_fast``,
-    ``..._launch_f64``), checking that each mode's argument struct has the
-    size of its ctypes mirror (``args_type``)."""
+    ``..._launch_f64``, and the Jacobian's ``..._launch_jac``,
+    ``..._launch_jac_fast``: ``launch_suffixes``), checking that each
+    argument struct has the size of its ctypes mirror (``args_structs``)."""
     lib.ecckd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ecckd_cuda_error_string.restype = ctypes.c_char_p
-    for mode in KERNEL_MODES[name]:
-        launch = getattr(lib, f"ecckd_{name}_launch{MODES[mode][0]}")
+    for suffix in launch_suffixes(name):
+        launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
         launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         launch.restype = ctypes.c_int
-    for tag, mode in (("", "exact"), ("_f64", "f64")):
-        if mode not in KERNEL_MODES[name]:
-            continue
+    for tag, struct in args_structs(name).items():
         size = getattr(lib, f"ecckd_{name}{tag}_args_size")
         size.argtypes = []
         size.restype = ctypes.c_int
-        mirror = ctypes.sizeof(args_type(name, mode))
+        mirror = ctypes.sizeof(struct)
         if size() != mirror:
             raise RuntimeError(
-                f"{name} kernel argument layout mismatch ({mode}): C "
-                f"{size()} bytes vs ctypes {mirror}")
+                f"{name} kernel argument layout mismatch "
+                f"({tag.lstrip('_') or 'exact'}): C {size()} bytes vs ctypes "
+                f"{mirror}")
     return lib
 
 
@@ -381,19 +432,23 @@ def sw_shapes(sw: plan_mod.SwInputs, ncol: int, prefix: str = ""):
 def launch_chunks(name: str, ncol: int, column_chunk: int,
                   make_args: Callable[[int, int], ctypes.Structure],
                   counted, device, mode: str = "exact",
-                  lib: Optional[ctypes.CDLL] = None) -> None:
+                  lib: Optional[ctypes.CDLL] = None,
+                  jac: bool = False) -> None:
     """Launch ``csrc/<name>.cu`` once per column chunk [c0, c1) on
     ``device``'s current stream, with the arguments ``make_args(c0, c1)``
-    (of ``args_type(name, mode)``): the entry point of ``mode``
-    (``MODES``: ``..._launch``, ``..._launch_fast``, ``..._launch_f64``).
-    Each launch adds one to the mode's count on ``counted``
-    (``launches``, ``fast_launches``, ``f64_launches``).
+    (of ``args_type(name, mode, jac)``): the entry point of ``mode``
+    (``MODES``: ``..._launch``, ``..._launch_fast``, ``..._launch_f64``),
+    with ``jac`` the Jacobian instantiation's in that table mode
+    (``JAC``: ``..._launch_jac``, ``..._launch_jac_fast``).  Each launch
+    adds one to its count on ``counted`` (``launches``,
+    ``fast_launches``, ``f64_launches``; ``jac_launches`` with ``jac``).
     The launch runs with ``device`` as the host thread's current device:
     the runtime launches on the current device, and another card's stream
     there is an error.  ``lib``: a bound build of the kernel (``bind``) in
     place of ``library``'s."""
     lib = lib or library(name)
-    suffix, counter = MODES[mode]
+    suffix = launch_suffix(name, mode, jac)
+    counter = JAC[1] if jac else MODES[mode][1]
     launch = getattr(lib, f"ecckd_{name}_launch{suffix}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -28,7 +28,7 @@ import torch
 from ecckd_tpu_torch import constants
 from ecckd_tpu_torch.ops import interp
 from ecckd_tpu_torch.ops.cuda import plan as plan_mod
-from ecckd_tpu_torch.ops.planck import planck_source
+from ecckd_tpu_torch.ops.planck import planck_source, planck_source_jac
 from ecckd_tpu_torch.solvers.quadrature import gauss_angles
 
 _COMPUTE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -225,12 +225,15 @@ def _simple_weight(atm: plan_mod.Atmosphere) -> torch.Tensor:
 
 
 def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
-             compute: torch.dtype = torch.float32):
+             compute: torch.dtype = torch.float32, jac: bool = False):
     """One LW band (common.cuh's lw_optics and lw_sweeps_staged): gas
     optics, Planck sources and the sweeps per angle
     (common.multi_angle_lw_sweeps; at 1 angle the same per-layer math as
     the staged sources), with the constants of kernel compute type
-    ``compute``.  Returns (up, dn)."""
+    ``compute``.  Returns (up, dn), and with ``jac`` (the merged kernel's
+    Jacobian instantiation) d up / d T_sfc third: J = emis * dB_sfc at the
+    surface (``planck_source_jac``), carried up the layers beside the
+    radiance by their transmittances."""
     tau = gas_tau_plain(atm, lw, _simple_weight(atm))
     arr = lw.arrays
     planck = lambda t: planck_source(t, arr.planck_temperature,
@@ -239,6 +242,10 @@ def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
     ncol, nlay = atm.tlay.shape
     up = torch.zeros((ncol, nlay + 1), dtype=tau.dtype, device=tau.device)
     dn = torch.zeros_like(up)
+    up_jac = torch.zeros_like(up)
+    if jac:
+        j_sfc = lw.emis * planck_source_jac(lw.tsfc, arr.planck_temperature,
+                                            arr.planck_function)
     for sec, wgt in zip(*gauss_angles(lw.n_gauss_angles)):
         w2pi = 2.0 * constants.PI * wgt
         # Edge convention of common.level_edges: the decreasing-index edge
@@ -253,12 +260,20 @@ def lw_plain(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
             dn_sums.append(torch.sum(rad, dim=-1))
         rad = lw.emis * b_sfc + (1.0 - lw.emis) * rad
         up_sums = [torch.sum(rad, dim=-1)]
+        if jac:
+            y = j_sfc
+            jac_sums = [torch.sum(y, dim=-1)]
         for j in range(nlay - 1, -1, -1):
             rad = tr[:, j] * rad + src_up[:, j]
             up_sums.append(torch.sum(rad, dim=-1))
+            if jac:
+                y = tr[:, j] * y
+                jac_sums.append(torch.sum(y, dim=-1))
         dn = dn + w2pi * torch.stack(dn_sums, dim=1)
         up = up + w2pi * torch.stack(up_sums[::-1], dim=1)
-    return up, dn
+        if jac:
+            up_jac = up_jac + w2pi * torch.stack(jac_sums[::-1], dim=1)
+    return (up, dn, up_jac) if jac else (up, dn)
 
 
 def sw_plain(atm: plan_mod.Atmosphere, sw: plan_mod.SwInputs,

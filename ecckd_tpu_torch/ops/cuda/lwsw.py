@@ -15,6 +15,10 @@ lw_fluxes_plain and sw_fluxes_plain run too, as the kernel runs
 common.cuh's column bodies.  Returns (lw_up, lw_dn, sw_up, sw_dn), each
 (ncol, nlay+1).
 
+``lwsw_fluxes_cuda(..., flux_up_jac=True)`` launches the kernel's Jacobian
+instantiation (csrc/lwsw.cu ``lwsw_jac_kernel``) and returns RTE's LW
+surface-temperature Jacobian, d lw_up / d T_sfc (ncol, nlay+1), fifth.
+
 Both take ``mxu_mode``, the JAX package's mode string
 (``config.set_mxu_precision``; None reads the current one at the call): in
 the fast mode the plain version interpolates the bf16 table and the
@@ -27,7 +31,7 @@ launches any of the three.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -38,15 +42,13 @@ from ecckd_tpu_torch.ops.cuda import (binding, common, plan as plan_mod,
                                       staged)
 from ecckd_tpu_torch.ops.cuda.binding import DEFAULT_COLUMN_CHUNK
 
-Fluxes4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-
 
 def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
                  sw: plan_mod.SwInputs, column_chunk: int,
-                 **launch) -> Fluxes4:
-    """Launch csrc/lwsw.cu (staged.run_staged, which takes ``launch``) after
-    the input checks, in the bands' table mode (both in one mode:
-    plan.prepare)."""
+                 **launch) -> tuple:
+    """Launch csrc/lwsw.cu (staged.run_staged, which takes ``launch``, the
+    Jacobian's ``jac`` among them) after the input checks, in the bands'
+    table mode (both in one mode: plan.prepare)."""
     ncol, nlay = atm.tlay.shape
     lw_t, lw_s = binding.lw_shapes(lw, ncol, nlay, "lw_")
     sw_t, sw_s = binding.sw_shapes(sw, ncol, "sw_")
@@ -58,14 +60,19 @@ def _kernel_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
 
 def _plain_core(atm: plan_mod.Atmosphere, lw: plan_mod.LwInputs,
                 sw: plan_mod.SwInputs,
-                compute: torch.dtype = torch.float32) -> Fluxes4:
-    return (*common.lw_plain(atm, lw, compute),
-            *common.sw_plain(atm, sw, compute))
+                compute: torch.dtype = torch.float32,
+                jac: bool = False) -> tuple:
+    """(lw_up, lw_dn, sw_up, sw_dn), and with ``jac`` d lw_up / d T_sfc
+    fifth, as the kernel orders them."""
+    lw_out = common.lw_plain(atm, lw, compute, jac)
+    return (*lw_out[:2], *common.sw_plain(atm, sw, compute), *lw_out[2:])
 
 
-def _night_masked(sw: plan_mod.SwInputs, fluxes: Fluxes4) -> Fluxes4:
-    lw_up, lw_dn, sw_up, sw_dn = fluxes
-    return (lw_up, lw_dn, *common.night_masked(sw, sw_up, sw_dn))
+def _night_masked(sw: plan_mod.SwInputs, fluxes: tuple) -> tuple:
+    """The SW pair masked at night; the LW pair and anything after the SW
+    pair (the Jacobian) as they are."""
+    lw_up, lw_dn, sw_up, sw_dn, *rest = fluxes
+    return (lw_up, lw_dn, *common.night_masked(sw, sw_up, sw_dn), *rest)
 
 
 def lwsw_fluxes_plain(model_lw: CKDModel, model_sw: CKDModel,
@@ -75,17 +82,19 @@ def lwsw_fluxes_plain(model_lw: CKDModel, model_sw: CKDModel,
                       sfc_alb: torch.Tensor, tsi: torch.Tensor,
                       sza_deg: torch.Tensor, n_gauss_angles: int = 1,
                       mxu_mode: Optional[str] = None,
-                      compute: torch.dtype = torch.float32) -> Fluxes4:
+                      compute: torch.dtype = torch.float32,
+                      flux_up_jac: bool = False) -> tuple:
     """The kernel's computation in plain PyTorch, in tlay's dtype on
     tlay's device.  Arguments as ``lwsw_fluxes_cuda``; ``compute`` is the
     compute type of the instantiation it stands for, whose constants it
     takes (common.py): float32 for the float one, float64 for the double
-    one."""
+    one.  ``flux_up_jac``: the Jacobian instantiation's computation, d
+    lw_up / d T_sfc fifth (common.lw_plain)."""
     atm, lw, sw = plan_mod.prepare(model_lw, model_sw, plev, tlay, tlev,
                                    tsfc, emis_gpt, gas_concs, sfc_alb, tsi,
                                    sza_deg, n_gauss_angles,
                                    config.is_fast(mxu_mode))
-    return _night_masked(sw, _plain_core(atm, lw, sw, compute))
+    return _night_masked(sw, _plain_core(atm, lw, sw, compute, flux_up_jac))
 
 
 def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
@@ -95,7 +104,8 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
                      sfc_alb: torch.Tensor, tsi: torch.Tensor,
                      sza_deg: torch.Tensor, n_gauss_angles: int = 1,
                      column_chunk: int = DEFAULT_COLUMN_CHUNK,
-                     mxu_mode: Optional[str] = None) -> Fluxes4:
+                     mxu_mode: Optional[str] = None,
+                     flux_up_jac: bool = False) -> tuple:
     """Both bands' broadband fluxes through the merged CUDA kernel.
 
     Args mirror pipeline.lw_sw_fluxes with the surface already per g-point:
@@ -107,6 +117,10 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
         its LW rows) a device slice per persistent block.
       mxu_mode: table mode (None: config's, read now); the fast mode
         launches the fast entry point.
+      flux_up_jac: launch the Jacobian instantiation, which also returns
+        d lw_up / d T_sfc [W m-2 K-1] (ncol, nlay+1) fifth: float32, one
+        angle, the shapes and routes ``staged.jac_refusal`` passes; a
+        launch it refuses raises.
 
     Takes float32 CUDA tensors, or float64 ones in the exact table mode
     (the kernel's double instantiation: every value computed, staged and
@@ -114,7 +128,8 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
     (ValueError), CPU tensors, the fast mode at float64 and inputs that
     require grad included: ``lwsw_fluxes_plain`` is the version for those.
     Each launch adds one to ``lwsw_fluxes_cuda.launches`` (exact),
-    ``.fast_launches`` (fast) or ``.f64_launches`` (float64).  The shape
+    ``.fast_launches`` (fast), ``.f64_launches`` (float64) or
+    ``.jac_launches`` (the Jacobian instantiation, either table mode).  The shape
     and the card decide the staging, and no counter records it:
     ``staged.plan_for(atm, lw, sw)`` gives its ``.route`` (the split
     route at nlay 124-208 and one angle on an H100 at float32) and
@@ -126,9 +141,12 @@ def lwsw_fluxes_cuda(model_lw: CKDModel, model_sw: CKDModel,
                                    tsfc, emis_gpt, gas_concs, sfc_alb, tsi,
                                    sza_deg, n_gauss_angles,
                                    config.is_fast(mxu_mode))
-    return _night_masked(sw, _kernel_core(atm, lw, sw, column_chunk))
+    launch = {"jac": True} if flux_up_jac else {}
+    return _night_masked(sw, _kernel_core(atm, lw, sw, column_chunk,
+                                          **launch))
 
 
 lwsw_fluxes_cuda.launches = 0
 lwsw_fluxes_cuda.fast_launches = 0
 lwsw_fluxes_cuda.f64_launches = 0
+lwsw_fluxes_cuda.jac_launches = 0

@@ -7,7 +7,9 @@ block, the sets of sweep warps and the threads per block, and the route
 (csrc/staged.cuh Staging): a column whole in shared memory, split (its LW
 rows in a device memory slice, the rest in shared memory), or whole in
 the device slice, whether the merged kernel runs the parameter stage, and
-how many LW sweep warps a set has per angle;
+how many LW sweep warps a set has per angle (and, for the merged kernel's
+Jacobian instantiation, its accumulator row; ``jac_refusal`` names what
+that instantiation leaves out);
 ``occupancy`` asks the card how many such blocks an SM holds; and
 ``run_staged`` launches any of the three kernels over column chunks.  The
 wrappers in ops/cuda/{lwsw,lw,sw}.py call ``run_staged`` with the bands
@@ -57,7 +59,8 @@ class StagePlan:
     lw_floats: int     # LW rows x ngpt_lw
     sw_floats: int     # SW rows x ngpt_sw
     acc_floats: int    # level accumulators, 2 (nlay+1) per LW sweep
-                       # warp and 2 (nlay+1) for SW
+                       # warp and 2 (nlay+1) for SW; with the Jacobian
+                       # (nlay+1) more, after them
     prm_floats: int    # layer parameters in a place of their own, or 0
     prm_base: int      # layer j's parameters start at prm_base +
     prm_stride: int    #   j * prm_stride,
@@ -159,13 +162,16 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
                word_bytes: int = 4,
                split: Optional[bool] = None,
                n_t: int = SHIPPED_NT,
-               lw_warps: Optional[int] = None) -> StagePlan:
+               lw_warps: Optional[int] = None,
+               jac: bool = False) -> StagePlan:
     """The staging of one launch of the kernel that solves the bands with
     ``ngpt_* > 0`` (both: lwsw.cu, LW only: lw.cu, SW only: sw.cu).
 
     Per column: LW 3 nlay rows at 1 angle (tr, src_dn, src_up), 3 nlay + 1
     at 2-4 (tau, layer and level Planck); SW 5 nlay + 2 rows; 2 (nlay+1)
-    accumulators (up, down) per LW angle and 2 (nlay+1) for SW; and the
+    accumulators (up, down) per LW angle and 2 (nlay+1) for SW, and with
+    ``jac`` (the merged kernel's Jacobian instantiation) one more row of
+    (nlay+1), the LW sweep's d flux_up / d T_sfc, after them; and the
     layer parameters, 4 + with LW 4 Planck words, per band 1 per dense and
     3 per LUT gas (``gases_*``: ``band_gases``) per layer.  These go in
     the layer's first row of the band solved last (SW if present) when
@@ -287,7 +293,7 @@ def stage_plan(nlay: int, ngpt_lw: int, ngpt_sw: int, n_angles: int,
     lw_floats = (3 * nlay if n_angles == 1 else 3 * nlay + 1) * ngpt_lw
     sw_floats = (5 * nlay + 2) * ngpt_sw
     sweeps = (n_angles if has_lw else 0) + int(has_sw)
-    acc_floats = 2 * sweeps * (nlay + 1)
+    acc_floats = 2 * sweeps * (nlay + 1) + (nlay + 1 if jac else 0)
     per_layer = 4 + prm_lw + prm_sw
     last = ngpt_sw if has_sw else ngpt_lw
     in_rows = last <= 32 and per_layer <= last
@@ -442,10 +448,11 @@ def kernel_name(lw: Optional[plan_mod.LwInputs],
 
 
 def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
-             sw: Optional[plan_mod.SwInputs]) -> StagePlan:
+             sw: Optional[plan_mod.SwInputs], jac: bool = False) -> StagePlan:
     """``stage_plan`` for these inputs, on their card's shared memory, in
     their kernel's block shape (``SHAPES``), at their dtype's word size,
-    on their grid's temperatures."""
+    on their grid's temperatures; ``jac``: the merged kernel's Jacobian
+    instantiation's."""
     props = torch.cuda.get_device_properties(atm.tlay.device)
     blocks, slots, sets = SHAPES[kernel_name(lw, sw)]
     return stage_plan(atm.tlay.shape[1], lw.plan.ngpt if lw else 0,
@@ -457,28 +464,65 @@ def plan_for(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                       props.shared_memory_per_multiprocessor,
                       blocks_per_sm=blocks, max_slots=slots, sets=sets,
                       word_bytes=atm.tlay.element_size(),
-                      n_t=(lw or sw).n_t)
+                      n_t=(lw or sw).n_t, jac=jac)
+
+
+def jac_refusal(nlay: int, ngpt_lw: int, ngpt_sw: int,
+                gases_lw: Tuple[int, int], gases_sw: Tuple[int, int],
+                n_t: int, block_shared: Optional[int] = None,
+                sm_shared: Optional[int] = None) -> Optional[str]:
+    """Why the merged kernel's Jacobian instantiation does not take these
+    bands, or None: it runs an LW band of one g-chunk (one LW sweep warp
+    an angle, one angle: the caller checks the angles) whose shape, and
+    the SW band's, the kernels take as constants (``CONSTANT_SHAPES``:
+    lw_fsck with sw_wide, csrc/lwsw.cu ``pick_jac``), and with the card's
+    shared memory given (``block_shared``, ``sm_shared``) only where
+    ``stage_plan`` stages its columns in shared memory, whole or split,
+    not in the device slice."""
+    if ngpt_lw > 32:
+        return (f"the Jacobian instantiation sweeps an LW band of one "
+                f"g-chunk (<= 32 g-points); {ngpt_lw} take the pairs layout")
+    if ((ngpt_lw, *gases_lw) not in CONSTANT_SHAPES["lw"]
+            or (ngpt_sw, *gases_sw) not in CONSTANT_SHAPES["sw"]
+            or n_t != SHIPPED_NT):
+        return ("the Jacobian instantiation takes the shipped lw_fsck + "
+                "sw_wide shapes (32 + 27 g-points, 7 + 1 and 5 + 1 gases, "
+                f"{SHIPPED_NT} temperatures) as constants, not "
+                f"{ngpt_lw} + {ngpt_sw} g-points with {gases_lw} and "
+                f"{gases_sw} gases on {n_t} temperatures")
+    if block_shared is None:
+        return None
+    blocks, slots, sets = SHAPES["lwsw"]
+    plan = stage_plan(nlay, ngpt_lw, ngpt_sw, 1, gases_lw, gases_sw,
+                      block_shared, sm_shared, blocks_per_sm=blocks,
+                      max_slots=slots, sets=sets, jac=True)
+    if plan.route == "device":
+        return (f"at nlay {nlay} a column stages in the device slice, a "
+                "route the Jacobian instantiation leaves out")
+    return None
 
 
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(name: str, shape: tuple, threads: int, shared_bytes: int,
                   mode: str, device_index: int,
                   lib: Optional[ctypes.CDLL] = None,
-                  split: bool = False) -> int:
+                  split: bool = False, jac: bool = False) -> int:
     """The CUDA occupancy calculator's blocks per SM for a launch
     configuration of kernel ``name`` in launch mode ``mode``
-    (binding.MODES: ``ecckd_<name>_occupancy``, or ``..._occupancy_f64``)
+    (binding.MODES: ``ecckd_<name>_occupancy`` or ``..._occupancy_f64``;
+    with ``jac``, binding.JAC: ``..._occupancy_jac``)
     on one card; ``shape`` (``launch_shape``) and ``split`` (the route)
     pick the instantiation, ``lib`` a bound build other than
     ``binding.library``'s."""
-    args_type = binding.args_type(name, mode)
+    args_type = binding.args_type(name, mode, jac)
     lib = lib or binding.library(name)
     if mode == "f64":
         fn = getattr(lib, f"ecckd_{name}_occupancy_f64")
         fn.argtypes = [ctypes.c_void_p]
         query = fn
     else:
-        fn = getattr(lib, f"ecckd_{name}_occupancy")
+        tag = binding.JAC[0] if jac else ""
+        fn = getattr(lib, f"ecckd_{name}_occupancy{tag}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
         query = lambda a: fn(a, int(mode == "fast"))
     fn.restype = ctypes.c_int
@@ -514,23 +558,26 @@ def launch_shape(lw: Optional[plan_mod.LwInputs],
 def occupancy(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
               sw: Optional[plan_mod.SwInputs],
               plan: Optional[StagePlan] = None,
-              lib: Optional[ctypes.CDLL] = None) -> Tuple[StagePlan, int]:
+              lib: Optional[ctypes.CDLL] = None,
+              jac: bool = False) -> Tuple[StagePlan, int]:
     """(the staging plan, blocks per SM) of the launch of the kernel for
     these prepared bands (both: the merged kernel; one, the other None:
     its own) on their card; ``plan`` replaces ``plan_for``'s, ``lib``
-    the kernel's build (``blocks_per_sm``)."""
-    plan = plan or plan_for(atm, lw, sw)
+    the kernel's build (``blocks_per_sm``), ``jac`` asks for the merged
+    kernel's Jacobian instantiation."""
+    plan = plan or plan_for(atm, lw, sw, jac)
+    mode = binding.mode_of(atm, lw or sw)
     return plan, blocks_per_sm(kernel_name(lw, sw), launch_shape(lw, sw),
-                               plan.threads, plan.shared_bytes,
-                               binding.mode_of(atm, lw or sw),
-                               atm.tlay.device.index or 0, lib, plan.split)
+                               plan.threads, plan.shared_bytes, mode,
+                               atm.tlay.device.index or 0, lib, plan.split,
+                               jac)
 
 
 def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
                sw: Optional[plan_mod.SwInputs], column_chunk: int, counted,
                plan: Optional[StagePlan] = None,
                max_blocks: Optional[int] = None,
-               lib: Optional[ctypes.CDLL] = None):
+               lib: Optional[ctypes.CDLL] = None, jac: bool = False):
     """Launch the staged kernel for the bands present (csrc/lwsw.cu,
     lw.cu or sw.cu) over column chunks on the current stream, in the
     bands' table mode: persistent blocks, as many as the card holds at
@@ -538,7 +585,9 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     column, or on the split route its LW rows, does not stay in shared
     memory; ``max_blocks`` caps them).
     Returns the (ncol, nlay+1) outputs, (up, down) per band, LW first, in
-    the inputs' dtype; the launch mode is theirs (``binding.mode_of``).
+    the inputs' dtype, and with ``jac`` (the merged kernel's Jacobian
+    instantiation, ``binding.JAC``) d LW up / d T_sfc fifth; the
+    launch mode is theirs (``binding.mode_of``).
     Launches count on ``counted`` (binding.launch_chunks); the route and
     the parameter stage are ``plan_for``'s, not counted.  ``lib``: a
     bound build of the kernel other than the plain one (the ring
@@ -549,11 +598,12 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     mode = binding.mode_of(atm, lw or sw)
     # The kernel writes every level of every column: no zero-fill.
     outs = [torch.empty((ncol, nlay + 1), dtype=dtype, device=dev)
-            for _ in range(2 * ((lw is not None) + (sw is not None)))]
+            for _ in range(2 * ((lw is not None) + (sw is not None))
+                           + int(jac))]
     if ncol == 0:
         return outs
     chunk = max(1, min(int(column_chunk), ncol))
-    plan, per_sm = occupancy(atm, lw, sw, plan, lib)
+    plan, per_sm = occupancy(atm, lw, sw, plan, lib, jac)
     blocks = min(chunk, max_blocks or chunk, per_sm * torch.cuda.
                  get_device_properties(dev).multi_processor_count)
     stage = torch.empty((blocks, plan.slots, plan.slice_floats),
@@ -562,13 +612,13 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
     # a single-band kernel takes its model's own.
     grid = binding.grid_struct(lw or sw)
     tile = tile_struct(plan, blocks, stage)
-    args_type = binding.args_type(name, mode)
+    args_type = binding.args_type(name, mode, jac)
     if lw and sw:
         bands = dict(lw_band=binding.band_struct(lw),
                      sw_band=binding.band_struct(sw))
     else:
         bands = dict(band=binding.band_struct(lw or sw))
-    sw_outs = outs[2:] if lw else outs
+    sw_outs = outs[2:4] if lw else outs
 
     def make_args(c0: int, c1: int):
         solves = {}
@@ -576,9 +626,11 @@ def run_staged(atm: plan_mod.Atmosphere, lw: Optional[plan_mod.LwInputs],
             solves["lw"] = binding.lw_struct(lw, c0, c1, outs[0], outs[1])
         if sw:
             solves["sw"] = binding.sw_struct(sw, c0, c1, *sw_outs)
+        if jac:
+            solves["jac"] = outs[4][c0:c1].data_ptr()
         return args_type(atm=binding.atmos_struct(atm, c0, c1), grid=grid,
                          tile=tile, **bands, **solves)
 
     binding.launch_chunks(name, ncol, chunk, make_args, counted, dev, mode,
-                          lib)
+                          lib, jac)
     return outs

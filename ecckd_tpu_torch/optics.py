@@ -6,6 +6,7 @@ row; the ``top_at_1`` orientation is handled by the solvers.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -34,3 +35,6 @@ class SourceFuncLW:
     lev_source_dec: torch.Tensor  # (ncol, nlay, ngpt) source at the layer's
     #                               decreasing-index edge (level j)
     sfc_source: torch.Tensor      # (ncol, ngpt) surface source
+    sfc_source_jac: Optional[torch.Tensor] = None
+    #                               (ncol, ngpt) the surface source's change
+    #                               over 1 K (ops/planck.planck_source_jac)

@@ -32,6 +32,15 @@ kernel routes at each call: the fast mode launches each kernel's fast
 entry point.  The torch route ignores the mode and interpolates the
 tables exactly, as the JAX package's XLA path ignores its MXU mode.
 
+RTE's LW surface-temperature Jacobian (``flux_up_jac=True`` on
+``lw_fluxes`` and ``lw_sw_fluxes``): the LW ``FluxesBroadband`` also
+carries ``flux_up_jac``, d flux_up / d T_sfc at every level
+[W m-2 K-1].  The kernel route is the merged kernel's Jacobian
+instantiation (float32, one angle, the shipped lw_fsck + sw_wide shapes,
+whole or split staging: ``_kernel_refusal`` names what it leaves out);
+everything else takes the torch path on ``"auto"`` and raises on
+``"cuda"``.
+
 With ``utils.checks.enable_nan_debugging`` on, each stage's output is
 checked (gas optics and the solver on the torch route, the fluxes on a
 kernel route) and the first non-finite one raises, naming its stage.
@@ -52,8 +61,9 @@ from ecckd_tpu_torch.models.gas_optics import gas_optics_lw, gas_optics_sw
 from ecckd_tpu_torch.ops.cuda.binding import (DEFAULT_COLUMN_CHUNK,
                                               FAST_F64_REFUSAL, grad_refusal)
 from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
+from ecckd_tpu_torch.ops.cuda import staged
 from ecckd_tpu_torch.ops.cuda.lwsw import lwsw_fluxes_cuda
-from ecckd_tpu_torch.ops.cuda.plan import models_mergeable
+from ecckd_tpu_torch.ops.cuda.plan import build_plan, models_mergeable
 from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
 from ecckd_tpu_torch.solvers.lw import rte_lw
 from ecckd_tpu_torch.solvers.sw import rte_sw
@@ -107,8 +117,11 @@ def _over_column_chunks(fn, batch: tuple, ncol: int,
     concatenate the fluxes."""
     parts = [fn(*(_column_slice(x, c0, min(c0 + chunk, ncol), ncol)
                   for x in batch)) for c0 in range(0, ncol, chunk)]
+    jac = None
+    if parts[0].flux_up_jac is not None:
+        jac = torch.cat([f.flux_up_jac for f in parts])
     return FluxesBroadband(torch.cat([f.flux_up for f in parts]),
-                           torch.cat([f.flux_dn for f in parts]))
+                           torch.cat([f.flux_dn for f in parts]), jac)
 
 
 def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
@@ -116,7 +129,8 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
               gas_concs: GasConcs, n_gauss_angles: int = 1,
               top_at_1: bool = True, column_chunk: Optional[int] = None,
               backend: str = "auto",
-              logarithmic_interpolation: bool = False) -> FluxesBroadband:
+              logarithmic_interpolation: bool = False,
+              flux_up_jac: bool = False) -> FluxesBroadband:
     """Longwave broadband fluxes for a column batch.
 
     Args:
@@ -128,13 +142,16 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
         does not apply).
       logarithmic_interpolation: the reference's alternate log-space table
         interpolation; torch path only.
+      flux_up_jac: also give d flux_up / d T_sfc (the result's
+        ``flux_up_jac``); torch path only (the LW kernel has no Jacobian).
     """
     _check_backend(backend, logarithmic_interpolation)
     ncol = tlay.shape[0]
     if backend != "torch" and not logarithmic_interpolation:
         refusal = _kernel_refusal(
             tlay, top_at_1, n_gauss_angles,
-            inputs=(plev, tlev, tsfc, sfc_emis, gas_concs), kernel="lw")
+            inputs=(plev, tlev, tsfc, sfc_emis, gas_concs), kernel="lw",
+            flux_up_jac=flux_up_jac)
         if refusal is None:
             emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, tlay.dtype,
                                        tlay.device)
@@ -149,7 +166,8 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
         fn = lambda p, tl, tv, ts, e, c: lw_fluxes(
             model, p, tl, tv, ts, e, c, n_gauss_angles=n_gauss_angles,
             top_at_1=top_at_1, backend=backend,
-            logarithmic_interpolation=logarithmic_interpolation)
+            logarithmic_interpolation=logarithmic_interpolation,
+            flux_up_jac=flux_up_jac)
         return _over_column_chunks(
             fn, (plev, tlay, tlev, tsfc, sfc_emis, gas_concs), ncol,
             column_chunk)
@@ -163,10 +181,11 @@ def lw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
                 sfc_source=sources.sfc_source)
     emis_gpt = _surface_to_gpt(model, sfc_emis, ncol, props.tau.dtype,
                                tlay.device)
-    flux_up, flux_dn = rte_lw(props, sources, emis_gpt, top_at_1=top_at_1,
-                              n_gauss_angles=n_gauss_angles)
-    check_stage("rte_lw", flux_up=flux_up, flux_dn=flux_dn)
-    return FluxesBroadband(flux_up=flux_up, flux_dn=flux_dn)
+    out = rte_lw(props, sources, emis_gpt, top_at_1=top_at_1,
+                 n_gauss_angles=n_gauss_angles, flux_up_jac=flux_up_jac)
+    check_stage("rte_lw", flux_up=out[0], flux_dn=out[1],
+                **({"flux_up_jac": out[2]} if flux_up_jac else {}))
+    return FluxesBroadband(*out)
 
 
 def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
@@ -239,16 +258,31 @@ def sw_fluxes(model: CKDModel, plev: torch.Tensor, tlay: torch.Tensor,
 
 def _kernel_refusal(tlay: torch.Tensor, top_at_1: bool,
                     n_gauss_angles: int = 1, inputs: tuple = (),
-                    kernel: str = "lwsw") -> Optional[str]:
+                    kernel: str = "lwsw", flux_up_jac: bool = False,
+                    models: tuple = (), gases: tuple = ()) -> Optional[str]:
     """Why CUDA kernel ``kernel`` ("lwsw", "lw" or "sw") does not apply to
     this call, or None if it does: the same rule for the three, but that
     float64 runs on the merged kernel alone (its double instantiation),
     in the exact table mode.  ``inputs`` are the call's other per-column
     inputs: if any of them, or tlay, requires grad the kernels would cut
-    the autograd graph."""
+    the autograd graph.  With ``flux_up_jac`` the merged kernel's Jacobian
+    instantiation must take the call: float32, one angle, and the bands of
+    ``models`` (LW, SW) under the gas names ``gases`` at tlay's layers
+    where ``staged.jac_refusal`` passes them (on a CUDA card, also their
+    staging route); these reasons come before the device's, so that a
+    call on the CPU names them too."""
     grad = grad_refusal(tlay, *inputs)
     if grad is not None:
         return grad
+    if flux_up_jac:
+        card = (None, None)
+        if tlay.device.type == "cuda":
+            props = torch.cuda.get_device_properties(tlay.device)
+            card = (props.shared_memory_per_block_optin,
+                    props.shared_memory_per_multiprocessor)
+        jac = _jac_refusal(tlay, n_gauss_angles, kernel, models, gases, card)
+        if jac is not None:
+            return jac
     if tlay.device.type != "cuda":
         return f"tensors are on {tlay.device}, not a CUDA device"
     if tlay.dtype == torch.float64:
@@ -267,6 +301,29 @@ def _kernel_refusal(tlay: torch.Tensor, top_at_1: bool,
     return None
 
 
+def _jac_refusal(tlay: torch.Tensor, n_gauss_angles: int, kernel: str,
+                 models: tuple, gases: tuple,
+                 card: tuple = (None, None)) -> Optional[str]:
+    """``_kernel_refusal``'s reasons for the Jacobian: K3 and K4 have no
+    Jacobian instantiation, and K1's is float32's at one angle on the
+    bands ``staged.jac_refusal`` takes (their route too, given the card's
+    shared memory per block and per SM in ``card``)."""
+    if kernel != "lwsw":
+        return (f"{_KERNELS[kernel]} has no Jacobian instantiation; "
+                f"flux_up_jac runs on {_KERNELS['lwsw']}")
+    if tlay.dtype != torch.float32:
+        return ("the Jacobian instantiation of the merged kernel is "
+                f"float32's alone, got {tlay.dtype}")
+    if n_gauss_angles != 1:
+        return ("the Jacobian instantiation of the merged kernel sweeps one "
+                f"angle, got n_gauss_angles={n_gauss_angles}")
+    (lw_plan, sw_plan), n_t = ([build_plan(m, gases) for m in models],
+                               models[0].temperature_grid.shape[1])
+    return staged.jac_refusal(tlay.shape[1], lw_plan.ngpt, sw_plan.ngpt,
+                              staged.band_gases(lw_plan),
+                              staged.band_gases(sw_plan), n_t, *card)
+
+
 def _refuse_cuda(backend: str, kernel: str, refusal: str) -> None:
     """backend='cuda' never falls back to the torch path."""
     if backend == "cuda":
@@ -280,7 +337,7 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
                  sfc_alb: torch.Tensor, tsi: torch.Tensor,
                  sza_deg: torch.Tensor, n_gauss_angles: int = 1,
                  top_at_1: bool = True, column_chunk: Optional[int] = None,
-                 backend: str = "auto"
+                 backend: str = "auto", flux_up_jac: bool = False
                  ) -> Tuple[FluxesBroadband, FluxesBroadband]:
     """Both bands' broadband fluxes over one atmosphere (the climate-model
     and RFMIP-benchmark shape of the workload).  Returns (lw, sw).
@@ -289,29 +346,41 @@ def lw_sw_fluxes(model_lw: CKDModel, model_sw: CKDModel, plev: torch.Tensor,
     a (p, T) grid, this is one merged-kernel pass per column chunk
     (``column_chunk`` defaults to the kernel's); otherwise lw_fluxes +
     sw_fluxes with the same backend, each taking its own kernel where it
-    applies.
+    applies.  ``flux_up_jac``: the LW result also carries d flux_up /
+    d T_sfc (``FluxesBroadband.flux_up_jac``), on the merged kernel's
+    Jacobian instantiation where ``_kernel_refusal`` passes the call, else
+    on the torch path (``"cuda"`` raises with its reason).
     """
     _check_backend(backend)
     inputs = (plev, tlev, tsfc, sfc_emis, gas_concs, sfc_alb, tsi, sza_deg)
-    if (backend != "torch" and models_mergeable(model_lw, model_sw)
-            and _kernel_refusal(tlay, top_at_1, n_gauss_angles,
-                                inputs, "lwsw") is None):
+    merged = backend != "torch" and models_mergeable(model_lw, model_sw)
+    if merged:
+        refusal = _kernel_refusal(tlay, top_at_1, n_gauss_angles, inputs,
+                                  "lwsw", flux_up_jac, (model_lw, model_sw),
+                                  gas_concs.names)
+        if flux_up_jac and refusal is not None:
+            _refuse_cuda(backend, "lwsw", refusal)
+        merged = refusal is None
+    if merged:
         ncol, dtype, device = tlay.shape[0], tlay.dtype, tlay.device
         emis_gpt = _surface_to_gpt(model_lw, sfc_emis, ncol, dtype, device)
         alb = torch.as_tensor(sfc_alb, device=device).to(dtype)
         if alb.ndim == 2:
             alb = _surface_to_gpt(model_sw, alb, ncol, dtype, device)
-        lu, ld, su, sd = lwsw_fluxes_cuda(
+        lu, ld, su, sd, *jac = lwsw_fluxes_cuda(
             model_lw, model_sw, plev, tlay, tlev, tsfc, emis_gpt, gas_concs,
             alb, tsi, sza_deg, n_gauss_angles=n_gauss_angles,
-            column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK)
+            column_chunk=column_chunk or DEFAULT_COLUMN_CHUNK,
+            flux_up_jac=flux_up_jac)
         check_stage("lwsw kernel", lw_flux_up=lu, lw_flux_dn=ld,
-                    sw_flux_up=su, sw_flux_dn=sd)
-        return (FluxesBroadband(flux_up=lu, flux_dn=ld),
+                    sw_flux_up=su, sw_flux_dn=sd,
+                    **({"lw_flux_up_jac": jac[0]} if jac else {}))
+        return (FluxesBroadband(lu, ld, *jac),
                 FluxesBroadband(flux_up=su, flux_dn=sd))
     return (lw_fluxes(model_lw, plev, tlay, tlev, tsfc, sfc_emis, gas_concs,
                       n_gauss_angles=n_gauss_angles, top_at_1=top_at_1,
-                      column_chunk=column_chunk, backend=backend),
+                      column_chunk=column_chunk, backend=backend,
+                      flux_up_jac=flux_up_jac),
             sw_fluxes(model_sw, plev, tlay, gas_concs, sfc_alb, tsi, sza_deg,
                       top_at_1=top_at_1, column_chunk=column_chunk,
                       backend=backend))

@@ -6,6 +6,15 @@ zenith angles (first-order Gaussian quadrature) with a source linear in
 optical depth inside each layer, surface emission ``emis * B_sfc`` and
 isotropic reflection ``(1 - emis)``, then sum the quadrature to fluxes and
 the g-points to broadband.
+
+With ``flux_up_jac`` it also returns RTE's ``flux_up_Jac``: the derivative
+of the upward flux at every level with respect to the surface
+temperature.  The surface source is the only term that depends on it and
+the transport is linear in it, so per g-point and angle a second
+recurrence rides the up sweep: J = emis * dB_sfc at the surface (dB_sfc
+the source's change over 1 K, ``SourceFuncLW.sfc_source_jac``), then
+J(k) = T(k) J(k+1) up the layers, summed as the fluxes are.  It equals
+flux_up(T_sfc + 1 K) - flux_up(T_sfc) with every other input fixed.
 """
 from __future__ import annotations
 
@@ -47,8 +56,8 @@ def _linear_in_tau_sources(tau_slant: torch.Tensor, trans: torch.Tensor,
 def rte_lw(optical_props: OpticalProps1scl, sources: SourceFuncLW,
            sfc_emis_gpt: torch.Tensor, top_at_1: bool = True,
            n_gauss_angles: int = 1,
-           inc_flux_gpt: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+           inc_flux_gpt: Optional[torch.Tensor] = None,
+           flux_up_jac: bool = False) -> Tuple[torch.Tensor, ...]:
     """Broadband longwave fluxes.
 
     Args:
@@ -61,10 +70,13 @@ def rte_lw(optical_props: OpticalProps1scl, sources: SourceFuncLW,
         (ncol, ngpt); it is converted to the per-angle boundary radiance
         F/PI, so a transparent atmosphere returns exactly this flux at
         every level and quadrature order.
+      flux_up_jac: also return d flux_up / d T_sfc (needs
+        ``sources.sfc_source_jac``).
 
     Returns:
       (flux_up, flux_dn) broadband [W m-2], each (ncol, nlay+1), in the
-      same level orientation as the inputs.
+      same level orientation as the inputs; with ``flux_up_jac`` a third,
+      d flux_up / d T_sfc [W m-2 K-1], (ncol, nlay+1) too.
     """
     tau = optical_props.tau
     lay = sources.lay_source
@@ -83,6 +95,12 @@ def rte_lw(optical_props: OpticalProps1scl, sources: SourceFuncLW,
 
     flux_up = torch.zeros((ncol, nlay + 1), dtype=dtype, device=device)
     flux_dn = torch.zeros((ncol, nlay + 1), dtype=dtype, device=device)
+    if flux_up_jac:
+        if sources.sfc_source_jac is None:
+            raise ValueError("flux_up_jac needs sources.sfc_source_jac")
+        jac = torch.zeros((ncol, nlay + 1), dtype=dtype, device=device)
+        jac_sfc = sfc_emis_gpt * sources.sfc_source_jac
+        no_source = tau.new_zeros(()).expand_as(tau)
     top = torch.zeros((ncol, ngpt), dtype=dtype, device=device)
     if inc_flux_gpt is not None:
         # Isotropic incident FLUX -> per-angle boundary RADIANCE F/PI.
@@ -103,8 +121,14 @@ def rte_lw(optical_props: OpticalProps1scl, sources: SourceFuncLW,
         w = TWO_PI * weight
         flux_dn = flux_dn + w * dn_levels
         flux_up = flux_up + w * up_levels
+        if flux_up_jac:
+            jac_levels, _ = affine_sweep_broadband(trans, no_source, jac_sfc,
+                                                   reverse=True)
+            jac = jac + w * jac_levels
 
     if not top_at_1:
         flux_up = torch.flip(flux_up, dims=(1,))
         flux_dn = torch.flip(flux_dn, dims=(1,))
+    if flux_up_jac:
+        return flux_up, flux_dn, (jac if top_at_1 else torch.flip(jac, (1,)))
     return flux_up, flux_dn

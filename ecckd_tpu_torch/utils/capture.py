@@ -88,9 +88,11 @@ COUNTERS = tuple((w, binding.MODES[mode][1])
                  for name, w in (("lwsw", lwsw_fluxes_cuda),
                                  ("lw", lw_fluxes_cuda),
                                  ("sw", sw_fluxes_cuda))
-                 for mode in binding.KERNEL_MODES[name])
+                 for mode in binding.KERNEL_MODES[name]) + (
+                     (lwsw_fluxes_cuda, binding.JAC[1]),)
 """The kernel wrappers' launch counts, one per launch mode (the merged
-kernel's f64 one too), that a replay adds back."""
+kernel's f64 one too) and the merged kernel's Jacobian's, that a replay
+adds back."""
 
 
 _TENSOR, _GASES, _MODEL, _VALUE = range(4)

@@ -1,7 +1,8 @@
 """Nested containers of tensors (the JAX package's pytrees).
 
 Containers are tuples, lists, dicts, ``GasConcs`` (its values) and
-``FluxesBroadband`` (up, dn); everything else is a leaf.  A ``CKDModel`` is
+``FluxesBroadband`` (up, dn, and its Jacobian where it has one);
+everything else is a leaf.  A ``CKDModel`` is
 one leaf, moved whole: the column split never reaches into a model's
 tables (parallel/mesh.py).
 """
@@ -24,7 +25,10 @@ def _children(tree):
         return list(tree.values), lambda vals: GasConcs(
             values=tuple(vals), names=tree.names)
     if isinstance(tree, FluxesBroadband):
-        return [tree.flux_up, tree.flux_dn], lambda v: FluxesBroadband(*v)
+        kids = [tree.flux_up, tree.flux_dn]
+        if tree.flux_up_jac is not None:
+            kids.append(tree.flux_up_jac)
+        return kids, lambda v: FluxesBroadband(*v)
     return None
 
 

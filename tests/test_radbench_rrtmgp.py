@@ -248,8 +248,10 @@ def test_the_manifest_adds_one_configuration_and_one_cell():
     (cell,) = [w for w in BENCH["workloads"] if w["name"] == CELL]
     assert (cell["config"], cell["traffic"], cell["chips"]) == (
         CONFIG, "batch_banded", 1)
-    assert cfg["reduced"] == [] and BENCH["configs"][-1] is cfg
-    assert BENCH["workloads"][-1] is cell
+    # Each at the end of its list as it added them, after the four
+    # configurations and seven cells before them.
+    assert cfg["reduced"] == [] and BENCH["configs"].index(cfg) == 4
+    assert BENCH["workloads"].index(cell) == 7
     lists = {m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]
              if CELL in m.get("workloads", [])}
     assert lists == {"columns_per_s", "lwsw_roofline", "step_mfu",

@@ -577,7 +577,8 @@ def test_run_staged_hands_the_plan_to_the_launch(monkeypatch, ckd_paths,
 def test_capture_counters_are_the_wrappers_launches():
     """capture.jit adds a replay's launches back per counter: each of the
     three kernel wrappers' counts, one per launch mode (two each, and the
-    merged kernel's f64 count), and no other."""
+    merged kernel's f64 count), and the merged kernel's Jacobian's, and no
+    other."""
     from ecckd_tpu_torch.ops.cuda.lw import lw_fluxes_cuda
     from ecckd_tpu_torch.ops.cuda.sw import sw_fluxes_cuda
     from ecckd_tpu_torch.utils import capture
@@ -586,7 +587,8 @@ def test_capture_counters_are_the_wrappers_launches():
             (lwsw.lwsw_fluxes_cuda,
              ("launches", "fast_launches", "f64_launches")),
             (lw_fluxes_cuda, ("launches", "fast_launches")),
-            (sw_fluxes_cuda, ("launches", "fast_launches")))
+            (sw_fluxes_cuda, ("launches", "fast_launches")),
+            (lwsw.lwsw_fluxes_cuda, ("jac_launches",)))
         for c in cs)
     for w, c in capture.COUNTERS:
         assert isinstance(getattr(w, c), int)

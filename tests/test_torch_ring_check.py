@@ -74,13 +74,11 @@ class _Fn:
 
 def _fake_lib(name):
     lib = type("FakeLib", (), {})()
-    for mode in binding.KERNEL_MODES[name]:
-        setattr(lib, f"ecckd_{name}_launch{binding.MODES[mode][0]}", _Fn())
-    setattr(lib, f"ecckd_{name}_args_size",
-            _Fn(ctypes.sizeof(binding.ARGS[name])))
-    if "f64" in binding.KERNEL_MODES[name]:
-        setattr(lib, f"ecckd_{name}_f64_args_size",
-                _Fn(ctypes.sizeof(binding.LwswArgs64)))
+    for suffix in binding.launch_suffixes(name):
+        setattr(lib, f"ecckd_{name}_launch{suffix}", _Fn())
+    for tag, struct in binding.args_structs(name).items():
+        setattr(lib, f"ecckd_{name}{tag}_args_size",
+                _Fn(ctypes.sizeof(struct)))
     lib.ecckd_cuda_error_string = _Fn(b"")
     return lib
 

@@ -54,7 +54,7 @@ METRICS = {"lwsw_optics_wait_share": "optics",
            "lwsw_lw_sweep_wait_share": "lw_sweep",
            "lwsw_sw_sweep_wait_share": "sw_sweep"}
 BATCH_CELLS = ["l60_batch", "l137_batch", "l60_3ang", "l60_f64_batch",
-               "l60_rrtmgp_batch"]
+               "l60_rrtmgp_batch", "l91_batch", "l91_jac_batch"]
 WORDS = len(role_clock.ROLES) * len(role_clock.COUNTERS)
 
 
@@ -92,14 +92,12 @@ def _fake_lib(name, words=None, calls=None):
     (the record's words), also the timed build's entry points, which
     return them and log each (reset) in ``calls``."""
     lib = types.SimpleNamespace()
-    for mode in binding.KERNEL_MODES[name]:
-        setattr(lib, f"ecckd_{name}_launch{binding.MODES[mode][0]}",
-                _Fn(lambda *a: 0))
-    setattr(lib, f"ecckd_{name}_args_size",
-            _Fn(lambda: ctypes.sizeof(binding.ARGS[name])))
-    if "f64" in binding.KERNEL_MODES[name]:
-        setattr(lib, f"ecckd_{name}_f64_args_size",
-                _Fn(lambda: ctypes.sizeof(binding.LwswArgs64)))
+    for suffix in binding.launch_suffixes(name):
+        setattr(lib, f"ecckd_{name}_launch{suffix}", _Fn(lambda *a: 0))
+    for tag, struct in binding.args_structs(name).items():
+        size = ctypes.sizeof(struct)
+        setattr(lib, f"ecckd_{name}{tag}_args_size",
+                _Fn(lambda size=size: size))
     lib.ecckd_cuda_error_string = _Fn(lambda rc: b"stand-in")
     if words is not None:
         lib.ecckd_lwsw_role_words = _Fn(lambda: len(words))
@@ -382,12 +380,14 @@ def test_the_helper_times_one_eager_call_of_the_cells_traffic(cell,
     _, config = bench_run.load_cell(cell)
     shape = (4, config["nlay"])
     assert [c[:2] for c in calls] == [(False, shape)] * 2 + [(True, shape)]
-    assert calls[-1][2] == dict(n_gauss_angles=config["n_gauss_angles"],
-                                column_chunk=4)
+    want = dict(n_gauss_angles=config["n_gauss_angles"], column_chunk=4)
+    if run.cell["traffic"] == "batch_jac":
+        want["flux_up_jac"] = True
+    assert calls[-1][2] == want
 
 
 def test_the_manifest_lists_the_shares_on_the_batch_cells():
-    entries = BENCH["per_layer"][-3:]
+    entries = [m for m in BENCH["per_layer"] if m["name"] in METRICS]
     assert [m["name"] for m in entries] == list(METRICS)
     cells = {w["name"]: w for w in BENCH["workloads"]}
     for m in entries:

@@ -2,9 +2,10 @@
 (ops/cuda/role_clock.py, csrc/role_clock.cuh), in which every warp
 counts the cycles of its waits and phases by role.
 
-At the launch shapes of the five batch cells of the benchmark (65,536
-columns; nlay 60 and 137, 1 and 3 LW angles, float32 and float64, 32 and
-36 LW g-points with the emissivity per band):
+At the launch shapes of the seven batch cells of the benchmark (65,536
+columns; nlay 60, 91 and 137, 1 and 3 LW angles, float32 and float64, 32
+and 36 LW g-points with the emissivity per band, and at nlay 91 the
+Jacobian instantiation, whose LW sweep carries the Jacobian):
 
 * the timed build's fluxes equal the plain build's bit for bit, on the
   same plan and the same blocks per SM;
@@ -46,7 +47,11 @@ CELLS = {
     "l60_3ang": ("lw_fsck", 60, 3, torch.float32),
     "l60_f64_batch": ("lw_fsck", 60, 1, torch.float64),
     "l60_rrtmgp_batch": ("lw_rrtmgp", 60, 1, torch.float32),
+    "l91_batch": ("lw_fsck", 91, 1, torch.float32),
+    "l91_jac_batch": ("lw_fsck", 91, 1, torch.float32),
 }
+JAC = {"l91_jac_batch"}
+"""The cells whose calls launch K1's Jacobian instantiation."""
 PLANT_MOVE = 10.0
 """Percentage points that a plant must move the share it raises."""
 
@@ -85,11 +90,12 @@ def prepared(models, cell):
                         n_gauss_angles=n_ang)
 
 
-def timed_run(prep, plant=""):
-    """(outputs, record, shares) of one launch on the timed build."""
+def timed_run(prep, plant="", **launch):
+    """(outputs, record, shares) of one launch on the timed build;
+    ``launch``: ``jac`` for the Jacobian instantiation."""
     from ecckd_tpu_torch.ops.cuda import lwsw, role_clock
     with role_clock.timed(plant) as timing:
-        out = lwsw._kernel_core(*prep, NCOL)
+        out = lwsw._kernel_core(*prep, NCOL, **launch)
     return out, timing.record, timing.shares
 
 
@@ -97,15 +103,17 @@ def timed_run(prep, plant=""):
 def test_timed_build_counts_every_role_and_changes_no_bit(models, cell):
     from ecckd_tpu_torch.ops.cuda import binding, lwsw, role_clock, staged
     prep = prepared(models, cell)
-    plain = lwsw._kernel_core(*prep, NCOL)
-    got, record, shares = timed_run(prep)
+    launch = {"jac": True} if cell in JAC else {}
+    plain = lwsw._kernel_core(*prep, NCOL, **launch)
+    got, record, shares = timed_run(prep, **launch)
     torch.cuda.synchronize()
     print(f"\n{cell}: shares {shares}\n{cell}: record {record}")
+    assert len(got) == len(plain) == (5 if launch else 4)
     for g, p in zip(got, plain):
         assert torch.isfinite(g).all() and torch.equal(g, p)
-    plan, per_sm = staged.occupancy(*prep)
-    assert staged.occupancy(*prep, lib=role_clock.library()) == (plan,
-                                                                 per_sm)
+    plan, per_sm = staged.occupancy(*prep, **launch)
+    assert staged.occupancy(*prep, lib=role_clock.library(),
+                            **launch) == (plan, per_sm)
     blocks = min(NCOL, per_sm * torch.cuda.get_device_properties(
         0).multi_processor_count)
     n_lw = CELLS[cell][2] * plan.lw_warps

@@ -31,7 +31,9 @@ in both table modes, and K1's double instantiation over ``CHECKED_F64``
 (float64 inputs and models: the f64 plans' routes), and over
 ``CHECKED_WIDE`` and ``CHECKED_WIDE_F64`` on the 36-g-point lw_rrtmgp
 (K1 and K3 with an LW band wider than a warp: every staging regime of
-that band at float32 and, for K1, float64), at jitter 0 on the
+that band at float32 and, for K1, float64), and K1's Jacobian
+instantiation over ``CHECKED_JAC`` in both table modes (every staging
+regime it takes), at jitter 0 on the
 full card and through 16 blocks, and at ``JITTER_NS`` with each of
 ``SEEDS``.  Every run must show 0
 violations (canaries intact), finite outputs and outputs bit for bit
@@ -111,6 +113,13 @@ CHECKED_WIDE = ([("lwsw", n, a) for n in (8, 60, 91, 110, 137, 220, 300)
                    for a in (1, 3)] + [("lw", 600, 4)])
 CHECKED_WIDE_F64 = [("lwsw", n, a) for n in (8, 40, 80, 110, 137)
                     for a in (1, 3)]
+# K1's Jacobian instantiation (lw_fsck + sw_wide, one angle, float32):
+# every regime it takes, with the accumulator row of the Jacobian (two
+# blocks of 512 threads to nlay 61, one block of 1024 with C = 2 whole to
+# 122, split with the parameter stage 123-174 and without it 175-207,
+# C = 1 whole from 208); at 207 the guard words leave no room.
+CHECKED_JAC = [("lwsw", n, 1) for n in (8, 60, 91, 122, 123, 137, 174, 175,
+                                        206, 208, 230)]
 CHECKED_NCOL = 2003
 SEEDS = (1, 2, 3)
 JITTER_NS = 2000
@@ -224,33 +233,35 @@ def build_checked(plant_kernels=KERNELS) -> float:
 def check_config(models: dict, kernel: str, nlay: int, n_ang: int,
                  fast: bool, runs, plant: str = "",
                  ncol: int = CHECKED_NCOL, f64: bool = False,
-                 lw_key: str = "lw"):
+                 lw_key: str = "lw", jac: bool = False):
     """One configuration through the checked build (with the planted
     fault ``plant`` if given), once per (seed, jitter, blocks) of
-    ``runs``, in float64 (K1's double instantiation) if ``f64``: per run
-    the error record, whether the outputs are finite and whether they
-    equal the plain build's bit for bit; with the LW model ``lw_key``.
-    None for the PRM plant on a plan without the parameter stage (it
-    plants nothing there)."""
+    ``runs``, in float64 (K1's double instantiation) if ``f64``, on K1's
+    Jacobian instantiation if ``jac``: per run the error record, whether
+    the outputs are finite and whether they equal the plain build's bit
+    for bit; with the LW model ``lw_key``.  None for the PRM plant on a
+    plan without the parameter stage (it plants nothing there)."""
     import torch
     from ecckd_tpu_torch.ops.cuda import ring_check, staged
     core, prep, bands = prepare(models, kernel, ncol, nlay, n_ang, fast,
                                 f64, lw_key)
-    plan = ring_check.guarded(staged.plan_for(prep[0], *bands))
+    launch = {"jac": True} if jac else {}
+    plan = ring_check.guarded(staged.plan_for(prep[0], *bands, **launch))
     if plant == "prm" and not plan.prm_stage:
         return None
-    ref = core(*prep, ncol, max_blocks=BLOCKS)
+    ref = core(*prep, ncol, max_blocks=BLOCKS, **launch)
     lib = ring_check.library(kernel, plant)
     ring_check.errors(lib, kernel)           # clear the record
     out = {"kernel": kernel, "nlay": nlay, "angles": n_ang,
            "lw_model": lw_key if kernel != "sw" else None,
            "mode": "f64" if f64 else "bf16" if fast else "bf16x3",
-           "plant": plant,
+           "jac": jac, "plant": plant,
            "regime": regime(plan), "ncol": ncol, "runs": []}
     try:
         for seed, jitter, blocks in runs:
             ring_check.configure(lib, kernel, seed, jitter)
-            got = core(*prep, ncol, plan=plan, max_blocks=blocks, lib=lib)
+            got = core(*prep, ncol, plan=plan, max_blocks=blocks, lib=lib,
+                       **launch)
             torch.cuda.synchronize()
             out["runs"].append({
                 "seed": seed, "jitter_ns": jitter, "blocks": blocks or "card",
@@ -295,7 +306,8 @@ def describe(c: dict) -> str:
             + (f"{c['lw_model']} " if c.get("lw_model") not in (None, "lw")
                else "")
             + f"nlay {c['nlay']} {c['angles']} angle(s) {c['mode']} "
-            f"({c['regime']}): {len(runs)} runs, violations "
+            + ("jacobian " if c.get("jac") else "")
+            + f"({c['regime']}): {len(runs)} runs, violations "
             f"{[r['count'] for r in runs]}, finite "
             f"{[r['finite'] for r in runs]}, bitwise equal "
             f"{[r['bitwise_equal'] for r in runs]}"
@@ -306,34 +318,42 @@ def run_checked(configs=CHECKED, plant_configs=CHECKED, modes=(False, True),
                 runs=RUNS, plant_runs=PLANT_RUNS,
                 ncol: int = CHECKED_NCOL, f64_configs=CHECKED_F64,
                 wide_configs=CHECKED_WIDE,
-                wide_f64_configs=CHECKED_WIDE_F64) -> dict:
+                wide_f64_configs=CHECKED_WIDE_F64,
+                jac_configs=CHECKED_JAC) -> dict:
     """The checked build over ``configs`` and ``wide_configs`` (on
     lw_rrtmgp) in ``modes`` and over ``f64_configs`` and
-    ``wide_f64_configs`` in float64, and each planted fault over
-    ``plant_configs``, ``wide_configs`` (exact mode) and the float64 ones,
-    each configuration printed as it ends; the record with its
-    ``verdict``."""
+    ``wide_f64_configs`` in float64, and K1's Jacobian instantiation over
+    ``jac_configs`` in ``modes``, and each planted fault over
+    ``plant_configs``, ``wide_configs`` (exact mode), the float64 ones
+    and the Jacobian's (exact mode), each configuration printed as it
+    ends; the record with its ``verdict``."""
     models = load_models()
     t0 = time.perf_counter()
     checked, planted = [], []
     wide = "lw_rrtmgp"
-    todo = ([(c, fast, False, "lw") for c in configs for fast in modes]
-            + [(c, False, True, "lw") for c in f64_configs]
-            + [(c, fast, False, wide) for c in wide_configs
+    todo = ([(c, fast, False, "lw", False) for c in configs
+             for fast in modes]
+            + [(c, False, True, "lw", False) for c in f64_configs]
+            + [(c, fast, False, wide, False) for c in wide_configs
                for fast in modes]
-            + [(c, False, True, wide) for c in wide_f64_configs])
-    for (kernel, nlay, n_ang), fast, f64, lw_key in todo:
+            + [(c, False, True, wide, False) for c in wide_f64_configs]
+            + [(c, fast, False, "lw", True) for c in jac_configs
+               for fast in modes])
+    for (kernel, nlay, n_ang), fast, f64, lw_key, jac in todo:
         checked.append(check_config(models, kernel, nlay, n_ang, fast,
-                                    runs, ncol=ncol, f64=f64, lw_key=lw_key))
+                                    runs, ncol=ncol, f64=f64, lw_key=lw_key,
+                                    jac=jac))
         print(describe(checked[-1]), flush=True)
     for plant in PLANTS:
-        for (kernel, nlay, n_ang), f64, lw_key in (
-                [(c, False, "lw") for c in plant_configs]
-                + [(c, True, "lw") for c in f64_configs]
-                + [(c, False, wide) for c in wide_configs]
-                + [(c, True, wide) for c in wide_f64_configs]):
+        for (kernel, nlay, n_ang), f64, lw_key, jac in (
+                [(c, False, "lw", False) for c in plant_configs]
+                + [(c, True, "lw", False) for c in f64_configs]
+                + [(c, False, wide, False) for c in wide_configs]
+                + [(c, True, wide, False) for c in wide_f64_configs]
+                + [(c, False, "lw", True) for c in jac_configs]):
             c = check_config(models, kernel, nlay, n_ang, False, plant_runs,
-                             plant=plant, ncol=ncol, f64=f64, lw_key=lw_key)
+                             plant=plant, ncol=ncol, f64=f64, lw_key=lw_key,
+                             jac=jac)
             if c is not None:
                 planted.append(c)
                 print(describe(c), flush=True)

@@ -36,19 +36,22 @@ exits 1 if not), and its warp
 roles' wait shares: the optics warps' at FREE, the LW sweep warps' at
 FULL and LW_DONE, the SW sweep warps' at FULL; and each sweep warp's
 cycles a column (``role_clock.sweep_cycles``: the SW warp's, the LW
-warps' by g-chunk).
+warps' by g-chunk).  ``--jac`` runs the merged kernel's Jacobian
+instantiation (RTE's LW surface-temperature Jacobian as a fifth output,
+one more accumulator row a slot in every plan).
 
 Usage (on a machine with a card):
   python tools/stage_sweep.py [--kernels lw,sw,lwsw] [--angles 1,3]
       [--shapes 2x2x1,4x2x2,2x2x2+p,2x2x2-p,2x2x2s,2x2x2+psg1,...]
       [--ncol 65536]
       [--nlay 60,137] [--dtype float32|float64]
-      [--lw-kind lw_fsck|lw_rrtmgp] [--roles]
+      [--lw-kind lw_fsck|lw_rrtmgp] [--roles] [--jac]
 Prints one line per (kernel, shape) and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import re
 import subprocess
@@ -94,7 +97,7 @@ def roles_report(role_clock, core, prep, ncol, plan, out,
 
 
 def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
-          cuda_time_ms, role_clock=None) -> bool:
+          cuda_time_ms, role_clock=None, jac: bool = False) -> bool:
     """Time kernel ``name`` on its prepared inputs ``prep`` at each shape
     of ``shapes`` (blocks per SM, C, S, the stage, the route and the LW
     sweep warps an angle asked for, the label)
@@ -102,16 +105,18 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
     shape's outputs equal bit for bit those of the first plan run with
     the same LW sweep warps an angle.  With ``role_clock``
     (ops/cuda/role_clock.py) each merged-kernel line adds its timed
-    build's report (``roles_report``), which must equal it too."""
+    build's report (``roles_report``), which must equal it too.  ``jac``:
+    ``core`` runs the merged kernel's Jacobian instantiation, whose plans
+    hold its row."""
     import torch
     from ecckd_tpu_torch.ops.cuda import staged
     atm = prep[0]
     lw_in, sw_in = {"lw": (prep[1], None), "sw": (None, prep[1]),
                     "lwsw": prep[1:]}[name]
-    default = staged.plan_for(atm, lw_in, sw_in)
+    default = staged.plan_for(atm, lw_in, sw_in, jac)
     refs = {default.lw_warps: [o.clone() for o in core(*prep, ncol)]}
     head = (f"stage_sweep: {name} {ncol}x{nlay} {n_ang} angle(s) "
-            f"{atm.tlay.dtype} shape")
+            f"{atm.tlay.dtype}{' jacobian' if jac else ''} shape")
     ok = True
     for shape in [None] + shapes + [None]:
         if shape is None:
@@ -128,11 +133,11 @@ def sweep(name, prep, core, shapes, limits, ncol, nlay, n_ang, card,
                     *limits, blocks_per_sm=shape[0], max_slots=shape[1],
                     sets=shape[2], param_stage=shape[3],
                     word_bytes=atm.tlay.element_size(), split=shape[4],
-                    lw_warps=shape[5])
+                    lw_warps=shape[5], jac=jac)
             except ValueError as e:
                 print(f"{head} {label}: skipped ({e})", flush=True)
                 continue
-        _, per_sm = staged.occupancy(atm, lw_in, sw_in, plan=p)
+        _, per_sm = staged.occupancy(atm, lw_in, sw_in, plan=p, jac=jac)
         out = core(*prep, ncol, plan=p)
         ref = refs.setdefault(p.lw_warps, [o.clone() for o in out])
         same = all(torch.equal(o, r) for o, r in zip(out, ref))
@@ -175,6 +180,9 @@ def main(argv=None) -> int:
     ap.add_argument("--roles", action="store_true",
                     help="also time the merged kernel's timed build and "
                     "print its warp roles' wait shares")
+    ap.add_argument("--jac", action="store_true",
+                    help="run the merged kernel's Jacobian instantiation "
+                    "(lwsw only)")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -211,7 +219,8 @@ def main(argv=None) -> int:
         shapes.append((*(int(x) for x in dims.split("x")), stage, split,
                        None if warps is None else int(warps), spec))
     cores = {"lw": lw._kernel_core, "sw": sw._kernel_core,
-             "lwsw": lwsw._kernel_core}
+             "lwsw": (functools.partial(lwsw._kernel_core, jac=True)
+                      if args.jac else lwsw._kernel_core)}
     ok = True
     for nlay in (int(n) for n in str(args.nlay).split(",")):
         b = example_flux_batch(args.ncol, nlay, np.dtype(args.dtype),
@@ -240,9 +249,11 @@ def main(argv=None) -> int:
                         models["lw"], models["sw"], t["plev"], t["tlay"],
                         t["tlev"], t["tsfc"], emis, b["concs"], t["alb"],
                         t["tsi"], t["sza"], n_gauss_angles=n_ang)}[name]()
+                if args.jac and name != "lwsw":
+                    continue
                 ok = sweep(name, prep, cores[name], shapes, limits,
                            args.ncol, nlay, n_ang, card,
-                           cuda_time_ms, role_clock) and ok
+                           cuda_time_ms, role_clock, args.jac) and ok
     return 0 if ok else 1
 
 
